@@ -3,34 +3,65 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the HEALPix-16 bf16 forecast service, on the
-card and checks it, in phases printed one per line:
+Drives the port's main paths, the HEALPix-16 bf16 forecast service and the
+HEALPix-16 AR6 bf16 training step (and its HEALPix-64 AR2 form), on the
+card and checks them, in phases printed one per line:
 
 1. card      name and power limit (nvidia-smi)
-2. build     the CUDA kernel, compiled with nvcc from this checkout
-3. parity    the super-row SpMM kernel at HEALPix-16 and HEALPix-64 level 0,
-             fp32 and bf16, against scipy `L @ x` (bars: fp32 < 1e-5,
-             bf16 < 2e-2, max abs error / max abs) and against its plain
-             PyTorch version on the card, there and at each width the main
-             path gives it (same bars); its time at the main path's shapes
-             beside its bound, the plain version and cuSPARSE
+2. build     both CUDA kernels, compiled side by side with nvcc from this
+             checkout (seconds; registers, shared memory, spills)
+3. parity    the super-row SpMM kernel (K1) and the plain-BCSR one (K3) at
+             HEALPix-16 and HEALPix-64 level 0, fp32 and bf16, width 1024,
+             against scipy `L @ x` (bars: fp32 < 1e-5, bf16 < 2e-2, max abs
+             error / max abs) and against their plain PyTorch versions on
+             the card; K3 at each width the main path gives it too, and in
+             both regimes of fp32 A against bf16 x (`round_a`); the backward
+             of both, d/dx sum((Lx)^2) against 2 L^T (L x) (bar 1e-5), for
+             the knn L and for a non-symmetric D L (through the transposed
+             super-row layout and the transposed plain layout)
 4. slice     UNetSpherical, HEALPix-16, knn-20, max pool, increment
              learning, bf16, 7 features x 3 lags -> 2, seeded weights in
              the JAX layout loaded through `weights.py`, behind
              ForecastService (batch 16, block 4): a 20-step forecast of 16
              histories and 5 concurrent submit() requests; finite outputs
              of the right shapes, agreement with the same forward on the
-             CPU plain path (3e-2), 10 kernel launches per forward
-5. times     time per forecast step and per kernel launch
+             CPU plain path (3e-2), 10 K1 launches per forward
+5. train     the same model trained: AR6 (7 iterations, RNN strategy),
+             area-weighted MSE, Adam(1e-3, eps=1e-7), a synthetic batch
+             from np.random.default_rng:
+             (1) batch 2, the first step's losses and every parameter
+                 gradient on the card against the CPU plain path (3e-2,
+                 per key; a one-element gradient against the sum of its
+                 terms' magnitudes);
+             (2) batch 16, 10 steps on one batch: finite losses, the last
+                 below the first, exactly 70 forward and 68 backward K1
+                 launches per step;
+             (3) as (2) with the level-0 operator in plain BCSR
+                 (`rows_per_super=0`): only K3, as many launches, first
+                 loss within 3e-2 of (2)'s
+6. train64   HEALPix-64 AR2 batch 8 bf16 (all three levels block-sparse),
+             3 steps: finite, decreasing losses, 66 forward and 64 backward
+             K1 launches per step; step time and peak device memory; then
+             K1 on each level's operator at each width one step gives it
+             (recorded during a step), forward and backward, against its
+             plain version and scipy (bf16 bar), covering every shape the
+             step launched K1 at
+7. times     ms per train step and samples/s (host clock ended by
+             torch.cuda.synchronize(), best of 4 windows, K1 and K3 steps
+             taken in turns); each kernel per
+             launch at the main path's widths beside its bound, its plain
+             version and cuSPARSE
 
-Any failed phase raises, and the script exits non-zero. The second-to-last
-lines are the kernel table as JSON and the card; the last line is
+Any failed phase raises, and the script exits non-zero. The lines before
+the last are the kernel table as JSON and the card; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
-`--profile` adds the device time by kernel of three forwards.
+`--profile` adds the device time by kernel of three forwards and of two
+train steps with each level-0 kernel (K1, K3).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -45,11 +76,36 @@ BATCH, BLOCK, N_STEPS, N_SUBMIT = 16, 4, 20, 5
 F_DYN, F_BC, F_STATIC, INPUT_K = 2, 1, 4, (-3, -2, -1)
 MATVEC_WIDTH = 1024
 BARS = {"fp32": 1e-5, "bf16": 2e-2}
+GRAD_BAR = 1e-5
 SLICE_TOL = 3e-2
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}   # fp32 non-tensor; bf16 dense
-KERNEL = "bcsr_super_spmm"
-LAUNCHES_PER_FORWARD = 10
+KERNEL, PLAIN_KERNEL = "bcsr_super_spmm", "bcsr_spmm"
+SOURCES = {KERNEL: "deepsphere_weather_torch/kernels/bcsr_super_spmm.cu",
+           PLAIN_KERNEL: "deepsphere_weather_torch/kernels/bcsr_spmm.cu"}
+REPLACES = {KERNEL: "deepsphere_weather_tpu/ops/pallas_spmm.py:493",
+            PLAIN_KERNEL: "deepsphere_weather_tpu/ops/pallas_spmm.py:340 "
+                          "(_spmm_kernel_dma); :327 (_spmm_kernel, "
+                          "round_a=False)"}
+# Block-sparse products per model call, from the channel plan
+# (models/unet.py) and cheb_conv's K - 1 = 2 products per convolution:
+# level 0 holds 5 convolutions (conv1 x2, uconv1 x2, uconv1_final), level
+# 1 four (conv2, uconv2), level 2 two (conv3).
+PRODUCTS_PER_LEVEL = (10, 8, 4)
+LAUNCHES_PER_FORWARD = PRODUCTS_PER_LEVEL[0]
+# The first convolution of AR iteration 0 acts on the raw input, which
+# needs no gradient: its two products get no backward.
+NO_GRAD_PRODUCTS = 2
+# level-0 product widths per sample: conv1 (21 -> 64 -> 128, input side),
+# uconv1 (256 -> 128 -> 64, Clenshaw), uconv1_final (64 -> 2, Clenshaw)
+WIDTH_FEATURES = (21, 64, 128, 64, 2)
+TRAIN_AR, TRAIN_CHECK_BATCH, TRAIN_STEPS = 6, 2, 10
+HP64_AR, HP64_BATCH, HP64_STEPS = 2, 8, 3
+TIME_WINDOWS, TIME_STEPS = 4, 4
+LR, ADAM_EPS = 1e-3, 1e-7
+# seeded ReZero weights are scaled by this for training: at U(0.5, 1.5)
+# the random network's rollout grows several-fold per iteration
+TRAIN_REZERO_SCALE = 0.1
 
 
 def log(phase, msg):
@@ -88,17 +144,38 @@ def card():
 
 
 def phase_build():
-    from deepsphere_weather_torch.kernels.build import load_kernel
+    from deepsphere_weather_torch.kernels.build import load_kernels
 
-    k = load_kernel(KERNEL)
-    log("build", f"{KERNEL}: {'built' if k.built else 'loaded from cache'} "
-                 f"({k.path.name}), nvcc {k.nvcc_seconds:.1f} s")
-    for line in k.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("build", "ptxas: " + line.strip())
+    t0 = time.perf_counter()
+    for k in load_kernels([KERNEL, PLAIN_KERNEL]):
+        log("build", f"{k.name}: {'built' if k.built else 'loaded from cache'}"
+                     f" ({k.path.name}), nvcc {k.nvcc_seconds:.1f} s")
+        # one line per distinct report (each template instance repeats it)
+        for line in dict.fromkeys(k.ptxas_log.splitlines()):
+            if "registers" in line or "spill" in line:
+                log("build", f"{k.name} ptxas: " + line.strip())
+    log("build", f"both kernels in {time.perf_counter() - t0:.1f} s")
 
 
-def _bound(op, x, nnz_blocks):
+# ---------------------------------------------------------------------------
+# One kernel against its plain version, and its bound
+# ---------------------------------------------------------------------------
+
+def _layout(op):
+    """(kernel name, A blocks, block-column table) of op's forward product."""
+    kind, a, idx = op.forward_layout()
+    return (KERNEL if kind == "super" else PLAIN_KERNEL), a, idx
+
+
+def _kernel_fns(name):
+    from deepsphere_weather_torch.ops import bcsr
+
+    if name == KERNEL:
+        return bcsr.bcsr_super_spmm, bcsr.bcsr_super_spmm_reference
+    return bcsr.bcsr_spmm, bcsr.bcsr_spmm_reference
+
+
+def _bound(a, x, nnz_blocks):
     """(bytes ms, operations ms) of L @ x at x's own, unpadded shape: the
     nonzero 128x128 blocks of A, x and the output each moved once over
     HBM; the nonzero block products at the type's peak rate. The least
@@ -108,17 +185,22 @@ def _bound(op, x, nnz_blocks):
     n, m = x.shape
     dt = "bf16" if x.dtype == torch.bfloat16 else "fp32"
     out_size = 2 if dt == "bf16" else 4
-    nbytes = (nnz_blocks * 128 * 128 * op.svals.element_size()
+    nbytes = (nnz_blocks * 128 * 128 * a.element_size()
               + n * m * (x.element_size() + out_size))
     ops = 2.0 * nnz_blocks * 128 * 128 * m
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS[dt]
 
 
 def _block_counts(op):
-    """(nonzero 128x128 blocks, block slots) of the super-row layout."""
-    n_s, R, bs, ubs = op.svals.shape
-    blocks = op.svals.view(n_s, R, bs, ubs // bs, bs)
-    return int((blocks != 0).any(dim=4).any(dim=2).sum()), n_s * R * ubs // bs
+    """(nonzero 128x128 blocks, block slots) of op's forward layout."""
+    name, a, _ = _layout(op)
+    if name == KERNEL:
+        n_s, R, bs, ubs = a.shape
+        blocks = a.view(n_s, R, bs, ubs // bs, bs).transpose(2, 3)
+    else:
+        blocks = a
+    nz = (blocks != 0).flatten(start_dim=blocks.dim() - 2).any(dim=-1)
+    return int(nz.sum()), nz.numel()
 
 
 def _csr(L, device, dtype):
@@ -131,80 +213,195 @@ def _csr(L, device, dtype):
         torch.from_numpy(L.data), size=L.shape, device=device, dtype=dtype)
 
 
-def measure(op, L, x, device, label):
-    """Kernel vs plain version on the same padded input, held to the bar of
-    x's dtype (raises if it breaks it); times and bound."""
+def measure(op, L, x, device, label, round_a=True, timed=True):
+    """Kernel vs plain version on the same padded input, held to the bar
+    of x's dtype (raises if it breaks it); times and bound."""
     import torch
 
-    from deepsphere_weather_torch.ops.bcsr import (
-        bcsr_super_spmm,
-        bcsr_super_spmm_reference,
-    )
-
+    name, a, idx = _layout(op)
+    kernel, plain = _kernel_fns(name)
+    kw = {} if name == KERNEL else {"round_a": round_a}
     n, m = x.shape
     x_pad = torch.nn.functional.pad(x, (0, (-m) % 128, 0, op.rows - n))
-    y = bcsr_super_spmm(op.svals, op.ucols, x_pad)
-    ref = bcsr_super_spmm_reference(op.svals, op.ucols, x_pad)
+    y = kernel(a, idx, x_pad, **kw)
+    ref = plain(a, idx, x_pad, **kw)
     bar = BARS["bf16" if x.dtype == torch.bfloat16 else "fp32"]
     err_plain = rel_err(y.float().cpu(), ref.float().cpu())
     if not err_plain < bar:
-        raise AssertionError(f"{label}: kernel vs plain version "
+        raise AssertionError(f"{label}: {name} vs plain version "
                              f"{err_plain:.3e} breaks the {bar:g} bar")
+    res = {"max_abs_err": float((y.float() - ref.float()).abs().max()),
+           "rel_err_plain": err_plain, "y": y[:n, :m]}
+    if not timed:
+        return res
     csr = _csr(L, device, x.dtype)
     nnz, slots = _block_counts(op)
-    t_bytes, t_ops = _bound(op, x, nnz)
-    return {
-        "max_abs_err": float((y.float() - ref.float()).abs().max()),
-        "rel_err_plain": err_plain,
+    t_bytes, t_ops = _bound(a, x, nnz)
+    res.update({
         "blocks_nonzero": f"{nnz}/{slots}",
-        "ms": time_ms(lambda: bcsr_super_spmm(op.svals, op.ucols, x_pad)),
-        "plain_ms": time_ms(
-            lambda: bcsr_super_spmm_reference(op.svals, op.ucols, x_pad),
-            n_iter=5),
+        "ms": time_ms(lambda: kernel(a, idx, x_pad, **kw)),
+        "plain_ms": time_ms(lambda: plain(a, idx, x_pad, **kw), n_iter=5),
         "library_ms": time_ms(lambda: torch.sparse.mm(csr, x)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes_ms": t_bytes, "ops_ms": t_ops}
+        "bytes_ms": t_bytes, "ops_ms": t_ops})
+    return res
+
+
+def _fmt(res):
+    return ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in res.items() if k != "y")
+
+
+# ---------------------------------------------------------------------------
+# Parity
+# ---------------------------------------------------------------------------
+
+def _laplacian(subdiv):
+    from deepsphere_weather_torch.models.geometry import cached_graph_laplacian
+
+    return cached_graph_laplacian(
+        "healpix", {"subdivisions": subdiv, "nest": True}, KNN, "knn")[1]
 
 
 def phase_parity(device, subdivs, width):
+    """K1 and K3 forward against scipy and their plain versions."""
     import torch
 
-    from deepsphere_weather_torch.models.geometry import cached_graph_laplacian
     from deepsphere_weather_torch.ops.bcsr import BlockSparseOperator
 
     rng = np.random.default_rng(SEED)
     errs = []
     for subdiv in subdivs:
         t0 = time.perf_counter()
-        _, L = cached_graph_laplacian(
-            "healpix", {"subdivisions": subdiv, "nest": True}, KNN, "knn")
+        L = _laplacian(subdiv)
         x_np = rng.standard_normal((L.shape[0], width)).astype(np.float32)
         ref = L @ x_np
         log("parity", f"HEALPix-{subdiv}: {L.shape[0]} nodes, graph + scipy "
                       f"reference {time.perf_counter() - t0:.1f} s")
         for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-            op = BlockSparseOperator.from_scipy(L, dtype=dt, device=device)
             x = torch.from_numpy(x_np).to(device, dt)
-            y = op.matvec(x)
-            err = rel_err(y.float().cpu().numpy(), ref)
-            res = measure(op, L, x, device, f"HEALPix-{subdiv} {name}")
-            n_s, R, _, ubs = op.svals.shape
-            log("parity", f"HEALPix-{subdiv} {name} x[{L.shape[0]}, {width}] "
-                          f"n_s={n_s} R={R} max_u={ubs // 128}: "
-                          f"rel err vs scipy {err:.3e} (bar {BARS[name]:g}), "
-                          + ", ".join(f"{k} {v:.4g}" if isinstance(v, float)
-                                      else f"{k} {v}"
-                                      for k, v in res.items()))
-            if not err < BARS[name]:
-                raise AssertionError(
-                    f"HEALPix-{subdiv} {name}: kernel vs scipy {err:.3e} "
-                    f"breaks the {BARS[name]:g} bar")
-            errs.append(f"HEALPix-{subdiv} {name} {err:.3e} / "
-                        f"{res['max_abs_err']:.3e}")
-    log("parity", f"kernels: {KERNEL} (K1, pallas_spmm.py:493), rel err vs "
-                  f"scipy / max abs err vs plain version: " + "; ".join(errs))
+            for rps in (2, 0):
+                op = BlockSparseOperator.from_scipy(
+                    L, dtype=dt, rows_per_super=rps, device=device)
+                kname = _layout(op)[0]
+                with torch.no_grad():
+                    y = op.matvec(x)
+                err = rel_err(y.float().cpu().numpy(), ref)
+                res = measure(op, L, x, device, f"HEALPix-{subdiv} {name}")
+                log("parity", f"{kname} HEALPix-{subdiv} {name} x[{L.shape[0]}"
+                              f", {width}] A {tuple(_layout(op)[1].shape)}: "
+                              f"rel err vs scipy {err:.3e} (bar "
+                              f"{BARS[name]:g}), " + _fmt(res))
+                if not err < BARS[name]:
+                    raise AssertionError(
+                        f"{kname} HEALPix-{subdiv} {name}: vs scipy "
+                        f"{err:.3e} breaks the {BARS[name]:g} bar")
+                errs.append(f"{kname} HEALPix-{subdiv} {name} {err:.3e} / "
+                            f"{res['max_abs_err']:.3e}")
+    log("parity", "rel err vs scipy / max abs err vs plain version: "
+                  + "; ".join(errs))
 
+
+def phase_parity_regimes(device, subdiv, batch):
+    """K3 at the main path's widths (bf16) against scipy, and both regimes
+    of fp32 A against bf16 x (timed: round_a=False is K4's function);
+    returns the widest error vs the plain version."""
+    import torch
+
+    from deepsphere_weather_torch.ops.bcsr import BlockSparseOperator
+
+    L = _laplacian(subdiv)
+    rng = np.random.default_rng(SEED + 4)
+    op = BlockSparseOperator.from_scipy(L, dtype=torch.bfloat16,
+                                        rows_per_super=0, device=device)
+    worst = 0.0
+    for w in [batch * f for f in WIDTH_FEATURES]:
+        x_np = rng.standard_normal((L.shape[0], w)).astype(np.float32)
+        x = torch.from_numpy(x_np).to(device, torch.bfloat16)
+        res = measure(op, L, x, device, f"width {w}", timed=False)
+        err = rel_err(res["y"].float().cpu().numpy(),
+                      L @ x.float().cpu().numpy())
+        if not err < BARS["bf16"]:
+            raise AssertionError(f"{PLAIN_KERNEL} width {w}: vs scipy "
+                                 f"{err:.3e} breaks the {BARS['bf16']:g} bar")
+        worst = max(worst, res["max_abs_err"])
+        log("parity", f"{PLAIN_KERNEL} HEALPix-{subdiv} bf16 width {w}: rel "
+                      f"err vs scipy {err:.3e}, " + _fmt(res))
+    # fp32 A against bf16 x: round_a=True (K3's regime) rounds A to bf16,
+    # round_a=False (K4's) keeps it fp32; scipy holds each to its own A
+    op32 = BlockSparseOperator.from_scipy(L, dtype=torch.float32,
+                                          rows_per_super=0, device=device)
+    x = torch.from_numpy(rng.standard_normal(
+        (L.shape[0], MATVEC_WIDTH)).astype(np.float32)).to(device,
+                                                            torch.bfloat16)
+    xs = x.float().cpu().numpy()
+    L_bf16 = L.copy()
+    L_bf16.data = torch.from_numpy(L.data).to(torch.bfloat16).float().numpy()
+    for round_a, L_ref in ((True, L_bf16), (False, L)):
+        res = measure(op32, L, x, device, f"round_a={round_a}",
+                      round_a=round_a)
+        err = rel_err(res["y"].float().cpu().numpy(), L_ref @ xs)
+        if not err < BARS["bf16"]:
+            raise AssertionError(f"{PLAIN_KERNEL} round_a={round_a}: vs "
+                                 f"scipy {err:.3e}")
+        worst = max(worst, res["max_abs_err"])
+        log("parity", f"{PLAIN_KERNEL} fp32 A, bf16 x[{L.shape[0]}, "
+                      f"{MATVEC_WIDTH}], round_a={round_a}: rel err vs scipy "
+                      f"(A {'rounded to bf16' if round_a else 'fp32'}) "
+                      f"{err:.3e} (bar {BARS['bf16']:g}), " + _fmt(res))
+    return worst
+
+
+def phase_parity_backward(device, subdiv, width):
+    """d/dx sum((Lx)^2) through each layout's autograd.Function against
+    2 L^T (L x): the knn L (symmetric: the backward reuses the forward
+    arrays) and D L with a random positive diagonal D (through the
+    transposed layout)."""
+    import torch
+    from scipy import sparse
+
+    from deepsphere_weather_torch.ops.bcsr import (
+        BlockSparseOperator,
+        launch_counts,
+    )
+
+    L = _laplacian(subdiv)
+    rng = np.random.default_rng(SEED + 5)
+    D = sparse.diags(rng.uniform(0.5, 2.0, L.shape[0]).astype(np.float32))
+    x_np = rng.standard_normal((L.shape[0], width)).astype(np.float32)
+    for label, mat, sym in (("knn L", L, True),
+                            ("D L", (D @ L).tocsr(), False)):
+        m64 = mat.astype(np.float64)
+        want = 2.0 * (m64.T @ (m64 @ x_np.astype(np.float64)))
+        for rps in (2, 0):
+            op = BlockSparseOperator.from_scipy(
+                mat, symmetric=sym, rows_per_super=rps, device=device)
+            kname = _layout(op)[0]
+            before = dict(launch_counts)
+            x = torch.from_numpy(x_np).to(device).requires_grad_()
+            y = op.matvec(x)
+            if y.grad_fn is None:
+                raise AssertionError(f"{kname}: L @ x has no grad_fn")
+            (y ** 2).sum().backward()
+            torch.cuda.synchronize()
+            n_launch = launch_counts[kname] - before[kname]
+            if n_launch != 2:
+                raise AssertionError(f"{kname} {label}: {n_launch} launches "
+                                     "for one forward and one backward")
+            err = rel_err(x.grad.cpu().numpy(), want)
+            log("parity", f"{kname} backward HEALPix-{subdiv} {label} "
+                          f"({'same arrays' if sym else 'transposed ' + op.transpose_layout()[0] + ' layout'}"
+                          f"), fp32 x[{L.shape[0]}, {width}]: d/dx sum((Lx)^2)"
+                          f" vs 2 L^T (L x) {err:.3e} (bar {GRAD_BAR:g})")
+            if not err < GRAD_BAR:
+                raise AssertionError(f"{kname} backward {label}: {err:.3e} "
+                                     f"breaks the {GRAD_BAR:g} bar")
+
+
+# ---------------------------------------------------------------------------
+# The forecast service (serving main path)
+# ---------------------------------------------------------------------------
 
 def tensor_info(n_node):
     n_in = F_STATIC + F_BC + F_DYN
@@ -214,13 +411,14 @@ def tensor_info(n_node):
             "output_shape_info": {"dynamic": {"node": n_node}}}
 
 
-def build_flagship(device, subdiv, params=None):
+def build_flagship(device, subdiv, params=None, geometry=None):
     from deepsphere_weather_torch.models import UNetSpherical
 
     model = UNetSpherical(
         tensor_info(12 * subdiv ** 2), "healpix",
         {"subdivisions": subdiv, "nest": True}, knn=KNN, pool_method="max",
-        increment_learning=True, numeric_precision="bfloat16", device=device)
+        increment_learning=True, numeric_precision="bfloat16",
+        geometry=geometry, device=device)
     if params is not None:
         model.load_state_dict(params)
     return model.eval()
@@ -296,8 +494,9 @@ def phase_slice(device, subdiv, batch, n_steps):
         raise AssertionError("not every submit() returned a future")
     answers = [f.result(timeout=600) for f in futs]
     t_submit = time.perf_counter() - t0
-    launches = launch_counts[KERNEL]
+    launches = dict(launch_counts)
     n_fwd = forwards[0]
+    svc.close()
 
     if out.shape != (batch, n_steps, 1, V, F_DYN) or not np.isfinite(out).all():
         raise AssertionError(f"forecast {out.shape} is not finite of shape "
@@ -312,12 +511,15 @@ def phase_slice(device, subdiv, batch, n_steps):
         if not e <= SLICE_TOL:
             raise AssertionError(f"submit answer {i} differs from predict: "
                                  f"{e:.3e} > {SLICE_TOL}")
-    if launches != LAUNCHES_PER_FORWARD * n_fwd or n_fwd == 0:
+    if (launches[KERNEL] != LAUNCHES_PER_FORWARD * n_fwd or n_fwd == 0
+            or launches[PLAIN_KERNEL]):
         raise AssertionError(f"{launches} kernel launches for {n_fwd} "
-                             f"forwards; want {LAUNCHES_PER_FORWARD} each")
+                             f"forwards; want {LAUNCHES_PER_FORWARD} {KERNEL}"
+                             " each and nothing else")
     log("slice", f"predict {batch} x {n_steps} steps -> {out.shape}, "
                  f"{N_SUBMIT} submits -> {[a.shape for a in answers]}; "
-                 f"finite; {n_fwd} forwards, {launches} {KERNEL} launches")
+                 f"finite; {n_fwd} forwards, {launches[KERNEL]} {KERNEL} "
+                 "launches")
 
     # the same forward on the card and on the CPU plain path
     x = torch.from_numpy(rng.standard_normal(
@@ -336,25 +538,390 @@ def phase_slice(device, subdiv, batch, n_steps):
     xd = x.to(device)
     with torch.inference_mode():
         forward_ms = time_ms(lambda: model(xd), n_iter=10)
-    return {"launches": launches, "forwards": n_fwd,
+    return {"launches": launches[KERNEL], "forwards": n_fwd,
             "step_ms": 1e3 * t_predict / n_steps,
             "submit_ms": 1e3 * t_submit, "forward_ms": forward_ms,
             "model": model}
 
 
-def kernel_row(model, device, batch, launches):
-    """The kernel at the 10 shapes one forward gives it (level 0, bf16,
+# ---------------------------------------------------------------------------
+# The training step (training main path)
+# ---------------------------------------------------------------------------
+
+def train_params(model, seed):
+    """Seeded weights in the JAX layout, ReZero weights scaled down."""
+    from deepsphere_weather_torch.weights import params_from_jax, seeded_params
+
+    tree = seeded_params(model, seed)
+    for block in tree.values():
+        if isinstance(block, dict):
+            block["rezero_weight"] *= TRAIN_REZERO_SCALE
+    return params_from_jax(tree)
+
+
+def train_batch(indexer, n_node, batch, device, seed):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    W = indexer.window_size
+    arrs = {"dynamic": rng.standard_normal((batch, W, n_node, F_DYN)),
+            "bc": rng.standard_normal((batch, W, n_node, F_BC)),
+            "static": rng.standard_normal((n_node, F_STATIC))}
+    return {k: torch.from_numpy(v.astype(np.float32)).to(device)
+            for k, v in arrs.items()}
+
+
+def train_setup(model, ar_iters):
+    from deepsphere_weather_torch.data.ar import ARIndexer
+    from deepsphere_weather_torch.engine import AreaWeights
+
+    indexer = ARIndexer.build(list(INPUT_K), [0], 1, ar_iters)
+    area_w = AreaWeights(model.geometry.samplings[0],
+                         device=next(model.parameters()).device)
+    return indexer, area_w, np.ones(ar_iters + 1, np.float32)
+
+
+def term_sums(model):
+    """sum_i |z_i g_i| for each one-element parameter w whose gradient is
+    dL/dw = sum_i z_i g_i, w scaling z: the ReZero weights (z the branch
+    of their block) and the increment scale (z the network's output).
+    Filled in by the backward, from dL/dz = w g."""
+    from deepsphere_weather_torch.models import ResBlock
+
+    sums = {}
+
+    def watch(module, key, w):
+        def hook(_, __, z):
+            if z.requires_grad:
+                wz = float(w.detach().to(z.dtype))
+                if wz == 0.0:
+                    raise AssertionError(f"{key} is 0: no terms to sum")
+                z.register_hook(lambda gz: sums.__setitem__(key, sums.get(
+                    key, 0.0) + float((z.detach().double() * gz.double())
+                                      .abs().sum()) / abs(wz)))
+        module.register_forward_hook(hook)
+
+    for name, blk in model.named_children():
+        if isinstance(blk, ResBlock):
+            watch(blk.get_submodule(f"convblock{blk.n_blocks}"),
+                  f"{name}.rezero_weight", blk.rezero_weight)
+    watch(model.uconv1_final, "res_increment", model.res_increment)
+    return sums
+
+
+def grads_close(model, cpu_model, sums, tol):
+    """Every parameter gradient, card vs CPU, per key: max abs error over
+    max abs of the CPU's. A one-element gradient (a ReZero weight, the
+    increment scale) is one sum over a block's output whose terms cancel:
+    it is held against the sum of its terms' magnitudes (`sums`, from
+    `term_sums` on the CPU model). Returns (worst error, key)."""
+    ref = dict(cpu_model.named_parameters())
+    worst = (0.0, "")
+    for k, p in model.named_parameters():
+        r = ref[k].grad.double()
+        if r.numel() == 1 and k not in sums:
+            raise AssertionError(f"{k}: one element, but no sum of terms")
+        scale = sums[k] if r.numel() == 1 else float(r.abs().max())
+        e = float((p.grad.double().cpu() - r).abs().max()) / scale
+        worst = max(worst, (e, k))
+        if not e <= tol:
+            raise AssertionError(f"gradient of {k}: card vs CPU {e:.3e} > "
+                                 f"{tol}")
+    return worst
+
+
+def phase_train_check(device, subdiv, batch):
+    """(1) The first step's losses and gradients, card vs CPU plain path."""
+    import torch
+
+    from deepsphere_weather_torch.engine import make_ar_loss_fn
+
+    out = []
+    params = None
+    for dev in (device, torch.device("cpu")):
+        model = build_flagship(dev, subdiv).train()
+        params = train_params(model, SEED + 6) if params is None else params
+        model.load_state_dict(params)
+        sums = term_sums(model)
+        indexer, area_w, w = train_setup(model, TRAIN_AR)
+        data = train_batch(indexer, model.input_n_node, batch, dev, SEED + 7)
+        total, per_iter = make_ar_loss_fn(model, indexer, TRAIN_AR + 1)(
+            data, w, area_w)
+        total.backward()
+        out.append((model, total.item(), per_iter.detach().cpu().numpy(),
+                    sums))
+    (model, total, per_iter, _), (cpu_model, total_c, per_iter_c, sums) = out
+    e_total = rel_err(total, total_c)
+    e_iter = rel_err(per_iter, per_iter_c)
+    e_grad, worst_key = grads_close(model, cpu_model, sums, SLICE_TOL)
+    log("train", f"(1) HEALPix-{subdiv} AR{TRAIN_AR} batch {batch}: loss "
+                 f"{total:.6g} (CPU {total_c:.6g}), rel err {e_total:.3e}; "
+                 f"per-iteration losses {np.round(per_iter, 5).tolist()} rel "
+                 f"err {e_iter:.3e}; gradients: worst {e_grad:.3e} "
+                 f"({worst_key}); tol {SLICE_TOL}")
+    for e, what in ((e_total, "total loss"), (e_iter, "per-iteration losses")):
+        if not e <= SLICE_TOL:
+            raise AssertionError(f"card vs CPU {what}: {e:.3e} > {SLICE_TOL}")
+
+
+def run_train(model, ar_iters, batch, n_steps, label):
+    """The training main path: n_steps of make_train_step on one fixed
+    batch, counts from 0. Returns losses and per-step launches."""
+    import torch
+
+    from deepsphere_weather_torch.engine import make_train_step
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    indexer, area_w, w = train_setup(model, ar_iters)
+    data = train_batch(indexer, model.input_n_node, batch,
+                       next(model.parameters()).device, SEED + 8)
+    opt = torch.optim.Adam(model.parameters(), lr=LR, eps=ADAM_EPS)
+    step = make_train_step(model, indexer, opt, ar_iters + 1)
+    at_forward = []
+    hook = model.register_forward_hook(
+        lambda *_: at_forward.append(dict(launch_counts)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, per_step = [], []
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        before = dict(launch_counts)
+        at_forward.clear()
+        total, _ = step(data, w, area_w)
+        losses.append(total)
+        fwd = {k: at_forward[-1][k] - before[k] for k in before}
+        bwd = {k: launch_counts[k] - at_forward[-1][k] for k in before}
+        per_step.append((fwd, bwd))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    hook.remove()
+    losses = torch.stack(losses).cpu().numpy()
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: losses {losses} are not finite and "
+                             "decreasing")
+    log("train", f"{label}: {n_steps} steps, losses {losses[0]:.6g} -> "
+                 f"{losses[-1]:.6g}, {seconds:.2f} s with the first step; "
+                 f"launches {launches}")
+    return {"losses": losses, "per_step": per_step, "launches": launches,
+            "step": lambda: step(data, w, area_w)}
+
+
+def check_launches(res, kernel, per_forward, n_calls, label):
+    """Every step launched exactly per_forward * n_calls forward and that
+    minus NO_GRAD_PRODUCTS backward products on `kernel`, none on the
+    other; returns (forward, backward) launch totals."""
+    want_f = per_forward * n_calls
+    want_b = want_f - NO_GRAD_PRODUCTS
+    other = PLAIN_KERNEL if kernel == KERNEL else KERNEL
+    for i, (fwd, bwd) in enumerate(res["per_step"]):
+        if (fwd[kernel], bwd[kernel]) != (want_f, want_b) or \
+                fwd[other] or bwd[other]:
+            raise AssertionError(
+                f"{label} step {i}: forward {fwd}, backward {bwd}; want "
+                f"{want_f} forward and {want_b} backward {kernel} launches")
+    n = len(res["per_step"])
+    log("train", f"{label}: {want_f} forward + {want_b} backward {kernel} "
+                 f"launches in each of {n} steps, {other} none")
+    return want_f * n, want_b * n
+
+
+def time_steps(steps, batch, card_line):
+    """ms per train step of each of `steps` ({label: step}): windows of
+    TIME_STEPS chained steps on the host clock, ended by
+    torch.cuda.synchronize(), taken in turns (A B B A ...) so that drift
+    on the card or its host falls on every label alike; best of
+    TIME_WINDOWS windows each."""
+    import torch
+
+    labels = list(steps)
+    best = dict.fromkeys(labels, float("inf"))
+    for w in range(TIME_WINDOWS):
+        for label in (labels if w % 2 == 0 else labels[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TIME_STEPS):
+                steps[label]()
+            torch.cuda.synchronize()
+            best[label] = min(best[label],
+                              (time.perf_counter() - t0) / TIME_STEPS)
+    for label in labels:
+        log("times", f"{label}: {1e3 * best[label]:.2f} ms per train step, "
+                     f"{batch / best[label]:.2f} samples/s (best of "
+                     f"{TIME_WINDOWS} windows of {TIME_STEPS} steps, taken "
+                     f"in turns; {card_line})")
+    return {label: 1e3 * t for label, t in best.items()}
+
+
+def phase_train(device, subdiv, card_line):
+    """(2) the super-row level-0 operator (K1) and (3) the plain one
+    (K3), batch 16, 10 steps each at the same weights."""
+    import torch
+
+    from deepsphere_weather_torch.ops import BlockSparseOperator, ChebOperator
+
+    model = build_flagship(device, subdiv).train()
+    params = train_params(model, SEED + 9)
+    model.load_state_dict(params)
+    n_calls = TRAIN_AR + 1
+    res2 = run_train(model, TRAIN_AR, BATCH, TRAIN_STEPS,
+                     f"(2) HEALPix-{subdiv} AR{TRAIN_AR} batch {BATCH} K1")
+    f2 = check_launches(res2, KERNEL, LAUNCHES_PER_FORWARD, n_calls, "(2)")
+
+    geom = model.geometry
+    op0 = ChebOperator(bcsr=BlockSparseOperator.from_scipy(
+        _laplacian(subdiv), dtype=torch.bfloat16, rows_per_super=0,
+        device=device))
+    model3 = build_flagship(device, subdiv, params, geometry=dataclasses.replace(
+        geom, cheb_ops=[op0] + list(geom.cheb_ops[1:]))).train()
+    res3 = run_train(model3, TRAIN_AR, BATCH, TRAIN_STEPS,
+                     f"(3) HEALPix-{subdiv} AR{TRAIN_AR} batch {BATCH} K3")
+    f3 = check_launches(res3, PLAIN_KERNEL, LAUNCHES_PER_FORWARD, n_calls,
+                        "(3)")
+    e = rel_err(res3["losses"][0], res2["losses"][0])
+    log("train", f"(3) vs (2) first-step loss: {res3['losses'][0]:.6g} vs "
+                 f"{res2['losses'][0]:.6g}, rel err {e:.3e} (tol {SLICE_TOL})")
+    if not e <= SLICE_TOL:
+        raise AssertionError(f"(3) vs (2) first-step loss {e:.3e}")
+    ms = time_steps({"(2) K1": res2["step"], "(3) K3": res3["step"]}, BATCH,
+                    card_line)
+    return {"model": model, "steps": {"K1": res2["step"], "K3": res3["step"]},
+            "launches": {
+        KERNEL: f2, PLAIN_KERNEL: f3}, "ms": {"train16": ms["(2) K1"],
+                                              "train16_plain": ms["(3) K3"]}}
+
+
+def phase_train64(device, subdiv, card_line):
+    import torch
+
+    t0 = time.perf_counter()
+    model = build_flagship(device, subdiv).train()
+    if any(op.bcsr is None for op in model.geometry.cheb_ops):
+        raise AssertionError("every HEALPix-64 level must be block-sparse")
+    model.load_state_dict(train_params(model, SEED + 10))
+    log("train64", f"UNetSpherical HEALPix-{subdiv} levels "
+                   f"{model.geometry.n_nodes} (all block-sparse bf16), built "
+                   f"in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    res = run_train(model, HP64_AR, HP64_BATCH, HP64_STEPS,
+                    f"HEALPix-{subdiv} AR{HP64_AR} batch {HP64_BATCH} K1")
+    launches = check_launches(res, KERNEL, sum(PRODUCTS_PER_LEVEL),
+                              HP64_AR + 1, "train64")
+    label = f"HEALPix-{subdiv} AR{HP64_AR} batch {HP64_BATCH}"
+    ms = time_steps({label: res["step"]}, HP64_BATCH, card_line)[label]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("train64", f"peak device memory {peak:.2f} GiB "
+                   "(torch.cuda.max_memory_allocated)")
+    check_step_products(model, res["step"], subdiv)
+    return {"launches": launches, "ms": ms, "peak_gib": peak}
+
+
+def step_products(step):
+    """Run one train step and record its block-sparse products: the
+    (operator, width, dtype) of each `matvec`, and the (A blocks, padded
+    width, dtype) of each kernel launch, forward and backward."""
+    from deepsphere_weather_torch.ops import bcsr
+
+    matvecs, launches = {}, set()
+    matvec, kernel = bcsr.BlockSparseOperator.matvec, bcsr.bcsr_super_spmm
+
+    def record_matvec(op, x):
+        matvecs.setdefault((id(op), x.shape[1], x.dtype), op)
+        return matvec(op, x)
+
+    def record_launch(a, idx, x):
+        launches.add((a.data_ptr(), x.shape[1], x.dtype))
+        return kernel(a, idx, x)
+
+    bcsr.BlockSparseOperator.matvec = record_matvec
+    bcsr.bcsr_super_spmm = record_launch
+    try:
+        step()
+    finally:
+        bcsr.BlockSparseOperator.matvec = matvec
+        bcsr.bcsr_super_spmm = kernel
+    return matvecs, launches
+
+
+def check_step_products(model, step, subdiv):
+    """Every level's K1 at each width one train step gives it, forward
+    and backward: against its plain version on the same input (bf16 bar)
+    and against scipy with that level's Laplacian; and every shape the
+    step launched K1 at is one of those checked."""
+    import torch
+
+    from deepsphere_weather_torch.ops.bcsr import _fit_rows, _layout_rows
+
+    matvecs, launched = step_products(step)
+    ops = [c.bcsr for c in model.geometry.cheb_ops]
+    device = next(model.parameters()).device
+    rng = np.random.default_rng(SEED + 11)
+    checked, worst = set(), {"plain": 0.0, "scipy": 0.0}
+    products = sorted((next(i for i, o in enumerate(ops) if o is op), width,
+                       dt, op) for (_, width, dt), op in matvecs.items())
+    for level, width, dt, op in products:
+        L = _laplacian(subdiv >> level)
+        n, bar = L.shape[0], BARS["bf16" if dt == torch.bfloat16 else "fp32"]
+        x = torch.from_numpy(rng.standard_normal((n, width)).astype(
+            np.float32)).to(device, dt)
+        g = torch.randn_like(x)
+        label = f"HEALPix-{subdiv} level {level} width {width}"
+        # forward: the kernel vs its plain version (raises), then vs scipy
+        fwd = measure(op, L, x, device, label, timed=False)
+        e_fwd = rel_err(fwd["y"].float().cpu(), L @ x.float().cpu().numpy())
+        # backward: x.grad of <L x, g> through the operator's
+        # autograd.Function, vs the plain version on the transposed
+        # layout and vs scipy L^T g
+        xg = x.clone().requires_grad_()
+        op.matvec(xg).backward(g)
+        layout_t = op.transpose_layout()
+        kind, a_t, idx_t = layout_t
+        plain = _kernel_fns(KERNEL if kind == "super" else PLAIN_KERNEL)[1]
+        g_pad = torch.nn.functional.pad(g, (0, (-width) % 128, 0, op.rows - n))
+        want = plain(a_t, idx_t, _fit_rows(
+            g_pad, _layout_rows(layout_t)).contiguous())[:n, :width]
+        e_bwd_plain = rel_err(xg.grad.float().cpu(), want.float().cpu())
+        e_bwd = rel_err(xg.grad.float().cpu(),
+                        L.T @ g.float().cpu().numpy())
+        log("train64", f"K1 {label} {str(dt)[6:]}: forward vs plain version "
+                       f"{fwd['rel_err_plain']:.3e}, vs scipy {e_fwd:.3e}; "
+                       f"backward vs plain version {e_bwd_plain:.3e}, vs "
+                       f"scipy L^T g {e_bwd:.3e} (bar {bar:g})")
+        for e, what in ((e_fwd, "forward vs scipy"),
+                        (e_bwd_plain, "backward vs plain version"),
+                        (e_bwd, "backward vs scipy")):
+            if not e < bar:
+                raise AssertionError(f"K1 {label}: {what} {e:.3e} breaks "
+                                     f"the {bar:g} bar")
+        worst["plain"] = max(worst["plain"], fwd["rel_err_plain"],
+                             e_bwd_plain)
+        worst["scipy"] = max(worst["scipy"], e_fwd, e_bwd)
+        a = op.forward_layout()[1]
+        checked.add((a.data_ptr(), width + (-width) % 128, dt))
+        checked.add((a_t.data_ptr(), width + (-width) % 128, dt))
+    if not launched <= checked:
+        raise AssertionError(f"the step launched K1 at shapes no check "
+                             f"covered: {sorted(launched - checked)}")
+    log("train64", f"{len(matvecs)} (level, width) products of the step, "
+                   f"forward and backward: worst vs plain version "
+                   f"{worst['plain']:.3e}, vs scipy {worst['scipy']:.3e}; "
+                   f"they cover all {len(launched)} launch shapes")
+
+
+# ---------------------------------------------------------------------------
+# Kernel rows
+# ---------------------------------------------------------------------------
+
+def kernel_row(name, op, device, subdiv, batch, launches):
+    """A kernel at the 10 shapes one forward gives it (level 0, bf16,
     batch 16): per-launch averages."""
     import torch
 
-    from deepsphere_weather_torch.models.geometry import cached_graph_laplacian
-
-    op = model.geometry.cheb_ops[0].bcsr
-    _, L = cached_graph_laplacian(
-        "healpix", {"subdivisions": SLICE_SUBDIV, "nest": True}, KNN, "knn")
-    # conv1 (21->64->128, input side), uconv1 (256->128->64, Clenshaw),
-    # uconv1_final (64->2, Clenshaw): matvec widths B*F, two each
-    widths = [batch * f for f in (21, 64, 128, 64, 2)]
+    L = _laplacian(subdiv)
+    widths = [batch * f for f in WIDTH_FEATURES]
     rng = np.random.default_rng(SEED + 2)
     acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "bytes_ms": 0.0, "ops_ms": 0.0}
@@ -362,57 +929,73 @@ def kernel_row(model, device, batch, launches):
     for w in widths:
         x = torch.from_numpy(rng.standard_normal((L.shape[0], w)).astype(
             np.float32)).to(device, torch.bfloat16)
-        r = measure(op, L, x, device, f"HEALPix-{SLICE_SUBDIV} bf16 width {w}")
-        log("times", f"{KERNEL} HEALPix-{SLICE_SUBDIV} bf16 width {w}: "
+        r = measure(op, L, x, device, f"{name} bf16 width {w}")
+        log("times", f"{name} HEALPix-{subdiv} bf16 width {w}: "
                      f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
                      f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
                      f"cuSPARSE {r['library_ms']:.4f} ms), vs plain version "
-                     f"{r['rel_err_plain']:.3e} (bar {BARS['bf16']:g})")
+                     f"{r['rel_err_plain']:.3e} (bar {BARS['bf16']:g}), "
+                     f"blocks {r['blocks_nonzero']}")
         for k in acc:
-            acc[k] += 2 * r[k] / LAUNCHES_PER_FORWARD
+            acc[k] += r[k] / len(widths)
         err = max(err, r["max_abs_err"])
-    return {"name": KERNEL, "route": "cuda",
-            "source": "deepsphere_weather_torch/kernels/bcsr_super_spmm.cu",
-            "replaces": "deepsphere_weather_tpu/ops/pallas_spmm.py:493",
-            "launches": launches, "max_abs_err": err, "ms": acc["ms"],
+    fwd = sum(f for f, _ in launches.values())
+    bwd = sum(b for _, b in launches.values())
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": fwd + bwd,
+            "launches_forward": fwd, "launches_backward": bwd,
+            "launches_by_path": {p: list(v) for p, v in launches.items()},
+            "max_abs_err": err, "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_ms"] >= acc["ops_ms"]
                          else "operations"),
             "library_ms": acc["library_ms"]}
 
 
-def phase_profile(model, device, batch, n_fwd=3):
-    """Device time by kernel over n_fwd forwards (torch.profiler), and the
+def _profile(fn, n, label):
+    """Device time by kernel over n calls of fn (torch.profiler), and the
     device's busy share of the window's host time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    rng = np.random.default_rng(SEED + 3)
-    x = torch.from_numpy(rng.standard_normal(
-        (batch, len(INPUT_K), model.input_n_node,
-         F_STATIC + F_BC + F_DYN)).astype(np.float32)).to(device)
-    with torch.inference_mode():
-        model(x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_fwd):
-                model(x)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
     # kernel rows only: an operator's row repeats its kernels' device time
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(r[0] for r in rows)
-    log("profile", f"{n_fwd} forwards, batch {batch}: device busy "
-                   f"{busy:.3f} ms of {wall_ms:.3f} ms host time "
-                   f"({100 * busy / wall_ms:.1f}%, profiler on)")
+    log("profile", f"{label}: device busy {busy:.3f} ms of {wall_ms:.3f} ms "
+                   f"host time ({100 * busy / wall_ms:.1f}%, profiler on)")
     for ms, count, key in rows[:15]:
-        log("profile", f"{100 * ms / busy:5.1f}%  {ms / n_fwd:8.4f} ms/fwd  "
-                       f"{count // n_fwd:4d}/fwd  {key[:90]}")
+        log("profile", f"{100 * ms / busy:5.1f}%  {ms / n:8.4f} ms/call  "
+                       f"{count // n:4d}/call  {key[:90]}")
+
+
+def phase_profile(model, device, batch, train_steps, n_fwd=3, n_steps=2):
+    import torch
+
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, len(INPUT_K), model.input_n_node,
+         F_STATIC + F_BC + F_DYN)).astype(np.float32)).to(device)
+
+    def forward():
+        with torch.inference_mode():
+            model(x)
+
+    _profile(forward, n_fwd, f"{n_fwd} forwards, batch {batch}")
+    for label, step in train_steps.items():
+        _profile(step, n_steps, f"{n_steps} AR{TRAIN_AR} train steps, batch "
+                                f"{batch}, {label} at level 0")
 
 
 def main() -> int:
@@ -422,7 +1005,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also print device time by kernel for 3 forwards")
+                    help="also print device time by kernel for 3 forwards "
+                         "and 2 train steps with each level-0 kernel")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -437,17 +1021,43 @@ def main() -> int:
     log("card", card_line)
     phase_build()
     phase_parity(device, (SLICE_SUBDIV, BIG_SUBDIV), MATVEC_WIDTH)
+    k3_err = phase_parity_regimes(device, SLICE_SUBDIV, BATCH)
+    phase_parity_backward(device, SLICE_SUBDIV, MATVEC_WIDTH)
+    phase_parity_backward(device, BIG_SUBDIV, MATVEC_WIDTH)
     fig = phase_slice(device, SLICE_SUBDIV, BATCH, N_STEPS)
-    row = kernel_row(fig["model"], device, BATCH, fig["launches"])
+    phase_train_check(device, SLICE_SUBDIV, TRAIN_CHECK_BATCH)
+    tr = phase_train(device, SLICE_SUBDIV, card_line)
+    tr64 = phase_train64(device, BIG_SUBDIV, card_line)
+
+    from deepsphere_weather_torch.ops import BlockSparseOperator
+
+    op3 = BlockSparseOperator.from_scipy(
+        _laplacian(SLICE_SUBDIV), dtype=torch.bfloat16, rows_per_super=0,
+        device=device)
+    rows = [
+        kernel_row(KERNEL, fig["model"].geometry.cheb_ops[0].bcsr, device,
+                   SLICE_SUBDIV, BATCH, {
+                       "serve": (fig["launches"], 0),
+                       "train16": tr["launches"][KERNEL],
+                       "train64": tr64["launches"]}),
+        kernel_row(PLAIN_KERNEL, op3, device, SLICE_SUBDIV, BATCH,
+                   {"train16_plain": tr["launches"][PLAIN_KERNEL]}),
+    ]
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], k3_err)
     log("times", f"slice: {fig['step_ms']:.2f} ms per forecast step (batch "
                  f"{BATCH}, host clock, {N_STEPS} steps), {fig['submit_ms']:.1f} "
                  f"ms for {N_SUBMIT} concurrent submits, forward "
                  f"{fig['forward_ms']:.3f} ms (CUDA events); {KERNEL} "
-                 f"{row['ms']:.4f} ms per launch ({card_line})")
+                 f"{rows[0]['ms']:.4f} ms, {PLAIN_KERNEL} {rows[1]['ms']:.4f} "
+                 f"ms per launch; train step HEALPix-{SLICE_SUBDIV} batch "
+                 f"{BATCH}: K1 {tr['ms']['train16']:.2f} ms, K3 "
+                 f"{tr['ms']['train16_plain']:.2f} ms; HEALPix-{BIG_SUBDIV} "
+                 f"batch {HP64_BATCH}: {tr64['ms']:.2f} ms, "
+                 f"{tr64['peak_gib']:.2f} GiB peak ({card_line})")
     if args.profile:
-        phase_profile(fig["model"], device, BATCH)
+        phase_profile(tr["model"], device, BATCH, tr["steps"])
     log("times", f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": rows}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,48 @@
+"""Losses: area-weighted MSE.
+
+Port of `deepsphere_weather_tpu/engine/loss.py`. `AreaWeights` are the
+normalized spherical-Voronoi cell areas, cached under the JAX package's
+`areaw_<sampling key>` key so both stacks share the file. `weighted_mse`
+has the same reductions: 'mean' = sum(w * se) / sum(w) / n_datapoints /
+n_features, 'sum' = sum(w * se) * n_nodes, 'none' = w * se.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..sphere.cache import cached_arrays
+from ..sphere.remap import area_weights as _area_weights
+
+__all__ = ["AreaWeights", "weighted_mse"]
+
+
+def AreaWeights(sampling, device="cuda") -> torch.Tensor:
+    """Normalized spherical-Voronoi cell-area weights, fp32 [V]."""
+    device = resolve_device(device)
+    key = f"areaw_{sampling.cache_key()}"
+    arrs = cached_arrays(key, lambda: {"w": _area_weights(sampling)})
+    return torch.as_tensor(np.asarray(arrs["w"], np.float32), device=device)
+
+
+def weighted_mse(pred: torch.Tensor, target: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None,
+                 reduction: str = "mean") -> torch.Tensor:
+    """Area-weighted MSE over [..., node, feature] tensors; leading dims
+    are data points, `weights` is [node] (None: unit weights)."""
+    se = (pred - target) ** 2
+    if weights is None:
+        weights = torch.ones(se.shape[-2], dtype=se.dtype, device=se.device)
+    wse = se * weights.reshape((1,) * (se.dim() - 2) + (-1, 1))
+    if reduction == "none":
+        return wse
+    n_points = int(np.prod(se.shape[:-2]))
+    if reduction == "mean":
+        return wse.sum() / weights.sum() / n_points / se.shape[-1]
+    if reduction == "sum":
+        return wse.sum() * weights.shape[0]
+    raise ValueError(f"invalid reduction {reduction!r}")

@@ -1,24 +1,43 @@
-"""Block rollout for unbounded autoregressive prediction.
+"""AR training steps and the block rollout.
 
-Port of `make_rollout_block` from `deepsphere_weather_tpu/engine/step.py`:
-the carry is a rolling history buffer of the last H timesteps of
-(predicted or observed) dynamic fields, H = max(output_k) - min(input_k) + 1.
-Each step assembles the model input from fixed buffer positions (feature
-order static + bc + dynamic), predicts, writes the prediction at its
-output positions and rolls the buffer by `forecast_cycle`. `jax.lax.scan`
-becomes a Python loop; the training steps and `noise_block` (stochastic
-perturbations) are not ported yet.
+Port of `deepsphere_weather_tpu/engine/step.py`. `jax.lax.scan` becomes a
+Python loop over AR iterations, `jax.value_and_grad` becomes
+`loss.backward()`, and the optax update a `torch.optim` step (the JAX
+package's `optax.adam(lr, eps=1e-7)` is `torch.optim.Adam(params, lr,
+eps=1e-7)`: both add eps outside the square root).
+
+- `make_ar_loss_fn`: the multi-step loss. The scaled truth window
+  `dynamic` [B, W, V, F] doubles as the rollout buffer: each iteration's
+  prediction is written into a copy at its output positions, so later
+  iterations read the model's own predictions. Per-iteration losses are
+  area-weighted MSE, combined with the normalized AR weights. 'RNN'
+  backpropagates through the whole rollout; 'AR' detaches the buffer
+  write (`stop_gradient`). `remat=True` recomputes each iteration in the
+  backward (`torch.utils.checkpoint`).
+- `make_train_step`, `make_validation_fn` and their device-cache variants
+  `make_cached_train_step`, `make_cached_validation_fn`, which gather the
+  window batch from a device-resident dataset.
+- `make_rollout_block`: the rolling-history block rollout for prediction.
+
+Not ported yet: the BatchNorm variants (`with_norm_state`,
+`collect_stats`, `eval_mode`), the member (ensemble) steps and
+`noise_block`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..data.ar import ARIndexer
+from .loss import weighted_mse
 
-__all__ = ["keep_first_feedback", "make_rollout_block"]
+__all__ = ["assemble_input", "keep_first_feedback", "make_ar_loss_fn",
+           "make_train_step", "make_validation_fn", "make_cached_train_step",
+           "make_cached_validation_fn", "make_rollout_block"]
 
 
 def keep_first_feedback(indexer: ARIndexer) -> bool:
@@ -26,6 +45,161 @@ def keep_first_feedback(indexer: ARIndexer) -> bool:
     (stack_most_recent_prediction=False with overlapping output windows)."""
     return (not indexer.stack_most_recent_prediction
             and indexer.has_overlapping_outputs)
+
+
+def assemble_input(dyn_buf: torch.Tensor, bc: Optional[torch.Tensor],
+                   static: Optional[torch.Tensor],
+                   pin: torch.Tensor) -> torch.Tensor:
+    """Model input of one AR iteration: dyn_buf [B, W, V, Fd], bc
+    [B, W, V, Fb] or None, static [V, Fs] or None, pin [n_in] window
+    positions. Feature order static + bc + dynamic."""
+    x_dyn = dyn_buf.index_select(1, pin)                 # [B, n_in, V, Fd]
+    B, T, V, _ = x_dyn.shape
+    parts = []
+    if static is not None:
+        parts.append(static[None, None].expand((B, T) + static.shape))
+    if bc is not None:
+        parts.append(bc.index_select(1, pin))
+    parts.append(x_dyn)
+    return torch.cat(parts, dim=-1)
+
+
+def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
+                    ar_training_strategy: str = "RNN",
+                    remat: bool = False) -> Callable:
+    """Build loss(batch, ar_weights, area_w=None) -> (total, per_iter).
+
+    batch: {'dynamic': [B, W, V, Fd], 'bc': [B, W, V, Fb] (optional),
+    'static': [V, Fs] (optional)} on the model's device; ar_weights: at
+    least n_scan_iterations weights (normalized over the first
+    n_scan_iterations); area_w: [V] loss weights or None (unit weights).
+    per_iter is [n_scan_iterations]."""
+    if ar_training_strategy not in ("RNN", "AR"):
+        raise ValueError("ar_training_strategy must be 'RNN' or 'AR'")
+    in_pos = np.asarray(indexer.input_pos)
+    out_pos = np.asarray(indexer.output_pos)
+    detach = ar_training_strategy == "AR"
+    keep_first = keep_first_feedback(indexer)
+
+    def loss_fn(batch: Dict, ar_weights, area_w=None):
+        dyn = batch["dynamic"]
+        bc = batch.get("bc")
+        static = batch.get("static")
+        dev = dyn.device
+        pins = torch.as_tensor(in_pos, dtype=torch.long, device=dev)
+        pouts = torch.as_tensor(out_pos, dtype=torch.long, device=dev)
+
+        def step(dyn_buf, written, i):
+            x = assemble_input(dyn_buf, bc, static, pins[i])
+            y_pred = model(x)
+            loss = weighted_mse(y_pred, dyn.index_select(1, pouts[i]), area_w)
+            y_write = y_pred.detach() if detach else y_pred
+            if keep_first:
+                # a slot predicted by an earlier iteration keeps that
+                # prediction (stack_most_recent_prediction=False)
+                prev = dyn_buf.index_select(1, pouts[i])
+                wmask = written[pouts[i]]
+                y_write = torch.where(wmask[None, :, None, None], prev, y_write)
+                written = written.index_fill(0, pouts[i], True)
+            return dyn_buf.index_copy(1, pouts[i], y_write), written, loss
+
+        dyn_buf = dyn
+        written = torch.zeros(dyn.shape[1], dtype=torch.bool, device=dev)
+        losses = []
+        for i in range(n_scan_iterations):
+            if remat:
+                dyn_buf, written, loss = checkpoint(
+                    step, dyn_buf, written, i, use_reentrant=False)
+            else:
+                dyn_buf, written, loss = step(dyn_buf, written, i)
+            losses.append(loss)
+        per_iter = torch.stack(losses)
+        w = torch.as_tensor(ar_weights, dtype=torch.float32,
+                            device=dev)[:n_scan_iterations]
+        w = w / torch.clamp(w.sum(), min=1e-12)
+        return (per_iter * w).sum(), per_iter
+
+    return loss_fn
+
+
+def _optimizer_step(optimizer, loss_fn, batch, ar_weights, area_w):
+    optimizer.zero_grad(set_to_none=True)
+    total, per_iter = loss_fn(batch, ar_weights, area_w)
+    total.backward()
+    optimizer.step()
+    return total.detach(), per_iter.detach()
+
+
+def make_train_step(model, indexer: ARIndexer, optimizer,
+                    n_scan_iterations: int,
+                    ar_training_strategy: str = "RNN",
+                    remat: bool = False) -> Callable:
+    """Train step: (batch, ar_weights, area_w=None) -> (total, per_iter),
+    detached, after one update of `optimizer` (over `model`'s
+    parameters). Nothing synchronizes with the host."""
+    loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations,
+                              ar_training_strategy, remat=remat)
+
+    def train_step(batch: Dict, ar_weights, area_w=None):
+        return _optimizer_step(optimizer, loss_fn, batch, ar_weights,
+                               area_w)
+
+    return train_step
+
+
+def make_validation_fn(model, indexer: ARIndexer,
+                       n_scan_iterations: int) -> Callable:
+    """(batch, ar_weights, area_w=None) -> (total, per_iter), no gradient."""
+    loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations, "RNN")
+
+    @torch.no_grad()
+    def validate(batch: Dict, ar_weights, area_w=None):
+        return loss_fn(batch, ar_weights, area_w)
+
+    return validate
+
+
+def _gather_window_batch(data: Dict, widx: torch.Tensor) -> Dict:
+    """One window batch from the device-resident dataset: data
+    {'dynamic': [T, V, Fd], 'bc': [T, V, Fb] or None, 'static': [V, Fs] or
+    None}, widx [B, W] absolute time indices. Only widx crosses from the
+    host per step."""
+    widx = widx.to(data["dynamic"].device, torch.long)
+    batch = {"dynamic": data["dynamic"][widx]}
+    if data.get("bc") is not None:
+        batch["bc"] = data["bc"][widx]
+    if data.get("static") is not None:
+        batch["static"] = data["static"]
+    return batch
+
+
+def make_cached_train_step(model, indexer: ARIndexer, optimizer,
+                           n_scan_iterations: int,
+                           ar_training_strategy: str = "RNN",
+                           remat: bool = False) -> Callable:
+    """Train step over a device-resident dataset: (data, widx, ar_weights,
+    area_w=None) -> (total, per_iter); the same update as
+    `make_train_step` on the gathered batch."""
+    loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations,
+                              ar_training_strategy, remat=remat)
+
+    def train_step(data: Dict, widx, ar_weights, area_w=None):
+        return _optimizer_step(optimizer, loss_fn,
+                               _gather_window_batch(data, widx), ar_weights,
+                               area_w)
+
+    return train_step
+
+
+def make_cached_validation_fn(model, indexer: ARIndexer,
+                              n_scan_iterations: int) -> Callable:
+    loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations, "RNN")
+
+    @torch.no_grad()
+    def validate(data: Dict, widx, ar_weights, area_w=None):
+        return loss_fn(_gather_window_batch(data, widx), ar_weights, area_w)
+
+    return validate
 
 
 def make_rollout_block(model, indexer: ARIndexer,

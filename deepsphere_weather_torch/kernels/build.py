@@ -9,7 +9,8 @@ minutes a `torch.utils.cpp_extension` build of the same file takes); the
 wrappers pass raw device pointers and PyTorch's current stream.
 
 Nothing is built or loaded at import time. A missing `nvcc` or a failed
-compile raises: there is no fallback.
+compile raises: there is no fallback. `load_kernels` starts one `nvcc`
+per source that needs a build, all at once, and waits for them together.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
-__all__ = ["KernelLibrary", "load_kernel", "BUILD_DIR"]
+__all__ = ["KernelLibrary", "load_kernel", "load_kernels", "BUILD_DIR"]
 
 _SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _SRC_DIR / "_build"
@@ -62,39 +63,57 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def load_kernel(name: str) -> KernelLibrary:
-    """Compile (once per source version) and load `kernels/<name>.cu`."""
+def _library_path(name: str) -> Path:
+    src = _SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes() + " ".join(_ARCH_FLAGS + _FLAGS)
+                          .encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}_{digest}.so"
+
+
+def load_kernels(names: Sequence[str]) -> List[KernelLibrary]:
+    """Compile (once per source version) and load `kernels/<name>.cu` for
+    each name; the missing builds run side by side."""
     with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        src = _SRC_DIR / f"{name}.cu"
-        flags = _ARCH_FLAGS + _FLAGS
-        digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode()
-                              ).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"{name}_{digest}.so"
-        built, seconds, log = False, 0.0, ""
-        if not so.exists():
-            cmd = [_nvcc(), *flags]
+        builds = {}
+        for name in dict.fromkeys(names):
+            so = _library_path(name)
+            if name in _loaded or so.exists():
+                continue
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            t0 = time.perf_counter()
-            try:
-                proc = subprocess.run([*cmd, "-o", tmp, str(src)],
-                                      capture_output=True, text=True)
+            cmd = [_nvcc(), *_ARCH_FLAGS, *_FLAGS, "-o", tmp,
+                   str(_SRC_DIR / f"{name}.cu")]
+            builds[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, so, time.perf_counter())
+        done = {}
+        try:
+            for name, (proc, tmp, so, t0) in builds.items():
+                log = proc.communicate()[0]
                 if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed building {src.name} "
-                        f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
+                    raise RuntimeError(f"nvcc failed building {name}.cu (exit "
+                                       f"{proc.returncode}):\n{log}")
                 # rename into place: a concurrent loader never sees a
                 # partial library
                 os.replace(tmp, so)
-            finally:
+                done[name] = (time.perf_counter() - t0, log)
+        finally:
+            for proc, tmp, _, _ in builds.values():
+                proc.kill()
+                proc.wait()
                 if os.path.exists(tmp):
                     os.unlink(tmp)
-            seconds = time.perf_counter() - t0
-            built, log = True, proc.stdout + proc.stderr
-        lib = KernelLibrary(name=name, lib=ctypes.CDLL(str(so)), path=so,
-                            built=built, nvcc_seconds=seconds, ptxas_log=log)
-        _loaded[name] = lib
-        return lib
+        for name in names:
+            if name not in _loaded:
+                so = _library_path(name)
+                seconds, log = done.get(name, (0.0, ""))
+                _loaded[name] = KernelLibrary(
+                    name=name, lib=ctypes.CDLL(str(so)), path=so,
+                    built=name in done, nvcc_seconds=seconds, ptxas_log=log)
+        return [_loaded[name] for name in names]
+
+
+def load_kernel(name: str) -> KernelLibrary:
+    """`load_kernels` for one name."""
+    return load_kernels([name])[0]

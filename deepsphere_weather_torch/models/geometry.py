@@ -105,8 +105,11 @@ def build_model_geometry(
             op = ChebOperator(dense=torch.as_tensor(
                 np.asarray(L.todense(), dtype=np.float32), device=device))
         else:
+            # knn and mesh Laplacians are symmetric; any other graph type
+            # carries its transpose for the backward
             op = ChebOperator(bcsr=BlockSparseOperator.from_scipy(
-                L, symmetric=True, dtype=op_dtype, device=device))
+                L, symmetric=(graph_type in ("knn", "mesh")), dtype=op_dtype,
+                device=device))
         cheb_ops.append(op)
 
     pools, unpools = [], []

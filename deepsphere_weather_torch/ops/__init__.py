@@ -3,6 +3,8 @@
 from .bcsr import (  # noqa: F401
     BlockSparseOperator,
     bcsr_from_scipy,
+    bcsr_spmm,
+    bcsr_spmm_reference,
     bcsr_super_from_scipy,
     bcsr_super_spmm,
     bcsr_super_spmm_reference,

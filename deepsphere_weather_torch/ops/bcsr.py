@@ -1,6 +1,6 @@
-"""Block-sparse (BCSR) Laplacian operator with the super-row SpMM kernel.
+"""Block-sparse (BCSR) Laplacian operator with the SpMM kernels.
 
-Port of the super-row path of `deepsphere_weather_tpu/ops/pallas_spmm.py`:
+Port of `deepsphere_weather_tpu/ops/pallas_spmm.py`:
 
 - `bcsr_from_scipy`: padded BCSR with dense 128x128 blocks (numpy).
 - `bcsr_super_from_scipy`: the super-row layout: R consecutive row blocks
@@ -9,34 +9,40 @@ Port of the super-row path of `deepsphere_weather_tpu/ops/pallas_spmm.py`:
   `[R*128, max_u*128] @ [max_u*128, M]` product. The TPU's DMA slot
   schedule and VMEM tiling have no counterpart on the GPU, so the union
   slots are simply in sorted column order.
-- `bcsr_super_spmm`: the product. On a CUDA tensor it launches the CUDA
-  kernel `kernels/bcsr_super_spmm.cu` (or raises); on a CPU tensor it runs
-  the plain PyTorch version `bcsr_super_spmm_reference`.
+- `bcsr_super_spmm`: the super-row product. On a CUDA tensor it launches
+  the CUDA kernel `kernels/bcsr_super_spmm.cu` (or raises); on a CPU
+  tensor it runs the plain PyTorch version `bcsr_super_spmm_reference`.
+- `bcsr_spmm`: the plain-BCSR product, the same way: the CUDA kernel
+  `kernels/bcsr_spmm.cu` or `bcsr_spmm_reference`.
 - `BlockSparseOperator`: the operator a Chebyshev convolution calls,
-  with the JAX operator's padding and dtype rules in `matvec`.
+  with the JAX operator's padding and dtype rules in `matvec` and its
+  custom VJP as a `torch.autograd.Function` (the backward computes
+  A^T @ g with the same kernels).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from .._device import resolve_device
 
 __all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy",
            "bcsr_super_spmm", "bcsr_super_spmm_reference",
+           "bcsr_spmm", "bcsr_spmm_reference",
            "BlockSparseOperator", "launch_counts", "reset_launch_counts"]
 
 _BS = 128
 
 # Launches of each CUDA kernel of this module since the last reset: a run
 # reads them to show that its path went through the kernels.
-launch_counts: Dict[str, int] = {"bcsr_super_spmm": 0}
+launch_counts: Dict[str, int] = {"bcsr_super_spmm": 0, "bcsr_spmm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -130,6 +136,17 @@ def _x_regime(x: torch.Tensor) -> torch.dtype:
     return torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
 
 
+def _check_dtypes(a, idx, x):
+    if a.dtype not in (torch.float32, torch.bfloat16) or \
+            x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("the A blocks and x must be float32 or bfloat16")
+    if idx.dtype != torch.int32:
+        raise TypeError("the block-column table must be int32")
+    if not (a.device == idx.device == x.device):
+        raise ValueError("the A blocks, their columns and x must be on one "
+                         "device")
+
+
 def _check_args(svals, ucols, x):
     if svals.dim() != 4 or ucols.dim() != 2 or x.dim() != 2:
         raise ValueError("expected svals [n_s, R, bs, max_u*bs], "
@@ -141,13 +158,36 @@ def _check_args(svals, ucols, x):
     if x.shape[0] != n_s * R * bs:
         raise ValueError(f"x must have n_s*R*bs = {n_s * R * bs} rows, "
                          f"got {x.shape[0]}")
-    if svals.dtype not in (torch.float32, torch.bfloat16) or \
-            x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError("svals and x must be float32 or bfloat16")
-    if ucols.dtype != torch.int32:
-        raise TypeError("ucols must be int32")
-    if not (svals.device == ucols.device == x.device):
-        raise ValueError("svals, ucols and x must be on one device")
+    _check_dtypes(svals, ucols, x)
+
+
+def _check_plain_args(vals, cols, x):
+    if vals.dim() != 4 or cols.dim() != 2 or x.dim() != 2:
+        raise ValueError("expected vals [n_rb, max_nb, bs, bs], "
+                         "cols [n_rb, max_nb], x [rows, M]")
+    n_rb, max_nb, bs, bs2 = vals.shape
+    if bs != _BS or bs2 != bs or cols.shape != (n_rb, max_nb):
+        raise ValueError(f"inconsistent BCSR layout: vals "
+                         f"{tuple(vals.shape)}, cols {tuple(cols.shape)}")
+    if x.shape[0] != n_rb * bs:
+        raise ValueError(f"x must have n_rb*bs = {n_rb * bs} rows, "
+                         f"got {x.shape[0]}")
+    _check_dtypes(vals, cols, x)
+
+
+def _check_launch(k, name, tensors, M):
+    if M % getattr(k.lib, f"{name}_col_tile")():
+        raise ValueError(f"x width {M} is not a multiple of the kernel's "
+                         "column tile; matvec pads it")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the A blocks, their columns and x must be "
+                         "contiguous")
+
+
+def _raise_on(k, name, err):
+    if err:
+        raise RuntimeError(f"{name} launch failed: " + getattr(
+            k.lib, f"{name}_error_string")(err).decode())
 
 
 def bcsr_super_spmm_reference(svals: torch.Tensor, ucols: torch.Tensor,
@@ -167,21 +207,34 @@ def bcsr_super_spmm_reference(svals: torch.Tensor, ucols: torch.Tensor,
     return out.reshape(n_s * R * bs, M).to(_x_regime(x))
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel():
+def _bind(name, argtypes):
     from ..kernels.build import load_kernel
 
-    k = load_kernel("bcsr_super_spmm")
-    fn = k.lib.bcsr_super_spmm
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int64, ctypes.c_void_p]
+    k = load_kernel(name)
+    fn = getattr(k.lib, name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
-    k.lib.bcsr_super_spmm_col_tile.restype = ctypes.c_int
-    k.lib.bcsr_super_spmm_error_string.argtypes = [ctypes.c_int]
-    k.lib.bcsr_super_spmm_error_string.restype = ctypes.c_char_p
+    getattr(k.lib, f"{name}_col_tile").restype = ctypes.c_int
+    err = getattr(k.lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return k
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    return _bind("bcsr_super_spmm", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_kernel():
+    return _bind("bcsr_spmm", [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
 
 
 def bcsr_super_spmm(svals: torch.Tensor, ucols: torch.Tensor,
@@ -195,12 +248,7 @@ def bcsr_super_spmm(svals: torch.Tensor, ucols: torch.Tensor,
         return bcsr_super_spmm_reference(svals, ucols, x)
     k = _kernel()
     M = x.shape[1]
-    if M % k.lib.bcsr_super_spmm_col_tile():
-        raise ValueError(f"x width {M} is not a multiple of the kernel's "
-                         "column tile; matvec pads it")
-    if not (svals.is_contiguous() and ucols.is_contiguous()
-            and x.is_contiguous()):
-        raise ValueError("svals, ucols and x must be contiguous")
+    _check_launch(k, "bcsr_super_spmm", (svals, ucols, x), M)
     n_s, R, bs, ubs = svals.shape
     out = torch.empty((n_s * R * bs, M), dtype=_x_regime(x), device=x.device)
     # the C entry point launches on the current device: make it x's
@@ -210,47 +258,178 @@ def bcsr_super_spmm(svals: torch.Tensor, ucols: torch.Tensor,
             svals.data_ptr(), int(svals.dtype == torch.bfloat16),
             ucols.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
             out.data_ptr(), n_s, R, ubs // bs, M, stream)
-    if err:
-        raise RuntimeError("bcsr_super_spmm launch failed: "
-                           + k.lib.bcsr_super_spmm_error_string(err).decode())
+    _raise_on(k, "bcsr_super_spmm", err)
     launch_counts["bcsr_super_spmm"] += 1
     return out
 
 
-class BlockSparseOperator:
-    """Symmetric block-sparse Laplacian; `matvec(x)`: [V, M] -> [V, M]."""
+def bcsr_spmm_reference(vals: torch.Tensor, cols: torch.Tensor,
+                        x: torch.Tensor, round_a: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the plain-BCSR kernel: gather, fp32 einsum,
+    cast.
 
-    def __init__(self, svals: torch.Tensor, ucols: torch.Tensor, n: int):
-        self.svals = svals
-        self.ucols = ucols
+    out[r*bs + i, m] = sum_b sum_j vals[r, b, i, j] * x[cols[r, b]*bs + j, m].
+    Output [n_rb*bs, M], bf16 for bf16 x and fp32 otherwise. `round_a`
+    matters only for fp32 A against bf16 x: True rounds A to bf16 (the
+    compiled TPU kernel's regime), False keeps it fp32 (the interpreter
+    kernel's, which widens both operands)."""
+    _check_plain_args(vals, cols, x)
+    n_rb, max_nb, bs, _ = vals.shape
+    M = x.shape[1]
+    a = (vals.to(_x_regime(x)) if round_a else vals).float()
+    xg = x.float().reshape(-1, bs, M)[cols.long()]   # [n_rb, max_nb, bs, M]
+    out = torch.einsum("rbij,rbjm->rim", a, xg)
+    return out.reshape(n_rb * bs, M).to(_x_regime(x))
+
+
+def bcsr_spmm(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+              round_a: bool = True) -> torch.Tensor:
+    """y = A @ x for A in plain padded BCSR; x [n_rb*128, M], M % 64 == 0.
+
+    CUDA tensors run the hand-written kernel (a failed build or launch
+    raises); CPU tensors run `bcsr_spmm_reference`. `round_a` as there."""
+    _check_plain_args(vals, cols, x)
+    if not x.is_cuda:
+        return bcsr_spmm_reference(vals, cols, x, round_a)
+    k = _plain_kernel()
+    M = x.shape[1]
+    _check_launch(k, "bcsr_spmm", (vals, cols, x), M)
+    n_rb, max_nb, bs, _ = vals.shape
+    out = torch.empty((n_rb * bs, M), dtype=_x_regime(x), device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = k.lib.bcsr_spmm(
+            vals.data_ptr(), int(vals.dtype == torch.bfloat16),
+            cols.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
+            int(bool(round_a)), out.data_ptr(), n_rb, max_nb, M, stream)
+    _raise_on(k, "bcsr_spmm", err)
+    launch_counts["bcsr_spmm"] += 1
+    return out
+
+
+def _fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Zero-pad or truncate axis 0 to exactly `rows` (a super layout and a
+    plain one differ in their padding rows only, which no block reads)."""
+    if x.shape[0] == rows:
+        return x
+    if x.shape[0] > rows:
+        return x[:rows].contiguous()
+    return F.pad(x, (0, 0, 0, rows - x.shape[0]))
+
+
+# A layout: ("super", svals, ucols) or ("plain", vals, cols)
+_Layout = Tuple[str, torch.Tensor, torch.Tensor]
+
+
+def _layout_rows(layout: _Layout) -> int:
+    kind, a, _ = layout
+    return (a.shape[0] * a.shape[1] * a.shape[2] if kind == "super"
+            else a.shape[0] * a.shape[2])
+
+
+def _run_mv(layout: _Layout, x_pad: torch.Tensor, n_out: int) -> torch.Tensor:
+    """One product on `layout`, x fitted to its rows, output to n_out."""
+    kind, a, idx = layout
+    x_fit = _fit_rows(x_pad, _layout_rows(layout))
+    y = (bcsr_super_spmm(a, idx, x_fit) if kind == "super"
+         else bcsr_spmm(a, idx, x_fit))
+    return _fit_rows(y, n_out)
+
+
+class _MatVec(torch.autograd.Function):
+    """y = A @ x_pad, with the JAX operator's custom VJP: the backward
+    computes A^T @ g in the primal's dtype on the transposed layout. The
+    operator arrays get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x_pad, op):
+        ctx.op = op
+        ctx.x_dtype = x_pad.dtype
+        return _run_mv(op.forward_layout(), x_pad, x_pad.shape[0])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        g = g.to(ctx.x_dtype).contiguous()
+        gx = _run_mv(ctx.op.transpose_layout(), g, g.shape[0])
+        return gx.to(ctx.x_dtype), None
+
+
+class BlockSparseOperator:
+    """Block-sparse Laplacian; `matvec(x)`: [V, M] -> [V, M], with a
+    gradient in x.
+
+    The forward product runs on the super-row layout (`svals`, `ucols`)
+    when there is one, else on the plain BCSR (`vals`, `cols`). A
+    symmetric operator reuses those arrays for the backward; a
+    non-symmetric one carries the transposed layout, super-row
+    (`svals_t`, `ucols_t`) if built, else plain (`vals_t`, `cols_t`)."""
+
+    def __init__(self, n: int, svals=None, ucols=None, vals=None, cols=None,
+                 svals_t=None, ucols_t=None, vals_t=None, cols_t=None):
+        if svals is None and vals is None:
+            raise ValueError("a forward layout (svals/ucols or vals/cols) "
+                             "is required")
         self.n = int(n)
+        self.svals, self.ucols = svals, ucols
+        self.vals, self.cols = vals, cols
+        self.svals_t, self.ucols_t = svals_t, ucols_t
+        self.vals_t, self.cols_t = vals_t, cols_t
 
     @classmethod
     def from_scipy(cls, mat, symmetric: bool = True, dtype=torch.float32,
                    rows_per_super: int = 2, device="cuda"):
         """`dtype` is the stored precision of the A blocks (bf16 halves
-        their bytes; bf16 activations round A to bf16 anyway)."""
-        if not symmetric:
-            raise NotImplementedError(
-                "non-symmetric operators need the transposed layout of the "
-                "backward pass, which comes with training")
-        if not rows_per_super or rows_per_super < 2:
-            raise NotImplementedError(
-                "rows_per_super <= 1 selects the plain BCSR kernel, which "
-                "is not ported yet")
+        their bytes; bf16 activations round A to bf16 anyway).
+        `rows_per_super` > 1 builds the super-row layout (the K1 kernel);
+        0, None or 1 the plain padded BCSR (the K3 kernel). A
+        non-symmetric `mat` also gets the same layout of its transpose."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError("dtype must be torch.float32 or torch.bfloat16")
         device = resolve_device(device)
-        svals, ucols, _ = bcsr_super_from_scipy(
-            mat, rows_per_super=rows_per_super)
-        return cls(torch.from_numpy(svals).to(device=device, dtype=dtype),
-                   torch.from_numpy(ucols).to(device), mat.shape[0])
+
+        def dev(a):
+            a = torch.from_numpy(a).to(device)
+            return a if a.dtype == torch.int32 else a.to(dtype)
+
+        def layout(m):
+            if rows_per_super and rows_per_super > 1:
+                sv, uc, _ = bcsr_super_from_scipy(
+                    m, rows_per_super=rows_per_super)
+            else:
+                sv, uc, _ = bcsr_from_scipy(m)
+            return dev(sv), dev(uc)
+
+        a, idx = layout(mat)
+        a_t, idx_t = (None, None) if symmetric else layout(mat.T.tocsr())
+        if rows_per_super and rows_per_super > 1:
+            return cls(mat.shape[0], svals=a, ucols=idx, svals_t=a_t,
+                       ucols_t=idx_t)
+        return cls(mat.shape[0], vals=a, cols=idx, vals_t=a_t, cols_t=idx_t)
+
+    @property
+    def symmetric(self) -> bool:
+        return self.svals_t is None and self.vals_t is None
+
+    def forward_layout(self) -> _Layout:
+        if self.svals is not None:
+            return ("super", self.svals, self.ucols)
+        return ("plain", self.vals, self.cols)
+
+    def transpose_layout(self) -> _Layout:
+        """The arrays that compute A^T @ g (`_transpose_arrays`): the
+        forward ones when symmetric, else the transposed super-row layout
+        if built, else the transposed plain BCSR."""
+        if self.symmetric:
+            return self.forward_layout()
+        if self.svals_t is not None:
+            return ("super", self.svals_t, self.ucols_t)
+        return ("plain", self.vals_t, self.cols_t)
 
     @property
     def rows(self) -> int:
-        """Rows of the product: n_s * R * 128 (>= n rounded up to 128)."""
-        n_s, R, bs, _ = self.svals.shape
-        return n_s * R * bs
+        """Rows of the forward product (>= n rounded up to 128)."""
+        return _layout_rows(self.forward_layout())
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """L @ x. Pads rows to the layout's row count and columns to a
@@ -260,5 +439,5 @@ class BlockSparseOperator:
         m_pad = ((m + 127) // 128) * 128
         if x.dtype != torch.bfloat16:
             x = x.float()
-        x_pad = F.pad(x, (0, m_pad - m, 0, self.rows - n))
-        return bcsr_super_spmm(self.svals, self.ucols, x_pad)[:n, :m]
+        x_pad = F.pad(x, (0, m_pad - m, 0, self.rows - n)).contiguous()
+        return _MatVec.apply(x_pad, self)[:n, :m]

@@ -1,4 +1,6 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: the super-row SpMM (K1) and the plain-BCSR SpMM (K3), forward and
+backward, and one training step against the CPU plain path.
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without
 one. This file imports neither JAX nor the JAX package, so it also runs on
@@ -8,26 +10,43 @@ a card machine without them:
 
 (`--noconftest`: `tests/conftest.py` sets JAX up.) Tolerance: max abs error
 / max abs of the plain version, fp32 1e-5, bf16 1e-2 (summation order and
-one bf16 output rounding).
+one bf16 output rounding); a training step's losses and gradients, per
+gradient key, 1e-5 (fp32, the CPU taking the card's ReLU and max-pool
+decisions) and 3e-2 (bf16: roundings at the same points in another
+order); a one-element gradient against the sum of its terms' magnitudes,
+see the test.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from scipy import sparse  # noqa: E402
+
+from deepsphere_weather_torch.data.ar import ARIndexer  # noqa: E402
+from deepsphere_weather_torch.engine import AreaWeights, make_ar_loss_fn  # noqa: E402
+from deepsphere_weather_torch.models import ConvBlock, UNetSpherical  # noqa: E402
 from deepsphere_weather_torch.ops import (  # noqa: E402
     BlockSparseOperator,
+    bcsr_from_scipy,
+    bcsr_spmm,
+    bcsr_spmm_reference,
     bcsr_super_spmm,
     bcsr_super_spmm_reference,
     launch_counts,
 )
 from deepsphere_weather_torch.sphere import build_graph  # noqa: E402
+from deepsphere_weather_torch.weights import params_from_jax, seeded_params  # noqa: E402
+from torch_grad_terms import term_sums  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 DT = {"fp32": torch.float32, "bf16": torch.bfloat16}
 TOL = {"fp32": 1e-5, "bf16": 1e-2}
+TRAIN_TOL = {"fp32": 1e-5, "bf16": 3e-2}
 
 
 @pytest.fixture
@@ -78,3 +97,193 @@ def test_kernel_rejects_non_contiguous(cuda):
     x = torch.zeros((256, op.rows), device=cuda).t()
     with pytest.raises(ValueError, match="contiguous"):
         bcsr_super_spmm(op.svals, op.ucols, x)
+
+
+@pytest.mark.parametrize("subdiv", [4, 8])
+@pytest.mark.parametrize("a_dt,x_dt,round_a", [
+    ("fp32", "fp32", True), ("bf16", "bf16", True), ("bf16", "fp32", True),
+    ("fp32", "bf16", True), ("fp32", "bf16", False)])
+def test_plain_kernel_matches_plain_version(cuda, subdiv, a_dt, x_dt, round_a):
+    g = build_graph("healpix", {"subdivisions": subdiv, "nest": True}, k=8)
+    vals, cols, n_pad = bcsr_from_scipy(g.L)
+    a = torch.from_numpy(vals).to(cuda, DT[a_dt])
+    c = torch.from_numpy(cols).to(cuda)
+    rng = np.random.default_rng(subdiv + 10)
+    x_np = rng.standard_normal((n_pad, 320)).astype(np.float32)
+    x = torch.from_numpy(x_np).to(cuda, DT[x_dt])
+    before = launch_counts["bcsr_spmm"]
+    y = bcsr_spmm(a, c, x, round_a=round_a)
+    torch.cuda.synchronize()
+    assert launch_counts["bcsr_spmm"] == before + 1
+    assert y.dtype == DT[x_dt] and y.shape == (n_pad, 320)
+    assert rel_err(y, bcsr_spmm_reference(a, c, x, round_a=round_a)) <= TOL[x_dt]
+    # scipy with A as the product sees it: bf16-stored, or fp32 rounded to
+    # bf16 against bf16 x in the round_a regime
+    L = g.L.copy()
+    if a_dt == "bf16" or (x_dt == "bf16" and round_a):
+        L.data = torch.from_numpy(L.data).to(torch.bfloat16).float().numpy()
+    n = g.n_nodes
+    ref = L @ x.float().cpu().numpy()[:n]
+    assert rel_err(y[:n].float(), torch.from_numpy(ref)) <= 2 * TOL[x_dt]
+
+
+def _nonsymmetric(L):
+    d = np.random.default_rng(0).uniform(0.5, 2.0, L.shape[0])
+    return (sparse.diags(d.astype(np.float32)) @ L).tocsr().astype(np.float32)
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "nonsym"])
+@pytest.mark.parametrize("rows_per_super,kernel", [
+    (2, "bcsr_super_spmm"), (0, "bcsr_spmm")], ids=["K1", "K3"])
+def test_backward_is_2_lt_l_x(cuda, symmetric, rows_per_super, kernel):
+    g = build_graph("healpix", {"subdivisions": 8, "nest": True}, k=8)
+    mat = g.L if symmetric else _nonsymmetric(g.L)
+    op = BlockSparseOperator.from_scipy(mat, symmetric=symmetric,
+                                        rows_per_super=rows_per_super,
+                                        device=cuda)
+    x_np = np.random.default_rng(2).standard_normal(
+        (g.n_nodes, 200)).astype(np.float32)
+    x = torch.from_numpy(x_np).to(cuda).requires_grad_()
+    before = dict(launch_counts)
+    y = op.matvec(x)
+    assert y.grad_fn is not None       # the kernel's output carries a gradient
+    (y ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert launch_counts[kernel] == before[kernel] + 2
+    assert sum(launch_counts.values()) == sum(before.values()) + 2
+    m64 = mat.astype(np.float64)
+    want = 2.0 * (m64.T @ (m64 @ x_np.astype(np.float64)))
+    assert rel_err(x.grad, torch.from_numpy(want)) <= 1e-5
+
+
+def _grads(model):
+    return {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+
+
+# fp32 train step: a decision that differs between the card and the CPU
+# must sit this close to its kink or tie (|x| or the max-pool gap, over
+# the call's largest |x|): within fp32 rounding
+KINK_TOL = 1e-6
+
+
+def _steer(model, pinned=None):
+    """Route the model's ReLUs and max pools through a recorder of their
+    decisions (ReLU: x > 0; pool: the argmax), in call order. With
+    `pinned`, another run's decisions are taken instead, and where they
+    differ from this run's own, `gaps` gets how far this run's input sat
+    from the kink (|x|) or tie (the gap), over the call's largest |x|."""
+    decisions, gaps = [], []
+    taken = None if pinned is None else iter(pinned)
+
+    def relu(x):
+        mask = x > 0
+        if taken is not None:
+            want = next(taken).to(x.device)
+            if (want != mask).any():
+                xd = x.detach()
+                gaps.append(float(xd[want != mask].abs().max()
+                                  / xd.abs().max()))
+            mask = want
+        decisions.append(mask.cpu())
+        return torch.where(mask, x, torch.zeros_like(x))
+
+    def steered(pool):
+        def call(x):
+            y, idx = pool(x)
+            if taken is not None:
+                want = next(taken).to(x.device)
+                B, D, C = idx.shape
+                g = x.reshape(B, D, pool.k, C)
+                if (want != idx).any():
+                    gd = g.detach()
+                    gap = (gd.gather(2, idx[:, :, None])
+                           - gd.gather(2, want[:, :, None])).abs()[:, :, 0]
+                    gaps.append(float(gap[want != idx].max()
+                                      / gd.abs().max()))
+                y, idx = g.gather(2, want[:, :, None])[:, :, 0], want
+            decisions.append(idx.cpu())
+            return y, idx
+        return call
+
+    for m in model.modules():
+        if isinstance(m, ConvBlock) and m.act:
+            m.act_fun = relu
+    model.geometry = dataclasses.replace(
+        model.geometry, pools=[steered(p) for p in model.geometry.pools])
+    return decisions, gaps
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_train_step_matches_cpu(cuda, dt):
+    # HEALPix-8 AR2, level 0 block-sparse (768 nodes; K1 on the card):
+    # losses and every gradient on the card against the CPU plain path.
+    # fp32: the CPU takes the card's ReLU and max-pool decisions, each
+    # one that differs shown to sit within fp32 rounding of its kink or
+    # tie, so that the gradients compare per key at 1e-5
+    info = {"input_n_feature": 5, "output_n_feature": 2, "input_n_time": 3,
+            "output_n_time": 1, "input_shape_info": {"dynamic": {"node": 768}},
+            "output_shape_info": {"dynamic": {"node": 768}}}
+    sampling = {"subdivisions": 8, "nest": True}
+    indexer = ARIndexer.build([-3, -2, -1], [0], 1, 2)
+    rng = np.random.default_rng(3)
+    W = indexer.window_size
+    batch = {"dynamic": rng.standard_normal((2, W, 768, 2)),
+             "bc": rng.standard_normal((2, W, 768, 1)),
+             "static": rng.standard_normal((768, 2))}
+    cpu = torch.device("cpu")
+    tree, pinned, runs = None, None, []
+    for dev in (cuda, cpu):
+        model = UNetSpherical(
+            info, "healpix", sampling, knn=8, increment_learning=True,
+            dense_threshold=767,
+            numeric_precision="bfloat16" if dt == "bf16" else "float32",
+            device=dev)
+        if tree is None:
+            tree = seeded_params(model, 4)
+            for blk in tree.values():
+                if isinstance(blk, dict):
+                    blk["rezero_weight"] *= 0.1
+        model.load_state_dict(params_from_jax(tree))
+        decisions, gaps = (_steer(model, pinned) if dt == "fp32"
+                           else (None, []))
+        pinned = decisions
+        sums = term_sums(model)
+        area_w = AreaWeights(model.geometry.samplings[0], device=dev)
+        data = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+                for k, v in batch.items()}
+        before = dict(launch_counts)
+        total, per_iter = make_ar_loss_fn(model, indexer, 3)(
+            data, np.ones(3, np.float32), area_w)
+        total.backward()
+        runs.append({"total": total.item(), "per_iter": per_iter.detach().cpu(),
+                     "grads": _grads(model), "gaps": gaps, "sums": sums,
+                     "launches": {k: launch_counts[k] - before[k]
+                                  for k in before}})
+    card, ref = runs
+    assert card["launches"] == {"bcsr_super_spmm": 3 * 10 + 3 * 10 - 2,
+                                "bcsr_spmm": 0}
+    assert not any(ref["launches"].values())
+    tol = TRAIN_TOL[dt]
+    assert abs(card["total"] - ref["total"]) <= tol * abs(ref["total"])
+    assert rel_err(card["per_iter"], ref["per_iter"]) <= tol
+    assert all(gap <= KINK_TOL for gap in ref["gaps"]), ref["gaps"]
+    # per key: max abs error over max abs of the CPU's; a one-element
+    # gradient (ReZero, increment) is one sum whose terms cancel, and is
+    # held against the sum of its terms' magnitudes instead
+    assert set(ref["sums"]) == {k for k, v in ref["grads"].items()
+                                if v.numel() == 1}
+    worst = (0.0, "")
+    for k, v in card["grads"].items():
+        want = ref["grads"][k]
+        scale = ref["sums"].get(k, float(want.abs().max()))
+        err = float((v - want).abs().max()) / scale
+        worst = max(worst, (err, k))
+        assert err <= tol, (k, err)
+    cancel = [ref["sums"][k] / abs(float(ref["grads"][k]))
+              for k in ref["sums"] if float(ref["grads"][k])]
+    steered = (f"{len(ref['gaps'])} decisions taken from the card differed "
+               f"from the CPU's own, worst {max(ref['gaps'], default=0.0):.3e}"
+               " from its kink or tie; " if dt == "fp32" else "")
+    print(f"{dt}: {steered}worst gradient {worst[1]} {worst[0]:.3e} (tol "
+          f"{tol:g}); one-element gradients: sum of |terms| / |sum| "
+          f"{min(cancel):.3g} to {max(cancel):.3g}")
