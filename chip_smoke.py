@@ -3,13 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths, the HEALPix-16 bf16 forecast service and the
-HEALPix-16 AR6 bf16 training step (and its HEALPix-64 AR2 form), on the
-card and checks them, in phases printed one per line:
+Drives the port's main paths, the HEALPix-16 bf16 forecast service, the
+HEALPix-16 AR6 bf16 training step (and its HEALPix-64 AR2 form) and the
+same step node- and data-parallel, on the card and checks them, in phases
+printed one per line:
 
 1. card      name and power limit (nvidia-smi)
 2. build     both CUDA kernels, compiled side by side with nvcc from this
-             checkout (seconds; registers, shared memory, spills)
+             checkout (seconds; registers, shared memory, spills); each
+             holds a full-range and a row-range entry
 3. parity    the super-row SpMM kernel (K1) and the plain-BCSR one (K3) at
              HEALPix-16 and HEALPix-64 level 0, fp32 and bf16, width 1024,
              against scipy `L @ x` (bars: fp32 < 1e-5, bf16 < 2e-2, max abs
@@ -18,7 +20,13 @@ card and checks them, in phases printed one per line:
              both regimes of fp32 A against bf16 x (`round_a`); the backward
              of both, d/dx sum((Lx)^2) against 2 L^T (L x) (bar 1e-5), for
              the knn L and for a non-symmetric D L (through the transposed
-             super-row layout and the transposed plain layout)
+             super-row layout and the transposed plain layout);
+             K2, the super-row kernel's row range, alone: HEALPix-16 and
+             -64 level 0, fp32 and bf16, width 1024, split 2 and 4 ways,
+             each shard against its plain version and the rows of the
+             full K1 launch (both exactly) and scipy's rows (bars as
+             above); the plain layout's row range likewise, in both
+             regimes of fp32 A against bf16 x
 4. slice     UNetSpherical, HEALPix-16, knn-20, max pool, increment
              learning, bf16, 7 features x 3 lags -> 2, seeded weights in
              the JAX layout loaded through `weights.py`, behind
@@ -46,15 +54,38 @@ card and checks them, in phases printed one per line:
              (recorded during a step), forward and backward, against its
              plain version and scipy (bf16 bar), covering every shape the
              step launched K1 at
-7. times     ms per train step and samples/s (host clock ended by
+7. node16    the step of (2) on a 1 data x 2 node mesh: 2 spawned ranks
+             share the card over `gloo` (NCCL refuses two ranks on one
+             device), each holding half the sphere at every level; 3
+             steps: per-iteration losses within 3e-2 of (2)'s first
+             steps, 70 forward + 68 backward K2 launches and no K1 launch
+             per rank per step, 22 gathers per model call, parameters
+             identical across ranks, step time (2 ranks sharing one H100:
+             not a scaling number); then the fp32 batch-2 step (level 0
+             block-sparse fp32): every gradient against the
+             single-process card step's, per key, at (1)'s bar
+8. mesh16    the same model on 2 data x 2 node (4 ranks), one step: loss
+             within 3e-2 of (2)'s first, the launches of node16,
+             parameters identical across ranks; then node16's fp32 batch-2
+             step on the same mesh: every gradient Adam steps on, reduced
+             over both groups, against the single-process card step's
+9. node64    the HEALPix-64 step on 1 x 2, 2 steps: losses within 3e-2 of
+             train64's, 66 + 64 K2 launches per rank per step, peak memory
+             per rank; K2 at every (level, width) one sharded step gives
+             it, forward and backward, against its plain version (exact)
+             and scipy's rows (bf16 bar)
+10. times    ms per train step and samples/s (host clock ended by
              torch.cuda.synchronize(), best of 4 windows, K1 and K3 steps
              taken in turns); each kernel per
              launch at the main path's widths beside its bound, its plain
-             version and cuSPARSE
+             version and cuSPARSE; K2 on the node16 step's level-0 shard
 
-Any failed phase raises, and the script exits non-zero. The lines before
-the last are the kernel table as JSON and the card; the last line is
-{"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
+The ranks of phases 7-9 are started after the kernels are built, join a
+`gloo` process group with a timeout, and the phase waits for them with a
+limit; a rank that fails fails its phase. Any failed phase raises, and the
+script exits non-zero. The lines before the last are the kernel table as
+JSON and the card; the last line is {"ok": true, "device": {...}}. Without
+CUDA it exits non-zero at once.
 `--profile` adds the device time by kernel of three forwards and of two
 train steps with each level-0 kernel (K1, K3).
 """
@@ -62,9 +93,13 @@ train steps with each level-0 kernel (K1, K3).
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -81,12 +116,15 @@ SLICE_TOL = 3e-2
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}   # fp32 non-tensor; bf16 dense
 KERNEL, PLAIN_KERNEL = "bcsr_super_spmm", "bcsr_spmm"
+ROW_KERNEL, PLAIN_ROW_KERNEL = "bcsr_super_spmm_rows", "bcsr_spmm_rows"
 SOURCES = {KERNEL: "deepsphere_weather_torch/kernels/bcsr_super_spmm.cu",
-           PLAIN_KERNEL: "deepsphere_weather_torch/kernels/bcsr_spmm.cu"}
+           PLAIN_KERNEL: "deepsphere_weather_torch/kernels/bcsr_spmm.cu",
+           ROW_KERNEL: "deepsphere_weather_torch/kernels/bcsr_super_spmm.cu"}
 REPLACES = {KERNEL: "deepsphere_weather_tpu/ops/pallas_spmm.py:493",
             PLAIN_KERNEL: "deepsphere_weather_tpu/ops/pallas_spmm.py:340 "
                           "(_spmm_kernel_dma); :327 (_spmm_kernel, "
-                          "round_a=False)"}
+                          "round_a=False)",
+            ROW_KERNEL: "deepsphere_weather_tpu/ops/pallas_spmm.py:402"}
 # Block-sparse products per model call, from the channel plan
 # (models/unet.py) and cheb_conv's K - 1 = 2 products per convolution:
 # level 0 holds 5 convolutions (conv1 x2, uconv1 x2, uconv1_final), level
@@ -103,6 +141,13 @@ TRAIN_AR, TRAIN_CHECK_BATCH, TRAIN_STEPS = 6, 2, 10
 HP64_AR, HP64_BATCH, HP64_STEPS = 2, 8, 3
 TIME_WINDOWS, TIME_STEPS = 4, 4
 LR, ADAM_EPS = 1e-3, 1e-7
+# node- and data-parallel phases: steps, the fp32 check's level-0 threshold
+# (so that level 0 stays block-sparse in fp32), the process-group timeout
+# and each phase's limit (seconds)
+NODE16_STEPS, MESH16_STEPS, NODE64_STEPS = 3, 1, 2
+FP32_DENSE_THRESHOLD = 2048
+PG_TIMEOUT_S, RANKS_LIMIT_S = 300, 900
+GATHERS_PER_FORWARD = sum(PRODUCTS_PER_LEVEL)
 # seeded ReZero weights are scaled by this for training: at U(0.5, 1.5)
 # the random network's rollout grows several-fold per iteration
 TRAIN_REZERO_SCALE = 0.1
@@ -175,32 +220,38 @@ def _kernel_fns(name):
     return bcsr.bcsr_spmm, bcsr.bcsr_spmm_reference
 
 
-def _bound(a, x, nnz_blocks):
+def _bound(a, x, nnz_blocks, x_blocks, out_rows=None):
     """(bytes ms, operations ms) of L @ x at x's own, unpadded shape: the
-    nonzero 128x128 blocks of A, x and the output each moved once over
-    HBM; the nonzero block products at the type's peak rate. The least
-    time the card could take is the larger of the two."""
+    nonzero 128x128 blocks of A, the x rows they read (`x_blocks`
+    128-row blocks) and the output (`out_rows` rows, x's by default) each
+    moved once over HBM; the nonzero block products at the type's peak
+    rate. The least time the card could take is the larger of the two."""
     import torch
 
     n, m = x.shape
     dt = "bf16" if x.dtype == torch.bfloat16 else "fp32"
     out_size = 2 if dt == "bf16" else 4
+    out_rows = n if out_rows is None else out_rows
+    x_rows = min(x_blocks * 128, n)
     nbytes = (nnz_blocks * 128 * 128 * a.element_size()
-              + n * m * (x.element_size() + out_size))
+              + x_rows * m * x.element_size() + out_rows * m * out_size)
     ops = 2.0 * nnz_blocks * 128 * 128 * m
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS[dt]
 
 
-def _block_counts(op):
-    """(nonzero 128x128 blocks, block slots) of op's forward layout."""
-    name, a, _ = _layout(op)
+def _block_counts(name, a, idx):
+    """(nonzero 128x128 blocks, block slots, distinct block-columns of x
+    the nonzero blocks read) of a super-row (`name` KERNEL) or plain
+    layout's A blocks and block-column table."""
     if name == KERNEL:
         n_s, R, bs, ubs = a.shape
         blocks = a.view(n_s, R, bs, ubs // bs, bs).transpose(2, 3)
     else:
         blocks = a
     nz = (blocks != 0).flatten(start_dim=blocks.dim() - 2).any(dim=-1)
-    return int(nz.sum()), nz.numel()
+    # super-row: a slot's column is read if any of its R rows is nonzero
+    cols_read = idx[nz.any(dim=1)] if name == KERNEL else idx[nz]
+    return int(nz.sum()), nz.numel(), int(cols_read.unique().numel())
 
 
 def _csr(L, device, dtype):
@@ -235,10 +286,10 @@ def measure(op, L, x, device, label, round_a=True, timed=True):
     if not timed:
         return res
     csr = _csr(L, device, x.dtype)
-    nnz, slots = _block_counts(op)
-    t_bytes, t_ops = _bound(a, x, nnz)
+    nnz, slots, x_blocks = _block_counts(name, a, idx)
+    t_bytes, t_ops = _bound(a, x, nnz, x_blocks)
     res.update({
-        "blocks_nonzero": f"{nnz}/{slots}",
+        "blocks_nonzero": f"{nnz}/{slots}", "x_blocks": x_blocks,
         "ms": time_ms(lambda: kernel(a, idx, x_pad, **kw)),
         "plain_ms": time_ms(lambda: plain(a, idx, x_pad, **kw), n_iter=5),
         "library_ms": time_ms(lambda: torch.sparse.mm(csr, x)),
@@ -399,6 +450,81 @@ def phase_parity_backward(device, subdiv, width):
                                      f"breaks the {GRAD_BAR:g} bar")
 
 
+def phase_parity_rows(device, subdivs, width):
+    """K2 alone, and the plain layout's row range (fp32 A against bf16 x,
+    both regimes): each node shard's row-range launch, for 2 and 4 shards,
+    against its plain version and the rows of the full launch (both
+    exactly) and against scipy's rows (the bars)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepsphere_weather_torch.ops import BlockSparseOperator, bcsr
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(SEED + 12)
+    # (kernel, A dtype, x dtype, round_a of the plain layout)
+    checks = [(ROW_KERNEL, bf16, bf16, None), (ROW_KERNEL, f32, f32, None),
+              (PLAIN_ROW_KERNEL, f32, bf16, True),
+              (PLAIN_ROW_KERNEL, f32, bf16, False)]
+    for subdiv in subdivs:
+        L = _laplacian(subdiv)
+        n = L.shape[0]
+        x_np = rng.standard_normal((n, width)).astype(np.float32)
+        L_bf16 = L.copy()
+        L_bf16.data = torch.from_numpy(L.data).to(bf16).float().numpy()
+        for kname, a_dt, x_dt, round_a in checks:
+            op = BlockSparseOperator.from_scipy(
+                L, dtype=a_dt, rows_per_super=2 if kname == ROW_KERNEL else 0,
+                device=device)
+            _, a, idx = op.forward_layout()
+            x = torch.from_numpy(x_np).to(device, x_dt)
+            x_pad = F.pad(x, (0, 0, 0, op.rows - n))
+            if kname == ROW_KERNEL:
+                full = bcsr.bcsr_super_spmm(a, idx, x_pad)
+                rows_fn, plain_fn, kw = (bcsr.bcsr_super_spmm_rows,
+                                         bcsr.bcsr_super_spmm_rows_reference,
+                                         {})
+            else:
+                full = bcsr.bcsr_spmm(a, idx, x_pad, round_a=round_a)
+                rows_fn, plain_fn, kw = (bcsr.bcsr_spmm_rows,
+                                         bcsr.bcsr_spmm_rows_reference,
+                                         {"round_a": round_a})
+            # scipy with A as the product sees it (rounded to bf16 when
+            # stored so, or against bf16 x with round_a)
+            ref = ((L_bf16 if a_dt == bf16 or round_a else L)
+                   @ x.float().cpu().numpy())
+            bar = BARS["bf16" if x_dt == bf16 else "fp32"]
+            label = (f"{kname} HEALPix-{subdiv} {str(a_dt)[6:]} A, "
+                     f"{str(x_dt)[6:]} x[{n}, {width}]"
+                     + ("" if round_a is None else f", round_a={round_a}"))
+            unit = op.rows // a.shape[0]
+            worst = {"plain": 0.0, "full": 0.0, "scipy": 0.0}
+            for n_node, r in ((2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (4, 3)):
+                # rank r's node range and the units (super-rows or row
+                # blocks) that cover it
+                v0, v1 = r * n // n_node, (r + 1) * n // n_node
+                lo, hi = v0 // unit, -(-v1 // unit)
+                y = rows_fn(a, idx, x_pad, lo, hi, **kw)
+                e_plain = float((y.float() - plain_fn(
+                    a, idx, x_pad, lo, hi, **kw).float()).abs().max())
+                e_full = float((y.float() - full[lo * unit:hi * unit]
+                                .float()).abs().max())
+                e_scipy = rel_err(y[v0 - lo * unit:v1 - lo * unit]
+                                  .float().cpu().numpy(), ref[v0:v1])
+                if e_plain or e_full or not e_scipy < bar:
+                    raise AssertionError(
+                        f"{label} rows [{v0}, {v1}): vs plain version "
+                        f"{e_plain:.3e}, vs full launch {e_full:.3e} (both "
+                        f"must be 0), vs scipy {e_scipy:.3e} (bar {bar:g})")
+                worst = {k: max(worst[k], e) for k, e in zip(
+                    worst, (e_plain, e_full, e_scipy))}
+            log("parity", f"{label}, 2 and 4 node shards (units of {unit} "
+                          f"rows): max abs error vs plain version "
+                          f"{worst['plain']:.3e}, vs the full launch's rows "
+                          f"{worst['full']:.3e}; rel err vs scipy's rows "
+                          f"{worst['scipy']:.3e} (bar {bar:g})")
+
+
 # ---------------------------------------------------------------------------
 # The forecast service (serving main path)
 # ---------------------------------------------------------------------------
@@ -411,14 +537,15 @@ def tensor_info(n_node):
             "output_shape_info": {"dynamic": {"node": n_node}}}
 
 
-def build_flagship(device, subdiv, params=None, geometry=None):
+def build_flagship(device, subdiv, params=None, geometry=None,
+                   precision="bfloat16", dense_threshold=None):
     from deepsphere_weather_torch.models import UNetSpherical
 
     model = UNetSpherical(
         tensor_info(12 * subdiv ** 2), "healpix",
         {"subdivisions": subdiv, "nest": True}, knn=KNN, pool_method="max",
-        increment_learning=True, numeric_precision="bfloat16",
-        geometry=geometry, device=device)
+        increment_learning=True, numeric_precision=precision,
+        dense_threshold=dense_threshold, geometry=geometry, device=device)
     if params is not None:
         model.load_state_dict(params)
     return model.eval()
@@ -609,24 +736,27 @@ def term_sums(model):
     return sums
 
 
-def grads_close(model, cpu_model, sums, tol):
-    """Every parameter gradient, card vs CPU, per key: max abs error over
-    max abs of the CPU's. A one-element gradient (a ReZero weight, the
-    increment scale) is one sum over a block's output whose terms cancel:
-    it is held against the sum of its terms' magnitudes (`sums`, from
-    `term_sums` on the CPU model). Returns (worst error, key)."""
-    ref = dict(cpu_model.named_parameters())
+def grads_of(model):
+    return {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+
+
+def grads_close(grads, ref, sums, tol, what="card vs CPU"):
+    """Every parameter gradient against the reference's, per key: max abs
+    error over max abs of the reference's. A one-element gradient (a
+    ReZero weight, the increment scale) is one sum over a block's output
+    whose terms cancel: it is held against the sum of its terms'
+    magnitudes (`sums`, from `term_sums` on the reference model). Returns
+    (worst error, key)."""
     worst = (0.0, "")
-    for k, p in model.named_parameters():
-        r = ref[k].grad.double()
+    for k, g in grads.items():
+        r = ref[k].double()
         if r.numel() == 1 and k not in sums:
             raise AssertionError(f"{k}: one element, but no sum of terms")
         scale = sums[k] if r.numel() == 1 else float(r.abs().max())
-        e = float((p.grad.double().cpu() - r).abs().max()) / scale
+        e = float((g.double().cpu() - r).abs().max()) / scale
         worst = max(worst, (e, k))
         if not e <= tol:
-            raise AssertionError(f"gradient of {k}: card vs CPU {e:.3e} > "
-                                 f"{tol}")
+            raise AssertionError(f"gradient of {k}: {what} {e:.3e} > {tol}")
     return worst
 
 
@@ -653,7 +783,8 @@ def phase_train_check(device, subdiv, batch):
     (model, total, per_iter, _), (cpu_model, total_c, per_iter_c, sums) = out
     e_total = rel_err(total, total_c)
     e_iter = rel_err(per_iter, per_iter_c)
-    e_grad, worst_key = grads_close(model, cpu_model, sums, SLICE_TOL)
+    e_grad, worst_key = grads_close(grads_of(model), grads_of(cpu_model),
+                                    sums, SLICE_TOL)
     log("train", f"(1) HEALPix-{subdiv} AR{TRAIN_AR} batch {batch}: loss "
                  f"{total:.6g} (CPU {total_c:.6g}), rel err {e_total:.3e}; "
                  f"per-iteration losses {np.round(per_iter, 5).tolist()} rel "
@@ -685,13 +816,14 @@ def run_train(model, ar_iters, batch, n_steps, label):
         lambda *_: at_forward.append(dict(launch_counts)))
     torch.cuda.synchronize()
     reset_launch_counts()
-    losses, per_step = [], []
+    losses, per_iters, per_step = [], [], []
     t0 = time.perf_counter()
     for _ in range(n_steps):
         before = dict(launch_counts)
         at_forward.clear()
-        total, _ = step(data, w, area_w)
+        total, per_iter = step(data, w, area_w)
         losses.append(total)
+        per_iters.append(per_iter)
         fwd = {k: at_forward[-1][k] - before[k] for k in before}
         bwd = {k: launch_counts[k] - at_forward[-1][k] for k in before}
         per_step.append((fwd, bwd))
@@ -707,25 +839,25 @@ def run_train(model, ar_iters, batch, n_steps, label):
                  f"{losses[-1]:.6g}, {seconds:.2f} s with the first step; "
                  f"launches {launches}")
     return {"losses": losses, "per_step": per_step, "launches": launches,
+            "per_iter": torch.stack(per_iters).cpu().numpy(),
             "step": lambda: step(data, w, area_w)}
 
 
-def check_launches(res, kernel, per_forward, n_calls, label):
+def check_launches(res, kernel, per_forward, n_calls, label, phase="train"):
     """Every step launched exactly per_forward * n_calls forward and that
-    minus NO_GRAD_PRODUCTS backward products on `kernel`, none on the
-    other; returns (forward, backward) launch totals."""
+    minus NO_GRAD_PRODUCTS backward products on `kernel`, no other
+    kernel; returns (forward, backward) launch totals."""
     want_f = per_forward * n_calls
     want_b = want_f - NO_GRAD_PRODUCTS
-    other = PLAIN_KERNEL if kernel == KERNEL else KERNEL
     for i, (fwd, bwd) in enumerate(res["per_step"]):
         if (fwd[kernel], bwd[kernel]) != (want_f, want_b) or \
-                fwd[other] or bwd[other]:
+                sum(fwd.values()) != want_f or sum(bwd.values()) != want_b:
             raise AssertionError(
                 f"{label} step {i}: forward {fwd}, backward {bwd}; want "
                 f"{want_f} forward and {want_b} backward {kernel} launches")
     n = len(res["per_step"])
-    log("train", f"{label}: {want_f} forward + {want_b} backward {kernel} "
-                 f"launches in each of {n} steps, {other} none")
+    log(phase, f"{label}: {want_f} forward + {want_b} backward {kernel} "
+               f"launches in each of {n} steps, no other kernel")
     return want_f * n, want_b * n
 
 
@@ -789,7 +921,7 @@ def phase_train(device, subdiv, card_line):
     ms = time_steps({"(2) K1": res2["step"], "(3) K3": res3["step"]}, BATCH,
                     card_line)
     return {"model": model, "steps": {"K1": res2["step"], "K3": res3["step"]},
-            "launches": {
+            "per_iter": res2["per_iter"], "launches": {
         KERNEL: f2, PLAIN_KERNEL: f3}, "ms": {"train16": ms["(2) K1"],
                                               "train16_plain": ms["(3) K3"]}}
 
@@ -816,7 +948,8 @@ def phase_train64(device, subdiv, card_line):
     log("train64", f"peak device memory {peak:.2f} GiB "
                    "(torch.cuda.max_memory_allocated)")
     check_step_products(model, res["step"], subdiv)
-    return {"launches": launches, "ms": ms, "peak_gib": peak}
+    return {"launches": launches, "ms": ms, "peak_gib": peak,
+            "per_iter": res["per_iter"]}
 
 
 def step_products(step):
@@ -912,6 +1045,398 @@ def check_step_products(model, step, subdiv):
 
 
 # ---------------------------------------------------------------------------
+# Node- and data-parallel training (spawned ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+def _rank_main(rank, world, out_dir, tasks):
+    """One spawned rank: join the `gloo` group (ranks share one card, and
+    NCCL refuses two ranks on one device), run each (task, kwargs), and
+    pickle the results."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    store = dist.FileStore(os.path.join(out_dir, "store"), world)
+    dist.init_process_group(
+        "gloo", store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    try:
+        results = [task(rank, **kw) for task, kw in tasks]
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+
+
+def run_ranks(world, tasks):
+    """The tasks on `world` spawned ranks; [rank][task] results. A rank
+    that raises fails the call (the others are stopped); so does a run
+    past RANKS_LIMIT_S, after every rank is killed."""
+    import torch
+    import torch.multiprocessing as mp
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.start_processes(_rank_main, args=(world, out_dir, tasks),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + RANKS_LIMIT_S
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                    proc.join()
+                raise TimeoutError(f"{world} ranks did not end within "
+                                   f"{RANKS_LIMIT_S} s")
+        results = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+    return results
+
+
+def _sharded_model(mesh, subdiv, param_seed, precision="bfloat16",
+                   dense_threshold=None):
+    """The flagship at `subdiv` with rank 0's seeded weights on every rank
+    and this rank's node shard of the geometry."""
+    from deepsphere_weather_torch.models import shard_geometry
+    from deepsphere_weather_torch.ops import ShardedBlockSparseOperator
+    from deepsphere_weather_torch.weights import broadcast_params
+
+    model = build_flagship(mesh.device, subdiv, precision=precision,
+                           dense_threshold=dense_threshold).train()
+    model.load_state_dict(train_params(model, param_seed))
+    broadcast_params(model, mesh)
+    n = model.input_n_node
+    model.geometry = shard_geometry(model.geometry, mesh)
+    if not isinstance(model.geometry.cheb_ops[0].bcsr,
+                      ShardedBlockSparseOperator):
+        raise AssertionError("level 0 must run the row-sharded operator")
+    return model, n
+
+
+def rank_train(rank, device, subdiv, n_data, n_node, ar_iters, batch,
+               n_steps, param_seed, check_products=False):
+    """One rank of the sharded main path: n_steps of make_train_step(mesh)
+    on its shard of the fixed batch of `run_train`, counts from 0. Per
+    step: global losses, launches forward and backward (a forward hook
+    reads the counters), gathers of each model call, host time; the
+    parameters after, peak device memory."""
+    import torch
+
+    from deepsphere_weather_torch.engine import make_train_step
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from deepsphere_weather_torch.parallel import (
+        collective_counts,
+        make_mesh,
+        node_range,
+        reset_collective_counts,
+        shard_batch,
+    )
+
+    mesh = make_mesh(n_data=n_data, n_node=n_node, device=device)
+    model, n = _sharded_model(mesh, subdiv, param_seed)
+    v0, v1 = node_range(n, mesh)
+    indexer, area_w, w = train_setup(model, ar_iters)
+    data = shard_batch(train_batch(indexer, n, batch, mesh.device, SEED + 8),
+                       mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=LR, eps=ADAM_EPS)
+    step = make_train_step(model, indexer, opt, ar_iters + 1, mesh=mesh)
+    at_start, at_end = [], []
+    model.register_forward_pre_hook(lambda *_: at_start.append(
+        collective_counts["all_gather"]))
+    model.register_forward_hook(lambda *_: at_end.append(
+        (dict(launch_counts), collective_counts["all_gather"])))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts from 0
+    reset_launch_counts()
+    reset_collective_counts()
+    per_iter, per_step, gathers, seconds = [], [], [], []
+    for _ in range(n_steps):
+        before = dict(launch_counts)
+        at_start.clear()
+        at_end.clear()
+        t0 = time.perf_counter()
+        _, losses = step(data, w, area_w)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        per_iter.append(losses.cpu().numpy())
+        fwd = {k: at_end[-1][0][k] - before[k] for k in before}
+        bwd = {k: launch_counts[k] - at_end[-1][0][k] for k in before}
+        per_step.append((fwd, bwd))
+        gathers.append([e - s for s, (_, e) in zip(at_start, at_end)])
+    out = {"mesh": (mesh.data_rank, mesh.node_rank), "node_range": (v0, v1),
+           "per_iter": np.stack(per_iter), "per_step": per_step,
+           "gathers": gathers, "seconds": seconds,
+           "launches": dict(launch_counts),
+           "collectives": dict(collective_counts),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "params": torch.cat([p.detach().reshape(-1).cpu()
+                                for p in model.parameters()]).numpy()}
+    if check_products:
+        out["products"] = check_sharded_products(
+            model, lambda: step(data, w, area_w), subdiv)
+    return out
+
+
+def rank_grads(rank, device, subdiv, n_data, n_node, batch):
+    """The first fp32 step of one rank on an n_data x n_node mesh (level 0
+    block-sparse fp32, K2), from `phase_train_check`'s weights and batch:
+    the global per-iteration losses make_train_step returns and the
+    gradients, reduced over the mesh, that Adam steps on."""
+    import torch
+
+    from deepsphere_weather_torch.engine import make_train_step
+    from deepsphere_weather_torch.parallel import make_mesh, shard_batch
+
+    mesh = make_mesh(n_data=n_data, n_node=n_node, device=device)
+    model, n = _sharded_model(mesh, subdiv, SEED + 6, "float32",
+                              FP32_DENSE_THRESHOLD)
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = shard_batch(train_batch(indexer, n, batch, mesh.device, SEED + 7),
+                       mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=LR, eps=ADAM_EPS)
+    grads = {}
+    opt.register_step_pre_hook(lambda *_: grads.update(grads_of(model)))
+    _, per_iter = make_train_step(model, indexer, opt, TRAIN_AR + 1,
+                                  mesh=mesh)(data, w, area_w)
+    return {"mesh": (mesh.data_rank, mesh.node_rank),
+            "per_iter": per_iter.cpu().numpy(), "grads": grads}
+
+
+def single_grads(device, subdiv, batch):
+    """`rank_grads`' step in one process: the reference."""
+    from deepsphere_weather_torch.engine import make_ar_loss_fn
+
+    model = build_flagship(device, subdiv, precision="float32",
+                           dense_threshold=FP32_DENSE_THRESHOLD).train()
+    model.load_state_dict(train_params(model, SEED + 6))
+    sums = term_sums(model)
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = train_batch(indexer, model.input_n_node, batch, device, SEED + 7)
+    total, per_iter = make_ar_loss_fn(model, indexer, TRAIN_AR + 1)(data, w,
+                                                                    area_w)
+    total.backward()
+    return per_iter.detach().cpu().numpy(), grads_of(model), sums
+
+
+def check_sharded_products(model, step, subdiv):
+    """Every level's K2 at each width one sharded step gives it, forward
+    and backward: against its plain version on the same input (exactly)
+    and against scipy's rows; every shape the step launched K2 at is one
+    of those checked. All ranks run the same products, in one order (the
+    backward gathers)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepsphere_weather_torch.ops import bcsr
+
+    matvecs, launched = {}, set()
+    matvec, kernel = (bcsr.ShardedBlockSparseOperator.matvec,
+                      bcsr.bcsr_super_spmm_rows)
+
+    def record_matvec(op, x):
+        matvecs.setdefault((id(op), x.shape[1], x.dtype), op)
+        return matvec(op, x)
+
+    def record_launch(a, idx, x, s0, s1):
+        launched.add((a.data_ptr(), x.shape[1], x.dtype))
+        return kernel(a, idx, x, s0, s1)
+
+    bcsr.ShardedBlockSparseOperator.matvec = record_matvec
+    bcsr.bcsr_super_spmm_rows = record_launch
+    try:
+        step()
+    finally:
+        bcsr.ShardedBlockSparseOperator.matvec = matvec
+        bcsr.bcsr_super_spmm_rows = kernel
+    ops = [c.bcsr for c in model.geometry.cheb_ops]
+    device = next(model.parameters()).device
+    checked, worst, lines = set(), {"plain": 0.0, "scipy": 0.0}, []
+    products = sorted((next(i for i, o in enumerate(ops) if o is op), width,
+                       str(dt), op) for (_, width, dt), op in matvecs.items())
+    for level, width, _, op in products:
+        L = _laplacian(subdiv >> level)
+        n, v0, v1 = L.shape[0], op.v0, op.v1
+        dt = torch.bfloat16          # the flagship's bf16 activations
+        rng = np.random.default_rng(SEED + 13 + level * 100003 + width)
+        x = torch.from_numpy(rng.standard_normal((n, width)).astype(
+            np.float32)).to(device, dt)
+        g = torch.from_numpy(rng.standard_normal((n, width)).astype(
+            np.float32)).to(device, dt)
+        m_pad = width + (-width) % 128
+        errs = {}
+        for what, layout, inp in (("forward", op.forward_layout(), x),
+                                  ("backward", op.transpose_layout(), g)):
+            _, a, idx, r0, full_rows = layout
+            inp_fit = F.pad(inp, (0, m_pad - width, 0, full_rows - n))
+            y = kernel(a, idx, inp_fit, 0, a.shape[0])
+            errs[what + " plain"] = float((y.float() - bcsr.
+                bcsr_super_spmm_rows_reference(a, idx, inp_fit, 0, a.shape[0])
+                .float()).abs().max())
+            checked.add((a.data_ptr(), m_pad, dt))
+        # through the operator: its forward rows and x.grad of <L x, g>
+        xg = x[v0:v1].clone().requires_grad_()
+        y = op.matvec(xg)
+        y.backward(g[v0:v1])
+        errs["forward scipy"] = rel_err(y.detach().float().cpu().numpy(), (
+            L @ x.float().cpu().numpy())[v0:v1])
+        errs["backward scipy"] = rel_err(xg.grad.float().cpu().numpy(), (
+            L.T @ g.float().cpu().numpy())[v0:v1])
+        label = f"HEALPix-{subdiv} level {level} width {width}"
+        if errs["forward plain"] or errs["backward plain"] or not (
+                errs["forward scipy"] < BARS["bf16"]
+                and errs["backward scipy"] < BARS["bf16"]):
+            raise AssertionError(f"K2 {label}: {errs}")
+        worst["plain"] = max(worst["plain"], errs["forward plain"],
+                             errs["backward plain"])
+        worst["scipy"] = max(worst["scipy"], errs["forward scipy"],
+                             errs["backward scipy"])
+        lines.append(f"{label} rows [{v0}, {v1}): " + ", ".join(
+            f"{k} {e:.3e}" for k, e in errs.items()))
+    if not launched <= checked:
+        raise AssertionError(f"the sharded step launched K2 at shapes no "
+                             f"check covered: {sorted(launched - checked)}")
+    return {"lines": lines, "worst": worst, "n_products": len(matvecs),
+            "n_shapes": len(launched)}
+
+
+def _check_rank_runs(phase, ranks, ref_per_iter, per_forward, n_calls):
+    """The checks of a sharded training run, rank by rank: its
+    per-iteration losses against the single-process run's first steps
+    (SLICE_TOL), exactly per_forward * n_calls forward and that minus
+    NO_GRAD_PRODUCTS backward K2 launches per step and nothing else, one
+    gather per Laplacian product of every level in each model call (dense
+    levels gather too); and parameters identical
+    across ranks. Returns (forward, backward) K2 launches over ranks."""
+    total = [0, 0]
+    for r in ranks:
+        label = f"rank {r['mesh']} nodes {r['node_range']}"
+        e = rel_err(r["per_iter"], ref_per_iter[:len(r["per_iter"])])
+        if not e <= SLICE_TOL:
+            raise AssertionError(f"{phase} {label}: per-iteration losses vs "
+                                 f"the single-process steps {e:.3e}")
+        f, b = check_launches(r, ROW_KERNEL, per_forward, n_calls, label,
+                              phase)
+        total[0] += f
+        total[1] += b
+        if any(gs != [GATHERS_PER_FORWARD] * n_calls for gs in r["gathers"]):
+            raise AssertionError(f"{phase} {label}: gathers per model call "
+                                 f"{r['gathers']}, want {GATHERS_PER_FORWARD}")
+        losses = np.round(r["per_iter"], 5).tolist()
+        log(phase, f"{label}: losses per step {losses}, vs the "
+                   f"single-process steps {e:.3e} (tol "
+                   f"{SLICE_TOL}); {GATHERS_PER_FORWARD} gathers in each of "
+                   f"{n_calls} model calls per step; collectives "
+                   f"{r['collectives']}; host seconds per step "
+                   f"{np.round(r['seconds'], 4).tolist()}; peak device "
+                   f"memory {r['peak_gib']:.2f} GiB")
+    for r in ranks[1:]:
+        if not np.array_equal(r["params"], ranks[0]["params"]):
+            raise AssertionError(f"{phase}: rank {r['mesh']}'s parameters "
+                                 "differ from rank (0, 0)'s")
+    log(phase, f"parameters after the steps identical on all {len(ranks)} "
+               f"ranks ({ranks[0]['params'].size} values)")
+    return tuple(total)
+
+
+def _check_grad_ranks(phase, ranks, grad_ref, mesh_label):
+    """Each rank's fp32 step (`rank_grads`) against the single-process
+    card step's: per-iteration losses and every gradient key (SLICE_TOL,
+    `grads_close`)."""
+    per_iter, grads, sums = grad_ref
+    for r in ranks:
+        e_iter = rel_err(r["per_iter"], per_iter)
+        e_grad, key = grads_close(r["grads"], grads, sums, SLICE_TOL,
+                                  f"{mesh_label} vs one process")
+        if not e_iter <= SLICE_TOL:
+            raise AssertionError(f"{phase} fp32 rank {r['mesh']}: "
+                                 f"per-iteration losses {e_iter:.3e}")
+        log(phase, f"fp32 batch {TRAIN_CHECK_BATCH} step (level 0 "
+                   f"block-sparse fp32, K2) on {mesh_label}, rank "
+                   f"{r['mesh']}, vs one process on the card: per-iteration "
+                   f"losses {e_iter:.3e}, reduced gradients worst "
+                   f"{e_grad:.3e} ({key}); tol {SLICE_TOL} per key")
+
+
+def phase_node(device, card_line, train_ref, train64_ref):
+    """node16 (with its fp32 gradient check) and node64, on 2 ranks."""
+    ranks = run_ranks(2, [
+        (rank_train, {"device": str(device), "subdiv": SLICE_SUBDIV,
+                      "n_data": 1, "n_node": 2,
+                      "ar_iters": TRAIN_AR, "batch": BATCH,
+                      "n_steps": NODE16_STEPS, "param_seed": SEED + 9}),
+        (rank_grads, {"device": str(device), "subdiv": SLICE_SUBDIV,
+                      "n_data": 1, "n_node": 2, "batch": TRAIN_CHECK_BATCH}),
+        (rank_train, {"device": str(device), "subdiv": BIG_SUBDIV,
+                      "n_data": 1, "n_node": 2,
+                      "ar_iters": HP64_AR, "batch": HP64_BATCH,
+                      "n_steps": NODE64_STEPS, "param_seed": SEED + 10,
+                      "check_products": True})])
+    node16 = [r[0] for r in ranks]
+    k2 = {"node16": _check_rank_runs("node16", node16, train_ref,
+                                     LAUNCHES_PER_FORWARD, TRAIN_AR + 1)}
+    ms16 = 1e3 * min(max(r["seconds"][i] for r in node16)
+                     for i in range(1, NODE16_STEPS))
+    log("node16", f"HEALPix-{SLICE_SUBDIV} AR{TRAIN_AR} batch {BATCH} bf16 "
+                  f"on 1 x 2: {ms16:.2f} ms per step (host clock, the "
+                  f"slower rank, best step after the first; 2 ranks sharing "
+                  f"one H100 over gloo: not a scaling number; {card_line})")
+    grad_ref = single_grads(device, SLICE_SUBDIV, TRAIN_CHECK_BATCH)
+    _check_grad_ranks("node16", [r[1] for r in ranks], grad_ref,
+                      "1 data x 2 node ranks")
+    node64 = [r[2] for r in ranks]
+    k2["node64"] = _check_rank_runs("node64", node64, train64_ref,
+                                    sum(PRODUCTS_PER_LEVEL), HP64_AR + 1)
+    for r in node64:
+        p = r["products"]
+        for line in p["lines"]:
+            log("node64", f"K2 {line}")
+        log("node64", f"rank {r['mesh']}: {p['n_products']} (level, width) "
+                      f"products of a sharded step, forward and backward: "
+                      f"worst vs plain version {p['worst']['plain']:.3e}, "
+                      f"vs scipy's rows {p['worst']['scipy']:.3e} (bar "
+                      f"{BARS['bf16']:g}); they cover all {p['n_shapes']} "
+                      f"launch shapes")
+    ms64 = 1e3 * max(r["seconds"][-1] for r in node64)
+    log("node64", f"HEALPix-{BIG_SUBDIV} AR{HP64_AR} batch {HP64_BATCH} bf16 "
+                  f"on 1 x 2: {ms64:.2f} ms for the last step (host clock, "
+                  f"the slower rank; 2 ranks sharing one H100 over gloo: not "
+                  f"a scaling number); peak device memory per rank "
+                  f"{[round(r['peak_gib'], 2) for r in node64]} GiB "
+                  f"({card_line})")
+    return {"launches": k2, "ms16": ms16, "ms64": ms64,
+            "peak64_gib": max(r["peak_gib"] for r in node64),
+            "grad_ref": grad_ref}
+
+
+def phase_mesh(device, card_line, train_ref, grad_ref):
+    """mesh16: the HEALPix-16 step on 2 data x 2 node ranks, and the fp32
+    gradient check of node16 on the same mesh."""
+    ranks = run_ranks(4, [
+        (rank_train, {"device": str(device), "subdiv": SLICE_SUBDIV,
+                      "n_data": 2, "n_node": 2, "ar_iters": TRAIN_AR,
+                      "batch": BATCH, "n_steps": MESH16_STEPS,
+                      "param_seed": SEED + 9}),
+        (rank_grads, {"device": str(device), "subdiv": SLICE_SUBDIV,
+                      "n_data": 2, "n_node": 2, "batch": TRAIN_CHECK_BATCH})])
+    launches = _check_rank_runs("mesh16", [r[0] for r in ranks], train_ref,
+                                LAUNCHES_PER_FORWARD, TRAIN_AR + 1)
+    _check_grad_ranks("mesh16", [r[1] for r in ranks], grad_ref,
+                      "2 data x 2 node ranks")
+    log("mesh16", f"HEALPix-{SLICE_SUBDIV} AR{TRAIN_AR} batch {BATCH} on 2 "
+                  f"data x 2 node ranks: both groups reduce; 4 ranks sharing "
+                  f"one H100 over gloo ({card_line})")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Kernel rows
 # ---------------------------------------------------------------------------
 
@@ -935,7 +1460,8 @@ def kernel_row(name, op, device, subdiv, batch, launches):
                      f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
                      f"cuSPARSE {r['library_ms']:.4f} ms), vs plain version "
                      f"{r['rel_err_plain']:.3e} (bar {BARS['bf16']:g}), "
-                     f"blocks {r['blocks_nonzero']}")
+                     f"blocks {r['blocks_nonzero']}, x blocks read "
+                     f"{r['x_blocks']}")
         for k in acc:
             acc[k] += r[k] / len(widths)
         err = max(err, r["max_abs_err"])
@@ -943,6 +1469,67 @@ def kernel_row(name, op, device, subdiv, batch, launches):
     bwd = sum(b for _, b in launches.values())
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": fwd + bwd,
+            "launches_forward": fwd, "launches_backward": bwd,
+            "launches_by_path": {p: list(v) for p, v in launches.items()},
+            "max_abs_err": err, "ms": acc["ms"],
+            "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
+            "bound_by": ("bytes" if acc["bytes_ms"] >= acc["ops_ms"]
+                         else "operations"),
+            "library_ms": acc["library_ms"]}
+
+
+def kernel_row_rows(device, subdiv, batch, launches):
+    """K2 at the 10 level-0 shapes of one node16 forward (bf16, batch 16),
+    on rank 0's shard (rows [0, n/2)) against the full x: per-launch
+    averages; cuSPARSE on the CSR row slice against the full x."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepsphere_weather_torch.ops import BlockSparseOperator, bcsr
+
+    L = _laplacian(subdiv)
+    n = L.shape[0]
+    v0, v1 = 0, n // 2
+    op = BlockSparseOperator.from_scipy(L, dtype=torch.bfloat16,
+                                        device=device)
+    _, a, idx, r0, full_rows = op.row_shard(v0, v1, group=None).fwd
+    csr = _csr(L[v0:v1], device, torch.bfloat16)
+    nnz, slots, x_blocks = _block_counts(KERNEL, a, idx)
+    rng = np.random.default_rng(SEED + 14)
+    acc = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bytes_ms", "ops_ms"), 0.0)
+    widths = [batch * f for f in WIDTH_FEATURES]
+    err = 0.0
+    for w in widths:
+        x = torch.from_numpy(rng.standard_normal((n, w)).astype(
+            np.float32)).to(device, torch.bfloat16)
+        x_pad = F.pad(x, (0, (-w) % 128, 0, full_rows - n))
+        args = (a, idx, x_pad, 0, a.shape[0])
+        y = bcsr.bcsr_super_spmm_rows(*args)
+        e = float((y.float() - bcsr.bcsr_super_spmm_rows_reference(*args)
+                   .float()).abs().max())
+        if e:
+            raise AssertionError(f"K2 width {w}: vs plain version {e:.3e}")
+        err = max(err, e)
+        t_bytes, t_ops = _bound(a, x, nnz, x_blocks, out_rows=v1 - v0)
+        r = {"ms": time_ms(lambda: bcsr.bcsr_super_spmm_rows(*args)),
+             "plain_ms": time_ms(
+                 lambda: bcsr.bcsr_super_spmm_rows_reference(*args), n_iter=5),
+             "library_ms": time_ms(lambda: torch.sparse.mm(csr, x)),
+             "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
+             "ops_ms": t_ops}
+        log("times", f"{ROW_KERNEL} HEALPix-{subdiv} bf16 rows [{v0}, {v1}) "
+                     f"of x[{n}, {w}]: {r['ms']:.4f} ms (bound "
+                     f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                     f"cuSPARSE {r['library_ms']:.4f} ms), vs plain version "
+                     f"{e:.3e}, blocks {nnz}/{slots}, x blocks read "
+                     f"{x_blocks}/{full_rows // 128}")
+        for k in acc:
+            acc[k] += r[k] / len(widths)
+    fwd = sum(f for f, _ in launches.values())
+    bwd = sum(b for _, b in launches.values())
+    return {"name": ROW_KERNEL, "route": "cuda", "source": SOURCES[ROW_KERNEL],
+            "replaces": REPLACES[ROW_KERNEL], "launches": fwd + bwd,
             "launches_forward": fwd, "launches_backward": bwd,
             "launches_by_path": {p: list(v) for p, v in launches.items()},
             "max_abs_err": err, "ms": acc["ms"],
@@ -1024,10 +1611,14 @@ def main() -> int:
     k3_err = phase_parity_regimes(device, SLICE_SUBDIV, BATCH)
     phase_parity_backward(device, SLICE_SUBDIV, MATVEC_WIDTH)
     phase_parity_backward(device, BIG_SUBDIV, MATVEC_WIDTH)
+    phase_parity_rows(device, (SLICE_SUBDIV, BIG_SUBDIV), MATVEC_WIDTH)
     fig = phase_slice(device, SLICE_SUBDIV, BATCH, N_STEPS)
     phase_train_check(device, SLICE_SUBDIV, TRAIN_CHECK_BATCH)
     tr = phase_train(device, SLICE_SUBDIV, card_line)
     tr64 = phase_train64(device, BIG_SUBDIV, card_line)
+    node = phase_node(device, card_line, tr["per_iter"], tr64["per_iter"])
+    node["launches"]["mesh16"] = phase_mesh(device, card_line,
+                                            tr["per_iter"], node["grad_ref"])
 
     from deepsphere_weather_torch.ops import BlockSparseOperator
 
@@ -1042,6 +1633,7 @@ def main() -> int:
                        "train64": tr64["launches"]}),
         kernel_row(PLAIN_KERNEL, op3, device, SLICE_SUBDIV, BATCH,
                    {"train16_plain": tr["launches"][PLAIN_KERNEL]}),
+        kernel_row_rows(device, SLICE_SUBDIV, BATCH, node["launches"]),
     ]
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], k3_err)
     log("times", f"slice: {fig['step_ms']:.2f} ms per forecast step (batch "
@@ -1053,7 +1645,12 @@ def main() -> int:
                  f"{BATCH}: K1 {tr['ms']['train16']:.2f} ms, K3 "
                  f"{tr['ms']['train16_plain']:.2f} ms; HEALPix-{BIG_SUBDIV} "
                  f"batch {HP64_BATCH}: {tr64['ms']:.2f} ms, "
-                 f"{tr64['peak_gib']:.2f} GiB peak ({card_line})")
+                 f"{tr64['peak_gib']:.2f} GiB peak; {ROW_KERNEL} "
+                 f"{rows[2]['ms']:.4f} ms per launch; on 2 ranks sharing the "
+                 f"card (not a scaling number): HEALPix-{SLICE_SUBDIV} "
+                 f"{node['ms16']:.2f} ms, HEALPix-{BIG_SUBDIV} "
+                 f"{node['ms64']:.2f} ms per step, {node['peak64_gib']:.2f} "
+                 f"GiB peak per rank ({card_line})")
     if args.profile:
         phase_profile(tr["model"], device, BATCH, tr["steps"])
     log("times", f"total {time.perf_counter() - t_start:.1f} s")

@@ -12,4 +12,5 @@ from .step import (  # noqa: F401
     make_rollout_block,
     make_train_step,
     make_validation_fn,
+    reduce_gradients,
 )

@@ -16,7 +16,11 @@ eps=1e-7)`: both add eps outside the square root).
   backward (`torch.utils.checkpoint`).
 - `make_train_step`, `make_validation_fn` and their device-cache variants
   `make_cached_train_step`, `make_cached_validation_fn`, which gather the
-  window batch from a device-resident dataset.
+  window batch from a device-resident dataset. With a `mesh`
+  (`parallel.make_mesh`), the train and validation steps run one rank of a
+  node- and data-parallel step: GSPMD's collectives in the JAX package
+  (`step.py:211-257`, `:315-330`) are written out here
+  (`reduce_gradients`, the reported losses).
 - `make_rollout_block`: the rolling-history block rollout for prediction.
 
 Not ported yet: the BatchNorm variants (`with_norm_state`,
@@ -33,11 +37,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..data.ar import ARIndexer
+from ..parallel.collectives import all_reduce_
+from ..parallel.mesh import ProcessMesh, node_range
 from .loss import weighted_mse
 
 __all__ = ["assemble_input", "keep_first_feedback", "make_ar_loss_fn",
            "make_train_step", "make_validation_fn", "make_cached_train_step",
-           "make_cached_validation_fn", "make_rollout_block"]
+           "make_cached_validation_fn", "make_rollout_block",
+           "reduce_gradients"]
 
 
 def keep_first_feedback(indexer: ARIndexer) -> bool:
@@ -66,14 +73,18 @@ def assemble_input(dyn_buf: torch.Tensor, bc: Optional[torch.Tensor],
 
 def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
                     ar_training_strategy: str = "RNN",
-                    remat: bool = False) -> Callable:
+                    remat: bool = False,
+                    mesh: Optional[ProcessMesh] = None) -> Callable:
     """Build loss(batch, ar_weights, area_w=None) -> (total, per_iter).
 
     batch: {'dynamic': [B, W, V, Fd], 'bc': [B, W, V, Fb] (optional),
     'static': [V, Fs] (optional)} on the model's device; ar_weights: at
     least n_scan_iterations weights (normalized over the first
     n_scan_iterations); area_w: [V] loss weights or None (unit weights).
-    per_iter is [n_scan_iterations]."""
+    per_iter is [n_scan_iterations]. On a `mesh` with a node axis, V is
+    this rank's node shard of the batch, area_w is still the whole [V_all]
+    vector (this function takes the rank's range and normalises by the
+    whole sum), and the losses are the rank's shares (`weighted_mse`)."""
     if ar_training_strategy not in ("RNN", "AR"):
         raise ValueError("ar_training_strategy must be 'RNN' or 'AR'")
     in_pos = np.asarray(indexer.input_pos)
@@ -88,11 +99,13 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
         dev = dyn.device
         pins = torch.as_tensor(in_pos, dtype=torch.long, device=dev)
         pouts = torch.as_tensor(out_pos, dtype=torch.long, device=dev)
+        weights, w_sum = _node_weights(area_w, dyn.shape[2], mesh)
 
         def step(dyn_buf, written, i):
             x = assemble_input(dyn_buf, bc, static, pins[i])
             y_pred = model(x)
-            loss = weighted_mse(y_pred, dyn.index_select(1, pouts[i]), area_w)
+            loss = weighted_mse(y_pred, dyn.index_select(1, pouts[i]),
+                                weights, w_sum=w_sum)
             y_write = y_pred.detach() if detach else y_pred
             if keep_first:
                 # a slot predicted by an earlier iteration keeps that
@@ -122,39 +135,100 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
     return loss_fn
 
 
-def _optimizer_step(optimizer, loss_fn, batch, ar_weights, area_w):
+def _node_weights(area_w, n_local: int, mesh: Optional[ProcessMesh]):
+    """(this rank's loss weights, the normaliser of its loss share): on a
+    node mesh, the rank's range of the whole area_w and its whole sum (for
+    unit weights, None and the node count); else (area_w, None)."""
+    if mesh is None or mesh.n_node == 1:
+        return area_w, None
+    if area_w is None:
+        return None, n_local * mesh.n_node
+    v0, v1 = node_range(area_w.shape[0], mesh)
+    if v1 - v0 != n_local:
+        raise ValueError(f"area_w has {area_w.shape[0]} nodes, but the "
+                         f"batch shard {n_local} of {n_local * mesh.n_node}")
+    return area_w[v0:v1], area_w.sum()
+
+
+def _reduce(flat: torch.Tensor, mesh: Optional[ProcessMesh]) -> torch.Tensor:
+    """In place: the sum over the node group (each rank holds a share),
+    then the mean over the data group (each rank a batch shard)."""
+    if mesh is not None and mesh.n_node > 1:
+        all_reduce_(flat, mesh.node_group, "sum")
+    if mesh is not None and mesh.n_data > 1:
+        all_reduce_(flat, mesh.data_group, "mean")
+    return flat
+
+
+def reduce_gradients(model, mesh: Optional[ProcessMesh]) -> None:
+    """Every parameter gradient of `model`, in place: summed over the node
+    group (each rank differentiated its loss share) and averaged over the
+    data group (the JAX data-parallel mean), in one flat buffer per
+    group. Every rank then holds the gradient of the global loss."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if mesh is None or not grads:
+        return
+    flat = _reduce(torch.cat([g.reshape(-1) for g in grads]), mesh)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
+def _global_losses(total, per_iter, mesh):
+    """The global (total, per_iter), detached: the ranks' shares reduced
+    as the gradients are."""
+    total, per_iter = total.detach(), per_iter.detach()
+    if mesh is None:
+        return total, per_iter
+    flat = _reduce(torch.cat([total.reshape(1), per_iter]), mesh)
+    return flat[0], flat[1:]
+
+
+def _optimizer_step(model, optimizer, loss_fn, batch, ar_weights, area_w,
+                    mesh=None):
     optimizer.zero_grad(set_to_none=True)
     total, per_iter = loss_fn(batch, ar_weights, area_w)
     total.backward()
+    reduce_gradients(model, mesh)
     optimizer.step()
-    return total.detach(), per_iter.detach()
+    return _global_losses(total, per_iter, mesh)
 
 
 def make_train_step(model, indexer: ARIndexer, optimizer,
                     n_scan_iterations: int,
                     ar_training_strategy: str = "RNN",
-                    remat: bool = False) -> Callable:
+                    remat: bool = False,
+                    mesh: Optional[ProcessMesh] = None) -> Callable:
     """Train step: (batch, ar_weights, area_w=None) -> (total, per_iter),
     detached, after one update of `optimizer` (over `model`'s
-    parameters). Nothing synchronizes with the host."""
+    parameters). Nothing synchronizes with the host.
+
+    With a `mesh`, one rank's step: `batch` is its shard
+    (`parallel.shard_batch`), `area_w` the whole [V] weights (the step
+    takes the rank's node range), the model's geometry is sharded
+    (`models.shard_geometry`), the
+    gradients are reduced before the update (`reduce_gradients`) and the
+    returned losses are the global ones. Every rank runs the same update,
+    so parameters that start equal (`weights.broadcast_params`) stay so."""
     loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations,
-                              ar_training_strategy, remat=remat)
+                              ar_training_strategy, remat=remat, mesh=mesh)
 
     def train_step(batch: Dict, ar_weights, area_w=None):
-        return _optimizer_step(optimizer, loss_fn, batch, ar_weights,
-                               area_w)
+        return _optimizer_step(model, optimizer, loss_fn, batch, ar_weights,
+                               area_w, mesh)
 
     return train_step
 
 
-def make_validation_fn(model, indexer: ARIndexer,
-                       n_scan_iterations: int) -> Callable:
-    """(batch, ar_weights, area_w=None) -> (total, per_iter), no gradient."""
-    loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations, "RNN")
+def make_validation_fn(model, indexer: ARIndexer, n_scan_iterations: int,
+                       mesh: Optional[ProcessMesh] = None) -> Callable:
+    """(batch, ar_weights, area_w=None) -> (total, per_iter), no gradient;
+    with a `mesh` as `make_train_step`'s."""
+    loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations, "RNN",
+                              mesh=mesh)
 
     @torch.no_grad()
     def validate(batch: Dict, ar_weights, area_w=None):
-        return loss_fn(batch, ar_weights, area_w)
+        return _global_losses(*loss_fn(batch, ar_weights, area_w), mesh)
 
     return validate
 
@@ -184,7 +258,7 @@ def make_cached_train_step(model, indexer: ARIndexer, optimizer,
                               ar_training_strategy, remat=remat)
 
     def train_step(data: Dict, widx, ar_weights, area_w=None):
-        return _optimizer_step(optimizer, loss_fn,
+        return _optimizer_step(model, optimizer, loss_fn,
                                _gather_window_batch(data, widx), ar_weights,
                                area_w)
 

@@ -2,18 +2,25 @@
 //
 // Replaces two TPU kernels of deepsphere_weather_tpu/ops/pallas_spmm.py
 // that compute the same function over the same layout:
-//   - `_spmm_kernel_dma`, the compiled kernel (fp32 accumulation; fp32 A
-//     against bf16 X is rounded to bf16 first): `round_a` = 1;
+//   - `_spmm_kernel_dma` (K3), the compiled kernel (fp32 accumulation;
+//     fp32 A against bf16 X is rounded to bf16 first): `round_a` = 1; under
+//     row sharding the JAX package runs it on a row slice of A against the
+//     full X, which is `bcsr_spmm_rows`;
 //   - `_spmm_kernel`, the interpreter kernel (both operands widened to
 //     fp32, so fp32 A stays fp32 against bf16 X): `round_a` = 0.
 // The two differ only for fp32 A against bf16 X.
 //
-//   out[r*128 + i, m] = sum_b sum_j vals[r, b, i, j] * x[cols[r, b]*128 + j, m]
+//   out[(r - rb_begin)*128 + i, m] =
+//       sum_b sum_j vals[r, b, i, j] * x[cols[r, b]*128 + j, m]
+//
+// for r in [rb_begin, rb_end); the full product is the range [0, n_rb),
+// and both entries launch the one kernel body, so a row of a range launch
+// equals the same row of a full launch bit for bit.
 //
 // vals [n_rb, max_nb, 128, 128] holds, per 128-row block r, its nonzero
 // 128x128 blocks; cols [n_rb, max_nb] names each slot's block-column
-// (padding slots repeat column 0 with zero values). x is [n_rb*128, M],
-// M a multiple of 64.
+// (padding slots repeat column 0 with zero values). x is the full
+// [n_rb*128, M] whatever the range, M a multiple of 64.
 //
 // Numerics: fp32 accumulation in registers with plain fp32 FMAs (no TF32:
 // the fp32 path matches the TPU's Precision.HIGHEST). bf16 operands are
@@ -68,14 +75,15 @@ bcsr_spmm_kernel(const TA* __restrict__ vals,
                  const int32_t* __restrict__ cols,
                  const TX* __restrict__ x,
                  TX* __restrict__ out,
-                 int max_nb, int64_t M) {
+                 int64_t rb_begin, int max_nb, int64_t M) {
   __shared__ __align__(16) float As[BK][BM + APAD];
   __shared__ __align__(16) float Bs[BK][BN];
 
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);          // 0..15: column group
   const int ty = tid / (BN / TN);          // 0..15: row group
-  const int64_t r = blockIdx.y;            // row block
+  const int64_t o = blockIdx.y;            // output row block
+  const int64_t r = rb_begin + o;          // row block of A
   const int64_t col0 = (int64_t)blockIdx.x * BN;
 
   // loader coordinates
@@ -122,21 +130,46 @@ bcsr_spmm_kernel(const TA* __restrict__ vals,
     }
   }
 
-  TX* o = out + (r * BM + ty * TM) * M + col0 + tx * TN;
+  TX* y = out + (o * BM + ty * TM) * M + col0 + tx * TN;
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) store_out(o + (int64_t)i * M + j, acc[i][j]);
+    for (int j = 0; j < TN; ++j) store_out(y + (int64_t)i * M + j, acc[i][j]);
 }
 
+// One launch over the row blocks [rb_begin, rb_end): a CTA per output row
+// block and 64-column tile.
 template <typename TA, typename TX, bool ROUND_A>
 int launch(const void* vals, const int32_t* cols, const void* x, void* out,
-           int64_t n_rb, int max_nb, int64_t M, cudaStream_t stream) {
-  dim3 grid((unsigned)(M / BN), (unsigned)n_rb);
+           int64_t rb_begin, int64_t rb_end, int max_nb, int64_t M,
+           cudaStream_t stream) {
+  dim3 grid((unsigned)(M / BN), (unsigned)(rb_end - rb_begin));
   bcsr_spmm_kernel<TA, TX, ROUND_A><<<grid, THREADS, 0, stream>>>(
       static_cast<const TA*>(vals), cols, static_cast<const TX*>(x),
-      static_cast<TX*>(out), max_nb, M);
+      static_cast<TX*>(out), rb_begin, max_nb, M);
   return (int)cudaGetLastError();
+}
+
+int launch_range(const void* vals, int a_bf16, const int32_t* cols,
+                 const void* x, int x_bf16, int round_a, void* out,
+                 int64_t rb_begin, int64_t rb_end, int max_nb, int64_t M,
+                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    if (a_bf16)
+      return launch<__nv_bfloat16, __nv_bfloat16, false>(
+          vals, cols, x, out, rb_begin, rb_end, max_nb, M, st);
+    if (round_a)
+      return launch<float, __nv_bfloat16, true>(vals, cols, x, out, rb_begin,
+                                                rb_end, max_nb, M, st);
+    return launch<float, __nv_bfloat16, false>(vals, cols, x, out, rb_begin,
+                                               rb_end, max_nb, M, st);
+  }
+  if (a_bf16)
+    return launch<__nv_bfloat16, float, false>(vals, cols, x, out, rb_begin,
+                                               rb_end, max_nb, M, st);
+  return launch<float, float, false>(vals, cols, x, out, rb_begin, rb_end,
+                                     max_nb, M, st);
 }
 
 }  // namespace
@@ -149,24 +182,22 @@ int bcsr_spmm_col_tile() { return BN; }
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // a_bf16 / x_bf16 select the operand types; the output is bf16 iff x_bf16.
 // round_a selects the regime of fp32 A against bf16 x (see above).
+// The product over every row block: out [n_rb*128, M].
 int bcsr_spmm(const void* vals, int a_bf16, const int32_t* cols,
               const void* x, int x_bf16, int round_a, void* out,
               int64_t n_rb, int max_nb, int64_t M, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    if (a_bf16)
-      return launch<__nv_bfloat16, __nv_bfloat16, false>(
-          vals, cols, x, out, n_rb, max_nb, M, st);
-    if (round_a)
-      return launch<float, __nv_bfloat16, true>(vals, cols, x, out, n_rb,
-                                                max_nb, M, st);
-    return launch<float, __nv_bfloat16, false>(vals, cols, x, out, n_rb,
-                                               max_nb, M, st);
-  }
-  if (a_bf16)
-    return launch<__nv_bfloat16, float, false>(vals, cols, x, out, n_rb,
-                                               max_nb, M, st);
-  return launch<float, float, false>(vals, cols, x, out, n_rb, max_nb, M, st);
+  return launch_range(vals, a_bf16, cols, x, x_bf16, round_a, out, 0, n_rb,
+                      max_nb, M, stream);
+}
+
+// The row blocks [rb_begin, rb_end) of the same layout against the full x:
+// out [(rb_end - rb_begin)*128, M]. The wrapper checks the range.
+int bcsr_spmm_rows(const void* vals, int a_bf16, const int32_t* cols,
+                   const void* x, int x_bf16, int round_a, void* out,
+                   int64_t rb_begin, int64_t rb_end, int max_nb, int64_t M,
+                   void* stream) {
+  return launch_range(vals, a_bf16, cols, x, x_bf16, round_a, out, rb_begin,
+                      rb_end, max_nb, M, stream);
 }
 
 const char* bcsr_spmm_error_string(int code) {

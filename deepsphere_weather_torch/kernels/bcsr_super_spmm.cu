@@ -1,17 +1,24 @@
 // Super-row block-sparse SpMM for Hopper (sm_90a): Y = A @ X.
 //
-// Replaces the TPU kernel `_spmm_kernel_super_sched`
-// (deepsphere_weather_tpu/ops/pallas_spmm.py), which computes the same
-// function over the same layout:
+// Replaces two TPU kernels of deepsphere_weather_tpu/ops/pallas_spmm.py
+// that compute the same function over the same layout:
+//   - `_spmm_kernel_super_sched` (K1), every super-row: `bcsr_super_spmm`;
+//   - `_spmm_kernel_super` (K2), the super-rows [s_begin, s_end) of a
+//     row-sharded operator against the full x: `bcsr_super_spmm_rows`.
 //
-//   out[s*R*128 + r*128 + i, m] =
+//   out[(s - s_begin)*R*128 + r*128 + i, m] =
 //       sum_u sum_j svals[s, r, i, u*128 + j] * x[ucols[s, u]*128 + j, m]
+//
+// for s in [s_begin, s_end); the full product is the range [0, n_s). Both
+// entries launch the one kernel body below, so a row of a range launch is
+// summed in the same order as in a full launch and equals it bit for bit.
 //
 // svals [n_s, R, 128, max_u*128] holds, per super-row s (R consecutive
 // 128-row blocks of the Laplacian), the row blocks concatenated over the
 // union of block-columns that any of its rows touches; ucols [n_s, max_u]
 // names each union slot's block-column (padding slots repeat a real column
-// with zero values). x is [n_cb*128, M], M a multiple of 64.
+// with zero values). x is [n_cb*128, M], M a multiple of 64: the full x,
+// whatever the range (ucols holds global block-columns).
 //
 // Numerics: fp32 accumulation in registers with plain fp32 FMAs (no TF32:
 // the fp32 path matches the TPU's Precision.HIGHEST). bf16 operands are
@@ -68,14 +75,15 @@ bcsr_super_spmm_kernel(const TA* __restrict__ svals,
                        const int32_t* __restrict__ ucols,
                        const TX* __restrict__ x,
                        TO* __restrict__ out,
-                       int R, int max_u, int64_t M) {
+                       int64_t s_begin, int R, int max_u, int64_t M) {
   __shared__ __align__(16) float As[BK][BM + APAD];
   __shared__ __align__(16) float Bs[BK][BN];
 
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);          // 0..15: column group
   const int ty = tid / (BN / TN);          // 0..15: row group
-  const int64_t g = blockIdx.y;            // row block = s*R + r
+  const int64_t o = blockIdx.y;            // output row block
+  const int64_t g = s_begin * R + o;       // row block of A = s*R + r
   const int64_t s = g / R;
   const int64_t col0 = (int64_t)blockIdx.x * BN;
   const int64_t K = (int64_t)max_u * BS;   // row length of svals
@@ -127,21 +135,42 @@ bcsr_super_spmm_kernel(const TA* __restrict__ svals,
     }
   }
 
-  TO* o = out + (g * BM + ty * TM) * M + col0 + tx * TN;
+  TO* y = out + (o * BM + ty * TM) * M + col0 + tx * TN;
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) store_out(o + (int64_t)i * M + j, acc[i][j]);
+    for (int j = 0; j < TN; ++j) store_out(y + (int64_t)i * M + j, acc[i][j]);
 }
 
+// One launch over the super-rows [s_begin, s_end): a CTA per output row
+// block and 64-column tile.
 template <typename TA, typename TX, typename TO, bool X_BF16>
 int launch(const void* svals, const int32_t* ucols, const void* x, void* out,
-           int64_t n_s, int R, int max_u, int64_t M, cudaStream_t stream) {
-  dim3 grid((unsigned)(M / BN), (unsigned)(n_s * R));
+           int64_t s_begin, int64_t s_end, int R, int max_u, int64_t M,
+           cudaStream_t stream) {
+  dim3 grid((unsigned)(M / BN), (unsigned)((s_end - s_begin) * R));
   bcsr_super_spmm_kernel<TA, TX, TO, X_BF16><<<grid, THREADS, 0, stream>>>(
       static_cast<const TA*>(svals), ucols, static_cast<const TX*>(x),
-      static_cast<TO*>(out), R, max_u, M);
+      static_cast<TO*>(out), s_begin, R, max_u, M);
   return (int)cudaGetLastError();
+}
+
+int launch_range(const void* svals, int a_bf16, const int32_t* ucols,
+                 const void* x, int x_bf16, void* out, int64_t s_begin,
+                 int64_t s_end, int R, int max_u, int64_t M, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_bf16) {
+    if (a_bf16)
+      return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, true>(
+          svals, ucols, x, out, s_begin, s_end, R, max_u, M, st);
+    return launch<float, __nv_bfloat16, __nv_bfloat16, true>(
+        svals, ucols, x, out, s_begin, s_end, R, max_u, M, st);
+  }
+  if (a_bf16)
+    return launch<__nv_bfloat16, float, float, false>(
+        svals, ucols, x, out, s_begin, s_end, R, max_u, M, st);
+  return launch<float, float, float, false>(svals, ucols, x, out, s_begin,
+                                            s_end, R, max_u, M, st);
 }
 
 }  // namespace
@@ -153,22 +182,22 @@ int bcsr_super_spmm_col_tile() { return BN; }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // a_bf16 / x_bf16 select the operand types; the output is bf16 iff x_bf16.
+// The product over every super-row: out [n_s*R*128, M].
 int bcsr_super_spmm(const void* svals, int a_bf16, const int32_t* ucols,
                     const void* x, int x_bf16, void* out, int64_t n_s, int R,
                     int max_u, int64_t M, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    if (a_bf16)
-      return launch<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16, true>(
-          svals, ucols, x, out, n_s, R, max_u, M, st);
-    return launch<float, __nv_bfloat16, __nv_bfloat16, true>(
-        svals, ucols, x, out, n_s, R, max_u, M, st);
-  }
-  if (a_bf16)
-    return launch<__nv_bfloat16, float, float, false>(
-        svals, ucols, x, out, n_s, R, max_u, M, st);
-  return launch<float, float, float, false>(svals, ucols, x, out, n_s, R,
-                                            max_u, M, st);
+  return launch_range(svals, a_bf16, ucols, x, x_bf16, out, 0, n_s, R, max_u,
+                      M, stream);
+}
+
+// The super-rows [s_begin, s_end) of the same layout against the full x:
+// out [(s_end - s_begin)*R*128, M]. The wrapper checks the range.
+int bcsr_super_spmm_rows(const void* svals, int a_bf16, const int32_t* ucols,
+                         const void* x, int x_bf16, void* out,
+                         int64_t s_begin, int64_t s_end, int R, int max_u,
+                         int64_t M, void* stream) {
+  return launch_range(svals, a_bf16, ucols, x, x_bf16, out, s_begin, s_end, R,
+                      max_u, M, stream);
 }
 
 const char* bcsr_super_spmm_error_string(int code) {

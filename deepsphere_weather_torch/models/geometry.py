@@ -5,12 +5,14 @@ with hierarchical pooling. Levels of at most `dense_threshold` nodes keep a
 dense Laplacian; larger levels use the block-sparse operator (the CUDA
 kernel on the card), stored in `operator_dtype`. The default threshold is
 the JAX package's: 2048 for a bf16 operator, 8192 otherwise.
+`shard_geometry` gives one node rank's part of a geometry (node-parallel
+training).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +22,7 @@ from .._device import resolve_device
 from ..ops.bcsr import BlockSparseOperator
 from ..ops.cheb import ChebOperator
 from ..ops.pool import build_pool_unpool
+from ..parallel.mesh import ProcessMesh, node_range
 from ..sphere import (
     Sampling,
     build_graph,
@@ -31,21 +34,26 @@ from ..sphere import (
 )
 from ..sphere.cache import cached_arrays
 
-__all__ = ["ModelGeometry", "build_model_geometry"]
+__all__ = ["ModelGeometry", "build_model_geometry", "shard_geometry"]
 
 
 @dataclasses.dataclass
 class ModelGeometry:
-    """Static geometry consumed by an architecture."""
+    """Static geometry consumed by an architecture. A node rank's shard
+    (`shard_geometry`) holds each level's node range in `node_ranges` and
+    row-sharded operators; its `n_nodes` are the local counts."""
 
     samplings: List[Sampling]
     cheb_ops: List[ChebOperator]
     pools: List                               # len depth-1
     unpools: List
     conv_type: str
+    node_ranges: Optional[List[Tuple[int, int]]] = None
 
     @property
     def n_nodes(self) -> List[int]:
+        if self.node_ranges is not None:
+            return [v1 - v0 for v0, v1 in self.node_ranges]
         return [s.n_nodes for s in self.samplings]
 
 
@@ -120,3 +128,28 @@ def build_model_geometry(
         unpools.append(u)
     return ModelGeometry(samplings=samplings, cheb_ops=cheb_ops, pools=pools,
                          unpools=unpools, conv_type=conv_type)
+
+
+def shard_geometry(geometry: ModelGeometry,
+                   mesh: Optional[ProcessMesh]) -> ModelGeometry:
+    """This rank's part of `geometry` on a node mesh: at every level the
+    node range of its node shard and the operator's rows for it
+    (`ChebOperator.row_shard` over the mesh's node group). Nested HEALPix
+    ordering keeps pooling inside a shard, so the pools are unchanged.
+    Without a mesh or with one node shard, `geometry` itself.
+
+    Raises ValueError when a level's nodes do not divide over the node
+    ranks (JAX's `device_put` refuses such an uneven layout too). Since
+    each level has the next one's nodes times the pool ratio, that also
+    makes every shard's nodes divide by the ratio."""
+    if mesh is None or mesh.n_node == 1:
+        return geometry
+    for lvl, n_lvl in enumerate(geometry.n_nodes):
+        if n_lvl % mesh.n_node:
+            raise ValueError(f"level {lvl}: {n_lvl} nodes do not divide over "
+                             f"{mesh.n_node} node ranks")
+    ranges = [node_range(n_lvl, mesh) for n_lvl in geometry.n_nodes]
+    return dataclasses.replace(
+        geometry, node_ranges=ranges,
+        cheb_ops=[op.row_shard(v0, v1, mesh.node_group)
+                  for op, (v0, v1) in zip(geometry.cheb_ops, ranges)])

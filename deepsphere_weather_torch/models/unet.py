@@ -5,6 +5,9 @@ channel plan, stack/sum/avg/none skip connections, ReZero residual blocks,
 increment learning, and the same boundary casts (inputs to the compute
 dtype on entry, outputs to fp32 before the increment). Parameters stay
 fp32; `numeric_precision='bfloat16'` (or 'float16') computes in bf16.
+Node-parallel training builds the model whole and then sets
+`model.geometry = shard_geometry(model.geometry, mesh)`: the forward then
+takes and gives the rank's node shard.
 """
 
 from __future__ import annotations
@@ -116,12 +119,15 @@ class UNetSpherical(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g = self.geometry
         ops, pools, unpools = g.cheb_ops, g.pools, g.unpools
+        # the geometry's level-0 nodes: all of them, or a node shard's
+        # (`shard_geometry`)
+        n_node = g.n_nodes[0]
         B = x.shape[0]
         # last timestep's dynamic features, for increment learning
         x_last = x[:, -1:, :, -self.output_n_feature:]
         # [B, T, V, F] -> [B, V, T*F] (time-major flatten)
         h = x.permute(0, 2, 1, 3).reshape(
-            B, self.input_n_node, self.input_channels).to(self.compute_dtype)
+            B, n_node, self.input_channels).to(self.compute_dtype)
 
         x_enc1 = self.conv1(h, cheb_op=ops[0])
         x_enc2_ini, idx1 = pools[0](x_enc1)
@@ -136,7 +142,7 @@ class UNetSpherical(nn.Module):
         h = self.uconv1_final(h, cheb_op=ops[0])
 
         # [B, V, T*F] -> [B, T_out, V, F_out], fp32 at the model boundary
-        h = h.float().reshape(B, self.output_n_node, self.output_n_time,
+        h = h.float().reshape(B, n_node, self.output_n_time,
                               self.output_n_feature).permute(0, 2, 1, 3)
         if self.increment_learning:
             h = h * self.res_increment + x_last

@@ -2,12 +2,17 @@
 
 from .bcsr import (  # noqa: F401
     BlockSparseOperator,
+    ShardedBlockSparseOperator,
     bcsr_from_scipy,
     bcsr_spmm,
     bcsr_spmm_reference,
+    bcsr_spmm_rows,
+    bcsr_spmm_rows_reference,
     bcsr_super_from_scipy,
     bcsr_super_spmm,
     bcsr_super_spmm_reference,
+    bcsr_super_spmm_rows,
+    bcsr_super_spmm_rows_reference,
     launch_counts,
     reset_launch_counts,
 )

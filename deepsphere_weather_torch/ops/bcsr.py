@@ -14,10 +14,19 @@ Port of `deepsphere_weather_tpu/ops/pallas_spmm.py`:
   tensor it runs the plain PyTorch version `bcsr_super_spmm_reference`.
 - `bcsr_spmm`: the plain-BCSR product, the same way: the CUDA kernel
   `kernels/bcsr_spmm.cu` or `bcsr_spmm_reference`.
+- `bcsr_super_spmm_rows`, `bcsr_spmm_rows`: the same products over a
+  range of super-rows (row blocks) against the full x, the row-sharded
+  lowering of `_partitioned_spmm` (K2 for the super-row layout, K3's row
+  slice for the plain one); plain versions `*_rows_reference`.
 - `BlockSparseOperator`: the operator a Chebyshev convolution calls,
   with the JAX operator's padding and dtype rules in `matvec` and its
   custom VJP as a `torch.autograd.Function` (the backward computes
   A^T @ g with the same kernels).
+- `ShardedBlockSparseOperator` (`BlockSparseOperator.row_shard`): one
+  node rank's rows of the operator. Its product gathers x over the node
+  group and runs the row-range kernel; so does its backward, on the
+  transposed layout. This is what GSPMD derived from the JAX operator's
+  `custom_partitioning` rule (an all-gather of x, then the row slice).
 """
 
 from __future__ import annotations
@@ -32,17 +41,24 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from .._device import resolve_device
+from ..parallel.collectives import gather_rows
 
 __all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy",
            "bcsr_super_spmm", "bcsr_super_spmm_reference",
+           "bcsr_super_spmm_rows", "bcsr_super_spmm_rows_reference",
            "bcsr_spmm", "bcsr_spmm_reference",
-           "BlockSparseOperator", "launch_counts", "reset_launch_counts"]
+           "bcsr_spmm_rows", "bcsr_spmm_rows_reference",
+           "BlockSparseOperator", "ShardedBlockSparseOperator",
+           "launch_counts", "reset_launch_counts"]
 
 _BS = 128
 
-# Launches of each CUDA kernel of this module since the last reset: a run
-# reads them to show that its path went through the kernels.
-launch_counts: Dict[str, int] = {"bcsr_super_spmm": 0, "bcsr_spmm": 0}
+# Launches of each CUDA kernel entry of this module since the last reset:
+# a run reads them to show that its path went through the kernels. A
+# row-range launch counts under its own key.
+launch_counts: Dict[str, int] = {"bcsr_super_spmm": 0, "bcsr_spmm": 0,
+                                 "bcsr_super_spmm_rows": 0,
+                                 "bcsr_spmm_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -147,7 +163,7 @@ def _check_dtypes(a, idx, x):
                          "device")
 
 
-def _check_args(svals, ucols, x):
+def _check_super_layout(svals, ucols, x):
     if svals.dim() != 4 or ucols.dim() != 2 or x.dim() != 2:
         raise ValueError("expected svals [n_s, R, bs, max_u*bs], "
                          "ucols [n_s, max_u], x [rows, M]")
@@ -155,13 +171,10 @@ def _check_args(svals, ucols, x):
     if bs != _BS or ubs % bs or ucols.shape != (n_s, ubs // bs):
         raise ValueError(f"inconsistent super-row layout: svals "
                          f"{tuple(svals.shape)}, ucols {tuple(ucols.shape)}")
-    if x.shape[0] != n_s * R * bs:
-        raise ValueError(f"x must have n_s*R*bs = {n_s * R * bs} rows, "
-                         f"got {x.shape[0]}")
     _check_dtypes(svals, ucols, x)
 
 
-def _check_plain_args(vals, cols, x):
+def _check_plain_layout(vals, cols, x):
     if vals.dim() != 4 or cols.dim() != 2 or x.dim() != 2:
         raise ValueError("expected vals [n_rb, max_nb, bs, bs], "
                          "cols [n_rb, max_nb], x [rows, M]")
@@ -169,10 +182,36 @@ def _check_plain_args(vals, cols, x):
     if bs != _BS or bs2 != bs or cols.shape != (n_rb, max_nb):
         raise ValueError(f"inconsistent BCSR layout: vals "
                          f"{tuple(vals.shape)}, cols {tuple(cols.shape)}")
-    if x.shape[0] != n_rb * bs:
-        raise ValueError(f"x must have n_rb*bs = {n_rb * bs} rows, "
-                         f"got {x.shape[0]}")
     _check_dtypes(vals, cols, x)
+
+
+def _check_x_rows(x, rows):
+    if x.shape[0] != rows:
+        raise ValueError(f"x must have the layout's {rows} rows, got "
+                         f"{x.shape[0]}")
+
+
+def _check_args(svals, ucols, x):
+    _check_super_layout(svals, ucols, x)
+    _check_x_rows(x, svals.shape[0] * svals.shape[1] * _BS)
+
+
+def _check_plain_args(vals, cols, x):
+    _check_plain_layout(vals, cols, x)
+    _check_x_rows(x, vals.shape[0] * _BS)
+
+
+def _check_range(begin, end, n, x, what):
+    """A row-range launch: [begin, end) within the layout's n units, x
+    whole 128-row blocks (the full x: that every block-column of the
+    range addresses one of its blocks is checked once, when a shard is
+    built, not per call)."""
+    if not 0 <= begin < end <= n:
+        raise ValueError(f"{what} range [{begin}, {end}) is not a non-empty "
+                         f"range within the layout's {n}")
+    if x.shape[0] % _BS:
+        raise ValueError(f"x must be whole {_BS}-row blocks, got "
+                         f"{x.shape[0]} rows")
 
 
 def _check_launch(k, name, tensors, M):
@@ -198,6 +237,10 @@ def bcsr_super_spmm_reference(svals: torch.Tensor, ucols: torch.Tensor,
     xg[s] the x blocks of ucols[s] stacked. Output [n_s*R*bs, M], bf16 for
     bf16 x and fp32 otherwise."""
     _check_args(svals, ucols, x)
+    return _super_product(svals, ucols, x)
+
+
+def _super_product(svals, ucols, x):
     n_s, R, bs, ubs = svals.shape
     M = x.shape[1]
     a = svals.to(_x_regime(x)).float()
@@ -207,13 +250,30 @@ def bcsr_super_spmm_reference(svals: torch.Tensor, ucols: torch.Tensor,
     return out.reshape(n_s * R * bs, M).to(_x_regime(x))
 
 
-def _bind(name, argtypes):
+def bcsr_super_spmm_rows_reference(svals: torch.Tensor, ucols: torch.Tensor,
+                                   x: torch.Tensor, s_begin: int,
+                                   s_end: int) -> torch.Tensor:
+    """Plain PyTorch version of the row-range kernel: the tables sliced
+    to the super-rows [s_begin, s_end), gathering from the full x.
+    Output [(s_end - s_begin)*R*bs, M], row i the row s_begin*R*bs + i of
+    the full product."""
+    _check_super_layout(svals, ucols, x)
+    _check_range(s_begin, s_end, svals.shape[0], x, "super-row")
+    return _super_product(svals[s_begin:s_end], ucols[s_begin:s_end], x)
+
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+def _bind(name, entries):
+    """Load kernels/<name>.cu and type its entries ({entry: argtypes})."""
     from ..kernels.build import load_kernel
 
     k = load_kernel(name)
-    fn = getattr(k.lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for entry, argtypes in entries.items():
+        fn = getattr(k.lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     getattr(k.lib, f"{name}_col_tile").restype = ctypes.c_int
     err = getattr(k.lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
@@ -223,18 +283,35 @@ def _bind(name, argtypes):
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    return _bind("bcsr_super_spmm", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
+    head = [_P, _I, _P, _P, _I, _P]          # svals, a_bf16, ucols, x, x_bf16, out
+    return _bind("bcsr_super_spmm", {
+        "bcsr_super_spmm": head + [_I64, _I, _I, _I64, _P],
+        "bcsr_super_spmm_rows": head + [_I64, _I64, _I, _I, _I64, _P]})
 
 
 @functools.lru_cache(maxsize=None)
 def _plain_kernel():
-    return _bind("bcsr_spmm", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
+    head = [_P, _I, _P, _P, _I, _I, _P]      # vals, a_bf16, cols, x, x_bf16, round_a, out
+    return _bind("bcsr_spmm", {
+        "bcsr_spmm": head + [_I64, _I, _I64, _P],
+        "bcsr_spmm_rows": head + [_I64, _I64, _I, _I64, _P]})
+
+
+def _launch(k, lib_name, entry, a, idx, x, out, flags, sizes):
+    """Launch `entry` of library `lib_name` on x's device and current
+    stream: (A, a_bf16, idx, x, x_bf16, *flags, out, *sizes, stream).
+    Raise if the launch failed, else count it."""
+    _check_launch(k, lib_name, (a, idx, x), x.shape[1])
+    # the C entry point launches on the current device: make it x's
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(k.lib, entry)(
+            a.data_ptr(), int(a.dtype == torch.bfloat16), idx.data_ptr(),
+            x.data_ptr(), int(x.dtype == torch.bfloat16), *flags,
+            out.data_ptr(), *sizes, stream)
+    _raise_on(k, lib_name, err)
+    launch_counts[entry] += 1
+    return out
 
 
 def bcsr_super_spmm(svals: torch.Tensor, ucols: torch.Tensor,
@@ -246,21 +323,32 @@ def bcsr_super_spmm(svals: torch.Tensor, ucols: torch.Tensor,
     _check_args(svals, ucols, x)
     if not x.is_cuda:
         return bcsr_super_spmm_reference(svals, ucols, x)
-    k = _kernel()
-    M = x.shape[1]
-    _check_launch(k, "bcsr_super_spmm", (svals, ucols, x), M)
     n_s, R, bs, ubs = svals.shape
-    out = torch.empty((n_s * R * bs, M), dtype=_x_regime(x), device=x.device)
-    # the C entry point launches on the current device: make it x's
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = k.lib.bcsr_super_spmm(
-            svals.data_ptr(), int(svals.dtype == torch.bfloat16),
-            ucols.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
-            out.data_ptr(), n_s, R, ubs // bs, M, stream)
-    _raise_on(k, "bcsr_super_spmm", err)
-    launch_counts["bcsr_super_spmm"] += 1
-    return out
+    out = torch.empty((n_s * R * bs, x.shape[1]), dtype=_x_regime(x),
+                      device=x.device)
+    return _launch(_kernel(), "bcsr_super_spmm", "bcsr_super_spmm", svals,
+                   ucols, x, out, (), (n_s, R, ubs // bs, x.shape[1]))
+
+
+def bcsr_super_spmm_rows(svals: torch.Tensor, ucols: torch.Tensor,
+                         x: torch.Tensor, s_begin: int,
+                         s_end: int) -> torch.Tensor:
+    """The super-rows [s_begin, s_end) of A @ x against the full x
+    [n_cb*128, M]: [(s_end - s_begin)*R*128, M] (K2).
+
+    CUDA tensors run the hand-written kernel's row-range entry (counted
+    as `bcsr_super_spmm_rows`; a failed build or launch raises); CPU
+    tensors run `bcsr_super_spmm_rows_reference`."""
+    _check_super_layout(svals, ucols, x)
+    _check_range(s_begin, s_end, svals.shape[0], x, "super-row")
+    if not x.is_cuda:
+        return bcsr_super_spmm_rows_reference(svals, ucols, x, s_begin, s_end)
+    n_s, R, bs, ubs = svals.shape
+    out = torch.empty(((s_end - s_begin) * R * bs, x.shape[1]),
+                      dtype=_x_regime(x), device=x.device)
+    return _launch(_kernel(), "bcsr_super_spmm", "bcsr_super_spmm_rows",
+                   svals, ucols, x, out, (),
+                   (s_begin, s_end, R, ubs // bs, x.shape[1]))
 
 
 def bcsr_spmm_reference(vals: torch.Tensor, cols: torch.Tensor,
@@ -274,12 +362,29 @@ def bcsr_spmm_reference(vals: torch.Tensor, cols: torch.Tensor,
     compiled TPU kernel's regime), False keeps it fp32 (the interpreter
     kernel's, which widens both operands)."""
     _check_plain_args(vals, cols, x)
+    return _plain_product(vals, cols, x, round_a)
+
+
+def _plain_product(vals, cols, x, round_a):
     n_rb, max_nb, bs, _ = vals.shape
     M = x.shape[1]
     a = (vals.to(_x_regime(x)) if round_a else vals).float()
     xg = x.float().reshape(-1, bs, M)[cols.long()]   # [n_rb, max_nb, bs, M]
     out = torch.einsum("rbij,rbjm->rim", a, xg)
     return out.reshape(n_rb * bs, M).to(_x_regime(x))
+
+
+def bcsr_spmm_rows_reference(vals: torch.Tensor, cols: torch.Tensor,
+                             x: torch.Tensor, rb_begin: int, rb_end: int,
+                             round_a: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the plain-BCSR row-range kernel: the
+    tables sliced to the row blocks [rb_begin, rb_end), gathering from the
+    full x. Output [(rb_end - rb_begin)*bs, M]; `round_a` as in
+    `bcsr_spmm_reference`."""
+    _check_plain_layout(vals, cols, x)
+    _check_range(rb_begin, rb_end, vals.shape[0], x, "row-block")
+    return _plain_product(vals[rb_begin:rb_end], cols[rb_begin:rb_end], x,
+                          round_a)
 
 
 def bcsr_spmm(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
@@ -291,20 +396,34 @@ def bcsr_spmm(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
     _check_plain_args(vals, cols, x)
     if not x.is_cuda:
         return bcsr_spmm_reference(vals, cols, x, round_a)
-    k = _plain_kernel()
-    M = x.shape[1]
-    _check_launch(k, "bcsr_spmm", (vals, cols, x), M)
     n_rb, max_nb, bs, _ = vals.shape
-    out = torch.empty((n_rb * bs, M), dtype=_x_regime(x), device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = k.lib.bcsr_spmm(
-            vals.data_ptr(), int(vals.dtype == torch.bfloat16),
-            cols.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16),
-            int(bool(round_a)), out.data_ptr(), n_rb, max_nb, M, stream)
-    _raise_on(k, "bcsr_spmm", err)
-    launch_counts["bcsr_spmm"] += 1
-    return out
+    out = torch.empty((n_rb * bs, x.shape[1]), dtype=_x_regime(x),
+                      device=x.device)
+    return _launch(_plain_kernel(), "bcsr_spmm", "bcsr_spmm", vals, cols, x,
+                   out, (int(bool(round_a)),), (n_rb, max_nb, x.shape[1]))
+
+
+def bcsr_spmm_rows(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                   rb_begin: int, rb_end: int,
+                   round_a: bool = True) -> torch.Tensor:
+    """The row blocks [rb_begin, rb_end) of A @ x for A in plain padded
+    BCSR, against the full x [n_cb*128, M]: [(rb_end - rb_begin)*128, M]
+    (K3's row-sharded form).
+
+    CUDA tensors run the hand-written kernel's row-range entry (counted
+    as `bcsr_spmm_rows`; a failed build or launch raises); CPU tensors run
+    `bcsr_spmm_rows_reference`. `round_a` as in `bcsr_spmm`."""
+    _check_plain_layout(vals, cols, x)
+    _check_range(rb_begin, rb_end, vals.shape[0], x, "row-block")
+    if not x.is_cuda:
+        return bcsr_spmm_rows_reference(vals, cols, x, rb_begin, rb_end,
+                                        round_a)
+    n_rb, max_nb, bs, _ = vals.shape
+    out = torch.empty(((rb_end - rb_begin) * bs, x.shape[1]),
+                      dtype=_x_regime(x), device=x.device)
+    return _launch(_plain_kernel(), "bcsr_spmm", "bcsr_spmm_rows", vals, cols,
+                   x, out, (int(bool(round_a)),),
+                   (rb_begin, rb_end, max_nb, x.shape[1]))
 
 
 def _fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -441,3 +560,106 @@ class BlockSparseOperator:
             x = x.float()
         x_pad = F.pad(x, (0, m_pad - m, 0, self.rows - n)).contiguous()
         return _MatVec.apply(x_pad, self)[:n, :m]
+
+    def row_shard(self, v0: int, v1: int, group) -> "ShardedBlockSparseOperator":
+        """The rows [v0, v1) of this operator for one rank of the node
+        process group `group`, whose ranks hold consecutive equal node
+        ranges in rank order. The shard keeps only the super-rows (row
+        blocks) that cover [v0, v1), of the forward and, when the
+        operator is not symmetric, of the transposed layout."""
+        if not 0 <= v0 < v1 <= self.n:
+            raise ValueError(f"node range [{v0}, {v1}) is not within the "
+                             f"operator's {self.n} rows")
+        fwd = _shard_layout(self.forward_layout(), v0, v1)
+        bwd = None if self.symmetric else _shard_layout(
+            self.transpose_layout(), v0, v1)
+        return ShardedBlockSparseOperator(self.n, v0, v1, group, fwd, bwd)
+
+
+# One rank's slice of a layout: (kind, A blocks, block-column table, first
+# row of the slice in the full product, rows of the full layout)
+_ShardLayout = Tuple[str, torch.Tensor, torch.Tensor, int, int]
+
+
+def _shard_layout(layout: _Layout, v0: int, v1: int) -> _ShardLayout:
+    """The units (super-rows or row blocks) of `layout` that cover rows
+    [v0, v1); checks once, on the host, that every block-column they name
+    addresses a block of the full x."""
+    kind, a, idx = layout
+    unit = _BS * (a.shape[1] if kind == "super" else 1)
+    lo, hi = v0 // unit, -(-v1 // unit)
+    full_rows = _layout_rows(layout)
+    top = int(idx[lo:hi].cpu().numpy().max())
+    if top >= full_rows // _BS:
+        raise ValueError(f"block-column {top} lies outside the full x's "
+                         f"{full_rows // _BS} blocks")
+    return (kind, a[lo:hi].contiguous(), idx[lo:hi].contiguous(), lo * unit,
+            full_rows)
+
+
+def _run_rows(layout: _ShardLayout, x_full: torch.Tensor, v0: int,
+              v1: int) -> torch.Tensor:
+    """Rows [v0, v1) of the product of a shard's layout with the full x
+    (fitted to the full layout's rows): one row-range launch over the
+    shard's units, then the rank's rows of its output."""
+    kind, a, idx, r0, full_rows = layout
+    x_fit = _fit_rows(x_full, full_rows)
+    y = (bcsr_super_spmm_rows(a, idx, x_fit, 0, a.shape[0])
+         if kind == "super" else bcsr_spmm_rows(a, idx, x_fit, 0, a.shape[0]))
+    return y[v0 - r0:v1 - r0]
+
+
+class _RowShardMatVec(torch.autograd.Function):
+    """y_local = (A @ x)[v0:v1] from x_local = x[v0:v1]: gather x over the
+    node group, then the rank's row range. Backward: the gradient of the
+    global loss with respect to the rank's rows of x, (A^T @ g)[v0:v1],
+    from the gathered g and the rows [v0, v1) of the transposed layout (the
+    forward's own when A is symmetric), in the primal's dtype. Only
+    all-gathers, in both directions; the operator arrays get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x_local, op):
+        ctx.op = op
+        ctx.x_dtype = x_local.dtype
+        return _run_rows(op.fwd, gather_rows(x_local, op.group, 0), op.v0,
+                         op.v1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        op = ctx.op
+        g_full = gather_rows(g.to(ctx.x_dtype).contiguous(), op.group, 0)
+        gx = _run_rows(op.bwd if op.bwd is not None else op.fwd, g_full,
+                       op.v0, op.v1)
+        return gx.to(ctx.x_dtype), None
+
+
+class ShardedBlockSparseOperator:
+    """One node rank's rows [v0, v1) of a `BlockSparseOperator` of n rows;
+    `matvec(x_local)`: [v1 - v0, M] -> [v1 - v0, M], with a gradient in
+    x_local. The ranks of `group` must call `matvec` together, in the same
+    order (each product is an all-gather), and their backwards likewise."""
+
+    def __init__(self, n: int, v0: int, v1: int, group, fwd: _ShardLayout,
+                 bwd: Optional[_ShardLayout] = None):
+        self.n, self.v0, self.v1, self.group = int(n), int(v0), int(v1), group
+        self.fwd, self.bwd = fwd, bwd
+
+    def forward_layout(self) -> _ShardLayout:
+        return self.fwd
+
+    def transpose_layout(self) -> _ShardLayout:
+        return self.fwd if self.bwd is None else self.bwd
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """(L @ x)[v0:v1] from this rank's rows of x, with the padding and
+        dtype rules of `BlockSparseOperator.matvec`."""
+        n, m = x.shape
+        if n != self.v1 - self.v0:
+            raise ValueError(f"x must hold this rank's {self.v1 - self.v0} "
+                             f"rows, got {n}")
+        m_pad = ((m + 127) // 128) * 128
+        if x.dtype != torch.bfloat16:
+            x = x.float()
+        x_pad = F.pad(x, (0, m_pad - m)).contiguous()
+        return _RowShardMatVec.apply(x_pad, self)[:, :m]

@@ -8,32 +8,87 @@ here on fp32-widened operands and is cast back to the compute dtype.
 
 Operators: a dense [V, V] Laplacian, or the block-sparse
 `BlockSparseOperator` (its CUDA kernel on the card). The ELL gather
-operator is not ported yet.
+operator is not ported yet. `ChebOperator.row_shard` gives one node
+rank's rows of either (node-parallel training): every product then
+gathers its input over the node group first.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .._device import resolve_device
+from ..parallel.collectives import gather_rows
 from .bcsr import BlockSparseOperator
 
 __all__ = ["ChebOperator", "cheb_conv"]
 
 
+class _RowShardDense(torch.autograd.Function):
+    """The rank's rows of (L @ h.float()).to(out_dtype) along the node axis
+    (-2) of h: gather h over the node group, then multiply by the rank's
+    rows of L (`a` [V_local, V] fp32, cast as the caller casts L).
+    Backward: the rank's rows of L^T @ g, from the gathered g and `a_t`
+    (the rank's rows of L^T), in h's dtype: the block-sparse shard's rule.
+    """
+
+    @staticmethod
+    def forward(ctx, h, a, a_t, group, out_dtype):
+        ctx.a_t, ctx.group, ctx.h_dtype = a_t, group, h.dtype
+        h_full = gather_rows(h, group, h.dim() - 2)
+        return (a @ h_full.float()).to(out_dtype)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        g_full = gather_rows(g, ctx.group, g.dim() - 2)
+        gh = (ctx.a_t @ g_full.float()).to(ctx.h_dtype)
+        return gh, None, None, None, None
+
+
 class ChebOperator:
     """Prepared Laplacian of one graph level: dense [V, V] or block-sparse.
 
-    `matvec(X)` computes L @ X for X [V, M]."""
+    `matvec(X)` computes L @ X for X [V, M]. A row shard (`row_shard`)
+    holds one node rank's rows: `dense` [V_local, V] with `dense_t` the
+    same rows of L^T, or a `ShardedBlockSparseOperator`; its products take
+    and give the rank's rows."""
 
     def __init__(self, dense: Optional[torch.Tensor] = None,
-                 bcsr: Optional[BlockSparseOperator] = None):
+                 bcsr: Optional[BlockSparseOperator] = None,
+                 dense_t: Optional[torch.Tensor] = None, group=None):
         if (dense is None) == (bcsr is None):
             raise ValueError("provide exactly one of dense / bcsr")
+        if (dense_t is None) != (group is None):
+            raise ValueError("a dense row shard needs both dense_t and a "
+                             "group")
         self.dense = dense
         self.bcsr = bcsr
+        self.dense_t = dense_t
+        self.group = group
+
+    def row_shard(self, v0: int, v1: int, group) -> "ChebOperator":
+        """This operator's rows [v0, v1) for one rank of the node process
+        group `group` (ranks hold consecutive equal node ranges in rank
+        order)."""
+        if self.bcsr is not None:
+            return ChebOperator(bcsr=self.bcsr.row_shard(v0, v1, group))
+        return ChebOperator(dense=self.dense[v0:v1].contiguous(),
+                            dense_t=self.dense.T[v0:v1].contiguous(),
+                            group=group)
+
+    def batched_matvec(self, cdt: torch.dtype) -> Callable:
+        """h [B, V, F] -> L @ h along V, for a dense operator, as the
+        batch-major branches of `cheb_conv` compute it: L cast to `cdt`
+        once, fp32 products, the output cast to `cdt`."""
+        a = self.dense.to(cdt).float()
+        if self.group is None:
+            return lambda h: (a @ h.float()).to(cdt)
+        a_t = self.dense_t.to(cdt).float()
+        return lambda h: _RowShardDense.apply(h, a, a_t, self.group, cdt)
 
     @classmethod
     def from_graph(cls, graph, mode: str, dtype=torch.float32, device="cuda"):
@@ -52,10 +107,13 @@ class ChebOperator:
                          "'dense' or 'bcsr' (ELL is not ported yet)")
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """L @ x for x of shape [V, M]."""
-        if self.dense is not None:
+        """L @ x for x of shape [V, M] (a row shard: its rows of both)."""
+        if self.dense is None:
+            return self.bcsr.matvec(x)
+        if self.group is None:
             return (self.dense.float() @ x.float()).to(x.dtype)
-        return self.bcsr.matvec(x)
+        return _RowShardDense.apply(x, self.dense.float(),
+                                    self.dense_t.float(), self.group, x.dtype)
 
 
 def cheb_conv(op: ChebOperator, x: torch.Tensor, weight: torch.Tensor,
@@ -76,10 +134,7 @@ def cheb_conv(op: ChebOperator, x: torch.Tensor, weight: torch.Tensor,
     # one layout transpose at entry and exit
     node_major = op.dense is None
     if not node_major:
-        dense32 = op.dense.to(cdt).float()
-
-        def mv(h):  # [B, V, F] -> [B, V, F]
-            return (dense32 @ h.float()).to(cdt)
+        mv = op.batched_matvec(cdt)              # [B, V, F] -> [B, V, F]
     else:
         def mv(h):  # node-major [V, B, F]
             V_, B_, F_ = h.shape

@@ -5,6 +5,8 @@ The JAX package keeps parameters in nested dicts (`conv1/convblock1/weight`,
 `res_increment`); the port's `nn.Module`s use the same names and shapes,
 so a path maps to a state-dict key by joining with dots. Both directions
 carry numpy arrays on the JAX side and fp32 tensors on the port side.
+`broadcast_params` gives every rank of a mesh rank 0's parameters, as the
+JAX package replicates them over its mesh (`device_put` replicated).
 """
 
 from __future__ import annotations
@@ -14,7 +16,10 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax", "seeded_params"]
+from .parallel.collectives import broadcast_
+
+__all__ = ["params_from_jax", "params_to_jax", "seeded_params",
+           "broadcast_params"]
 
 
 def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
@@ -75,3 +80,20 @@ def seeded_params(model: torch.nn.Module, seed: int) -> Dict:
 
     fill(tree)
     return tree
+
+
+def broadcast_params(model: torch.nn.Module, mesh) -> None:
+    """In place: rank 0's parameters of `model` on every rank of `mesh`,
+    in one flat buffer: over each data group from its data rank 0, then
+    over each node group from its node rank 0 (which then holds rank
+    0's). Every rank of the mesh must call it."""
+    if mesh is None:
+        return
+    params = [p.detach() for p in model.parameters()]
+    flat = torch.cat([p.reshape(-1) for p in params])
+    if mesh.n_data > 1:
+        broadcast_(flat, mesh.rank_of(0, mesh.node_rank), mesh.data_group)
+    if mesh.n_node > 1:
+        broadcast_(flat, mesh.rank_of(mesh.data_rank, 0), mesh.node_group)
+    for p, part in zip(params, flat.split([p.numel() for p in params])):
+        p.copy_(part.view_as(p))

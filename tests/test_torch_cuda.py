@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the super-row SpMM (K1) and the plain-BCSR SpMM (K3), forward and
-backward, and one training step against the CPU plain path.
+backward, their row-range entries (K2 and K3's row-sharded form) against
+the rows of the full launch and their plain versions (exactly), and one
+training step against the CPU plain path.
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without
 one. This file imports neither JAX nor the JAX package, so it also runs on
@@ -29,13 +31,18 @@ from scipy import sparse  # noqa: E402
 from deepsphere_weather_torch.data.ar import ARIndexer  # noqa: E402
 from deepsphere_weather_torch.engine import AreaWeights, make_ar_loss_fn  # noqa: E402
 from deepsphere_weather_torch.models import ConvBlock, UNetSpherical  # noqa: E402
+from deepsphere_weather_torch.models.geometry import cached_graph_laplacian  # noqa: E402
 from deepsphere_weather_torch.ops import (  # noqa: E402
     BlockSparseOperator,
     bcsr_from_scipy,
     bcsr_spmm,
     bcsr_spmm_reference,
+    bcsr_spmm_rows,
+    bcsr_spmm_rows_reference,
     bcsr_super_spmm,
     bcsr_super_spmm_reference,
+    bcsr_super_spmm_rows,
+    bcsr_super_spmm_rows_reference,
     launch_counts,
 )
 from deepsphere_weather_torch.sphere import build_graph  # noqa: E402
@@ -125,6 +132,61 @@ def test_plain_kernel_matches_plain_version(cuda, subdiv, a_dt, x_dt, round_a):
     n = g.n_nodes
     ref = L @ x.float().cpu().numpy()[:n]
     assert rel_err(y[:n].float(), torch.from_numpy(ref)) <= 2 * TOL[x_dt]
+
+
+ROW_FNS = {"super": (bcsr_super_spmm, bcsr_super_spmm_rows,
+                     bcsr_super_spmm_rows_reference, "bcsr_super_spmm_rows"),
+           "plain": (bcsr_spmm, bcsr_spmm_rows, bcsr_spmm_rows_reference,
+                     "bcsr_spmm_rows")}
+
+
+# the flagship's level 0 (HEALPix-16, 12 super-rows) and its large-graph
+# form (HEALPix-64, 192), split over 2 and 4 node ranks
+@pytest.mark.parametrize("subdiv", [16, 64])
+@pytest.mark.parametrize("n_node", [2, 4])
+@pytest.mark.parametrize("layout", ["super", "plain"])
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_row_range_kernel_equals_full_launch_rows(cuda, subdiv, n_node, layout,
+                                                  dt):
+    L = cached_graph_laplacian("healpix", {"subdivisions": subdiv,
+                                           "nest": True}, 20, "knn")[1]
+    op = BlockSparseOperator.from_scipy(
+        L, dtype=DT[dt], rows_per_super=2 if layout == "super" else 0,
+        device=cuda)
+    _, a, idx = op.forward_layout()
+    full_fn, rows_fn, plain_fn, key = ROW_FNS[layout]
+    unit = op.rows // a.shape[0]
+    rng = np.random.default_rng(subdiv + n_node)
+    x = torch.from_numpy(rng.standard_normal((op.rows, 256)).astype(
+        np.float32)).to(cuda, DT[dt])
+    full = full_fn(a, idx, x)
+    n = L.shape[0]
+    for r in range(n_node):
+        v0, v1 = r * n // n_node, (r + 1) * n // n_node
+        lo, hi = v0 // unit, -(-v1 // unit)
+        before = launch_counts[key]
+        y = rows_fn(a, idx, x, lo, hi)
+        torch.cuda.synchronize()
+        assert launch_counts[key] == before + 1
+        assert y.dtype == DT[dt] and y.shape == ((hi - lo) * unit, 256)
+        assert torch.equal(y, full[lo * unit:hi * unit])
+        assert torch.equal(y, plain_fn(a, idx, x, lo, hi))
+
+
+@pytest.mark.parametrize("layout", ["super", "plain"])
+def test_row_range_kernel_rejects_bad_ranges(cuda, layout):
+    g = build_graph("healpix", {"subdivisions": 8, "nest": True}, k=8)
+    op = BlockSparseOperator.from_scipy(
+        g.L, rows_per_super=2 if layout == "super" else 0, device=cuda)
+    _, a, idx = op.forward_layout()
+    rows_fn, key = ROW_FNS[layout][1], ROW_FNS[layout][3]
+    x = torch.zeros((op.rows, 128), device=cuda)
+    n = a.shape[0]
+    before = launch_counts[key]
+    for b, e in ((-1, 1), (0, 0), (1, 0), (n - 1, n + 1), (n, n + 1)):
+        with pytest.raises(ValueError, match="range"):
+            rows_fn(a, idx, x, b, e)
+    assert launch_counts[key] == before
 
 
 def _nonsymmetric(L):
@@ -261,7 +323,8 @@ def test_train_step_matches_cpu(cuda, dt):
                                   for k in before}})
     card, ref = runs
     assert card["launches"] == {"bcsr_super_spmm": 3 * 10 + 3 * 10 - 2,
-                                "bcsr_spmm": 0}
+                                "bcsr_spmm": 0, "bcsr_super_spmm_rows": 0,
+                                "bcsr_spmm_rows": 0}
     assert not any(ref["launches"].values())
     tol = TRAIN_TOL[dt]
     assert abs(card["total"] - ref["total"]) <= tol * abs(ref["total"])

@@ -171,9 +171,15 @@ def test_submit_matches_jax_rollout(setup):
                        svc.scaler.transform(ref)) <= 1e-4
 
 
+# torch-only test helpers: the spawned ranks of tests/test_torch_parallel.py
+# import the worker, and it must not pull JAX into them
+TEST_HELPERS = ("torch_parallel_worker", "torch_grad_terms")
+
+
 def _port_sources():
     return sorted((REPO / "deepsphere_weather_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py"]
+        REPO / "chip_smoke.py"] + [REPO / "tests" / f"{m}.py"
+                                   for m in TEST_HELPERS]
 
 
 def test_port_sources_import_no_jax():
@@ -196,8 +202,9 @@ def test_port_imports_no_jax_in_fresh_process():
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "deepsphere_weather_torch").rglob("*.py"))
     mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
-            for m in mods]
+            for m in mods] + list(TEST_HELPERS)
     code = ("import importlib, sys\n"
+            "sys.path.insert(0, 'tests')\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'deepsphere_weather_tpu', 'pandas')]\n"
