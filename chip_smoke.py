@@ -11,7 +11,9 @@ printed one per line:
 1. card      name and power limit (nvidia-smi)
 2. build     both CUDA kernels, compiled side by side with nvcc from this
              checkout (seconds; registers, shared memory, spills); each
-             holds a full-range and a row-range entry
+             holds a full-range and a row-range entry; the count of HGMMA
+             instructions in the SASS of K1's bf16 (tensor-core)
+             instances (cuobjdump), none of which may have 0
 3. parity    the super-row SpMM kernel (K1) and the plain-BCSR one (K3) at
              HEALPix-16 and HEALPix-64 level 0, fp32 and bf16, width 1024,
              against scipy `L @ x` (bars: fp32 < 1e-5, bf16 < 2e-2, max abs
@@ -23,17 +25,20 @@ printed one per line:
              super-row layout and the transposed plain layout);
              K2, the super-row kernel's row range, alone: HEALPix-16 and
              -64 level 0, fp32 and bf16, width 1024, split 2 and 4 ways,
-             each shard against its plain version and the rows of the
-             full K1 launch (both exactly) and scipy's rows (bars as
-             above); the plain layout's row range likewise, in both
-             regimes of fp32 A against bf16 x
+             each shard against the rows of the full K1 launch (exactly),
+             its plain version (exactly in fp32; at the bf16 bar in bf16,
+             where the tensor cores sum in another order) and scipy's
+             rows (bars as above); the plain layout's row range likewise
+             (exactly), in both regimes of fp32 A against bf16 x
 4. slice     UNetSpherical, HEALPix-16, knn-20, max pool, increment
              learning, bf16, 7 features x 3 lags -> 2, seeded weights in
              the JAX layout loaded through `weights.py`, behind
              ForecastService (batch 16, block 4): a 20-step forecast of 16
              histories and 5 concurrent submit() requests; finite outputs
              of the right shapes, agreement with the same forward on the
-             CPU plain path (3e-2), 10 K1 launches per forward
+             CPU plain path (3e-2; the CPU takes the card's ReLU and
+             max-pool decisions, each that differs within 1e-2 of its
+             kink or tie), 10 K1 launches per forward
 5. train     the same model trained: AR6 (7 iterations, RNN strategy),
              area-weighted MSE, Adam(1e-3, eps=1e-7), a synthetic batch
              from np.random.default_rng:
@@ -72,13 +77,15 @@ printed one per line:
 9. node64    the HEALPix-64 step on 1 x 2, 2 steps: losses within 3e-2 of
              train64's, 66 + 64 K2 launches per rank per step, peak memory
              per rank; K2 at every (level, width) one sharded step gives
-             it, forward and backward, against its plain version (exact)
-             and scipy's rows (bf16 bar)
+             it, forward and backward, against its plain version and
+             scipy's rows (bf16 bar)
 10. times    ms per train step and samples/s (host clock ended by
              torch.cuda.synchronize(), best of 4 windows, K1 and K3 steps
-             taken in turns); each kernel per
-             launch at the main path's widths beside its bound, its plain
-             version and cuSPARSE; K2 on the node16 step's level-0 shard
+             taken in turns); each kernel per launch (`device_ms`: a CUDA
+             graph of launches replayed) at the main path's widths beside
+             its bound, its plain version and cuSPARSE; K2 and K3's row
+             range on the node16 step's level-0 shard; K1 at each (level,
+             width) shape of the HEALPix-64 step
 
 The ranks of phases 7-9 are started after the kernels are built, join a
 `gloo` process group with a timeout, and the phase waits for them with a
@@ -86,8 +93,8 @@ limit; a rank that fails fails its phase. Any failed phase raises, and the
 script exits non-zero. The lines before the last are the kernel table as
 JSON and the card; the last line is {"ok": true, "device": {...}}. Without
 CUDA it exits non-zero at once.
-`--profile` adds the device time by kernel of three forwards and of two
-train steps with each level-0 kernel (K1, K3).
+`--profile` adds the device time by kernel of three forwards, of two
+train steps with each level-0 kernel (K1, K3) and of two HEALPix-64 steps.
 """
 
 from __future__ import annotations
@@ -97,6 +104,7 @@ import datetime
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import tempfile
@@ -113,6 +121,12 @@ MATVEC_WIDTH = 1024
 BARS = {"fp32": 1e-5, "bf16": 2e-2}
 GRAD_BAR = 1e-5
 SLICE_TOL = 3e-2
+# the card-vs-CPU forward: a decision that differs must sit this close to
+# its kink or tie (|x| or the max-pool gap, over the call's largest |x|),
+# about a bf16 ulp of that |x| (2^-7 at most). Sound runs on an H100
+# read up to 6.8e-3 at four seeds; one listed slot dropped from K1's list,
+# 0.13 and more (scripts/torch_chip_readings.py gaps, PERF.md)
+GAP_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}   # fp32 non-tensor; bf16 dense
 KERNEL, PLAIN_KERNEL = "bcsr_super_spmm", "bcsr_spmm"
@@ -151,6 +165,10 @@ GATHERS_PER_FORWARD = sum(PRODUCTS_PER_LEVEL)
 # seeded ReZero weights are scaled by this for training: at U(0.5, 1.5)
 # the random network's rollout grows several-fold per iteration
 TRAIN_REZERO_SCALE = 0.1
+# torch-only helpers shared with the port's card tests
+# (tests/torch_steer.py, tests/torch_grad_terms.py)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
 
 
 def log(phase, msg):
@@ -180,6 +198,49 @@ def time_ms(fn, n_iter=20, n_warm=3):
     return t0.elapsed_time(t1) / n_iter
 
 
+def device_ms(fn, n_iter=20, n_warm=3):
+    """Mean device time of fn() over n_iter calls captured in one CUDA
+    graph and replayed: no host enqueue between the calls, which would
+    outlast a launch of a few microseconds and be timed instead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(n_warm):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n_iter):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    t1.synchronize()
+    del graph
+    return t0.elapsed_time(t1) / n_iter
+
+
+def host_ms(fn, n_iter=200):
+    """Host time of one call of fn, its enqueue alone: the device keeps
+    up with these launches, so the host clock does not wait on it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * t / n_iter
+
+
 def card():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -189,7 +250,7 @@ def card():
 
 
 def phase_build():
-    from deepsphere_weather_torch.kernels.build import load_kernels
+    from deepsphere_weather_torch.kernels.build import _nvcc, load_kernels
 
     t0 = time.perf_counter()
     for k in load_kernels([KERNEL, PLAIN_KERNEL]):
@@ -200,6 +261,44 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 log("build", f"{k.name} ptxas: " + line.strip())
     log("build", f"both kernels in {time.perf_counter() - t0:.1f} s")
+    # the bf16 instances of K1/K2 must run on the tensor cores, unspilled
+    k1 = load_kernels([KERNEL])[0]
+    regs, spills, fn = {}, {}, None
+    for line in k1.ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif fn and "bytes spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            spills[fn] = int(m[1]) + int(m[2])
+        elif fn and "Used" in line and "registers" in line:
+            regs[fn] = int(line.split("Used")[1].split()[0])
+    tc_fns = [f for f in regs if "bcsr_super_spmm_tc" in f]
+    if k1.built:
+        log("build", f"{KERNEL} tensor-core instances: registers "
+                     f"{[regs[f] for f in tc_fns]}, spill bytes "
+                     f"{[spills.get(f, 0) for f in tc_fns]}")
+        if not tc_fns or any(spills.get(f, 0) for f in tc_fns):
+            raise AssertionError(f"{KERNEL}: a tensor-core instance spills "
+                                 f"({spills})")
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass",
+         str(k1.path)],
+        capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    tc = {f: n for f, n in counts.items() if "bcsr_super_spmm_tc" in f}
+    log("build", f"{KERNEL} HGMMA instructions in the SASS of its bf16 "
+                 f"(tensor-core) instances: {sorted(tc.values())}; "
+                 f"elsewhere {sum(counts.values()) - sum(tc.values())}")
+    if not tc or 0 in tc.values():
+        raise AssertionError(f"{KERNEL}: a bf16 instance has no HGMMA "
+                             f"instruction ({tc})")
 
 
 # ---------------------------------------------------------------------------
@@ -207,9 +306,10 @@ def phase_build():
 # ---------------------------------------------------------------------------
 
 def _layout(op):
-    """(kernel name, A blocks, block-column table) of op's forward product."""
-    kind, a, idx = op.forward_layout()
-    return (KERNEL if kind == "super" else PLAIN_KERNEL), a, idx
+    """(kernel name, A blocks, block-column table, slot list or None) of
+    op's forward product."""
+    kind, a, idx, nz = op.forward_layout()
+    return (KERNEL if kind == "super" else PLAIN_KERNEL), a, idx, nz
 
 
 def _kernel_fns(name):
@@ -264,14 +364,15 @@ def _csr(L, device, dtype):
         torch.from_numpy(L.data), size=L.shape, device=device, dtype=dtype)
 
 
-def measure(op, L, x, device, label, round_a=True, timed=True):
+def measure(op, L, x, device, label, round_a=True, timed=True,
+            plain_timed=True):
     """Kernel vs plain version on the same padded input, held to the bar
-    of x's dtype (raises if it breaks it); times and bound."""
+    of x's dtype (raises if it breaks it); times (`device_ms`) and bound."""
     import torch
 
-    name, a, idx = _layout(op)
+    name, a, idx, nz = _layout(op)
     kernel, plain = _kernel_fns(name)
-    kw = {} if name == KERNEL else {"round_a": round_a}
+    kw = {"nz": nz} if name == KERNEL else {"round_a": round_a}
     n, m = x.shape
     x_pad = torch.nn.functional.pad(x, (0, (-m) % 128, 0, op.rows - n))
     y = kernel(a, idx, x_pad, **kw)
@@ -290,9 +391,11 @@ def measure(op, L, x, device, label, round_a=True, timed=True):
     t_bytes, t_ops = _bound(a, x, nnz, x_blocks)
     res.update({
         "blocks_nonzero": f"{nnz}/{slots}", "x_blocks": x_blocks,
-        "ms": time_ms(lambda: kernel(a, idx, x_pad, **kw)),
-        "plain_ms": time_ms(lambda: plain(a, idx, x_pad, **kw), n_iter=5),
-        "library_ms": time_ms(lambda: torch.sparse.mm(csr, x)),
+        "ms": device_ms(lambda: kernel(a, idx, x_pad, **kw)),
+        "host_ms": host_ms(lambda: kernel(a, idx, x_pad, **kw)),
+        "plain_ms": (device_ms(lambda: plain(a, idx, x_pad, **kw), n_iter=5)
+                     if plain_timed else None),
+        "library_ms": device_ms(lambda: torch.sparse.mm(csr, x)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes_ms": t_bytes, "ops_ms": t_ops})
@@ -301,7 +404,7 @@ def measure(op, L, x, device, label, round_a=True, timed=True):
 
 def _fmt(res):
     return ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
-                     for k, v in res.items() if k != "y")
+                     for k, v in res.items() if k != "y" and v is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -476,14 +579,14 @@ def phase_parity_rows(device, subdivs, width):
             op = BlockSparseOperator.from_scipy(
                 L, dtype=a_dt, rows_per_super=2 if kname == ROW_KERNEL else 0,
                 device=device)
-            _, a, idx = op.forward_layout()
+            _, a, idx, nz = op.forward_layout()
             x = torch.from_numpy(x_np).to(device, x_dt)
             x_pad = F.pad(x, (0, 0, 0, op.rows - n))
             if kname == ROW_KERNEL:
-                full = bcsr.bcsr_super_spmm(a, idx, x_pad)
+                full = bcsr.bcsr_super_spmm(a, idx, x_pad, nz)
                 rows_fn, plain_fn, kw = (bcsr.bcsr_super_spmm_rows,
                                          bcsr.bcsr_super_spmm_rows_reference,
-                                         {})
+                                         {"nz": nz})
             else:
                 full = bcsr.bcsr_spmm(a, idx, x_pad, round_a=round_a)
                 rows_fn, plain_fn, kw = (bcsr.bcsr_spmm_rows,
@@ -494,6 +597,9 @@ def phase_parity_rows(device, subdivs, width):
             ref = ((L_bf16 if a_dt == bf16 or round_a else L)
                    @ x.float().cpu().numpy())
             bar = BARS["bf16" if x_dt == bf16 else "fp32"]
+            # K2's bf16 body sums on the tensor cores, in another order
+            # than the plain version: held to the bar there, else exact
+            exact = not (kname == ROW_KERNEL and x_dt == bf16)
             label = (f"{kname} HEALPix-{subdiv} {str(a_dt)[6:]} A, "
                      f"{str(x_dt)[6:]} x[{n}, {width}]"
                      + ("" if round_a is None else f", round_a={round_a}"))
@@ -505,24 +611,29 @@ def phase_parity_rows(device, subdivs, width):
                 v0, v1 = r * n // n_node, (r + 1) * n // n_node
                 lo, hi = v0 // unit, -(-v1 // unit)
                 y = rows_fn(a, idx, x_pad, lo, hi, **kw)
-                e_plain = float((y.float() - plain_fn(
-                    a, idx, x_pad, lo, hi, **kw).float()).abs().max())
+                want = plain_fn(a, idx, x_pad, lo, hi, **kw)
+                e_plain = (float((y.float() - want.float()).abs().max())
+                           if exact else rel_err(y.float().cpu(),
+                                                 want.float().cpu()))
                 e_full = float((y.float() - full[lo * unit:hi * unit]
                                 .float()).abs().max())
                 e_scipy = rel_err(y[v0 - lo * unit:v1 - lo * unit]
                                   .float().cpu().numpy(), ref[v0:v1])
-                if e_plain or e_full or not e_scipy < bar:
+                if (e_plain if exact else not e_plain < bar) or e_full \
+                        or not e_scipy < bar:
                     raise AssertionError(
                         f"{label} rows [{v0}, {v1}): vs plain version "
-                        f"{e_plain:.3e}, vs full launch {e_full:.3e} (both "
-                        f"must be 0), vs scipy {e_scipy:.3e} (bar {bar:g})")
+                        f"{e_plain:.3e} ({'must be 0' if exact else 'bar'}),"
+                        f" vs full launch {e_full:.3e} (must be 0), vs scipy "
+                        f"{e_scipy:.3e} (bar {bar:g})")
                 worst = {k: max(worst[k], e) for k, e in zip(
                     worst, (e_plain, e_full, e_scipy))}
             log("parity", f"{label}, 2 and 4 node shards (units of {unit} "
-                          f"rows): max abs error vs plain version "
-                          f"{worst['plain']:.3e}, vs the full launch's rows "
-                          f"{worst['full']:.3e}; rel err vs scipy's rows "
-                          f"{worst['scipy']:.3e} (bar {bar:g})")
+                          f"rows): vs plain version "
+                          f"{'max abs error' if exact else 'rel err'} "
+                          f"{worst['plain']:.3e}, max abs error vs the full "
+                          f"launch's rows {worst['full']:.3e}; rel err vs "
+                          f"scipy's rows {worst['scipy']:.3e} (bar {bar:g})")
 
 
 # ---------------------------------------------------------------------------
@@ -549,6 +660,36 @@ def build_flagship(device, subdiv, params=None, geometry=None,
     if params is not None:
         model.load_state_dict(params)
     return model.eval()
+
+
+def forward_vs_cpu(device, subdiv, params, x, nz=None):
+    """The flagship's bf16 forward of x on the card and on the CPU plain
+    path. A ReLU or max-pool decision that one bf16 rounding flips changes
+    its output by O(1) (the seeded network amplifies it), so the CPU takes
+    the card's decisions (`steer`). Returns the relative error of the
+    network's output minus x_last (`err`; `err_own` with the CPU's own
+    decisions), how far each decision that differed sat from its kink or
+    tie (`gaps`) and the count of decisions. `nz` replaces the slot list
+    of the card's level-0 operator (a planted fault, for
+    scripts/torch_chip_readings.py)."""
+    import torch
+    from torch_steer import steer
+
+    with torch.inference_mode():
+        card_model = build_flagship(device, subdiv, params)
+        if nz is not None:
+            card_model.geometry.cheb_ops[0].bcsr.nz = nz
+        decisions, _ = steer(card_model)
+        y = card_model(x.to(device)).cpu()
+        cpu_model = build_flagship(torch.device("cpu"), subdiv, params)
+        y_own = cpu_model(x)
+        _, gaps = steer(cpu_model, decisions)
+        y_cpu = cpu_model(x)
+    x_last = x[:, -1:, :, -F_DYN:]
+    return {"err": rel_err((y - x_last).numpy(), (y_cpu - x_last).numpy()),
+            "err_own": rel_err((y - x_last).numpy(),
+                               (y_own - x_last).numpy()),
+            "gaps": gaps, "decisions": sum(d.numel() for d in decisions)}
 
 
 def phase_slice(device, subdiv, batch, n_steps):
@@ -648,19 +789,21 @@ def phase_slice(device, subdiv, batch, n_steps):
                  f"finite; {n_fwd} forwards, {launches[KERNEL]} {KERNEL} "
                  "launches")
 
-    # the same forward on the card and on the CPU plain path
     x = torch.from_numpy(rng.standard_normal(
         (batch, len(INPUT_K), V, F_STATIC + F_BC + F_DYN)).astype(np.float32))
-    with torch.inference_mode():
-        y = model(x.to(device)).cpu()
-        cpu_model = build_flagship(torch.device("cpu"), subdiv, params)
-        y_cpu = cpu_model(x)
-    x_last = x[:, -1:, :, -F_DYN:]
-    e = rel_err((y - x_last).numpy(), (y_cpu - x_last).numpy())
-    if not e <= SLICE_TOL:
-        raise AssertionError(f"card vs CPU forward {e:.3e} > {SLICE_TOL}")
+    r = forward_vs_cpu(device, subdiv, params, x)
+    gap = max(r["gaps"], default=0.0)
+    if not (r["err"] <= SLICE_TOL and gap <= GAP_TOL):
+        raise AssertionError(f"card vs CPU forward {r['err']:.3e} (tol "
+                             f"{SLICE_TOL}), worst differing decision "
+                             f"{gap:.3e} from its kink or tie (tol {GAP_TOL})")
     log("slice", f"card vs CPU plain-path forward (network output minus "
-                 f"x_last): rel err {e:.3e} (tol {SLICE_TOL})")
+                 f"x_last), the CPU taking the card's ReLU and max-pool "
+                 f"decisions: rel err {r['err']:.3e} (tol {SLICE_TOL}); "
+                 f"{len(r['gaps'])} of {r['decisions']} decisions differed "
+                 f"from the CPU's own, the worst {gap:.3e} from its kink or "
+                 f"tie (tol {GAP_TOL}); with the CPU's own decisions "
+                 f"{r['err_own']:.3e}")
 
     xd = x.to(device)
     with torch.inference_mode():
@@ -708,34 +851,6 @@ def train_setup(model, ar_iters):
     return indexer, area_w, np.ones(ar_iters + 1, np.float32)
 
 
-def term_sums(model):
-    """sum_i |z_i g_i| for each one-element parameter w whose gradient is
-    dL/dw = sum_i z_i g_i, w scaling z: the ReZero weights (z the branch
-    of their block) and the increment scale (z the network's output).
-    Filled in by the backward, from dL/dz = w g."""
-    from deepsphere_weather_torch.models import ResBlock
-
-    sums = {}
-
-    def watch(module, key, w):
-        def hook(_, __, z):
-            if z.requires_grad:
-                wz = float(w.detach().to(z.dtype))
-                if wz == 0.0:
-                    raise AssertionError(f"{key} is 0: no terms to sum")
-                z.register_hook(lambda gz: sums.__setitem__(key, sums.get(
-                    key, 0.0) + float((z.detach().double() * gz.double())
-                                      .abs().sum()) / abs(wz)))
-        module.register_forward_hook(hook)
-
-    for name, blk in model.named_children():
-        if isinstance(blk, ResBlock):
-            watch(blk.get_submodule(f"convblock{blk.n_blocks}"),
-                  f"{name}.rezero_weight", blk.rezero_weight)
-    watch(model.uconv1_final, "res_increment", model.res_increment)
-    return sums
-
-
 def grads_of(model):
     return {k: p.grad.double().cpu() for k, p in model.named_parameters()}
 
@@ -765,6 +880,7 @@ def phase_train_check(device, subdiv, batch):
     import torch
 
     from deepsphere_weather_torch.engine import make_ar_loss_fn
+    from torch_grad_terms import term_sums
 
     out = []
     params = None
@@ -947,15 +1063,17 @@ def phase_train64(device, subdiv, card_line):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log("train64", f"peak device memory {peak:.2f} GiB "
                    "(torch.cuda.max_memory_allocated)")
-    check_step_products(model, res["step"], subdiv)
+    products = check_step_products(model, res["step"], subdiv)
     return {"launches": launches, "ms": ms, "peak_gib": peak,
-            "per_iter": res["per_iter"]}
+            "per_iter": res["per_iter"], "step": res["step"],
+            "products": products}
 
 
 def step_products(step):
     """Run one train step and record its block-sparse products: the
     (operator, width, dtype) of each `matvec`, and the (A blocks, padded
-    width, dtype) of each kernel launch, forward and backward."""
+    width, dtype) of each kernel launch, forward and backward. A launch
+    without its slot list (one that would skip no zero block) raises."""
     from deepsphere_weather_torch.ops import bcsr
 
     matvecs, launches = {}, set()
@@ -965,9 +1083,11 @@ def step_products(step):
         matvecs.setdefault((id(op), x.shape[1], x.dtype), op)
         return matvec(op, x)
 
-    def record_launch(a, idx, x):
+    def record_launch(a, idx, x, nz=None):
+        if nz is None:
+            raise AssertionError("a K1 launch of the step had no slot list")
         launches.add((a.data_ptr(), x.shape[1], x.dtype))
-        return kernel(a, idx, x)
+        return kernel(a, idx, x, nz)
 
     bcsr.BlockSparseOperator.matvec = record_matvec
     bcsr.bcsr_super_spmm = record_launch
@@ -983,7 +1103,8 @@ def check_step_products(model, step, subdiv):
     """Every level's K1 at each width one train step gives it, forward
     and backward: against its plain version on the same input (bf16 bar)
     and against scipy with that level's Laplacian; and every shape the
-    step launched K1 at is one of those checked."""
+    step launched K1 at is one of those checked. Returns the (level,
+    width, dtype, operator) of each product."""
     import torch
 
     from deepsphere_weather_torch.ops.bcsr import _fit_rows, _layout_rows
@@ -1011,11 +1132,12 @@ def check_step_products(model, step, subdiv):
         xg = x.clone().requires_grad_()
         op.matvec(xg).backward(g)
         layout_t = op.transpose_layout()
-        kind, a_t, idx_t = layout_t
+        kind, a_t, idx_t, nz_t = layout_t
         plain = _kernel_fns(KERNEL if kind == "super" else PLAIN_KERNEL)[1]
         g_pad = torch.nn.functional.pad(g, (0, (-width) % 128, 0, op.rows - n))
         want = plain(a_t, idx_t, _fit_rows(
-            g_pad, _layout_rows(layout_t)).contiguous())[:n, :width]
+            g_pad, _layout_rows(layout_t)).contiguous(),
+            *(() if nz_t is None else (nz_t,)))[:n, :width]
         e_bwd_plain = rel_err(xg.grad.float().cpu(), want.float().cpu())
         e_bwd = rel_err(xg.grad.float().cpu(),
                         L.T @ g.float().cpu().numpy())
@@ -1042,6 +1164,30 @@ def check_step_products(model, step, subdiv):
                    f"forward and backward: worst vs plain version "
                    f"{worst['plain']:.3e}, vs scipy {worst['scipy']:.3e}; "
                    f"they cover all {len(launched)} launch shapes")
+    return products
+
+
+def time_step_products(products, subdiv, device, card_line):
+    """K1 per launch at each (level, width) shape of a train step's
+    products (`check_step_products`), beside its bound and cuSPARSE."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 15)
+    rows = []
+    for level, width, dt, op in products:
+        L = _laplacian(subdiv >> level)
+        x = torch.from_numpy(rng.standard_normal((L.shape[0], width)).astype(
+            np.float32)).to(device, dt)
+        r = measure(op, L, x, device, f"level {level} width {width}",
+                    plain_timed=False)
+        log("times", f"{KERNEL} HEALPix-{subdiv} level {level} "
+                     f"{str(dt)[6:]} x[{L.shape[0]}, {width}]: {r['ms']:.4f} "
+                     f"ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
+                     f"cuSPARSE {r['library_ms']:.4f} ms), blocks "
+                     f"{r['blocks_nonzero']} ({card_line})")
+        rows.append({"level": level, "width": width, "ms": r["ms"],
+                     "bound_ms": r["bound_ms"], "library_ms": r["library_ms"]})
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1213,6 +1359,7 @@ def rank_grads(rank, device, subdiv, n_data, n_node, batch):
 def single_grads(device, subdiv, batch):
     """`rank_grads`' step in one process: the reference."""
     from deepsphere_weather_torch.engine import make_ar_loss_fn
+    from torch_grad_terms import term_sums
 
     model = build_flagship(device, subdiv, precision="float32",
                            dense_threshold=FP32_DENSE_THRESHOLD).train()
@@ -1228,9 +1375,10 @@ def single_grads(device, subdiv, batch):
 
 def check_sharded_products(model, step, subdiv):
     """Every level's K2 at each width one sharded step gives it, forward
-    and backward: against its plain version on the same input (exactly)
-    and against scipy's rows; every shape the step launched K2 at is one
-    of those checked. All ranks run the same products, in one order (the
+    and backward: against its plain version on the same input (bf16 bar:
+    the tensor cores sum in another order) and against scipy's rows; every
+    shape the step launched K2 at is one of those checked, and each launch
+    had its slot list. All ranks run the same products, in one order (the
     backward gathers)."""
     import torch
     import torch.nn.functional as F
@@ -1245,9 +1393,11 @@ def check_sharded_products(model, step, subdiv):
         matvecs.setdefault((id(op), x.shape[1], x.dtype), op)
         return matvec(op, x)
 
-    def record_launch(a, idx, x, s0, s1):
+    def record_launch(a, idx, x, s0, s1, nz=None):
+        if nz is None:
+            raise AssertionError("a K2 launch of the step had no slot list")
         launched.add((a.data_ptr(), x.shape[1], x.dtype))
-        return kernel(a, idx, x, s0, s1)
+        return kernel(a, idx, x, s0, s1, nz)
 
     bcsr.ShardedBlockSparseOperator.matvec = record_matvec
     bcsr.bcsr_super_spmm_rows = record_launch
@@ -1274,12 +1424,12 @@ def check_sharded_products(model, step, subdiv):
         errs = {}
         for what, layout, inp in (("forward", op.forward_layout(), x),
                                   ("backward", op.transpose_layout(), g)):
-            _, a, idx, r0, full_rows = layout
+            _, a, idx, nz, r0, full_rows = layout
             inp_fit = F.pad(inp, (0, m_pad - width, 0, full_rows - n))
-            y = kernel(a, idx, inp_fit, 0, a.shape[0])
-            errs[what + " plain"] = float((y.float() - bcsr.
-                bcsr_super_spmm_rows_reference(a, idx, inp_fit, 0, a.shape[0])
-                .float()).abs().max())
+            y = kernel(a, idx, inp_fit, 0, a.shape[0], nz)
+            errs[what + " plain"] = rel_err(y.float().cpu(), bcsr.
+                bcsr_super_spmm_rows_reference(a, idx, inp_fit, 0, a.shape[0],
+                                               nz).float().cpu())
             checked.add((a.data_ptr(), m_pad, dt))
         # through the operator: its forward rows and x.grad of <L x, g>
         xg = x[v0:v1].clone().requires_grad_()
@@ -1290,9 +1440,7 @@ def check_sharded_products(model, step, subdiv):
         errs["backward scipy"] = rel_err(xg.grad.float().cpu().numpy(), (
             L.T @ g.float().cpu().numpy())[v0:v1])
         label = f"HEALPix-{subdiv} level {level} width {width}"
-        if errs["forward plain"] or errs["backward plain"] or not (
-                errs["forward scipy"] < BARS["bf16"]
-                and errs["backward scipy"] < BARS["bf16"]):
+        if not all(e < BARS["bf16"] for e in errs.values()):
             raise AssertionError(f"K2 {label}: {errs}")
         worst["plain"] = max(worst["plain"], errs["forward plain"],
                              errs["backward plain"])
@@ -1400,8 +1548,9 @@ def phase_node(device, card_line, train_ref, train64_ref):
             log("node64", f"K2 {line}")
         log("node64", f"rank {r['mesh']}: {p['n_products']} (level, width) "
                       f"products of a sharded step, forward and backward: "
-                      f"worst vs plain version {p['worst']['plain']:.3e}, "
-                      f"vs scipy's rows {p['worst']['scipy']:.3e} (bar "
+                      f"worst rel err vs plain version "
+                      f"{p['worst']['plain']:.3e}, vs scipy's rows "
+                      f"{p['worst']['scipy']:.3e} (bar "
                       f"{BARS['bf16']:g}); they cover all {p['n_shapes']} "
                       f"launch shapes")
     ms64 = 1e3 * max(r["seconds"][-1] for r in node64)
@@ -1448,15 +1597,16 @@ def kernel_row(name, op, device, subdiv, batch, launches):
     L = _laplacian(subdiv)
     widths = [batch * f for f in WIDTH_FEATURES]
     rng = np.random.default_rng(SEED + 2)
-    acc = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bytes_ms": 0.0, "ops_ms": 0.0}
+    acc = {"ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
     err = 0.0
     for w in widths:
         x = torch.from_numpy(rng.standard_normal((L.shape[0], w)).astype(
             np.float32)).to(device, torch.bfloat16)
         r = measure(op, L, x, device, f"{name} bf16 width {w}")
         log("times", f"{name} HEALPix-{subdiv} bf16 width {w}: "
-                     f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms by "
+                     f"{r['ms']:.4f} ms (host enqueue {r['host_ms']:.4f} ms,"
+                     f" bound {r['bound_ms']:.4f} ms by "
                      f"{r['bound_by']}, plain {r['plain_ms']:.4f} ms, "
                      f"cuSPARSE {r['library_ms']:.4f} ms), vs plain version "
                      f"{r['rel_err_plain']:.3e} (bar {BARS['bf16']:g}), "
@@ -1471,17 +1621,21 @@ def kernel_row(name, op, device, subdiv, batch, launches):
             "replaces": REPLACES[name], "launches": fwd + bwd,
             "launches_forward": fwd, "launches_backward": bwd,
             "launches_by_path": {p: list(v) for p, v in launches.items()},
-            "max_abs_err": err, "ms": acc["ms"],
+            "max_abs_err": err, "ms": acc["ms"], "host_ms": acc["host_ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_ms"] >= acc["ops_ms"]
                          else "operations"),
             "library_ms": acc["library_ms"]}
 
 
-def kernel_row_rows(device, subdiv, batch, launches):
-    """K2 at the 10 level-0 shapes of one node16 forward (bf16, batch 16),
-    on rank 0's shard (rows [0, n/2)) against the full x: per-launch
-    averages; cuSPARSE on the CSR row slice against the full x."""
+def row_range_times(kind, device, subdiv, batch):
+    """A row-range kernel (K2 for kind "super", K3's row range for
+    "plain") at the 10 level-0 shapes of one node16 forward (bf16, batch
+    16), on rank 0's shard (rows [0, n/2)) against the full x: per-launch
+    averages of its time (`device_ms`), its plain version's, cuSPARSE's on
+    the CSR row slice against the full x and the bound; the largest max
+    abs error vs the plain version (K2 held to the bf16 bar: the tensor
+    cores sum in another order; K3's row range exactly)."""
     import torch
     import torch.nn.functional as F
 
@@ -1490,14 +1644,21 @@ def kernel_row_rows(device, subdiv, batch, launches):
     L = _laplacian(subdiv)
     n = L.shape[0]
     v0, v1 = 0, n // 2
-    op = BlockSparseOperator.from_scipy(L, dtype=torch.bfloat16,
-                                        device=device)
-    _, a, idx, r0, full_rows = op.row_shard(v0, v1, group=None).fwd
+    op = BlockSparseOperator.from_scipy(
+        L, dtype=torch.bfloat16, rows_per_super=2 if kind == "super" else 0,
+        device=device)
+    _, a, idx, nz, r0, full_rows = op.row_shard(v0, v1, group=None).fwd
+    name = ROW_KERNEL if kind == "super" else PLAIN_ROW_KERNEL
+    fn, plain = ((bcsr.bcsr_super_spmm_rows, bcsr.bcsr_super_spmm_rows_reference)
+                 if kind == "super" else
+                 (bcsr.bcsr_spmm_rows, bcsr.bcsr_spmm_rows_reference))
+    kw = {"nz": nz} if kind == "super" else {}
     csr = _csr(L[v0:v1], device, torch.bfloat16)
-    nnz, slots, x_blocks = _block_counts(KERNEL, a, idx)
+    nnz, slots, x_blocks = _block_counts(
+        KERNEL if kind == "super" else PLAIN_KERNEL, a, idx)
     rng = np.random.default_rng(SEED + 14)
-    acc = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms",
-                         "bytes_ms", "ops_ms"), 0.0)
+    acc = dict.fromkeys(("ms", "host_ms", "plain_ms", "library_ms",
+                         "bound_ms", "bytes_ms", "ops_ms"), 0.0)
     widths = [batch * f for f in WIDTH_FEATURES]
     err = 0.0
     for w in widths:
@@ -1505,38 +1666,48 @@ def kernel_row_rows(device, subdiv, batch, launches):
             np.float32)).to(device, torch.bfloat16)
         x_pad = F.pad(x, (0, (-w) % 128, 0, full_rows - n))
         args = (a, idx, x_pad, 0, a.shape[0])
-        y = bcsr.bcsr_super_spmm_rows(*args)
-        e = float((y.float() - bcsr.bcsr_super_spmm_rows_reference(*args)
-                   .float()).abs().max())
-        if e:
-            raise AssertionError(f"K2 width {w}: vs plain version {e:.3e}")
+        y, want = fn(*args, **kw), plain(*args, **kw)
+        e = float((y.float() - want.float()).abs().max())
+        e_rel = rel_err(y.float().cpu(), want.float().cpu())
+        if (not e_rel < BARS["bf16"]) if kind == "super" else e:
+            raise AssertionError(f"{name} width {w}: vs plain version max abs "
+                                 f"{e:.3e}, rel {e_rel:.3e}")
         err = max(err, e)
         t_bytes, t_ops = _bound(a, x, nnz, x_blocks, out_rows=v1 - v0)
-        r = {"ms": time_ms(lambda: bcsr.bcsr_super_spmm_rows(*args)),
-             "plain_ms": time_ms(
-                 lambda: bcsr.bcsr_super_spmm_rows_reference(*args), n_iter=5),
-             "library_ms": time_ms(lambda: torch.sparse.mm(csr, x)),
+        r = {"ms": device_ms(lambda: fn(*args, **kw)),
+             "host_ms": host_ms(lambda: fn(*args, **kw)),
+             "plain_ms": device_ms(lambda: plain(*args, **kw), n_iter=5),
+             "library_ms": device_ms(lambda: torch.sparse.mm(csr, x)),
              "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
              "ops_ms": t_ops}
-        log("times", f"{ROW_KERNEL} HEALPix-{subdiv} bf16 rows [{v0}, {v1}) "
-                     f"of x[{n}, {w}]: {r['ms']:.4f} ms (bound "
+        log("times", f"{name} HEALPix-{subdiv} bf16 rows [{v0}, {v1}) "
+                     f"of x[{n}, {w}]: {r['ms']:.4f} ms (host enqueue "
+                     f"{r['host_ms']:.4f} ms, bound "
                      f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                      f"cuSPARSE {r['library_ms']:.4f} ms), vs plain version "
-                     f"{e:.3e}, blocks {nnz}/{slots}, x blocks read "
-                     f"{x_blocks}/{full_rows // 128}")
+                     f"max abs {e:.3e} rel {e_rel:.3e}, blocks {nnz}/{slots}, "
+                     f"x blocks read {x_blocks}/{full_rows // 128}")
         for k in acc:
             acc[k] += r[k] / len(widths)
+    acc["max_abs_err"] = err
+    acc["bound_by"] = ("bytes" if acc["bytes_ms"] >= acc["ops_ms"]
+                       else "operations")
+    return acc
+
+
+def kernel_row_rows(device, subdiv, batch, launches):
+    """K2's kernel row: `row_range_times` of the super-row layout."""
+    r = row_range_times("super", device, subdiv, batch)
     fwd = sum(f for f, _ in launches.values())
     bwd = sum(b for _, b in launches.values())
     return {"name": ROW_KERNEL, "route": "cuda", "source": SOURCES[ROW_KERNEL],
             "replaces": REPLACES[ROW_KERNEL], "launches": fwd + bwd,
             "launches_forward": fwd, "launches_backward": bwd,
             "launches_by_path": {p: list(v) for p, v in launches.items()},
-            "max_abs_err": err, "ms": acc["ms"],
-            "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
-            "bound_by": ("bytes" if acc["bytes_ms"] >= acc["ops_ms"]
-                         else "operations"),
-            "library_ms": acc["library_ms"]}
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "host_ms": r["host_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
 def _profile(fn, n, label):
@@ -1565,9 +1736,17 @@ def _profile(fn, n, label):
     for ms, count, key in rows[:15]:
         log("profile", f"{100 * ms / busy:5.1f}%  {ms / n:8.4f} ms/call  "
                        f"{count // n:4d}/call  {key[:90]}")
+    for name in (KERNEL, PLAIN_KERNEL):
+        mine = [r for r in rows if name + "_" in r[2]]
+        if mine:
+            t = sum(r[0] for r in mine)
+            log("profile", f"{name}, all instances: {t / n:.4f} ms/call, "
+                           f"{sum(r[1] for r in mine) // n}/call, "
+                           f"{100 * t / busy:.1f}% of device time")
 
 
-def phase_profile(model, device, batch, train_steps, n_fwd=3, n_steps=2):
+def phase_profile(model, device, batch, train_steps, step64, n_fwd=3,
+                  n_steps=2):
     import torch
 
     rng = np.random.default_rng(SEED + 3)
@@ -1583,6 +1762,9 @@ def phase_profile(model, device, batch, train_steps, n_fwd=3, n_steps=2):
     for label, step in train_steps.items():
         _profile(step, n_steps, f"{n_steps} AR{TRAIN_AR} train steps, batch "
                                 f"{batch}, {label} at level 0")
+    _profile(step64, n_steps, f"{n_steps} HEALPix-{BIG_SUBDIV} AR{HP64_AR} "
+                              f"train steps, batch {HP64_BATCH}, K1 at every "
+                              "level")
 
 
 def main() -> int:
@@ -1592,8 +1774,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also print device time by kernel for 3 forwards "
-                         "and 2 train steps with each level-0 kernel")
+                    help="also print device time by kernel for 3 forwards, "
+                         "2 train steps with each level-0 kernel and 2 "
+                         "HEALPix-64 train steps")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1636,6 +1819,14 @@ def main() -> int:
         kernel_row_rows(device, SLICE_SUBDIV, BATCH, node["launches"]),
     ]
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], k3_err)
+    # K3's row range beside K2, on the same shard (parity phase only on
+    # the main paths: the geometry builds the super-row layout)
+    k3_rows = row_range_times("plain", device, SLICE_SUBDIV, BATCH)
+    rows[1]["rows_range"] = {k: k3_rows[k] for k in (
+        "ms", "host_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    k1_64 = time_step_products(tr64["products"], BIG_SUBDIV, device,
+                               card_line)
+    rows[0]["train64_shapes"] = k1_64
     log("times", f"slice: {fig['step_ms']:.2f} ms per forecast step (batch "
                  f"{BATCH}, host clock, {N_STEPS} steps), {fig['submit_ms']:.1f} "
                  f"ms for {N_SUBMIT} concurrent submits, forward "
@@ -1646,13 +1837,16 @@ def main() -> int:
                  f"{tr['ms']['train16_plain']:.2f} ms; HEALPix-{BIG_SUBDIV} "
                  f"batch {HP64_BATCH}: {tr64['ms']:.2f} ms, "
                  f"{tr64['peak_gib']:.2f} GiB peak; {ROW_KERNEL} "
-                 f"{rows[2]['ms']:.4f} ms per launch; on 2 ranks sharing the "
+                 f"{rows[2]['ms']:.4f} ms per launch ({PLAIN_ROW_KERNEL} "
+                 f"{k3_rows['ms']:.4f} ms); {KERNEL} over the HEALPix-"
+                 f"{BIG_SUBDIV} step's {len(k1_64)} shapes "
+                 f"{sum(r['ms'] for r in k1_64):.4f} ms; on 2 ranks sharing the "
                  f"card (not a scaling number): HEALPix-{SLICE_SUBDIV} "
                  f"{node['ms16']:.2f} ms, HEALPix-{BIG_SUBDIV} "
                  f"{node['ms64']:.2f} ms per step, {node['peak64_gib']:.2f} "
                  f"GiB peak per rank ({card_line})")
     if args.profile:
-        phase_profile(tr["model"], device, BATCH, tr["steps"])
+        phase_profile(tr["model"], device, BATCH, tr["steps"], tr64["step"])
     log("times", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -176,8 +176,13 @@ int launch_range(const void* vals, int a_bf16, const int32_t* cols,
 
 extern "C" {
 
-// Columns per CTA: the wrapper checks M against it.
-int bcsr_spmm_col_tile() { return BN; }
+// Columns per CTA for x width M, the same in every regime (0: the kernel
+// does not take M); the wrapper checks M against it.
+int bcsr_spmm_col_tile(int64_t M, int a_bf16, int x_bf16) {
+  (void)a_bf16;
+  (void)x_bf16;
+  return M % BN == 0 ? BN : 0;
+}
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success).
 // a_bf16 / x_bf16 select the operand types; the output is bf16 iff x_bf16.

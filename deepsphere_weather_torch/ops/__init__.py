@@ -15,6 +15,7 @@ from .bcsr import (  # noqa: F401
     bcsr_super_spmm_rows_reference,
     launch_counts,
     reset_launch_counts,
+    super_nonzero_slots,
 )
 from .cheb import ChebOperator, cheb_conv  # noqa: F401
 from .pool import (  # noqa: F401

@@ -9,9 +9,12 @@ Port of `deepsphere_weather_tpu/ops/pallas_spmm.py`:
   `[R*128, max_u*128] @ [max_u*128, M]` product. The TPU's DMA slot
   schedule and VMEM tiling have no counterpart on the GPU, so the union
   slots are simply in sorted column order.
-- `bcsr_super_spmm`: the super-row product. On a CUDA tensor it launches
-  the CUDA kernel `kernels/bcsr_super_spmm.cu` (or raises); on a CPU
-  tensor it runs the plain PyTorch version `bcsr_super_spmm_reference`.
+- `super_nonzero_slots`: per row block of a super-row layout, the union
+  slots whose block is nonzero, built once per operator on its device.
+- `bcsr_super_spmm`: the super-row product over the listed slots. On a
+  CUDA tensor it launches the CUDA kernel `kernels/bcsr_super_spmm.cu`
+  (or raises); on a CPU tensor it runs the plain PyTorch version
+  `bcsr_super_spmm_reference`.
 - `bcsr_spmm`: the plain-BCSR product, the same way: the CUDA kernel
   `kernels/bcsr_spmm.cu` or `bcsr_spmm_reference`.
 - `bcsr_super_spmm_rows`, `bcsr_spmm_rows`: the same products over a
@@ -43,7 +46,7 @@ from torch.autograd.function import once_differentiable
 from .._device import resolve_device
 from ..parallel.collectives import gather_rows
 
-__all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy",
+__all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy", "super_nonzero_slots",
            "bcsr_super_spmm", "bcsr_super_spmm_reference",
            "bcsr_super_spmm_rows", "bcsr_super_spmm_rows_reference",
            "bcsr_spmm", "bcsr_spmm_reference",
@@ -145,6 +148,30 @@ def bcsr_super_from_scipy(mat, block_size: int = _BS, rows_per_super: int = 2):
     return svals.reshape(n_s, R, bs, max_u * bs), ucols, n_pad
 
 
+def super_nonzero_slots(svals: torch.Tensor) -> torch.Tensor:
+    """The nonzero union slots of each row block of a super-row layout:
+    int32 [n_s, R, 1 + max_u] on svals' device. [s, r, 0] is the count c
+    of union slots whose block of row block s*R + r has a nonzero entry,
+    [s, r, 1:1 + c] those slots in increasing order (the zero slots follow,
+    unread). The kernels walk only the listed slots: a zero block adds an
+    exact zero, so skipping it changes no sum."""
+    n_s, R, bs, ubs = svals.shape
+    nonzero = (svals.view(n_s, R, bs, ubs // bs, bs) != 0).any(dim=4).any(dim=2)
+    order = torch.argsort((~nonzero).to(torch.uint8), dim=-1, stable=True)
+    count = nonzero.sum(dim=-1, keepdim=True)
+    return torch.cat([count, order], dim=-1).to(torch.int32).contiguous()
+
+
+def _listed(nz: torch.Tensor, max_u: int) -> torch.Tensor:
+    """[n_s, R, max_u] bool: the slots `nz` lists for each row block."""
+    listed = torch.arange(max_u, device=nz.device) < nz[..., :1]
+    # unlisted entries scatter into a spare column, dropped after
+    idx = torch.where(listed, nz[..., 1:].long(), max_u)
+    mask = torch.zeros(nz.shape[:-1] + (max_u + 1,), dtype=torch.bool,
+                       device=nz.device)
+    return mask.scatter_(-1, idx, True)[..., :max_u]
+
+
 def _x_regime(x: torch.Tensor) -> torch.dtype:
     """The product's dtype regime, set by x: A is cast to it (fp32 x widens
     bf16 A exactly; bf16 x rounds fp32 A to bf16) and the output is stored
@@ -191,8 +218,21 @@ def _check_x_rows(x, rows):
                          f"{x.shape[0]}")
 
 
-def _check_args(svals, ucols, x):
+def _check_nz(svals, nz):
+    if nz is None:
+        return
+    n_s, R, bs, ubs = svals.shape
+    if nz.dtype != torch.int32 or nz.device != svals.device or \
+            nz.shape != (n_s, R, 1 + ubs // bs):
+        raise ValueError(f"the slot list must be int32 [n_s, R, 1 + max_u] "
+                         f"= {(n_s, R, 1 + ubs // bs)} on the layout's "
+                         f"device, got {str(nz.dtype)[6:]} {tuple(nz.shape)} "
+                         f"on {nz.device}")
+
+
+def _check_args(svals, ucols, x, nz=None):
     _check_super_layout(svals, ucols, x)
+    _check_nz(svals, nz)
     _check_x_rows(x, svals.shape[0] * svals.shape[1] * _BS)
 
 
@@ -214,13 +254,14 @@ def _check_range(begin, end, n, x, what):
                          f"{x.shape[0]} rows")
 
 
-def _check_launch(k, name, tensors, M):
-    if M % getattr(k.lib, f"{name}_col_tile")():
+def _check_launch(k, name, tensors, M, a_bf16, x_bf16):
+    tile = getattr(k.lib, f"{name}_col_tile")(M, a_bf16, x_bf16)
+    if not tile or M % tile:
         raise ValueError(f"x width {M} is not a multiple of the kernel's "
                          "column tile; matvec pads it")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("the A blocks, their columns and x must be "
-                         "contiguous")
+        raise ValueError("the A blocks, their columns, x and the slot list "
+                         "must be contiguous")
 
 
 def _raise_on(k, name, err):
@@ -230,20 +271,25 @@ def _raise_on(k, name, err):
 
 
 def bcsr_super_spmm_reference(svals: torch.Tensor, ucols: torch.Tensor,
-                              x: torch.Tensor) -> torch.Tensor:
+                              x: torch.Tensor,
+                              nz: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gather, fp32 einsum, cast.
 
     out[s*R*bs + r*bs + i, m] = sum_k svals[s, r, i, k] * xg[s, k, m] with
-    xg[s] the x blocks of ucols[s] stacked. Output [n_s*R*bs, M], bf16 for
-    bf16 x and fp32 otherwise."""
-    _check_args(svals, ucols, x)
-    return _super_product(svals, ucols, x)
+    xg[s] the x blocks of ucols[s] stacked, the blocks of the slots that
+    `nz` (`super_nonzero_slots`) does not list for a row block masked to
+    zero. Output [n_s*R*bs, M], bf16 for bf16 x and fp32 otherwise."""
+    _check_args(svals, ucols, x, nz)
+    return _super_product(svals, ucols, x, nz)
 
 
-def _super_product(svals, ucols, x):
+def _super_product(svals, ucols, x, nz):
     n_s, R, bs, ubs = svals.shape
     M = x.shape[1]
     a = svals.to(_x_regime(x)).float()
+    if nz is not None:
+        a = (a.view(n_s, R, bs, ubs // bs, bs)
+             * _listed(nz, ubs // bs)[:, :, None, :, None]).view(a.shape)
     xb = x.float().reshape(-1, bs, M)
     xg = xb[ucols.long()].reshape(n_s, ubs, M)
     out = torch.einsum("srik,skm->srim", a, xg)
@@ -251,15 +297,19 @@ def _super_product(svals, ucols, x):
 
 
 def bcsr_super_spmm_rows_reference(svals: torch.Tensor, ucols: torch.Tensor,
-                                   x: torch.Tensor, s_begin: int,
-                                   s_end: int) -> torch.Tensor:
-    """Plain PyTorch version of the row-range kernel: the tables sliced
-    to the super-rows [s_begin, s_end), gathering from the full x.
-    Output [(s_end - s_begin)*R*bs, M], row i the row s_begin*R*bs + i of
-    the full product."""
+                                   x: torch.Tensor, s_begin: int, s_end: int,
+                                   nz: Optional[torch.Tensor] = None
+                                   ) -> torch.Tensor:
+    """Plain PyTorch version of the row-range kernel: the tables (and
+    `nz`, as in `bcsr_super_spmm_reference`) sliced to the super-rows
+    [s_begin, s_end), gathering from the full x. Output
+    [(s_end - s_begin)*R*bs, M], row i the row s_begin*R*bs + i of the
+    full product."""
     _check_super_layout(svals, ucols, x)
+    _check_nz(svals, nz)
     _check_range(s_begin, s_end, svals.shape[0], x, "super-row")
-    return _super_product(svals[s_begin:s_end], ucols[s_begin:s_end], x)
+    return _super_product(svals[s_begin:s_end], ucols[s_begin:s_end], x,
+                          None if nz is None else nz[s_begin:s_end])
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -274,7 +324,9 @@ def _bind(name, entries):
         fn = getattr(k.lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    getattr(k.lib, f"{name}_col_tile").restype = ctypes.c_int
+    tile = getattr(k.lib, f"{name}_col_tile")      # (M, a_bf16, x_bf16)
+    tile.argtypes = [_I64, _I, _I]
+    tile.restype = ctypes.c_int
     err = getattr(k.lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
@@ -283,10 +335,10 @@ def _bind(name, entries):
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
-    head = [_P, _I, _P, _P, _I, _P]          # svals, a_bf16, ucols, x, x_bf16, out
+    head = [_P, _I, _P, _P, _I, _P, _P]      # svals, a_bf16, ucols, x, x_bf16, nz, out
     return _bind("bcsr_super_spmm", {
         "bcsr_super_spmm": head + [_I64, _I, _I, _I64, _P],
-        "bcsr_super_spmm_rows": head + [_I64, _I64, _I, _I, _I64, _P]})
+        "bcsr_super_spmm_rows": head + [_I64, _I64, _I, _I, _I64, _I64, _P]})
 
 
 @functools.lru_cache(maxsize=None)
@@ -297,58 +349,68 @@ def _plain_kernel():
         "bcsr_spmm_rows": head + [_I64, _I64, _I, _I64, _P]})
 
 
-def _launch(k, lib_name, entry, a, idx, x, out, flags, sizes):
+def _launch(k, lib_name, entry, a, idx, x, out, extra, sizes):
     """Launch `entry` of library `lib_name` on x's device and current
-    stream: (A, a_bf16, idx, x, x_bf16, *flags, out, *sizes, stream).
-    Raise if the launch failed, else count it."""
-    _check_launch(k, lib_name, (a, idx, x), x.shape[1])
+    stream: (A, a_bf16, idx, x, x_bf16, *extra, out, *sizes, stream), a
+    tensor in `extra` passed as its pointer (None as NULL). Raise if the
+    launch failed, else count it."""
+    a_bf16, x_bf16 = int(a.dtype == torch.bfloat16), int(x.dtype == torch.bfloat16)
+    tensors = [a, idx, x] + [e for e in extra if isinstance(e, torch.Tensor)]
+    _check_launch(k, lib_name, tensors, x.shape[1], a_bf16, x_bf16)
+    extra = [e.data_ptr() if isinstance(e, torch.Tensor) else e for e in extra]
     # the C entry point launches on the current device: make it x's
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(k.lib, entry)(
-            a.data_ptr(), int(a.dtype == torch.bfloat16), idx.data_ptr(),
-            x.data_ptr(), int(x.dtype == torch.bfloat16), *flags,
-            out.data_ptr(), *sizes, stream)
+            a.data_ptr(), a_bf16, idx.data_ptr(), x.data_ptr(), x_bf16,
+            *extra, out.data_ptr(), *sizes, stream)
     _raise_on(k, lib_name, err)
     launch_counts[entry] += 1
     return out
 
 
 def bcsr_super_spmm(svals: torch.Tensor, ucols: torch.Tensor,
-                    x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for A in super-row BCSR; x [n_s*R*128, M], M % 128 == 0.
+                    x: torch.Tensor,
+                    nz: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = A @ x for A in super-row BCSR; x [n_s*R*128, M], M a multiple
+    of the kernel's column tile (64 does for every regime). `nz`
+    (`super_nonzero_slots`) lists the slots each row block walks; None
+    walks every slot.
 
-    CUDA tensors run the hand-written kernel (a failed build or launch
-    raises); CPU tensors run `bcsr_super_spmm_reference`."""
-    _check_args(svals, ucols, x)
+    CUDA tensors run the hand-written kernel (a failed build, descriptor
+    encode or launch raises); CPU tensors run `bcsr_super_spmm_reference`."""
+    _check_args(svals, ucols, x, nz)
     if not x.is_cuda:
-        return bcsr_super_spmm_reference(svals, ucols, x)
+        return bcsr_super_spmm_reference(svals, ucols, x, nz)
     n_s, R, bs, ubs = svals.shape
     out = torch.empty((n_s * R * bs, x.shape[1]), dtype=_x_regime(x),
                       device=x.device)
     return _launch(_kernel(), "bcsr_super_spmm", "bcsr_super_spmm", svals,
-                   ucols, x, out, (), (n_s, R, ubs // bs, x.shape[1]))
+                   ucols, x, out, (nz,), (n_s, R, ubs // bs, x.shape[1]))
 
 
 def bcsr_super_spmm_rows(svals: torch.Tensor, ucols: torch.Tensor,
-                         x: torch.Tensor, s_begin: int,
-                         s_end: int) -> torch.Tensor:
+                         x: torch.Tensor, s_begin: int, s_end: int,
+                         nz: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The super-rows [s_begin, s_end) of A @ x against the full x
-    [n_cb*128, M]: [(s_end - s_begin)*R*128, M] (K2).
+    [n_cb*128, M]: [(s_end - s_begin)*R*128, M] (K2). `nz` covers the
+    whole layout, as in `bcsr_super_spmm`.
 
     CUDA tensors run the hand-written kernel's row-range entry (counted
-    as `bcsr_super_spmm_rows`; a failed build or launch raises); CPU
-    tensors run `bcsr_super_spmm_rows_reference`."""
+    as `bcsr_super_spmm_rows`; a failed build, descriptor encode or
+    launch raises); CPU tensors run `bcsr_super_spmm_rows_reference`."""
     _check_super_layout(svals, ucols, x)
+    _check_nz(svals, nz)
     _check_range(s_begin, s_end, svals.shape[0], x, "super-row")
     if not x.is_cuda:
-        return bcsr_super_spmm_rows_reference(svals, ucols, x, s_begin, s_end)
+        return bcsr_super_spmm_rows_reference(svals, ucols, x, s_begin, s_end,
+                                              nz)
     n_s, R, bs, ubs = svals.shape
     out = torch.empty(((s_end - s_begin) * R * bs, x.shape[1]),
                       dtype=_x_regime(x), device=x.device)
     return _launch(_kernel(), "bcsr_super_spmm", "bcsr_super_spmm_rows",
-                   svals, ucols, x, out, (),
-                   (s_begin, s_end, R, ubs // bs, x.shape[1]))
+                   svals, ucols, x, out, (nz,),
+                   (s_begin, s_end, R, ubs // bs, x.shape[0], x.shape[1]))
 
 
 def bcsr_spmm_reference(vals: torch.Tensor, cols: torch.Tensor,
@@ -436,21 +498,21 @@ def _fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, rows - x.shape[0]))
 
 
-# A layout: ("super", svals, ucols) or ("plain", vals, cols)
-_Layout = Tuple[str, torch.Tensor, torch.Tensor]
+# A layout: ("super", svals, ucols, nz) or ("plain", vals, cols, None)
+_Layout = Tuple[str, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 
-def _layout_rows(layout: _Layout) -> int:
-    kind, a, _ = layout
+def _layout_rows(layout) -> int:
+    kind, a = layout[:2]
     return (a.shape[0] * a.shape[1] * a.shape[2] if kind == "super"
             else a.shape[0] * a.shape[2])
 
 
 def _run_mv(layout: _Layout, x_pad: torch.Tensor, n_out: int) -> torch.Tensor:
     """One product on `layout`, x fitted to its rows, output to n_out."""
-    kind, a, idx = layout
+    kind, a, idx, nz = layout
     x_fit = _fit_rows(x_pad, _layout_rows(layout))
-    y = (bcsr_super_spmm(a, idx, x_fit) if kind == "super"
+    y = (bcsr_super_spmm(a, idx, x_fit, nz) if kind == "super"
          else bcsr_spmm(a, idx, x_fit))
     return _fit_rows(y, n_out)
 
@@ -482,7 +544,9 @@ class BlockSparseOperator:
     when there is one, else on the plain BCSR (`vals`, `cols`). A
     symmetric operator reuses those arrays for the backward; a
     non-symmetric one carries the transposed layout, super-row
-    (`svals_t`, `ucols_t`) if built, else plain (`vals_t`, `cols_t`)."""
+    (`svals_t`, `ucols_t`) if built, else plain (`vals_t`, `cols_t`). Each
+    super-row layout gets its list of nonzero slots (`nz`, `nz_t`:
+    `super_nonzero_slots`), built here once, on its device."""
 
     def __init__(self, n: int, svals=None, ucols=None, vals=None, cols=None,
                  svals_t=None, ucols_t=None, vals_t=None, cols_t=None):
@@ -494,6 +558,8 @@ class BlockSparseOperator:
         self.vals, self.cols = vals, cols
         self.svals_t, self.ucols_t = svals_t, ucols_t
         self.vals_t, self.cols_t = vals_t, cols_t
+        self.nz = None if svals is None else super_nonzero_slots(svals)
+        self.nz_t = None if svals_t is None else super_nonzero_slots(svals_t)
 
     @classmethod
     def from_scipy(cls, mat, symmetric: bool = True, dtype=torch.float32,
@@ -532,8 +598,8 @@ class BlockSparseOperator:
 
     def forward_layout(self) -> _Layout:
         if self.svals is not None:
-            return ("super", self.svals, self.ucols)
-        return ("plain", self.vals, self.cols)
+            return ("super", self.svals, self.ucols, self.nz)
+        return ("plain", self.vals, self.cols, None)
 
     def transpose_layout(self) -> _Layout:
         """The arrays that compute A^T @ g (`_transpose_arrays`): the
@@ -542,8 +608,8 @@ class BlockSparseOperator:
         if self.symmetric:
             return self.forward_layout()
         if self.svals_t is not None:
-            return ("super", self.svals_t, self.ucols_t)
-        return ("plain", self.vals_t, self.cols_t)
+            return ("super", self.svals_t, self.ucols_t, self.nz_t)
+        return ("plain", self.vals_t, self.cols_t, None)
 
     @property
     def rows(self) -> int:
@@ -576,16 +642,18 @@ class BlockSparseOperator:
         return ShardedBlockSparseOperator(self.n, v0, v1, group, fwd, bwd)
 
 
-# One rank's slice of a layout: (kind, A blocks, block-column table, first
-# row of the slice in the full product, rows of the full layout)
-_ShardLayout = Tuple[str, torch.Tensor, torch.Tensor, int, int]
+# One rank's slice of a layout: (kind, A blocks, block-column table, slot
+# list or None, first row of the slice in the full product, rows of the
+# full layout)
+_ShardLayout = Tuple[str, torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+                     int, int]
 
 
 def _shard_layout(layout: _Layout, v0: int, v1: int) -> _ShardLayout:
     """The units (super-rows or row blocks) of `layout` that cover rows
     [v0, v1); checks once, on the host, that every block-column they name
     addresses a block of the full x."""
-    kind, a, idx = layout
+    kind, a, idx, nz = layout
     unit = _BS * (a.shape[1] if kind == "super" else 1)
     lo, hi = v0 // unit, -(-v1 // unit)
     full_rows = _layout_rows(layout)
@@ -593,7 +661,8 @@ def _shard_layout(layout: _Layout, v0: int, v1: int) -> _ShardLayout:
     if top >= full_rows // _BS:
         raise ValueError(f"block-column {top} lies outside the full x's "
                          f"{full_rows // _BS} blocks")
-    return (kind, a[lo:hi].contiguous(), idx[lo:hi].contiguous(), lo * unit,
+    return (kind, a[lo:hi].contiguous(), idx[lo:hi].contiguous(),
+            None if nz is None else nz[lo:hi].contiguous(), lo * unit,
             full_rows)
 
 
@@ -602,9 +671,9 @@ def _run_rows(layout: _ShardLayout, x_full: torch.Tensor, v0: int,
     """Rows [v0, v1) of the product of a shard's layout with the full x
     (fitted to the full layout's rows): one row-range launch over the
     shard's units, then the rank's rows of its output."""
-    kind, a, idx, r0, full_rows = layout
+    kind, a, idx, nz, r0, full_rows = layout
     x_fit = _fit_rows(x_full, full_rows)
-    y = (bcsr_super_spmm_rows(a, idx, x_fit, 0, a.shape[0])
+    y = (bcsr_super_spmm_rows(a, idx, x_fit, 0, a.shape[0], nz)
          if kind == "super" else bcsr_spmm_rows(a, idx, x_fit, 0, a.shape[0]))
     return y[v0 - r0:v1 - r0]
 

@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the super-row SpMM (K1) and the plain-BCSR SpMM (K3), forward and
 backward, their row-range entries (K2 and K3's row-sharded form) against
-the rows of the full launch and their plain versions (exactly), and one
-training step against the CPU plain path.
+the rows of the full launch (exactly) and their plain versions (exactly,
+but K1/K2's bf16 tensor-core body at the bf16 bar: it sums in another
+order), K1's slot list (every column tile, zero row blocks, the list
+against walking every slot) and one training step against the CPU plain
+path.
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without
 one. This file imports neither JAX nor the JAX package, so it also runs on
@@ -19,8 +22,6 @@ order); a one-element gradient against the sum of its terms' magnitudes,
 see the test.
 """
 
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -30,7 +31,7 @@ from scipy import sparse  # noqa: E402
 
 from deepsphere_weather_torch.data.ar import ARIndexer  # noqa: E402
 from deepsphere_weather_torch.engine import AreaWeights, make_ar_loss_fn  # noqa: E402
-from deepsphere_weather_torch.models import ConvBlock, UNetSpherical  # noqa: E402
+from deepsphere_weather_torch.models import UNetSpherical  # noqa: E402
 from deepsphere_weather_torch.models.geometry import cached_graph_laplacian  # noqa: E402
 from deepsphere_weather_torch.ops import (  # noqa: E402
     BlockSparseOperator,
@@ -48,6 +49,7 @@ from deepsphere_weather_torch.ops import (  # noqa: E402
 from deepsphere_weather_torch.sphere import build_graph  # noqa: E402
 from deepsphere_weather_torch.weights import params_from_jax, seeded_params  # noqa: E402
 from torch_grad_terms import term_sums  # noqa: E402
+from torch_steer import steer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -106,6 +108,20 @@ def test_kernel_rejects_non_contiguous(cuda):
         bcsr_super_spmm(op.svals, op.ucols, x)
 
 
+def test_kernel_raises_when_the_descriptor_encode_fails(cuda):
+    # TMA needs x 16-byte aligned: a view 2 bytes in cannot be encoded,
+    # and the bf16 launch raises rather than fall back to the FMA body
+    g = build_graph("healpix", {"subdivisions": 4, "nest": True}, k=8)
+    op = BlockSparseOperator.from_scipy(g.L, dtype=torch.bfloat16,
+                                        device=cuda)
+    flat = torch.zeros(op.rows * 128 + 1, dtype=torch.bfloat16, device=cuda)
+    x = flat[1:].view(op.rows, 128)
+    before = launch_counts["bcsr_super_spmm"]
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        bcsr_super_spmm(op.svals, op.ucols, x, op.nz)
+    assert launch_counts["bcsr_super_spmm"] == before
+
+
 @pytest.mark.parametrize("subdiv", [4, 8])
 @pytest.mark.parametrize("a_dt,x_dt,round_a", [
     ("fp32", "fp32", True), ("bf16", "bf16", True), ("bf16", "fp32", True),
@@ -153,24 +169,29 @@ def test_row_range_kernel_equals_full_launch_rows(cuda, subdiv, n_node, layout,
     op = BlockSparseOperator.from_scipy(
         L, dtype=DT[dt], rows_per_super=2 if layout == "super" else 0,
         device=cuda)
-    _, a, idx = op.forward_layout()
+    _, a, idx, nz = op.forward_layout()
     full_fn, rows_fn, plain_fn, key = ROW_FNS[layout]
+    kw = {"nz": nz} if layout == "super" else {}
     unit = op.rows // a.shape[0]
     rng = np.random.default_rng(subdiv + n_node)
     x = torch.from_numpy(rng.standard_normal((op.rows, 256)).astype(
         np.float32)).to(cuda, DT[dt])
-    full = full_fn(a, idx, x)
+    full = full_fn(a, idx, x, **kw)
     n = L.shape[0]
     for r in range(n_node):
         v0, v1 = r * n // n_node, (r + 1) * n // n_node
         lo, hi = v0 // unit, -(-v1 // unit)
         before = launch_counts[key]
-        y = rows_fn(a, idx, x, lo, hi)
+        y = rows_fn(a, idx, x, lo, hi, **kw)
         torch.cuda.synchronize()
         assert launch_counts[key] == before + 1
         assert y.dtype == DT[dt] and y.shape == ((hi - lo) * unit, 256)
         assert torch.equal(y, full[lo * unit:hi * unit])
-        assert torch.equal(y, plain_fn(a, idx, x, lo, hi))
+        ref = plain_fn(a, idx, x, lo, hi, **kw)
+        if layout == "super" and dt == "bf16":
+            assert rel_err(y, ref) <= TOL[dt]   # tensor cores: another order
+        else:
+            assert torch.equal(y, ref)
 
 
 @pytest.mark.parametrize("layout", ["super", "plain"])
@@ -178,7 +199,7 @@ def test_row_range_kernel_rejects_bad_ranges(cuda, layout):
     g = build_graph("healpix", {"subdivisions": 8, "nest": True}, k=8)
     op = BlockSparseOperator.from_scipy(
         g.L, rows_per_super=2 if layout == "super" else 0, device=cuda)
-    _, a, idx = op.forward_layout()
+    _, a, idx, _ = op.forward_layout()
     rows_fn, key = ROW_FNS[layout][1], ROW_FNS[layout][3]
     x = torch.zeros((op.rows, 128), device=cuda)
     n = a.shape[0]
@@ -187,6 +208,65 @@ def test_row_range_kernel_rejects_bad_ranges(cuda, layout):
         with pytest.raises(ValueError, match="range"):
             rows_fn(a, idx, x, b, e)
     assert launch_counts[key] == before
+
+
+# the tensor-core body's column tile is 256, 128 or 64 by M alone
+@pytest.mark.parametrize("M,tile", [(64, 64), (128, 128), (192, 64),
+                                    (256, 256), (384, 128), (2048, 256)])
+def test_kernel_every_column_tile(cuda, M, tile):
+    from deepsphere_weather_torch.ops.bcsr import _kernel
+
+    assert _kernel().lib.bcsr_super_spmm_col_tile(M, 1, 1) == tile
+    L = cached_graph_laplacian("healpix", {"subdivisions": 16, "nest": True},
+                               20, "knn")[1]
+    op = BlockSparseOperator.from_scipy(L, dtype=torch.bfloat16, device=cuda)
+    rng = np.random.default_rng(M)
+    x = torch.from_numpy(rng.standard_normal((op.rows, M)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    y = bcsr_super_spmm(op.svals, op.ucols, x, op.nz)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (op.rows, M)
+    assert rel_err(y, bcsr_super_spmm_reference(op.svals, op.ucols, x,
+                                                op.nz)) <= TOL["bf16"]
+    Lb = L.copy()
+    Lb.data = torch.from_numpy(L.data).to(torch.bfloat16).float().numpy()
+    n = L.shape[0]
+    ref = torch.from_numpy(Lb @ x[:n].float().cpu().numpy())
+    assert rel_err(y[:n].float(), ref) <= 2 * TOL["bf16"]
+
+
+# R = 4 at HEALPix-4: one super-row of 4 row blocks, the last 2 padding
+# (no listed slot)
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_kernel_row_block_without_slots_writes_zeros(cuda, dt):
+    g = build_graph("healpix", {"subdivisions": 4, "nest": True}, k=8)
+    op = BlockSparseOperator.from_scipy(g.L, dtype=DT[dt], rows_per_super=4,
+                                        device=cuda)
+    assert op.nz[0, :, 0].tolist()[2:] == [0, 0]
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (op.rows, 128)).astype(np.float32)).to(cuda, DT[dt])
+    y = bcsr_super_spmm(op.svals, op.ucols, x, op.nz)
+    torch.cuda.synchronize()
+    assert torch.equal(y[256:], torch.zeros_like(y[256:]))
+    assert rel_err(y, bcsr_super_spmm_reference(op.svals, op.ucols, x,
+                                                op.nz)) <= TOL[dt]
+
+
+# the slot list skips only zero blocks: the same sums, bit for bit
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_kernel_slot_list_equals_every_slot(cuda, dt):
+    L = cached_graph_laplacian("healpix", {"subdivisions": 16, "nest": True},
+                               20, "knn")[1]
+    op = BlockSparseOperator.from_scipy(L, dtype=DT[dt], device=cuda)
+    assert int(op.nz[..., 0].sum()) < op.nz[..., 1:].numel()   # some skipped
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (op.rows, 1024)).astype(np.float32)).to(cuda, DT[dt])
+    assert torch.equal(bcsr_super_spmm(op.svals, op.ucols, x, op.nz),
+                       bcsr_super_spmm(op.svals, op.ucols, x))
+    n_s = op.svals.shape[0]
+    assert torch.equal(
+        bcsr_super_spmm_rows(op.svals, op.ucols, x, 1, n_s - 1, op.nz),
+        bcsr_super_spmm_rows(op.svals, op.ucols, x, 1, n_s - 1))
 
 
 def _nonsymmetric(L):
@@ -228,53 +308,6 @@ def _grads(model):
 KINK_TOL = 1e-6
 
 
-def _steer(model, pinned=None):
-    """Route the model's ReLUs and max pools through a recorder of their
-    decisions (ReLU: x > 0; pool: the argmax), in call order. With
-    `pinned`, another run's decisions are taken instead, and where they
-    differ from this run's own, `gaps` gets how far this run's input sat
-    from the kink (|x|) or tie (the gap), over the call's largest |x|."""
-    decisions, gaps = [], []
-    taken = None if pinned is None else iter(pinned)
-
-    def relu(x):
-        mask = x > 0
-        if taken is not None:
-            want = next(taken).to(x.device)
-            if (want != mask).any():
-                xd = x.detach()
-                gaps.append(float(xd[want != mask].abs().max()
-                                  / xd.abs().max()))
-            mask = want
-        decisions.append(mask.cpu())
-        return torch.where(mask, x, torch.zeros_like(x))
-
-    def steered(pool):
-        def call(x):
-            y, idx = pool(x)
-            if taken is not None:
-                want = next(taken).to(x.device)
-                B, D, C = idx.shape
-                g = x.reshape(B, D, pool.k, C)
-                if (want != idx).any():
-                    gd = g.detach()
-                    gap = (gd.gather(2, idx[:, :, None])
-                           - gd.gather(2, want[:, :, None])).abs()[:, :, 0]
-                    gaps.append(float(gap[want != idx].max()
-                                      / gd.abs().max()))
-                y, idx = g.gather(2, want[:, :, None])[:, :, 0], want
-            decisions.append(idx.cpu())
-            return y, idx
-        return call
-
-    for m in model.modules():
-        if isinstance(m, ConvBlock) and m.act:
-            m.act_fun = relu
-    model.geometry = dataclasses.replace(
-        model.geometry, pools=[steered(p) for p in model.geometry.pools])
-    return decisions, gaps
-
-
 @pytest.mark.parametrize("dt", ["fp32", "bf16"])
 def test_train_step_matches_cpu(cuda, dt):
     # HEALPix-8 AR2, level 0 block-sparse (768 nodes; K1 on the card):
@@ -306,7 +339,7 @@ def test_train_step_matches_cpu(cuda, dt):
                 if isinstance(blk, dict):
                     blk["rezero_weight"] *= 0.1
         model.load_state_dict(params_from_jax(tree))
-        decisions, gaps = (_steer(model, pinned) if dt == "fp32"
+        decisions, gaps = (steer(model, pinned) if dt == "fp32"
                            else (None, []))
         pinned = decisions
         sums = term_sums(model)

@@ -174,7 +174,7 @@ def test_row_shard_layouts_match_jax_rows(graph, dt, rows_per_super, n_node):
     for r in range(n_node):
         v0, v1 = r * N // n_node, (r + 1) * N // n_node
         shard = op.row_shard(v0, v1, group=None)
-        kind, a, _, r0, _ = shard.forward_layout()
+        kind, a, _, _, r0, _ = shard.forward_layout()
         assert kind == ("super" if rows_per_super else "plain")
         unit = 256 if rows_per_super else 128
         assert r0 == v0 // unit * unit and a.shape[0] == -(-v1 // unit) - v0 // unit
