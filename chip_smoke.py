@@ -9,27 +9,33 @@ same step node- and data-parallel, on the card and checks them, in phases
 printed one per line:
 
 1. card      name and power limit (nvidia-smi)
-2. build     both CUDA kernels, compiled side by side with nvcc from this
-             checkout (seconds; registers, shared memory, spills); each
-             holds a full-range and a row-range entry; the count of HGMMA
-             instructions in the SASS of K1's bf16 (tensor-core)
-             instances (cuobjdump), none of which may have 0
+2. build     both CUDA kernels (and the header they share), compiled side
+             by side with nvcc from this checkout (seconds; registers,
+             shared memory, spills); each holds a full-range and a
+             row-range entry; the registers and spills of both kernels'
+             tensor-core instances (bf16 x; none may spill) and the count
+             of HGMMA instructions in their SASS (cuobjdump; none may have
+             0)
 3. parity    the super-row SpMM kernel (K1) and the plain-BCSR one (K3) at
              HEALPix-16 and HEALPix-64 level 0, fp32 and bf16, width 1024,
              against scipy `L @ x` (bars: fp32 < 1e-5, bf16 < 2e-2, max abs
              error / max abs) and against their plain PyTorch versions on
              the card; K3 at each width the main path gives it too, and in
-             both regimes of fp32 A against bf16 x (`round_a`); the backward
-             of both, d/dx sum((Lx)^2) against 2 L^T (L x) (bar 1e-5), for
-             the knn L and for a non-symmetric D L (through the transposed
-             super-row layout and the transposed plain layout);
-             K2, the super-row kernel's row range, alone: HEALPix-16 and
-             -64 level 0, fp32 and bf16, width 1024, split 2 and 4 ways,
-             each shard against the rows of the full K1 launch (exactly),
-             its plain version (exactly in fp32; at the bf16 bar in bf16,
-             where the tensor cores sum in another order) and scipy's
-             rows (bars as above); the plain layout's row range likewise
-             (exactly), in both regimes of fp32 A against bf16 x
+             both regimes of fp32 A against bf16 x (`round_a`; False is
+             K4's function) at HEALPix-16 and -64, and on a product whose
+             exact output cancels (tests/torch_split_probe.py), where K4's
+             hi + lo split must read under 2^-14 of max(|A||x|) and K3's
+             A rounded to bf16 above it; the backward of both,
+             d/dx sum((Lx)^2) against 2 L^T (L x) (bar 1e-5), for the knn L
+             and for a non-symmetric D L (through the transposed super-row
+             layout and the transposed plain layout);
+             the row ranges alone (K2, and K3's): HEALPix-16 and -64 level
+             0, width 1024, split 2 and 4 ways, each shard against the rows
+             of the full launch (exactly), its plain version (exactly in
+             the fp32-x regimes; at the bf16 bar with bf16 x, where the
+             tensor cores sum in another order) and scipy's rows (bars as
+             above): K2 in fp32 and bf16, K3 in fp32, bf16 and both
+             regimes of fp32 A against bf16 x
 4. slice     UNetSpherical, HEALPix-16, knn-20, max pool, increment
              learning, bf16, 7 features x 3 lags -> 2, seeded weights in
              the JAX layout loaded through `weights.py`, behind
@@ -83,9 +89,12 @@ printed one per line:
              torch.cuda.synchronize(), best of 4 windows, K1 and K3 steps
              taken in turns); each kernel per launch (`device_ms`: a CUDA
              graph of launches replayed) at the main path's widths beside
-             its bound, its plain version and cuSPARSE; K2 and K3's row
-             range on the node16 step's level-0 shard; K1 at each (level,
-             width) shape of the HEALPix-64 step
+             its bound, its plain version and cuSPARSE, and K3 in K4's
+             regime (fp32 A, bf16 x [3072, 1024], `round_a_false` of K3's
+             row); K2 and K3's row range on the node16 step's level-0
+             shard; the layouts side by side: K1 and K3 (its plain layout
+             built from the same Laplacian, held to its plain version and
+             scipy) at each (level, width) shape of the HEALPix-64 step
 
 The ranks of phases 7-9 are started after the kernels are built, join a
 `gloo` process group with a timeout, and the phase waits for them with a
@@ -261,10 +270,19 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 log("build", f"{k.name} ptxas: " + line.strip())
     log("build", f"both kernels in {time.perf_counter() - t0:.1f} s")
-    # the bf16 instances of K1/K2 must run on the tensor cores, unspilled
-    k1 = load_kernels([KERNEL])[0]
+    # the bf16-x instances of both kernels must run on the tensor cores,
+    # unspilled
+    for name, body in ((KERNEL, "bcsr_super_spmm_tc"),
+                       (PLAIN_KERNEL, "bcsr_spmm_tc")):
+        check_tc_instances(load_kernels([name])[0], body, _nvcc())
+
+
+def check_tc_instances(k, body, nvcc):
+    """The registers and spills (ptxas) and the HGMMA count (cuobjdump
+    -sass) of library k's instances of the tensor-core kernel `body`:
+    raises if one spills or has no HGMMA instruction."""
     regs, spills, fn = {}, {}, None
-    for line in k1.ptxas_log.splitlines():
+    for line in k.ptxas_log.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1]
         elif fn and "bytes spill stores" in line:
@@ -273,17 +291,19 @@ def phase_build():
             spills[fn] = int(m[1]) + int(m[2])
         elif fn and "Used" in line and "registers" in line:
             regs[fn] = int(line.split("Used")[1].split()[0])
-    tc_fns = [f for f in regs if "bcsr_super_spmm_tc" in f]
-    if k1.built:
-        log("build", f"{KERNEL} tensor-core instances: registers "
+        elif "wgmma" in line:     # e.g. ptxas serialising the wgmma
+            log("build", f"{k.name} ptxas: " + line.strip())
+    tc_fns = [f for f in regs if body in f]
+    if k.built:
+        log("build", f"{k.name} tensor-core instances ({body}): registers "
                      f"{[regs[f] for f in tc_fns]}, spill bytes "
                      f"{[spills.get(f, 0) for f in tc_fns]}")
         if not tc_fns or any(spills.get(f, 0) for f in tc_fns):
-            raise AssertionError(f"{KERNEL}: a tensor-core instance spills "
+            raise AssertionError(f"{k.name}: a tensor-core instance spills "
                                  f"({spills})")
     sass = subprocess.run(
-        [os.path.join(os.path.dirname(_nvcc()), "cuobjdump"), "-sass",
-         str(k1.path)],
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+         str(k.path)],
         capture_output=True, text=True, check=True, timeout=120).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
@@ -292,13 +312,13 @@ def phase_build():
             counts[fn] = 0
         elif fn is not None and "HGMMA" in line:
             counts[fn] += 1
-    tc = {f: n for f, n in counts.items() if "bcsr_super_spmm_tc" in f}
-    log("build", f"{KERNEL} HGMMA instructions in the SASS of its bf16 "
-                 f"(tensor-core) instances: {sorted(tc.values())}; "
-                 f"elsewhere {sum(counts.values()) - sum(tc.values())}")
+    tc = {f: n for f, n in counts.items() if body in f}
+    log("build", f"{k.name} HGMMA instructions in the SASS of its "
+                 f"tensor-core instances: {sorted(tc.values())}; elsewhere "
+                 f"{sum(counts.values()) - sum(tc.values())}")
     if not tc or 0 in tc.values():
-        raise AssertionError(f"{KERNEL}: a bf16 instance has no HGMMA "
-                             f"instruction ({tc})")
+        raise AssertionError(f"{k.name}: a tensor-core instance has no "
+                             f"HGMMA instruction ({tc})")
 
 
 # ---------------------------------------------------------------------------
@@ -372,7 +392,7 @@ def measure(op, L, x, device, label, round_a=True, timed=True,
 
     name, a, idx, nz = _layout(op)
     kernel, plain = _kernel_fns(name)
-    kw = {"nz": nz} if name == KERNEL else {"round_a": round_a}
+    kw = {"nz": nz} if name == KERNEL else {"nz": nz, "round_a": round_a}
     n, m = x.shape
     x_pad = torch.nn.functional.pad(x, (0, (-m) % 128, 0, op.rows - n))
     y = kernel(a, idx, x_pad, **kw)
@@ -386,7 +406,11 @@ def measure(op, L, x, device, label, round_a=True, timed=True,
            "rel_err_plain": err_plain, "y": y[:n, :m]}
     if not timed:
         return res
-    csr = _csr(L, device, x.dtype)
+    # the library's call for the same function: fp32 A kept against bf16 x
+    # (K4's regime) is fp32 CSR against x widened to fp32 (fp32 out)
+    lib_dt = (torch.float32 if name != KERNEL and not round_a
+              and a.dtype == torch.float32 else x.dtype)
+    csr, x_lib = _csr(L, device, lib_dt), x.to(lib_dt)
     nnz, slots, x_blocks = _block_counts(name, a, idx)
     t_bytes, t_ops = _bound(a, x, nnz, x_blocks)
     res.update({
@@ -395,7 +419,8 @@ def measure(op, L, x, device, label, round_a=True, timed=True,
         "host_ms": host_ms(lambda: kernel(a, idx, x_pad, **kw)),
         "plain_ms": (device_ms(lambda: plain(a, idx, x_pad, **kw), n_iter=5)
                      if plain_timed else None),
-        "library_ms": device_ms(lambda: torch.sparse.mm(csr, x)),
+        "library_ms": device_ms(lambda: torch.sparse.mm(csr, x_lib)),
+        "library_dtype": str(lib_dt).replace("torch.", ""),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes_ms": t_bytes, "ops_ms": t_ops})
@@ -457,19 +482,20 @@ def phase_parity(device, subdivs, width):
                   + "; ".join(errs))
 
 
-def phase_parity_regimes(device, subdiv, batch):
-    """K3 at the main path's widths (bf16) against scipy, and both regimes
-    of fp32 A against bf16 x (timed: round_a=False is K4's function);
-    returns the widest error vs the plain version."""
+def phase_parity_regimes(device, subdivs, batch):
+    """K3 at the main path's widths (bf16, HEALPix-16) against scipy, and
+    both regimes of fp32 A against bf16 x at each of `subdivs` (timed at
+    the first: round_a=False is K4's function). Returns the widest error
+    vs the plain version and K4's row (`measure` at the first subdiv)."""
     import torch
 
     from deepsphere_weather_torch.ops.bcsr import BlockSparseOperator
 
-    L = _laplacian(subdiv)
     rng = np.random.default_rng(SEED + 4)
+    L = _laplacian(subdivs[0])
     op = BlockSparseOperator.from_scipy(L, dtype=torch.bfloat16,
                                         rows_per_super=0, device=device)
-    worst = 0.0
+    worst, k4 = 0.0, None
     for w in [batch * f for f in WIDTH_FEATURES]:
         x_np = rng.standard_normal((L.shape[0], w)).astype(np.float32)
         x = torch.from_numpy(x_np).to(device, torch.bfloat16)
@@ -480,31 +506,79 @@ def phase_parity_regimes(device, subdiv, batch):
             raise AssertionError(f"{PLAIN_KERNEL} width {w}: vs scipy "
                                  f"{err:.3e} breaks the {BARS['bf16']:g} bar")
         worst = max(worst, res["max_abs_err"])
-        log("parity", f"{PLAIN_KERNEL} HEALPix-{subdiv} bf16 width {w}: rel "
-                      f"err vs scipy {err:.3e}, " + _fmt(res))
+        log("parity", f"{PLAIN_KERNEL} HEALPix-{subdivs[0]} bf16 width {w}: "
+                      f"rel err vs scipy {err:.3e}, " + _fmt(res))
     # fp32 A against bf16 x: round_a=True (K3's regime) rounds A to bf16,
     # round_a=False (K4's) keeps it fp32; scipy holds each to its own A
-    op32 = BlockSparseOperator.from_scipy(L, dtype=torch.float32,
-                                          rows_per_super=0, device=device)
-    x = torch.from_numpy(rng.standard_normal(
-        (L.shape[0], MATVEC_WIDTH)).astype(np.float32)).to(device,
-                                                            torch.bfloat16)
-    xs = x.float().cpu().numpy()
-    L_bf16 = L.copy()
-    L_bf16.data = torch.from_numpy(L.data).to(torch.bfloat16).float().numpy()
-    for round_a, L_ref in ((True, L_bf16), (False, L)):
-        res = measure(op32, L, x, device, f"round_a={round_a}",
-                      round_a=round_a)
-        err = rel_err(res["y"].float().cpu().numpy(), L_ref @ xs)
-        if not err < BARS["bf16"]:
-            raise AssertionError(f"{PLAIN_KERNEL} round_a={round_a}: vs "
-                                 f"scipy {err:.3e}")
-        worst = max(worst, res["max_abs_err"])
-        log("parity", f"{PLAIN_KERNEL} fp32 A, bf16 x[{L.shape[0]}, "
-                      f"{MATVEC_WIDTH}], round_a={round_a}: rel err vs scipy "
-                      f"(A {'rounded to bf16' if round_a else 'fp32'}) "
-                      f"{err:.3e} (bar {BARS['bf16']:g}), " + _fmt(res))
-    return worst
+    for subdiv in subdivs:
+        L = _laplacian(subdiv)
+        op32 = BlockSparseOperator.from_scipy(L, dtype=torch.float32,
+                                              rows_per_super=0, device=device)
+        x = torch.from_numpy(rng.standard_normal(
+            (L.shape[0], MATVEC_WIDTH)).astype(np.float32)).to(
+                device, torch.bfloat16)
+        xs = x.float().cpu().numpy()
+        L_bf16 = L.copy()
+        L_bf16.data = torch.from_numpy(L.data).to(torch.bfloat16).float().numpy()
+        for round_a, L_ref in ((True, L_bf16), (False, L)):
+            timed = subdiv == subdivs[0]
+            res = measure(op32, L, x, device, f"round_a={round_a}",
+                          round_a=round_a, timed=timed)
+            err = rel_err(res["y"].float().cpu().numpy(), L_ref @ xs)
+            if not err < BARS["bf16"]:
+                raise AssertionError(f"{PLAIN_KERNEL} HEALPix-{subdiv} "
+                                     f"round_a={round_a}: vs scipy {err:.3e}")
+            worst = max(worst, res["max_abs_err"])
+            if timed and not round_a:
+                k4 = {k: res[k] for k in ("ms", "host_ms", "plain_ms",
+                                          "library_ms", "library_dtype",
+                                          "bound_ms", "bound_by",
+                                          "max_abs_err")}
+            log("parity", f"{PLAIN_KERNEL} HEALPix-{subdiv} fp32 A, bf16 "
+                          f"x[{L.shape[0]}, {MATVEC_WIDTH}], round_a="
+                          f"{round_a}: rel err vs scipy (A "
+                          f"{'rounded to bf16' if round_a else 'fp32'}) "
+                          f"{err:.3e} (bar {BARS['bf16']:g}), " + _fmt(res))
+        split = split_check(L, device, subdiv)
+        if subdiv == subdivs[0]:
+            k4["split_reading"] = split
+    return worst, k4
+
+
+def split_check(L, device, subdiv):
+    """K4's split told apart from K3's rounding, which the bf16 bar cannot
+    do: on `split_probe`'s product (tests/torch_split_probe.py) the exact
+    output is about 0, so max |y - A x| / max (|A| |x|) reads what the
+    regime did to A. round_a=False (hi + lo) must read under SPLIT_BAR and
+    round_a=True (hi alone) above it. Returns both readings."""
+    import torch
+
+    from deepsphere_weather_torch.ops.bcsr import (BlockSparseOperator,
+                                                   bcsr_spmm)
+    from torch_split_probe import SPLIT_BAR, split_probe
+
+    A, x_np, reading = split_probe(L, MATVEC_WIDTH, SEED + 5)
+    op = BlockSparseOperator.from_scipy(A, dtype=torch.float32,
+                                        rows_per_super=0, device=device)
+    _, a, idx, nz = _layout(op)
+    x = torch.nn.functional.pad(torch.from_numpy(x_np),
+                                (0, 0, 0, op.rows - A.shape[0])).to(
+                                    device, torch.bfloat16)
+    got = {}
+    for key, round_a in (("hi_lo", False), ("hi", True)):
+        y = bcsr_spmm(a, idx, x, nz, round_a=round_a)
+        got[key] = reading(y.float().cpu().numpy())
+    log("parity", f"{PLAIN_KERNEL} HEALPix-{subdiv} split probe (fp32 A, "
+                  f"bf16 x[{A.shape[0]}, {MATVEC_WIDTH}], A x = 0): max|y - "
+                  f"Ax| / max(|A||x|) round_a=False (hi + lo) "
+                  f"{got['hi_lo']:.3e}, round_a=True (hi) {got['hi']:.3e}, "
+                  f"bar {SPLIT_BAR:.3e} between them")
+    if not got["hi_lo"] < SPLIT_BAR < got["hi"]:
+        raise AssertionError(
+            f"{PLAIN_KERNEL} HEALPix-{subdiv} split probe: hi + lo "
+            f"{got['hi_lo']:.3e} and hi {got['hi']:.3e} do not lie on either "
+            f"side of {SPLIT_BAR:.3e}")
+    return got
 
 
 def phase_parity_backward(device, subdiv, width):
@@ -554,10 +628,11 @@ def phase_parity_backward(device, subdiv, width):
 
 
 def phase_parity_rows(device, subdivs, width):
-    """K2 alone, and the plain layout's row range (fp32 A against bf16 x,
-    both regimes): each node shard's row-range launch, for 2 and 4 shards,
-    against its plain version and the rows of the full launch (both
-    exactly) and against scipy's rows (the bars)."""
+    """K2 alone, and the plain layout's row range (fp32, bf16, and fp32 A
+    against bf16 x in both regimes): each node shard's row-range launch,
+    for 2 and 4 shards, against the rows of the full launch (exactly), its
+    plain version (exactly in the fp32-x regimes, else at the bf16 bar)
+    and scipy's rows (the bars)."""
     import torch
     import torch.nn.functional as F
 
@@ -567,6 +642,8 @@ def phase_parity_rows(device, subdivs, width):
     rng = np.random.default_rng(SEED + 12)
     # (kernel, A dtype, x dtype, round_a of the plain layout)
     checks = [(ROW_KERNEL, bf16, bf16, None), (ROW_KERNEL, f32, f32, None),
+              (PLAIN_ROW_KERNEL, f32, f32, None),
+              (PLAIN_ROW_KERNEL, bf16, bf16, None),
               (PLAIN_ROW_KERNEL, f32, bf16, True),
               (PLAIN_ROW_KERNEL, f32, bf16, False)]
     for subdiv in subdivs:
@@ -588,18 +665,19 @@ def phase_parity_rows(device, subdivs, width):
                                          bcsr.bcsr_super_spmm_rows_reference,
                                          {"nz": nz})
             else:
-                full = bcsr.bcsr_spmm(a, idx, x_pad, round_a=round_a)
-                rows_fn, plain_fn, kw = (bcsr.bcsr_spmm_rows,
-                                         bcsr.bcsr_spmm_rows_reference,
-                                         {"round_a": round_a})
+                # round_a None: a regime it does not touch
+                kw = {"nz": nz, "round_a": round_a is not False}
+                full = bcsr.bcsr_spmm(a, idx, x_pad, **kw)
+                rows_fn, plain_fn = (bcsr.bcsr_spmm_rows,
+                                     bcsr.bcsr_spmm_rows_reference)
             # scipy with A as the product sees it (rounded to bf16 when
             # stored so, or against bf16 x with round_a)
             ref = ((L_bf16 if a_dt == bf16 or round_a else L)
                    @ x.float().cpu().numpy())
             bar = BARS["bf16" if x_dt == bf16 else "fp32"]
-            # K2's bf16 body sums on the tensor cores, in another order
+            # the bf16-x bodies sum on the tensor cores, in another order
             # than the plain version: held to the bar there, else exact
-            exact = not (kname == ROW_KERNEL and x_dt == bf16)
+            exact = x_dt == f32
             label = (f"{kname} HEALPix-{subdiv} {str(a_dt)[6:]} A, "
                      f"{str(x_dt)[6:]} x[{n}, {width}]"
                      + ("" if round_a is None else f", round_a={round_a}"))
@@ -1168,26 +1246,52 @@ def check_step_products(model, step, subdiv):
 
 
 def time_step_products(products, subdiv, device, card_line):
-    """K1 per launch at each (level, width) shape of a train step's
-    products (`check_step_products`), beside its bound and cuSPARSE."""
+    """The layouts side by side at each (level, width) shape of a train
+    step's products (`check_step_products`): K1 on the step's super-row
+    operator and K3 on the plain layout of the same level's Laplacian, per
+    launch, beside the bound and cuSPARSE. K3 is held to its plain version
+    (in `measure`) and to scipy (bf16 bar); the plain versions go untimed.
+    Returns (K1 rows, K3 rows)."""
     import torch
 
+    from deepsphere_weather_torch.ops import BlockSparseOperator
+
     rng = np.random.default_rng(SEED + 15)
-    rows = []
+    rows = {KERNEL: [], PLAIN_KERNEL: []}
+    plain_ops = {}
     for level, width, dt, op in products:
         L = _laplacian(subdiv >> level)
         x = torch.from_numpy(rng.standard_normal((L.shape[0], width)).astype(
             np.float32)).to(device, dt)
-        r = measure(op, L, x, device, f"level {level} width {width}",
-                    plain_timed=False)
-        log("times", f"{KERNEL} HEALPix-{subdiv} level {level} "
-                     f"{str(dt)[6:]} x[{L.shape[0]}, {width}]: {r['ms']:.4f} "
-                     f"ms (bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-                     f"cuSPARSE {r['library_ms']:.4f} ms), blocks "
-                     f"{r['blocks_nonzero']} ({card_line})")
-        rows.append({"level": level, "width": width, "ms": r["ms"],
-                     "bound_ms": r["bound_ms"], "library_ms": r["library_ms"]})
-    return rows
+        if level not in plain_ops:
+            plain_ops[level] = BlockSparseOperator.from_scipy(
+                L, dtype=dt, rows_per_super=0, device=device)
+        for name, layout_op in ((KERNEL, op), (PLAIN_KERNEL, plain_ops[level])):
+            label = f"{name} HEALPix-{subdiv} level {level} width {width}"
+            r = measure(layout_op, L, x, device, label, plain_timed=False)
+            line = (f"{name} HEALPix-{subdiv} level {level} {str(dt)[6:]} "
+                    f"x[{L.shape[0]}, {width}]: {r['ms']:.4f} ms (bound "
+                    f"{r['bound_ms']:.4f} ms by {r['bound_by']}, cuSPARSE "
+                    f"{r['library_ms']:.4f} ms), blocks {r['blocks_nonzero']}")
+            if name == PLAIN_KERNEL:
+                bar = BARS["bf16" if dt == torch.bfloat16 else "fp32"]
+                e = rel_err(r["y"].float().cpu(), L @ x.float().cpu().numpy())
+                if not e < bar:
+                    raise AssertionError(f"{label}: vs scipy {e:.3e} breaks "
+                                         f"the {bar:g} bar")
+                k1_ms = rows[KERNEL][-1]["ms"]
+                line += (f", vs plain version {r['rel_err_plain']:.3e}, vs "
+                         f"scipy {e:.3e} (bar {bar:g}); K3 / K1 "
+                         f"{r['ms'] / k1_ms:.3f}")
+            log("times", f"{line} ({card_line})")
+            rows[name].append({"level": level, "width": width, "ms": r["ms"],
+                               "bound_ms": r["bound_ms"],
+                               "library_ms": r["library_ms"]})
+    k1, k3 = (sum(r["ms"] for r in rows[k]) for k in (KERNEL, PLAIN_KERNEL))
+    log("times", f"layouts over the HEALPix-{subdiv} step's {len(products)} "
+                 f"shapes, one launch each: K1 (super-row) {k1:.4f} ms, K3 "
+                 f"(plain) {k3:.4f} ms, K3 / K1 {k3 / k1:.3f} ({card_line})")
+    return rows[KERNEL], rows[PLAIN_KERNEL]
 
 
 # ---------------------------------------------------------------------------
@@ -1634,8 +1738,8 @@ def row_range_times(kind, device, subdiv, batch):
     16), on rank 0's shard (rows [0, n/2)) against the full x: per-launch
     averages of its time (`device_ms`), its plain version's, cuSPARSE's on
     the CSR row slice against the full x and the bound; the largest max
-    abs error vs the plain version (K2 held to the bf16 bar: the tensor
-    cores sum in another order; K3's row range exactly)."""
+    abs error vs the plain version (held to the bf16 bar: the tensor
+    cores sum in another order)."""
     import torch
     import torch.nn.functional as F
 
@@ -1652,7 +1756,7 @@ def row_range_times(kind, device, subdiv, batch):
     fn, plain = ((bcsr.bcsr_super_spmm_rows, bcsr.bcsr_super_spmm_rows_reference)
                  if kind == "super" else
                  (bcsr.bcsr_spmm_rows, bcsr.bcsr_spmm_rows_reference))
-    kw = {"nz": nz} if kind == "super" else {}
+    kw = {"nz": nz}
     csr = _csr(L[v0:v1], device, torch.bfloat16)
     nnz, slots, x_blocks = _block_counts(
         KERNEL if kind == "super" else PLAIN_KERNEL, a, idx)
@@ -1669,7 +1773,7 @@ def row_range_times(kind, device, subdiv, batch):
         y, want = fn(*args, **kw), plain(*args, **kw)
         e = float((y.float() - want.float()).abs().max())
         e_rel = rel_err(y.float().cpu(), want.float().cpu())
-        if (not e_rel < BARS["bf16"]) if kind == "super" else e:
+        if not e_rel < BARS["bf16"]:
             raise AssertionError(f"{name} width {w}: vs plain version max abs "
                                  f"{e:.3e}, rel {e_rel:.3e}")
         err = max(err, e)
@@ -1791,7 +1895,8 @@ def main() -> int:
     log("card", card_line)
     phase_build()
     phase_parity(device, (SLICE_SUBDIV, BIG_SUBDIV), MATVEC_WIDTH)
-    k3_err = phase_parity_regimes(device, SLICE_SUBDIV, BATCH)
+    k3_err, k4 = phase_parity_regimes(device, (SLICE_SUBDIV, BIG_SUBDIV),
+                                      BATCH)
     phase_parity_backward(device, SLICE_SUBDIV, MATVEC_WIDTH)
     phase_parity_backward(device, BIG_SUBDIV, MATVEC_WIDTH)
     phase_parity_rows(device, (SLICE_SUBDIV, BIG_SUBDIV), MATVEC_WIDTH)
@@ -1819,14 +1924,17 @@ def main() -> int:
         kernel_row_rows(device, SLICE_SUBDIV, BATCH, node["launches"]),
     ]
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], k3_err)
+    # K4's function: K3's kernel with round_a=False (fp32 A, bf16 x)
+    rows[1]["round_a_false"] = k4
     # K3's row range beside K2, on the same shard (parity phase only on
     # the main paths: the geometry builds the super-row layout)
     k3_rows = row_range_times("plain", device, SLICE_SUBDIV, BATCH)
     rows[1]["rows_range"] = {k: k3_rows[k] for k in (
         "ms", "host_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-    k1_64 = time_step_products(tr64["products"], BIG_SUBDIV, device,
-                               card_line)
+    k1_64, k3_64 = time_step_products(tr64["products"], BIG_SUBDIV, device,
+                                      card_line)
     rows[0]["train64_shapes"] = k1_64
+    rows[1]["train64_shapes"] = k3_64
     log("times", f"slice: {fig['step_ms']:.2f} ms per forecast step (batch "
                  f"{BATCH}, host clock, {N_STEPS} steps), {fig['submit_ms']:.1f} "
                  f"ms for {N_SUBMIT} concurrent submits, forward "
@@ -1838,9 +1946,11 @@ def main() -> int:
                  f"batch {HP64_BATCH}: {tr64['ms']:.2f} ms, "
                  f"{tr64['peak_gib']:.2f} GiB peak; {ROW_KERNEL} "
                  f"{rows[2]['ms']:.4f} ms per launch ({PLAIN_ROW_KERNEL} "
-                 f"{k3_rows['ms']:.4f} ms); {KERNEL} over the HEALPix-"
-                 f"{BIG_SUBDIV} step's {len(k1_64)} shapes "
-                 f"{sum(r['ms'] for r in k1_64):.4f} ms; on 2 ranks sharing the "
+                 f"{k3_rows['ms']:.4f} ms); K4 ({PLAIN_KERNEL}, round_a="
+                 f"False) {k4['ms']:.4f} ms; over the HEALPix-{BIG_SUBDIV} "
+                 f"step's {len(k1_64)} shapes {KERNEL} "
+                 f"{sum(r['ms'] for r in k1_64):.4f} ms, {PLAIN_KERNEL} "
+                 f"{sum(r['ms'] for r in k3_64):.4f} ms; on 2 ranks sharing the "
                  f"card (not a scaling number): HEALPix-{SLICE_SUBDIV} "
                  f"{node['ms16']:.2f} ms, HEALPix-{BIG_SUBDIV} "
                  f"{node['ms64']:.2f} ms per step, {node['peak64_gib']:.2f} "

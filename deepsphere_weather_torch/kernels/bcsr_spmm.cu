@@ -6,207 +6,176 @@
 //     fp32 A against bf16 X is rounded to bf16 first): `round_a` = 1; under
 //     row sharding the JAX package runs it on a row slice of A against the
 //     full X, which is `bcsr_spmm_rows`;
-//   - `_spmm_kernel`, the interpreter kernel (both operands widened to
+//   - `_spmm_kernel` (K4), the interpreter kernel (both operands widened to
 //     fp32, so fp32 A stays fp32 against bf16 X): `round_a` = 0.
 // The two differ only for fp32 A against bf16 X.
 //
 //   out[(r - rb_begin)*128 + i, m] =
-//       sum_b sum_j vals[r, b, i, j] * x[cols[r, b]*128 + j, m]
+//       sum_{b listed for row block r} sum_j vals[r, b, i, j] * x[cols[r, b]*128 + j, m]
 //
-// for r in [rb_begin, rb_end); the full product is the range [0, n_rb),
-// and both entries launch the one kernel body, so a row of a range launch
-// equals the same row of a full launch bit for bit.
-//
+// for r in [rb_begin, rb_end); the full product is the range [0, n_rb).
 // vals [n_rb, max_nb, 128, 128] holds, per 128-row block r, its nonzero
 // 128x128 blocks; cols [n_rb, max_nb] names each slot's block-column
-// (padding slots repeat column 0 with zero values). x is the full
-// [n_rb*128, M] whatever the range, M a multiple of 64.
+// (padding slots repeat column 0 with zero values). nz [n_rb, 1 + max_nb]
+// lists, per row block, the count c of slots whose block is nonzero and
+// then those slots in increasing order (4% of the slots are zero at
+// HEALPix-16, 11% at HEALPix-64); without nz every slot is walked. x is
+// the full [x_rows, M] whatever the range.
 //
-// Numerics: fp32 accumulation in registers with plain fp32 FMAs (no TF32:
-// the fp32 path matches the TPU's Precision.HIGHEST). bf16 operands are
-// widened to fp32, where a product of two bf16 values is exact. The output
-// is bf16 for bf16 x and fp32 otherwise.
+// The kernel bodies, their numerics and why a range launch equals the full
+// launch's rows and a listed walk every slot's, bit for bit, are in
+// spmm_tc.cuh, shared with the super-row layout's kernel
+// (bcsr_super_spmm.cu). This file gives them the plain layout: row block r
+// reads slot b's A tile at ((r*max_nb + b)*128, 0) of vals viewed 2-D
+// [n_rb*max_nb*128, 128] and the x rows of block-column cols[r, b]. The TPU
+// kernel's DMA ring of x blocks has its counterpart in the TMA ring.
 //
-// Design (first, simple version, the same tiling as bcsr_super_spmm.cu):
-// one CTA per (128-row block, 64-column tile) walks the row block's max_nb
-// slots; for each it stages 16-deep slices of the A block and of the x rows
-// steered by cols in shared memory and accumulates an 8x4 register tile per
-// thread. The TPU kernel's DMA ring (outstanding x-block copies from HBM)
-// has no counterpart here: x blocks come through L2, where neighbouring
-// row blocks share most of their columns. What bounds it on the H100: at
-// the training step's widths the FMA throughput (67 TFLOP/s fp32 peak, no
-// tensor cores), not HBM bytes. Padding slots (4% of the slots at
-// HEALPix-16, 11% at HEALPix-64) are multiplied as the TPU kernel does.
-// Tensor cores (wgmma) are the next step.
+// Regimes:
+//   - bf16 A, bf16 x (the plain-layout train step): the tensor-core body,
+//     A from shared memory;
+//   - fp32 A, bf16 x: the tensor-core body with fp32 A boxes split in
+//     registers, into hi = bf16(a) alone (round_a = 1, K3's rounding) or
+//     hi + lo (round_a = 0, K4: within 2^-16 |a| of fp32 A per term), at
+//     most 128 columns a CTA (F32A_BN);
+//   - fp32 x (either A): the FMA body, fp32 FMAs.
+// The earlier design ran every regime on fp32 FMAs (67 TFLOP/s fp32 peak
+// against 989 bf16 on the tensor cores), loaded synchronously, fixed the
+// column tile at 64 and multiplied the padding slots: 24-35x above its
+// bound and about 3x behind cuSPARSE (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "spmm_tc.cuh"
 
 namespace {
 
-constexpr int BS = 128;   // block size of the BCSR layout
-constexpr int BM = 128;   // output rows per CTA (one row block)
-constexpr int BN = 64;    // output columns per CTA
-constexpr int BK = 16;    // depth of one shared-memory stage
-constexpr int TM = 8;     // rows per thread
-constexpr int TN = 4;     // columns per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
-constexpr int APAD = 4;   // keeps the transposed A stores 2-way at worst
+// Widest column tile of the fp32-A regimes: at 256 columns the 128
+// accumulators a thread and the split A fragments spill.
+constexpr int F32A_BN = 128;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// A operand as the product sees it: ROUND_A rounds fp32 A to bf16 (the
-// compiled TPU kernel's regime against bf16 x).
-template <typename TA, bool ROUND_A>
-__device__ __forceinline__ float a_operand(TA v) {
-  float f = to_f32(v);
-  if (ROUND_A) f = __bfloat162float(__float2bfloat16(f));
-  return f;
+// Columns per CTA of the tensor-core body (bf16 x) for width M.
+int tc_tile(int64_t M, int a_bf16) {
+  const int tile = tc_col_tile(M);
+  return a_bf16 || tile <= F32A_BN ? tile : F32A_BN;
 }
 
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// Row block r of vals viewed 2-D [n_rb*max_nb*128, 128]: slot b's block at
+// ((r*max_nb + b)*128, 0), its block-column cols[r, b].
+struct PlainRows {
+  const int32_t* cols;    // cols[r, :]
+  int row;                // r * max_nb * 128
+  static constexpr int64_t stride = BS;
+  __device__ PlainRows(const int32_t* cols_all, int64_t r, int max_nb)
+      : cols(cols_all + r * max_nb), row((int)(r * max_nb * BS)) {}
+  __device__ int col(int b) const { return cols[b]; }
+  __device__ int a_row(int b) const { return row + b * BS; }
+  __device__ int a_col(int) const { return 0; }
+};
 
-template <typename TA, typename TX, bool ROUND_A>
-__global__ void __launch_bounds__(THREADS)
-bcsr_spmm_kernel(const TA* __restrict__ vals,
-                 const int32_t* __restrict__ cols,
-                 const TX* __restrict__ x,
-                 TX* __restrict__ out,
-                 int64_t rb_begin, int max_nb, int64_t M) {
-  __shared__ __align__(16) float As[BK][BM + APAD];
-  __shared__ __align__(16) float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);          // 0..15: column group
-  const int ty = tid / (BN / TN);          // 0..15: row group
-  const int64_t o = blockIdx.y;            // output row block
-  const int64_t r = rb_begin + o;          // row block of A
-  const int64_t col0 = (int64_t)blockIdx.x * BN;
-
-  // loader coordinates
-  const int a_k = tid % BK;                // A: 16 consecutive k per row
-  const int a_i = tid / BK;                // rows a_i + 16*p
-  const int b_c = tid % BN;                // x: 64 consecutive columns
-  const int b_k = tid / BN;                // k rows b_k + 4*p
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int b = 0; b < max_nb; ++b) {
-    const int64_t c = cols[r * max_nb + b];
-    const TA* a_blk = vals + (r * max_nb + b) * BS * BS;   // row stride BS
-    const TX* x_blk = x + c * BS * M + col0;
-    for (int kk = 0; kk < BS; kk += BK) {
-#pragma unroll
-      for (int p = 0; p < BM / (THREADS / BK); ++p) {
-        const int i = a_i + p * (THREADS / BK);
-        As[a_k][i] = a_operand<TA, ROUND_A>(a_blk[i * BS + kk + a_k]);
-      }
-#pragma unroll
-      for (int p = 0; p < BK / (THREADS / BN); ++p) {
-        const int k = b_k + p * (THREADS / BN);
-        Bs[k][b_c] = to_f32(x_blk[(int64_t)(kk + k) * M + b_c]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[k][ty * TM + 4]);
-        const float4 bv4 = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
-        const float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[TN] = {bv4.x, bv4.y, bv4.z, bv4.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  TX* y = out + (o * BM + ty * TM) * M + col0 + tx * TN;
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) store_out(y + (int64_t)i * M + j, acc[i][j]);
+template <typename TA>
+__global__ void __launch_bounds__(F_THREADS)
+bcsr_spmm_fma(const TA* __restrict__ vals,
+              const int32_t* __restrict__ cols,
+              const int32_t* __restrict__ nz,
+              const float* __restrict__ x,
+              float* __restrict__ out,
+              int64_t rb_begin, int max_nb, int64_t M) {
+  const int64_t o = blockIdx.y;               // output row block
+  const int64_t r = rb_begin + o;             // row block of A
+  fma_body<TA, float, float, false>(vals, PlainRows(cols, r, max_nb),
+                                    Walk(nz, r, max_nb), x, out, o, M);
 }
 
-// One launch over the row blocks [rb_begin, rb_end): a CTA per output row
-// block and 64-column tile.
-template <typename TA, typename TX, bool ROUND_A>
-int launch(const void* vals, const int32_t* cols, const void* x, void* out,
-           int64_t rb_begin, int64_t rb_end, int max_nb, int64_t M,
-           cudaStream_t stream) {
-  dim3 grid((unsigned)(M / BN), (unsigned)(rb_end - rb_begin));
-  bcsr_spmm_kernel<TA, TX, ROUND_A><<<grid, THREADS, 0, stream>>>(
-      static_cast<const TA*>(vals), cols, static_cast<const TX*>(x),
-      static_cast<TX*>(out), rb_begin, max_nb, M);
+template <int BN, bool A_F32, bool SPLIT>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+bcsr_spmm_tc(const __grid_constant__ CUtensorMap a_map,
+             const __grid_constant__ CUtensorMap x_map,
+             const int32_t* __restrict__ cols,
+             const int32_t* __restrict__ nz,
+             __nv_bfloat16* __restrict__ out,
+             int64_t rb_begin, int max_nb, int64_t M) {
+  const int64_t o = blockIdx.y;
+  const int64_t r = rb_begin + o;
+  tc_body<BN, A_F32, SPLIT>(&a_map, &x_map, PlainRows(cols, r, max_nb),
+                            Walk(nz, r, max_nb), out, o, M);
+}
+
+template <typename TA>
+int launch_fma(const void* vals, const int32_t* cols, const int32_t* nz,
+               const void* x, void* out, int64_t rb_begin, int64_t rb_end,
+               int max_nb, int64_t M, cudaStream_t stream) {
+  const dim3 grid((unsigned)(M / F_BN), (unsigned)(rb_end - rb_begin));
+  bcsr_spmm_fma<TA><<<grid, F_THREADS, 0, stream>>>(
+      static_cast<const TA*>(vals), cols, nz, static_cast<const float*>(x),
+      static_cast<float*>(out), rb_begin, max_nb, M);
   return (int)cudaGetLastError();
 }
 
+// One launch over the row blocks [rb_begin, rb_end).
 int launch_range(const void* vals, int a_bf16, const int32_t* cols,
-                 const void* x, int x_bf16, int round_a, void* out,
-                 int64_t rb_begin, int64_t rb_end, int max_nb, int64_t M,
-                 void* stream) {
+                 const void* x, int x_bf16, int round_a, const int32_t* nz,
+                 void* out, int64_t rb_begin, int64_t rb_end, int max_nb,
+                 int64_t x_rows, int64_t M, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    if (a_bf16)
-      return launch<__nv_bfloat16, __nv_bfloat16, false>(
-          vals, cols, x, out, rb_begin, rb_end, max_nb, M, st);
-    if (round_a)
-      return launch<float, __nv_bfloat16, true>(vals, cols, x, out, rb_begin,
-                                                rb_end, max_nb, M, st);
-    return launch<float, __nv_bfloat16, false>(vals, cols, x, out, rb_begin,
-                                               rb_end, max_nb, M, st);
-  }
-  if (a_bf16)
-    return launch<__nv_bfloat16, float, false>(vals, cols, x, out, rb_begin,
-                                               rb_end, max_nb, M, st);
-  return launch<float, float, false>(vals, cols, x, out, rb_begin, rb_end,
-                                     max_nb, M, st);
+  if (!x_bf16)
+    return a_bf16 ? launch_fma<__nv_bfloat16>(vals, cols, nz, x, out,
+                                              rb_begin, rb_end, max_nb, M, st)
+                  : launch_fma<float>(vals, cols, nz, x, out, rb_begin,
+                                      rb_end, max_nb, M, st);
+  return with_col_tile(tc_tile(M, a_bf16), [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    // the rows the range reads; vals' address is the full layout's
+    const uint64_t a_rows = (uint64_t)rb_end * max_nb * BS;
+    __nv_bfloat16* y = static_cast<__nv_bfloat16*>(out);
+#define LAUNCH_TC(A_F32, SPLIT)                                              \
+  return launch_tc<BN, A_F32>(bcsr_spmm_tc<BN, A_F32, SPLIT>, vals, a_rows,  \
+                              (uint64_t)BS, x, (uint64_t)x_rows, M,          \
+                              rb_end - rb_begin, st, cols, nz, y, rb_begin,  \
+                              max_nb, M)
+    if (a_bf16) LAUNCH_TC(false, false);
+    if constexpr (BN <= F32A_BN) {
+      if (round_a) LAUNCH_TC(true, false);
+      LAUNCH_TC(true, true);
+    }
+#undef LAUNCH_TC
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Columns per CTA for x width M, the same in every regime (0: the kernel
-// does not take M); the wrapper checks M against it.
+// Columns per CTA for x width M in the regime of the operand types (0: the
+// kernel does not take M); the wrapper checks M against it. Every bf16-x
+// regime runs the tensor-core body, whatever A's type.
 int bcsr_spmm_col_tile(int64_t M, int a_bf16, int x_bf16) {
-  (void)a_bf16;
-  (void)x_bf16;
-  return M % BN == 0 ? BN : 0;
+  if (x_bf16) return tc_tile(M, a_bf16);
+  return M % F_BN == 0 ? F_BN : 0;
 }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = success).
-// a_bf16 / x_bf16 select the operand types; the output is bf16 iff x_bf16.
-// round_a selects the regime of fp32 A against bf16 x (see above).
+// Launch on `stream`; returns the cudaError_t of the launch (0 = success),
+// or a code above CUDA's for a failed TMA-descriptor encode (see
+// bcsr_spmm_error_string). a_bf16 / x_bf16 select the operand types; the
+// output is bf16 iff x_bf16. round_a selects the regime of fp32 A against
+// bf16 x (see above). nz [n_rb, 1 + max_nb] or NULL (walk every slot).
 // The product over every row block: out [n_rb*128, M].
 int bcsr_spmm(const void* vals, int a_bf16, const int32_t* cols,
-              const void* x, int x_bf16, int round_a, void* out,
-              int64_t n_rb, int max_nb, int64_t M, void* stream) {
-  return launch_range(vals, a_bf16, cols, x, x_bf16, round_a, out, 0, n_rb,
-                      max_nb, M, stream);
+              const void* x, int x_bf16, int round_a, const int32_t* nz,
+              void* out, int64_t n_rb, int max_nb, int64_t M, void* stream) {
+  return launch_range(vals, a_bf16, cols, x, x_bf16, round_a, nz, out, 0,
+                      n_rb, max_nb, n_rb * BS, M, stream);
 }
 
-// The row blocks [rb_begin, rb_end) of the same layout against the full x:
-// out [(rb_end - rb_begin)*128, M]. The wrapper checks the range.
+// The row blocks [rb_begin, rb_end) of the same layout against the full x
+// [x_rows, M]: out [(rb_end - rb_begin)*128, M]. The wrapper checks the
+// range.
 int bcsr_spmm_rows(const void* vals, int a_bf16, const int32_t* cols,
-                   const void* x, int x_bf16, int round_a, void* out,
-                   int64_t rb_begin, int64_t rb_end, int max_nb, int64_t M,
-                   void* stream) {
-  return launch_range(vals, a_bf16, cols, x, x_bf16, round_a, out, rb_begin,
-                      rb_end, max_nb, M, stream);
+                   const void* x, int x_bf16, int round_a, const int32_t* nz,
+                   void* out, int64_t rb_begin, int64_t rb_end, int max_nb,
+                   int64_t x_rows, int64_t M, void* stream) {
+  return launch_range(vals, a_bf16, cols, x, x_bf16, round_a, nz, out,
+                      rb_begin, rb_end, max_nb, x_rows, M, stream);
 }
 
-const char* bcsr_spmm_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* bcsr_spmm_error_string(int code) { return error_string(code); }
 
 }  // extern "C"

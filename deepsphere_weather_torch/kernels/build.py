@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one `.cu` file in this directory with a plain C interface.
-At first use it is compiled with `nvcc` for `sm_90a` into a shared library
-under `kernels/_build/` (git-ignored), named by a hash of its source and
-flags so an edited source rebuilds, and loaded with `ctypes`. A plain C
+Each kernel is one `.cu` file in this directory with a plain C interface;
+the sources share the `.cuh` headers beside them. At first use a source is
+compiled with `nvcc` for `sm_90a` into a shared library under
+`kernels/_build/` (git-ignored), named by a hash of the source, the headers
+and the flags so that an edited source or header rebuilds, and loaded with
+`ctypes`. A plain C
 interface keeps PyTorch's headers out of the compile (seconds, not the
 minutes a `torch.utils.cpp_extension` build of the same file takes); the
 wrappers pass raw device pointers and PyTorch's current stream.
@@ -64,10 +66,13 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = _SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(_ARCH_FLAGS + _FLAGS)
-                          .encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}_{digest}.so"
+    """The build of `name`, named by a hash of its source, of every header
+    beside it (a source may include any of them) and of the flags."""
+    digest = hashlib.sha1((_SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(_SRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(_ARCH_FLAGS + _FLAGS).encode())
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
 def load_kernels(names: Sequence[str]) -> List[KernelLibrary]:

@@ -14,6 +14,7 @@ from .bcsr import (  # noqa: F401
     bcsr_super_spmm_rows,
     bcsr_super_spmm_rows_reference,
     launch_counts,
+    plain_nonzero_slots,
     reset_launch_counts,
     super_nonzero_slots,
 )

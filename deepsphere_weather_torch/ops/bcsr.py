@@ -9,14 +9,15 @@ Port of `deepsphere_weather_tpu/ops/pallas_spmm.py`:
   `[R*128, max_u*128] @ [max_u*128, M]` product. The TPU's DMA slot
   schedule and VMEM tiling have no counterpart on the GPU, so the union
   slots are simply in sorted column order.
-- `super_nonzero_slots`: per row block of a super-row layout, the union
-  slots whose block is nonzero, built once per operator on its device.
+- `super_nonzero_slots`, `plain_nonzero_slots`: per row block of a
+  super-row or plain layout, the slots whose block is nonzero, built once
+  per operator on its device.
 - `bcsr_super_spmm`: the super-row product over the listed slots. On a
   CUDA tensor it launches the CUDA kernel `kernels/bcsr_super_spmm.cu`
   (or raises); on a CPU tensor it runs the plain PyTorch version
   `bcsr_super_spmm_reference`.
-- `bcsr_spmm`: the plain-BCSR product, the same way: the CUDA kernel
-  `kernels/bcsr_spmm.cu` or `bcsr_spmm_reference`.
+- `bcsr_spmm`: the plain-BCSR product over the listed slots, the same
+  way: the CUDA kernel `kernels/bcsr_spmm.cu` or `bcsr_spmm_reference`.
 - `bcsr_super_spmm_rows`, `bcsr_spmm_rows`: the same products over a
   range of super-rows (row blocks) against the full x, the row-sharded
   lowering of `_partitioned_spmm` (K2 for the super-row layout, K3's row
@@ -47,6 +48,7 @@ from .._device import resolve_device
 from ..parallel.collectives import gather_rows
 
 __all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy", "super_nonzero_slots",
+           "plain_nonzero_slots",
            "bcsr_super_spmm", "bcsr_super_spmm_reference",
            "bcsr_super_spmm_rows", "bcsr_super_spmm_rows_reference",
            "bcsr_spmm", "bcsr_spmm_reference",
@@ -156,14 +158,28 @@ def super_nonzero_slots(svals: torch.Tensor) -> torch.Tensor:
     unread). The kernels walk only the listed slots: a zero block adds an
     exact zero, so skipping it changes no sum."""
     n_s, R, bs, ubs = svals.shape
-    nonzero = (svals.view(n_s, R, bs, ubs // bs, bs) != 0).any(dim=4).any(dim=2)
+    return _slot_list(
+        (svals.view(n_s, R, bs, ubs // bs, bs) != 0).any(dim=4).any(dim=2))
+
+
+def plain_nonzero_slots(vals: torch.Tensor) -> torch.Tensor:
+    """The nonzero slots of each row block of a plain layout: int32
+    [n_rb, 1 + max_nb] on vals' device, [r, 0] the count c of slots whose
+    block vals[r, b] has a nonzero entry, [r, 1:1 + c] those slots in
+    increasing order, as in `super_nonzero_slots`."""
+    return _slot_list((vals != 0).flatten(start_dim=2).any(dim=-1))
+
+
+def _slot_list(nonzero: torch.Tensor) -> torch.Tensor:
+    """[..., slots] bool -> int32 [..., 1 + slots]: the count of True
+    slots, then those slots in increasing order, then the others."""
     order = torch.argsort((~nonzero).to(torch.uint8), dim=-1, stable=True)
     count = nonzero.sum(dim=-1, keepdim=True)
     return torch.cat([count, order], dim=-1).to(torch.int32).contiguous()
 
 
 def _listed(nz: torch.Tensor, max_u: int) -> torch.Tensor:
-    """[n_s, R, max_u] bool: the slots `nz` lists for each row block."""
+    """[..., max_u] bool: the slots `nz` lists for each row block."""
     listed = torch.arange(max_u, device=nz.device) < nz[..., :1]
     # unlisted entries scatter into a spare column, dropped after
     idx = torch.where(listed, nz[..., 1:].long(), max_u)
@@ -218,16 +234,21 @@ def _check_x_rows(x, rows):
                          f"{x.shape[0]}")
 
 
-def _check_nz(svals, nz):
+def _check_nz(a, nz, plain=False):
+    """`nz` (or None) is the slot list of the super-row layout `a`
+    ([n_s, R, 1 + max_u]) or, with `plain`, of the plain layout `a`
+    ([n_rb, 1 + max_nb])."""
     if nz is None:
         return
-    n_s, R, bs, ubs = svals.shape
-    if nz.dtype != torch.int32 or nz.device != svals.device or \
-            nz.shape != (n_s, R, 1 + ubs // bs):
-        raise ValueError(f"the slot list must be int32 [n_s, R, 1 + max_u] "
-                         f"= {(n_s, R, 1 + ubs // bs)} on the layout's "
-                         f"device, got {str(nz.dtype)[6:]} {tuple(nz.shape)} "
-                         f"on {nz.device}")
+    if plain:
+        shape, names = (a.shape[0], 1 + a.shape[1]), "[n_rb, 1 + max_nb]"
+    else:
+        n_s, R, bs, ubs = a.shape
+        shape, names = (n_s, R, 1 + ubs // bs), "[n_s, R, 1 + max_u]"
+    if nz.dtype != torch.int32 or nz.device != a.device or nz.shape != shape:
+        raise ValueError(f"the slot list must be int32 {names} = {shape} on "
+                         f"the layout's device, got {str(nz.dtype)[6:]} "
+                         f"{tuple(nz.shape)} on {nz.device}")
 
 
 def _check_args(svals, ucols, x, nz=None):
@@ -236,8 +257,9 @@ def _check_args(svals, ucols, x, nz=None):
     _check_x_rows(x, svals.shape[0] * svals.shape[1] * _BS)
 
 
-def _check_plain_args(vals, cols, x):
+def _check_plain_args(vals, cols, x, nz=None):
     _check_plain_layout(vals, cols, x)
+    _check_nz(vals, nz, plain=True)
     _check_x_rows(x, vals.shape[0] * _BS)
 
 
@@ -343,10 +365,11 @@ def _kernel():
 
 @functools.lru_cache(maxsize=None)
 def _plain_kernel():
-    head = [_P, _I, _P, _P, _I, _I, _P]      # vals, a_bf16, cols, x, x_bf16, round_a, out
+    # vals, a_bf16, cols, x, x_bf16, round_a, nz, out
+    head = [_P, _I, _P, _P, _I, _I, _P, _P]
     return _bind("bcsr_spmm", {
         "bcsr_spmm": head + [_I64, _I, _I64, _P],
-        "bcsr_spmm_rows": head + [_I64, _I64, _I, _I64, _P]})
+        "bcsr_spmm_rows": head + [_I64, _I64, _I, _I64, _I64, _P]})
 
 
 def _launch(k, lib_name, entry, a, idx, x, out, extra, sizes):
@@ -414,23 +437,27 @@ def bcsr_super_spmm_rows(svals: torch.Tensor, ucols: torch.Tensor,
 
 
 def bcsr_spmm_reference(vals: torch.Tensor, cols: torch.Tensor,
-                        x: torch.Tensor, round_a: bool = True) -> torch.Tensor:
+                        x: torch.Tensor, nz: Optional[torch.Tensor] = None,
+                        round_a: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the plain-BCSR kernel: gather, fp32 einsum,
     cast.
 
-    out[r*bs + i, m] = sum_b sum_j vals[r, b, i, j] * x[cols[r, b]*bs + j, m].
-    Output [n_rb*bs, M], bf16 for bf16 x and fp32 otherwise. `round_a`
-    matters only for fp32 A against bf16 x: True rounds A to bf16 (the
-    compiled TPU kernel's regime), False keeps it fp32 (the interpreter
-    kernel's, which widens both operands)."""
-    _check_plain_args(vals, cols, x)
-    return _plain_product(vals, cols, x, round_a)
+    out[r*bs + i, m] = sum_b sum_j vals[r, b, i, j] * x[cols[r, b]*bs + j, m],
+    the blocks of the slots that `nz` (`plain_nonzero_slots`) does not list
+    for a row block masked to zero. Output [n_rb*bs, M], bf16 for bf16 x
+    and fp32 otherwise. `round_a` matters only for fp32 A against bf16 x:
+    True rounds A to bf16 (the compiled TPU kernel's regime), False keeps
+    it fp32 (the interpreter kernel's, which widens both operands)."""
+    _check_plain_args(vals, cols, x, nz)
+    return _plain_product(vals, cols, x, nz, round_a)
 
 
-def _plain_product(vals, cols, x, round_a):
+def _plain_product(vals, cols, x, nz, round_a):
     n_rb, max_nb, bs, _ = vals.shape
     M = x.shape[1]
     a = (vals.to(_x_regime(x)) if round_a else vals).float()
+    if nz is not None:
+        a = a * _listed(nz, max_nb)[:, :, None, None]
     xg = x.float().reshape(-1, bs, M)[cols.long()]   # [n_rb, max_nb, bs, M]
     out = torch.einsum("rbij,rbjm->rim", a, xg)
     return out.reshape(n_rb * bs, M).to(_x_regime(x))
@@ -438,54 +465,66 @@ def _plain_product(vals, cols, x, round_a):
 
 def bcsr_spmm_rows_reference(vals: torch.Tensor, cols: torch.Tensor,
                              x: torch.Tensor, rb_begin: int, rb_end: int,
+                             nz: Optional[torch.Tensor] = None,
                              round_a: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the plain-BCSR row-range kernel: the
-    tables sliced to the row blocks [rb_begin, rb_end), gathering from the
-    full x. Output [(rb_end - rb_begin)*bs, M]; `round_a` as in
-    `bcsr_spmm_reference`."""
+    tables (and `nz`) sliced to the row blocks [rb_begin, rb_end),
+    gathering from the full x. Output [(rb_end - rb_begin)*bs, M]; `nz`
+    and `round_a` as in `bcsr_spmm_reference`."""
     _check_plain_layout(vals, cols, x)
+    _check_nz(vals, nz, plain=True)
     _check_range(rb_begin, rb_end, vals.shape[0], x, "row-block")
     return _plain_product(vals[rb_begin:rb_end], cols[rb_begin:rb_end], x,
+                          None if nz is None else nz[rb_begin:rb_end],
                           round_a)
 
 
 def bcsr_spmm(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+              nz: Optional[torch.Tensor] = None,
               round_a: bool = True) -> torch.Tensor:
-    """y = A @ x for A in plain padded BCSR; x [n_rb*128, M], M % 64 == 0.
+    """y = A @ x for A in plain padded BCSR; x [n_rb*128, M], M a multiple
+    of the kernel's column tile (64 does for every regime). `nz`
+    (`plain_nonzero_slots`) lists the slots each row block walks; None
+    walks every slot.
 
-    CUDA tensors run the hand-written kernel (a failed build or launch
-    raises); CPU tensors run `bcsr_spmm_reference`. `round_a` as there."""
-    _check_plain_args(vals, cols, x)
+    CUDA tensors run the hand-written kernel (a failed build, descriptor
+    encode or launch raises); CPU tensors run `bcsr_spmm_reference`.
+    `round_a` as there."""
+    _check_plain_args(vals, cols, x, nz)
     if not x.is_cuda:
-        return bcsr_spmm_reference(vals, cols, x, round_a)
+        return bcsr_spmm_reference(vals, cols, x, nz, round_a)
     n_rb, max_nb, bs, _ = vals.shape
     out = torch.empty((n_rb * bs, x.shape[1]), dtype=_x_regime(x),
                       device=x.device)
     return _launch(_plain_kernel(), "bcsr_spmm", "bcsr_spmm", vals, cols, x,
-                   out, (int(bool(round_a)),), (n_rb, max_nb, x.shape[1]))
+                   out, (int(bool(round_a)), nz), (n_rb, max_nb, x.shape[1]))
 
 
 def bcsr_spmm_rows(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
                    rb_begin: int, rb_end: int,
+                   nz: Optional[torch.Tensor] = None,
                    round_a: bool = True) -> torch.Tensor:
     """The row blocks [rb_begin, rb_end) of A @ x for A in plain padded
     BCSR, against the full x [n_cb*128, M]: [(rb_end - rb_begin)*128, M]
-    (K3's row-sharded form).
+    (K3's row-sharded form). `nz` covers the whole layout, as in
+    `bcsr_spmm`.
 
     CUDA tensors run the hand-written kernel's row-range entry (counted
-    as `bcsr_spmm_rows`; a failed build or launch raises); CPU tensors run
-    `bcsr_spmm_rows_reference`. `round_a` as in `bcsr_spmm`."""
+    as `bcsr_spmm_rows`; a failed build, descriptor encode or launch
+    raises); CPU tensors run `bcsr_spmm_rows_reference`. `round_a` as in
+    `bcsr_spmm`."""
     _check_plain_layout(vals, cols, x)
+    _check_nz(vals, nz, plain=True)
     _check_range(rb_begin, rb_end, vals.shape[0], x, "row-block")
     if not x.is_cuda:
-        return bcsr_spmm_rows_reference(vals, cols, x, rb_begin, rb_end,
+        return bcsr_spmm_rows_reference(vals, cols, x, rb_begin, rb_end, nz,
                                         round_a)
     n_rb, max_nb, bs, _ = vals.shape
     out = torch.empty(((rb_end - rb_begin) * bs, x.shape[1]),
                       dtype=_x_regime(x), device=x.device)
     return _launch(_plain_kernel(), "bcsr_spmm", "bcsr_spmm_rows", vals, cols,
-                   x, out, (int(bool(round_a)),),
-                   (rb_begin, rb_end, max_nb, x.shape[1]))
+                   x, out, (int(bool(round_a)), nz),
+                   (rb_begin, rb_end, max_nb, x.shape[0], x.shape[1]))
 
 
 def _fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -498,8 +537,8 @@ def _fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, rows - x.shape[0]))
 
 
-# A layout: ("super", svals, ucols, nz) or ("plain", vals, cols, None)
-_Layout = Tuple[str, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+# A layout: ("super", svals, ucols, nz) or ("plain", vals, cols, nz)
+_Layout = Tuple[str, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
 def _layout_rows(layout) -> int:
@@ -513,7 +552,7 @@ def _run_mv(layout: _Layout, x_pad: torch.Tensor, n_out: int) -> torch.Tensor:
     kind, a, idx, nz = layout
     x_fit = _fit_rows(x_pad, _layout_rows(layout))
     y = (bcsr_super_spmm(a, idx, x_fit, nz) if kind == "super"
-         else bcsr_spmm(a, idx, x_fit))
+         else bcsr_spmm(a, idx, x_fit, nz))
     return _fit_rows(y, n_out)
 
 
@@ -545,8 +584,9 @@ class BlockSparseOperator:
     symmetric operator reuses those arrays for the backward; a
     non-symmetric one carries the transposed layout, super-row
     (`svals_t`, `ucols_t`) if built, else plain (`vals_t`, `cols_t`). Each
-    super-row layout gets its list of nonzero slots (`nz`, `nz_t`:
-    `super_nonzero_slots`), built here once, on its device."""
+    layout gets its list of nonzero slots (`nz`, `nz_t`:
+    `super_nonzero_slots` or `plain_nonzero_slots`), built here once, on
+    its device."""
 
     def __init__(self, n: int, svals=None, ucols=None, vals=None, cols=None,
                  svals_t=None, ucols_t=None, vals_t=None, cols_t=None):
@@ -558,8 +598,11 @@ class BlockSparseOperator:
         self.vals, self.cols = vals, cols
         self.svals_t, self.ucols_t = svals_t, ucols_t
         self.vals_t, self.cols_t = vals_t, cols_t
-        self.nz = None if svals is None else super_nonzero_slots(svals)
-        self.nz_t = None if svals_t is None else super_nonzero_slots(svals_t)
+        self.nz = (super_nonzero_slots(svals) if svals is not None
+                   else plain_nonzero_slots(vals))
+        self.nz_t = (super_nonzero_slots(svals_t) if svals_t is not None
+                     else None if vals_t is None
+                     else plain_nonzero_slots(vals_t))
 
     @classmethod
     def from_scipy(cls, mat, symmetric: bool = True, dtype=torch.float32,
@@ -599,7 +642,7 @@ class BlockSparseOperator:
     def forward_layout(self) -> _Layout:
         if self.svals is not None:
             return ("super", self.svals, self.ucols, self.nz)
-        return ("plain", self.vals, self.cols, None)
+        return ("plain", self.vals, self.cols, self.nz)
 
     def transpose_layout(self) -> _Layout:
         """The arrays that compute A^T @ g (`_transpose_arrays`): the
@@ -609,7 +652,7 @@ class BlockSparseOperator:
             return self.forward_layout()
         if self.svals_t is not None:
             return ("super", self.svals_t, self.ucols_t, self.nz_t)
-        return ("plain", self.vals_t, self.cols_t, None)
+        return ("plain", self.vals_t, self.cols_t, self.nz_t)
 
     @property
     def rows(self) -> int:
@@ -643,10 +686,10 @@ class BlockSparseOperator:
 
 
 # One rank's slice of a layout: (kind, A blocks, block-column table, slot
-# list or None, first row of the slice in the full product, rows of the
-# full layout)
-_ShardLayout = Tuple[str, torch.Tensor, torch.Tensor, Optional[torch.Tensor],
-                     int, int]
+# list, first row of the slice in the full product, rows of the full
+# layout)
+_ShardLayout = Tuple[str, torch.Tensor, torch.Tensor, torch.Tensor, int,
+                     int]
 
 
 def _shard_layout(layout: _Layout, v0: int, v1: int) -> _ShardLayout:
@@ -662,8 +705,7 @@ def _shard_layout(layout: _Layout, v0: int, v1: int) -> _ShardLayout:
         raise ValueError(f"block-column {top} lies outside the full x's "
                          f"{full_rows // _BS} blocks")
     return (kind, a[lo:hi].contiguous(), idx[lo:hi].contiguous(),
-            None if nz is None else nz[lo:hi].contiguous(), lo * unit,
-            full_rows)
+            nz[lo:hi].contiguous(), lo * unit, full_rows)
 
 
 def _run_rows(layout: _ShardLayout, x_full: torch.Tensor, v0: int,
@@ -673,8 +715,8 @@ def _run_rows(layout: _ShardLayout, x_full: torch.Tensor, v0: int,
     shard's units, then the rank's rows of its output."""
     kind, a, idx, nz, r0, full_rows = layout
     x_fit = _fit_rows(x_full, full_rows)
-    y = (bcsr_super_spmm_rows(a, idx, x_fit, 0, a.shape[0], nz)
-         if kind == "super" else bcsr_spmm_rows(a, idx, x_fit, 0, a.shape[0]))
+    rows = (bcsr_super_spmm_rows if kind == "super" else bcsr_spmm_rows)
+    y = rows(a, idx, x_fit, 0, a.shape[0], nz)
     return y[v0 - r0:v1 - r0]
 
 

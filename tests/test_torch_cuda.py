@@ -1,11 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the super-row SpMM (K1) and the plain-BCSR SpMM (K3), forward and
-backward, their row-range entries (K2 and K3's row-sharded form) against
-the rows of the full launch (exactly) and their plain versions (exactly,
-but K1/K2's bf16 tensor-core body at the bf16 bar: it sums in another
-order), K1's slot list (every column tile, zero row blocks, the list
-against walking every slot) and one training step against the CPU plain
-path.
+card: the super-row SpMM (K1) and the plain-BCSR SpMM (K3, and K4's fp32-A
+regime), forward and backward, their row-range entries (K2 and K3's
+row-sharded form) against the rows of the full launch (exactly) and their
+plain versions (exactly in the fp32-x regimes; the bf16-x tensor-core body
+at the bf16 bar: it sums in another order), the slot lists (every column
+tile, zero row blocks, the list against walking every slot), K4's split of
+fp32 A into bf16 hi + lo told apart from K3's rounding on a product that
+cancels (`tests/torch_split_probe.py`: under 2^-14 and above it), and one
+training step against the CPU plain path.
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without
 one. This file imports neither JAX nor the JAX package, so it also runs on
@@ -45,10 +47,12 @@ from deepsphere_weather_torch.ops import (  # noqa: E402
     bcsr_super_spmm_rows,
     bcsr_super_spmm_rows_reference,
     launch_counts,
+    plain_nonzero_slots,
 )
 from deepsphere_weather_torch.sphere import build_graph  # noqa: E402
 from deepsphere_weather_torch.weights import params_from_jax, seeded_params  # noqa: E402
 from torch_grad_terms import term_sums  # noqa: E402
+from torch_split_probe import SPLIT_BAR, split_probe  # noqa: E402
 from torch_steer import steer  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -108,18 +112,22 @@ def test_kernel_rejects_non_contiguous(cuda):
         bcsr_super_spmm(op.svals, op.ucols, x)
 
 
-def test_kernel_raises_when_the_descriptor_encode_fails(cuda):
+@pytest.mark.parametrize("layout", ["super", "plain"])
+def test_kernel_raises_when_the_descriptor_encode_fails(cuda, layout):
     # TMA needs x 16-byte aligned: a view 2 bytes in cannot be encoded,
     # and the bf16 launch raises rather than fall back to the FMA body
     g = build_graph("healpix", {"subdivisions": 4, "nest": True}, k=8)
-    op = BlockSparseOperator.from_scipy(g.L, dtype=torch.bfloat16,
-                                        device=cuda)
+    op = BlockSparseOperator.from_scipy(
+        g.L, dtype=torch.bfloat16,
+        rows_per_super=2 if layout == "super" else 0, device=cuda)
+    _, a, idx, nz = op.forward_layout()
+    full_fn, key = ROW_FNS[layout][0], ROW_FNS[layout][4]
     flat = torch.zeros(op.rows * 128 + 1, dtype=torch.bfloat16, device=cuda)
     x = flat[1:].view(op.rows, 128)
-    before = launch_counts["bcsr_super_spmm"]
+    before = launch_counts[key]
     with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
-        bcsr_super_spmm(op.svals, op.ucols, x, op.nz)
-    assert launch_counts["bcsr_super_spmm"] == before
+        full_fn(a, idx, x, nz)
+    assert launch_counts[key] == before
 
 
 @pytest.mark.parametrize("subdiv", [4, 8])
@@ -131,15 +139,17 @@ def test_plain_kernel_matches_plain_version(cuda, subdiv, a_dt, x_dt, round_a):
     vals, cols, n_pad = bcsr_from_scipy(g.L)
     a = torch.from_numpy(vals).to(cuda, DT[a_dt])
     c = torch.from_numpy(cols).to(cuda)
+    nz = plain_nonzero_slots(a)
     rng = np.random.default_rng(subdiv + 10)
     x_np = rng.standard_normal((n_pad, 320)).astype(np.float32)
     x = torch.from_numpy(x_np).to(cuda, DT[x_dt])
     before = launch_counts["bcsr_spmm"]
-    y = bcsr_spmm(a, c, x, round_a=round_a)
+    y = bcsr_spmm(a, c, x, nz, round_a=round_a)
     torch.cuda.synchronize()
     assert launch_counts["bcsr_spmm"] == before + 1
     assert y.dtype == DT[x_dt] and y.shape == (n_pad, 320)
-    assert rel_err(y, bcsr_spmm_reference(a, c, x, round_a=round_a)) <= TOL[x_dt]
+    assert rel_err(y, bcsr_spmm_reference(a, c, x, nz, round_a=round_a)) \
+        <= TOL[x_dt]
     # scipy with A as the product sees it: bf16-stored, or fp32 rounded to
     # bf16 against bf16 x in the round_a regime
     L = g.L.copy()
@@ -150,10 +160,12 @@ def test_plain_kernel_matches_plain_version(cuda, subdiv, a_dt, x_dt, round_a):
     assert rel_err(y[:n].float(), torch.from_numpy(ref)) <= 2 * TOL[x_dt]
 
 
+# (full, row range, plain row range, row-range key, full key)
 ROW_FNS = {"super": (bcsr_super_spmm, bcsr_super_spmm_rows,
-                     bcsr_super_spmm_rows_reference, "bcsr_super_spmm_rows"),
+                     bcsr_super_spmm_rows_reference, "bcsr_super_spmm_rows",
+                     "bcsr_super_spmm"),
            "plain": (bcsr_spmm, bcsr_spmm_rows, bcsr_spmm_rows_reference,
-                     "bcsr_spmm_rows")}
+                     "bcsr_spmm_rows", "bcsr_spmm")}
 
 
 # the flagship's level 0 (HEALPix-16, 12 super-rows) and its large-graph
@@ -170,8 +182,8 @@ def test_row_range_kernel_equals_full_launch_rows(cuda, subdiv, n_node, layout,
         L, dtype=DT[dt], rows_per_super=2 if layout == "super" else 0,
         device=cuda)
     _, a, idx, nz = op.forward_layout()
-    full_fn, rows_fn, plain_fn, key = ROW_FNS[layout]
-    kw = {"nz": nz} if layout == "super" else {}
+    full_fn, rows_fn, plain_fn, key, _ = ROW_FNS[layout]
+    kw = {"nz": nz}
     unit = op.rows // a.shape[0]
     rng = np.random.default_rng(subdiv + n_node)
     x = torch.from_numpy(rng.standard_normal((op.rows, 256)).astype(
@@ -188,7 +200,7 @@ def test_row_range_kernel_equals_full_launch_rows(cuda, subdiv, n_node, layout,
         assert y.dtype == DT[dt] and y.shape == ((hi - lo) * unit, 256)
         assert torch.equal(y, full[lo * unit:hi * unit])
         ref = plain_fn(a, idx, x, lo, hi, **kw)
-        if layout == "super" and dt == "bf16":
+        if dt == "bf16":
             assert rel_err(y, ref) <= TOL[dt]   # tensor cores: another order
         else:
             assert torch.equal(y, ref)
@@ -210,29 +222,49 @@ def test_row_range_kernel_rejects_bad_ranges(cuda, layout):
     assert launch_counts[key] == before
 
 
-# the tensor-core body's column tile is 256, 128 or 64 by M alone
+# the tensor-core body's column tile is 256, 128 or 64 by M alone (at most
+# 128 for fp32 A); the plain layout's in each bf16-x regime: bf16 A, and
+# fp32 A rounded to bf16 (round_a) or split into bf16 hi + lo (K4)
+@pytest.mark.parametrize("layout", ["super", "plain"])
 @pytest.mark.parametrize("M,tile", [(64, 64), (128, 128), (192, 64),
                                     (256, 256), (384, 128), (2048, 256)])
-def test_kernel_every_column_tile(cuda, M, tile):
-    from deepsphere_weather_torch.ops.bcsr import _kernel
+def test_kernel_every_column_tile(cuda, M, tile, layout):
+    from deepsphere_weather_torch.ops.bcsr import _kernel, _plain_kernel
 
-    assert _kernel().lib.bcsr_super_spmm_col_tile(M, 1, 1) == tile
     L = cached_graph_laplacian("healpix", {"subdivisions": 16, "nest": True},
                                20, "knn")[1]
-    op = BlockSparseOperator.from_scipy(L, dtype=torch.bfloat16, device=cuda)
     rng = np.random.default_rng(M)
-    x = torch.from_numpy(rng.standard_normal((op.rows, M)).astype(
-        np.float32)).to(cuda, torch.bfloat16)
-    y = bcsr_super_spmm(op.svals, op.ucols, x, op.nz)
-    torch.cuda.synchronize()
-    assert y.dtype == torch.bfloat16 and y.shape == (op.rows, M)
-    assert rel_err(y, bcsr_super_spmm_reference(op.svals, op.ucols, x,
-                                                op.nz)) <= TOL["bf16"]
+    n = L.shape[0]
     Lb = L.copy()
     Lb.data = torch.from_numpy(L.data).to(torch.bfloat16).float().numpy()
-    n = L.shape[0]
-    ref = torch.from_numpy(Lb @ x[:n].float().cpu().numpy())
-    assert rel_err(y[:n].float(), ref) <= 2 * TOL["bf16"]
+    regimes = ([(torch.bfloat16, True)] if layout == "super" else
+               [(torch.bfloat16, True), (torch.float32, True),
+                (torch.float32, False)])
+    for a_dt, round_a in regimes:
+        op = BlockSparseOperator.from_scipy(
+            L, dtype=a_dt, rows_per_super=2 if layout == "super" else 0,
+            device=cuda)
+        _, a, idx, nz = op.forward_layout()
+        x = torch.from_numpy(rng.standard_normal((op.rows, M)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        if layout == "super":
+            assert _kernel().lib.bcsr_super_spmm_col_tile(M, 1, 1) == tile
+            y = bcsr_super_spmm(a, idx, x, nz)
+            want = bcsr_super_spmm_reference(a, idx, x, nz)
+        else:
+            tile_of = _plain_kernel().lib.bcsr_spmm_col_tile
+            # the fp32-A regimes stop at 128 columns (256 spill)
+            assert tile_of(M, int(a_dt == torch.bfloat16), 1) == (
+                tile if a_dt == torch.bfloat16 else min(tile, 128))
+            y = bcsr_spmm(a, idx, x, nz, round_a=round_a)
+            want = bcsr_spmm_reference(a, idx, x, nz, round_a=round_a)
+        torch.cuda.synchronize()
+        assert y.dtype == torch.bfloat16 and y.shape == (op.rows, M)
+        assert rel_err(y, want) <= TOL["bf16"]
+        # scipy with A as the product sees it: fp32 only in K4's regime
+        mat = L if a_dt == torch.float32 and not round_a else Lb
+        ref = torch.from_numpy(mat @ x[:n].float().cpu().numpy())
+        assert rel_err(y[:n].float(), ref) <= 2 * TOL["bf16"]
 
 
 # R = 4 at HEALPix-4: one super-row of 4 row blocks, the last 2 padding
@@ -252,21 +284,55 @@ def test_kernel_row_block_without_slots_writes_zeros(cuda, dt):
                                                 op.nz)) <= TOL[dt]
 
 
-# the slot list skips only zero blocks: the same sums, bit for bit
-@pytest.mark.parametrize("dt", ["fp32", "bf16"])
-def test_kernel_slot_list_equals_every_slot(cuda, dt):
+# the slot list skips only zero blocks: the same sums, bit for bit (the
+# plain layout's fp32-A cases: K3's rounding and K4's split)
+@pytest.mark.parametrize("layout,dt", [
+    ("super", "fp32"), ("super", "bf16"), ("plain", "fp32"), ("plain", "bf16"),
+    ("plain", "fp32_a"), ("plain", "fp32_a_split")])
+def test_kernel_slot_list_equals_every_slot(cuda, dt, layout):
     L = cached_graph_laplacian("healpix", {"subdivisions": 16, "nest": True},
                                20, "knn")[1]
-    op = BlockSparseOperator.from_scipy(L, dtype=DT[dt], device=cuda)
-    assert int(op.nz[..., 0].sum()) < op.nz[..., 1:].numel()   # some skipped
+    a_dt, x_dt = {"fp32_a": ("fp32", "bf16"),
+                  "fp32_a_split": ("fp32", "bf16")}.get(dt, (dt, dt))
+    op = BlockSparseOperator.from_scipy(
+        L, dtype=DT[a_dt], rows_per_super=2 if layout == "super" else 0,
+        device=cuda)
+    _, a, idx, nz = op.forward_layout()
+    full_fn, rows_fn = ROW_FNS[layout][:2]
+    kw = {} if layout == "super" else {"round_a": dt != "fp32_a_split"}
+    assert int(nz[..., 0].sum()) < nz[..., 1:].numel()   # some skipped
     x = torch.from_numpy(np.random.default_rng(6).standard_normal(
-        (op.rows, 1024)).astype(np.float32)).to(cuda, DT[dt])
-    assert torch.equal(bcsr_super_spmm(op.svals, op.ucols, x, op.nz),
-                       bcsr_super_spmm(op.svals, op.ucols, x))
-    n_s = op.svals.shape[0]
-    assert torch.equal(
-        bcsr_super_spmm_rows(op.svals, op.ucols, x, 1, n_s - 1, op.nz),
-        bcsr_super_spmm_rows(op.svals, op.ucols, x, 1, n_s - 1))
+        (op.rows, 1024)).astype(np.float32)).to(cuda, DT[x_dt])
+    assert torch.equal(full_fn(a, idx, x, nz, **kw),
+                       full_fn(a, idx, x, None, **kw))
+    n = a.shape[0]
+    assert torch.equal(rows_fn(a, idx, x, 1, n - 1, nz, **kw),
+                       rows_fn(a, idx, x, 1, n - 1, None, **kw))
+
+
+# K4's split (hi + lo) told apart from K3's rounding of fp32 A (hi), which
+# the bf16 bar cannot do: the probe's exact product is about 0, so no output
+# rounding hides what each regime did to A (tests/torch_split_probe.py);
+# column tiles 64 and 128, the full launch and a row range
+@pytest.mark.parametrize("subdiv", [16, 64])
+@pytest.mark.parametrize("M", [64, 1024])
+def test_split_reads_apart_from_rounding(cuda, subdiv, M):
+    L = cached_graph_laplacian("healpix", {"subdivisions": subdiv,
+                                           "nest": True}, 20, "knn")[1]
+    A, x_np, reading = split_probe(L, M, subdiv + M)
+    op = BlockSparseOperator.from_scipy(A, rows_per_super=0, device=cuda)
+    _, a, idx, nz = op.forward_layout()
+    x = torch.nn.functional.pad(torch.from_numpy(x_np),
+                                (0, 0, 0, op.rows - A.shape[0])).to(
+                                    cuda, torch.bfloat16)
+    got = {}
+    for round_a in (False, True):
+        y = bcsr_spmm(a, idx, x, nz, round_a=round_a)
+        got[round_a] = reading(y.float().cpu().numpy())
+        n_rb = a.shape[0]
+        rows = bcsr_spmm_rows(a, idx, x, 1, n_rb, nz, round_a=round_a)
+        assert torch.equal(rows, y[128:])
+    assert got[False] < SPLIT_BAR < got[True], got
 
 
 def _nonsymmetric(L):

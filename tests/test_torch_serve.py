@@ -173,7 +173,8 @@ def test_submit_matches_jax_rollout(setup):
 
 # torch-only test helpers: the spawned ranks of tests/test_torch_parallel.py
 # import the worker, chip_smoke.py the others, and none may pull JAX in
-TEST_HELPERS = ("torch_parallel_worker", "torch_grad_terms", "torch_steer")
+TEST_HELPERS = ("torch_parallel_worker", "torch_grad_terms", "torch_steer",
+                "torch_split_probe")
 
 
 def _port_sources():
