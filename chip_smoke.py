@@ -96,6 +96,25 @@ printed one per line:
              built from the same Laplacian, held to its plain version and
              scipy) at each (level, width) shape of the HEALPix-64 step
 
+11. protocol16 the port's train -> predict -> verify CLI
+             (`cli.train_predict.main`) on the shipped flagship config
+             (configs/UNetSpherical/Healpix_400km/MaxPool-Graph_knn.json)
+             with numeric_precision bfloat16 and its epochs cut (full width
+             and depth; K1 at level 0), over toy HEALPix-16 data (the
+             port's generate_toy_data, 1460 six-hour steps, seed 0): the
+             device-cache path taken, K1 launched in the training forward
+             and backward, validation and the AR20 prediction (and nothing
+             else), every logged loss finite, the checkpoint and skill
+             files written, the forecast store [n_frt, 21, 3072, 2]
+             finite, RMSE larger at lead 20 than at lead 1 for both
+             variables; then one --resume epoch. It prints the wall
+             seconds of train, predict, rechunk and verify, the driver's
+             training samples/s beside the bare step's (at the driver's AR
+             depth, and phase train's AR6), AR20 seconds per reference
+             time, peak device memory and K1's launches by part. It runs
+             last: the config asks for deterministic training
+             (torch.use_deterministic_algorithms, reset after it).
+
 The ranks of phases 7-9 are started after the kernels are built, join a
 `gloo` process group with a timeout, and the phase waits for them with a
 limit; a rank that fails fails its phase. Any failed phase raises, and the
@@ -170,6 +189,11 @@ LR, ADAM_EPS = 1e-3, 1e-7
 NODE16_STEPS, MESH16_STEPS, NODE64_STEPS = 3, 1, 2
 FP32_DENSE_THRESHOLD = 2048
 PG_TIMEOUT_S, RANKS_LIMIT_S = 300, 900
+# protocol16: the shipped flagship config through the CLI, bf16, epochs cut
+# to fit about 90 s of training on an H100; AR20 forecasts
+PROTOCOL_CONFIG = "configs/UNetSpherical/Healpix_400km/MaxPool-Graph_knn.json"
+PROTOCOL_EPOCHS, PROTOCOL_AR_PREDICT = 12, 20
+PROTOCOL_INPUT_K, PROTOCOL_CYCLE = (-18, -12, -6), 6
 GATHERS_PER_FORWARD = sum(PRODUCTS_PER_LEVEL)
 # seeded ReZero weights are scaled by this for training: at U(0.5, 1.5)
 # the random network's rollout grows several-fold per iteration
@@ -1690,6 +1714,339 @@ def phase_mesh(device, card_line, train_ref, grad_ref):
 
 
 # ---------------------------------------------------------------------------
+# The train -> predict -> verify protocol through the port's CLI
+# ---------------------------------------------------------------------------
+
+def _instrument_protocol():
+    """Wrap the driver's step factories, the rollout and the stages of
+    `cli.train_predict.main` (module attributes they are called through)
+    to record, per part, the K1 launches (training forward and backward,
+    validation, prediction), which step factories the trainer took, and
+    each stage's wall time. Returns (record, undo)."""
+    import torch
+
+    import deepsphere_weather_torch.data.zarrstore as zarrstore
+    import deepsphere_weather_torch.engine as engine
+    import deepsphere_weather_torch.engine.prediction as prediction
+    import deepsphere_weather_torch.engine.training as training
+    import deepsphere_weather_torch.verif as verif
+    from deepsphere_weather_torch.ops.bcsr import launch_counts
+
+    rec = {"cached_steps": 0, "streaming_steps": 0, "train_forward": 0,
+           "train_backward": 0, "validation": 0, "predict": 0,
+           "seconds": {}, "models": [], "chunk_writes": 0,
+           "chunk_write_s": 0.0, "writes_at": {}, "train_steps": 0}
+    saved = []
+
+    def k1():
+        return launch_counts[KERNEL]
+
+    def patch(module, name, new):
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, new)
+
+    def hook(model):
+        if any(m is model for m in rec["models"]):
+            return
+        rec["models"].append(model)
+        at = [0]
+        model.register_forward_pre_hook(lambda *_: at.__setitem__(0, k1()))
+
+        def after(*_):
+            if torch.is_grad_enabled():
+                rec["train_forward"] += k1() - at[0]
+        model.register_forward_hook(after)
+
+    def counted(fn, part, kind=None):
+        def make(model, *args, **kw):
+            hook(model)
+            if kind:
+                rec[kind] += 1
+            made = fn(model, *args, **kw)
+            step, rest = (made[0], made[1:]) if isinstance(made, tuple) \
+                else (made, None)
+
+            def run(*a, **k):
+                c, f = k1(), rec["train_forward"]
+                out = step(*a, **k)
+                if part == "train":
+                    rec["train_steps"] += 1
+                    rec["train_backward"] += (k1() - c) - (
+                        rec["train_forward"] - f)
+                else:
+                    rec[part] += k1() - c
+                return out
+            return (run,) + rest if rest is not None else run
+        return make
+
+    def timed(module, name, stage):
+        fn = getattr(module, name)
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            rec["seconds"][stage] = time.perf_counter() - t0
+            rec["writes_at"][stage] = (rec["chunk_writes"],
+                                       rec["chunk_write_s"])
+            return out
+        patch(module, name, run)
+
+    patch(training, "make_cached_train_step", counted(
+        training.make_cached_train_step, "train", "cached_steps"))
+    patch(training, "make_train_step", counted(
+        training.make_train_step, "train", "streaming_steps"))
+    patch(training, "make_cached_validation_fn", counted(
+        training.make_cached_validation_fn, "validation"))
+    patch(training, "make_validation_fn", counted(
+        training.make_validation_fn, "validation"))
+    patch(prediction, "make_rollout_block", counted(
+        prediction.make_rollout_block, "predict"))
+    write_chunk = zarrstore.ZarrArray._write_chunk
+
+    def counted_write(self, idx, data):
+        t0 = time.perf_counter()
+        write_chunk(self, idx, data)
+        rec["chunk_writes"] += 1
+        rec["chunk_write_s"] += time.perf_counter() - t0
+    patch(zarrstore.ZarrArray, "_write_chunk", counted_write)
+    timed(engine, "AutoregressiveTraining", "train")
+    timed(engine, "AutoregressivePredictions", "predict")
+    timed(engine, "rechunk_forecasts_for_verification", "rechunk")
+    timed(verif, "deterministic", "verify")
+
+    def undo():
+        for module, name, fn in reversed(saved):
+            setattr(module, name, fn)
+    return rec, undo
+
+
+def _bare_step_ms(model, n_ar, batch, n_static, n_bc):
+    """ms per bare train step of the trained model at the driver's last AR
+    depth and batch, on one device-resident synthetic batch (no loader,
+    no window gather): windows of TIME_STEPS steps, best of
+    TIME_WINDOWS."""
+    import torch
+
+    from deepsphere_weather_torch.data.ar import ARIndexer
+    from deepsphere_weather_torch.engine import make_train_step
+
+    indexer = ARIndexer.build(list(PROTOCOL_INPUT_K), [0], PROTOCOL_CYCLE,
+                              n_ar)
+    dev = next(model.parameters()).device
+    rng = np.random.default_rng(SEED + 20)
+    W, V = indexer.window_size, model.input_n_node
+    data = {k: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dev) for k, shape in (
+        ("dynamic", (batch, W, V, F_DYN)), ("bc", (batch, W, V, n_bc)),
+        ("static", (V, n_static)))}
+    opt = torch.optim.Adam(model.parameters(), lr=1e-5, eps=ADAM_EPS)
+    step = make_train_step(model, indexer, opt, n_ar + 1)
+    w = np.ones(n_ar + 1, np.float32)
+    step(data, w)
+    best = float("inf")
+    for _ in range(TIME_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIME_STEPS):
+            step(data, w)
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / TIME_STEPS)
+    return 1e3 * best
+
+
+def phase_protocol(device, card_line, bare_ar6_ms):
+    """protocol16: the flagship config (bf16, full width and depth)
+    trained, forecast AR20 and verified through the port's CLI entry point
+    (`cli.train_predict.main`) on toy HEALPix-16 data; then one --resume
+    epoch. Returns K1's launches by part."""
+    import shutil
+
+    import torch
+
+    from deepsphere_weather_torch.cli.train_predict import main as train_main
+    from deepsphere_weather_torch.data import generate_toy_data
+    from deepsphere_weather_torch.engine.prediction import ForecastDataset
+    from deepsphere_weather_torch.native import bloscio
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    root = tempfile.mkdtemp(prefix="dsw_protocol_")
+    try:
+        t0 = time.perf_counter()
+        generate_toy_data(os.path.join(root, "data"),
+                          sampling_kwargs={"subdivisions": SLICE_SUBDIV,
+                                           "nest": True}, seed=SEED)
+        t_data = time.perf_counter() - t0
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               PROTOCOL_CONFIG)) as f:
+            cfg = json.load(f)
+        shipped = {k: cfg["training_settings"][k]
+                   for k in ("numeric_precision", "epochs")}
+        cfg["training_settings"].update(numeric_precision="bfloat16",
+                                        epochs=PROTOCOL_EPOCHS)
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        log("protocol16", f"{PROTOCOL_CONFIG}, cut: numeric_precision "
+                          f"{shipped['numeric_precision']} -> bfloat16, "
+                          f"epochs {shipped['epochs']} -> {PROTOCOL_EPOCHS}; "
+                          "full width and depth, num_workers as shipped; toy "
+                          f"HEALPix-{SLICE_SUBDIV} data, 1460 six-hour steps, "
+                          f"seed {SEED} ({t_data:.1f} s)")
+
+        rec, undo = _instrument_protocol()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            exp, gs = train_main(cfg_path, os.path.join(root, "data"),
+                                 os.path.join(root, "exp"), force=True,
+                                 ar_iterations_prediction=PROTOCOL_AR_PREDICT,
+                                 device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(launch_counts)
+            peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            undo()
+            torch.use_deterministic_algorithms(False)
+        parts = {k: rec[k] for k in ("train_forward", "train_backward",
+                                     "validation", "predict")}
+        # the checks
+        if rec["cached_steps"] == 0 or rec["streaming_steps"]:
+            raise AssertionError(f"the trainer took the streaming loader "
+                                 f"({rec['cached_steps']} device-cache step "
+                                 f"factories, {rec['streaming_steps']} "
+                                 "streaming)")
+        for part, n in parts.items():
+            if n <= 0:
+                raise AssertionError(f"no {KERNEL} launch in {part}: "
+                                     f"{parts}")
+        if (launches[KERNEL] != sum(parts.values())
+                or sum(launches.values()) != launches[KERNEL]):
+            raise AssertionError(f"launches {launches} are not the parts' "
+                                 f"{parts}")
+        with open(os.path.join(exp, "training_info",
+                               "ar_training_info.json")) as f:
+            info = json.load(f)
+        losses = info["training_total_loss"] + info["validation_total_loss"]
+        if not losses or not np.isfinite(losses).all():
+            raise AssertionError(f"logged losses not finite: {losses}")
+        for rel_path in ("model_weights/model.npz", "training_info/state.json",
+                         "model_skills/deterministic_global_skill.npz"):
+            if not os.path.exists(os.path.join(exp, rel_path)):
+                raise AssertionError(f"{rel_path} missing from {exp}")
+        fc = ForecastDataset.open(os.path.join(
+            exp, "model_predictions", "forecast_chunked",
+            "test_forecasts.zarr"))
+        arr = np.stack([fc.variables[n][...] for n in fc.feature_order], -1)
+        want = (fc.n_frt, PROTOCOL_AR_PREDICT + 1, 12 * SLICE_SUBDIV ** 2,
+                F_DYN)
+        if arr.shape != want or not np.isfinite(arr).all():
+            raise AssertionError(f"forecast store {arr.shape}, want {want} "
+                                 "finite")
+        rmse = np.asarray(gs["RMSE"])
+        if not (rmse[PROTOCOL_AR_PREDICT] > rmse[1]).all():
+            raise AssertionError(f"RMSE does not grow from lead 1 to lead "
+                                 f"{PROTOCOL_AR_PREDICT}: {rmse[1]} -> "
+                                 f"{rmse[PROTOCOL_AR_PREDICT]}")
+        secs = rec["seconds"]
+        sps = info["samples_per_sec"]
+        driver_sps = float(np.median(sps[1:] if len(sps) > 1 else sps))
+        with open(os.path.join(exp, "training_info", "state.json")) as f:
+            n_ar = len(json.load(f)["ar_scheduler"]["absolute_weights"]) - 1
+        batch = cfg["training_settings"]["training_batch_size"]
+        bare_ms = _bare_step_ms(rec["models"][0], n_ar, batch, F_STATIC,
+                                F_BC)
+        log("protocol16", f"trained {rec['train_steps']} updates (scored "
+                          f"every {cfg['training_settings']['scoring_interval']}) "
+                          f"over {len(info['epoch_boundaries'])} epochs (AR "
+                          f"{n_ar} at the end, growth at updates "
+                          f"{info['ar_growth_events']}), losses finite: "
+                          f"train {info['training_total_loss'][0]:.5f} -> "
+                          f"{info['training_total_loss'][-1]:.5f}, val "
+                          f"{info['validation_total_loss'][0]:.5f} -> "
+                          f"{info['validation_total_loss'][-1]:.5f}; "
+                          f"device-cache path ({rec['cached_steps']} step "
+                          "factories, no streaming one)")
+        log("protocol16", f"forecast store {arr.shape} finite; RMSE lead 1 "
+                          f"{np.round(rmse[1], 4).tolist()} -> lead "
+                          f"{PROTOCOL_AR_PREDICT} "
+                          f"{np.round(rmse[PROTOCOL_AR_PREDICT], 4).tolist()} "
+                          f"({fc.feature_order})")
+        log("protocol16", f"wall seconds: data {t_data:.1f}, main "
+                          f"{wall:.1f} (train {secs['train']:.1f}, predict "
+                          f"{secs['predict']:.1f}, rechunk "
+                          f"{secs['rechunk']:.1f}, verify "
+                          f"{secs['verify']:.1f}); AR{PROTOCOL_AR_PREDICT} "
+                          f"forecast {secs['predict'] / fc.n_frt:.4f} s per "
+                          f"reference time ({fc.n_frt}); peak device memory "
+                          f"{peak_gib:.2f} GiB ({card_line})")
+        (n_p, s_p), (n_r, s_r) = (rec["writes_at"]["predict"],
+                                  rec["writes_at"]["rechunk"])
+        log("protocol16", f"zarr chunk writes (host, zlib or blosc): predict "
+                          f"{n_p} in {s_p:.1f} s on its writer thread, "
+                          f"rechunk {n_r - n_p} in {s_r - s_p:.1f} s")
+        log("protocol16", f"training samples/s: driver {driver_sps:.2f} "
+                          f"(median of {len(sps)} scoring intervals, "
+                          f"validation excluded), bare step at AR{n_ar} "
+                          f"batch {batch} {1e3 * batch / bare_ms:.2f} "
+                          f"({bare_ms:.2f} ms), bare AR{TRAIN_AR} step of "
+                          f"phase train {1e3 * BATCH / bare_ar6_ms:.2f} "
+                          f"({bare_ar6_ms:.2f} ms) ({card_line})")
+        log("protocol16", f"{KERNEL} launches: {parts} = "
+                          f"{launches[KERNEL]}, no other kernel")
+        with open(os.path.join(exp, "model_skills", "verify_stats.json")) as f:
+            log("protocol16", f"verify_stats {json.load(f)}; libblosc "
+                              f"{'loads' if bloscio.available() else 'absent'}"
+                              " on this machine")
+
+        # one --resume epoch from the checkpoint just written
+        cfg["training_settings"]["epochs"] = 1
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        with open(os.path.join(exp, "model_weights", "model.npz"), "rb") as f:
+            weights = f.read()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            exp2, gs2 = train_main(cfg_path, os.path.join(root, "data"),
+                                   os.path.join(root, "exp"), resume=True,
+                                   ar_iterations_prediction=2, device=device,
+                                   verbose=False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        resumed = dict(launch_counts)
+        with open(os.path.join(exp2, "training_info",
+                               "ar_training_info.json")) as f:
+            info2 = json.load(f)
+        with open(os.path.join(exp2, "model_weights", "model.npz"), "rb") as f:
+            changed = f.read() != weights
+        if (len(info2["epoch_boundaries"]) != 1 or not info2["iterations"]
+                or not changed or not np.isfinite(np.asarray(gs2["RMSE"])).all()
+                or resumed[KERNEL] == 0):
+            raise AssertionError(f"--resume did not train one more epoch: "
+                                 f"epochs {info2['epoch_boundaries']}, "
+                                 f"{len(info2['iterations'])} updates, "
+                                 f"weights changed {changed}, launches "
+                                 f"{resumed}")
+        log("protocol16", f"--resume: loaded the checkpoint, one more epoch "
+                          f"(scored to update {info2['iterations'][-1]}, weights "
+                          f"changed), AR2 forecast finite, "
+                          f"{resumed[KERNEL]} {KERNEL} launches, "
+                          f"{time.perf_counter() - t0:.1f} s")
+        return {"forward": parts["train_forward"] + parts["validation"]
+                + parts["predict"], "backward": parts["train_backward"],
+                "parts": parts}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 # Kernel rows
 # ---------------------------------------------------------------------------
 
@@ -1957,6 +2314,13 @@ def main() -> int:
                  f"GiB peak per rank ({card_line})")
     if args.profile:
         phase_profile(tr["model"], device, BATCH, tr["steps"], tr64["step"])
+    proto = phase_protocol(device, card_line, tr["ms"]["train16"])
+    rows[0]["launches_by_path"]["protocol16"] = [proto["forward"],
+                                                 proto["backward"]]
+    rows[0]["launches_protocol16"] = proto["parts"]
+    rows[0]["launches_forward"] += proto["forward"]
+    rows[0]["launches_backward"] += proto["backward"]
+    rows[0]["launches"] += proto["forward"] + proto["backward"]
     log("times", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

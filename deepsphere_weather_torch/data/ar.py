@@ -1,6 +1,7 @@
 """Autoregressive sample-index machinery (numpy; the port's own copy).
 
-`ARIndexer` from `deepsphere_weather_tpu/data/ar.py`: the translation from
+`ARIndexer` and `get_ar_model_tensor_info` from
+`deepsphere_weather_tpu/data/ar.py`: the translation from
 (input_k, output_k, forecast_cycle, ar_iterations) AR settings to concrete
 time-window indices, as in the external `xforecasting` dataset layer.
 
@@ -23,11 +24,11 @@ The indexer precomputes, once per AR configuration:
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["ARIndexer", "check_ar_settings"]
+__all__ = ["ARIndexer", "check_ar_settings", "get_ar_model_tensor_info"]
 
 
 def check_ar_settings(input_k: Sequence[int], output_k: Sequence[int],
@@ -150,3 +151,44 @@ class ARIndexer:
                 "insufficient history before some forecast_reference_times "
                 f"(need {-self.min_offset} steps)")
         return t0.astype(np.int64)
+
+
+def get_ar_model_tensor_info(ar_settings: Dict, data_dynamic,
+                             data_static=None, data_bc=None) -> Dict:
+    """Build the tensor_info contract dict
+    (xforecasting.utils.io.get_ar_model_tensor_info parity).
+
+    Feature order is static + bc + dynamic
+    (reference: modules/my_models_graph.py:319-325 commented contract).
+    """
+    input_k, output_k, fc, n_ar = check_ar_settings(
+        ar_settings["input_k"], ar_settings["output_k"],
+        ar_settings["forecast_cycle"], ar_settings["ar_iterations"])
+    n_dyn = data_dynamic.n_feature
+    n_bc = data_bc.n_feature if data_bc is not None else 0
+    n_static = data_static.n_feature if data_static is not None else 0
+    n_node = data_dynamic.n_node
+    input_n_feature = n_static + n_bc + n_dyn
+    input_n_time = len(input_k)
+    output_n_time = len(output_k)
+    feature_order = {
+        "static": list(data_static.feature_order) if data_static else [],
+        "bc": list(data_bc.feature_order) if data_bc else [],
+        "dynamic": list(data_dynamic.feature_order),
+    }
+    return {
+        "input_k": input_k,
+        "output_k": output_k,
+        "forecast_cycle": fc,
+        "ar_iterations": n_ar,
+        "input_n_feature": input_n_feature,
+        "output_n_feature": n_dyn,
+        "input_n_time": input_n_time,
+        "output_n_time": output_n_time,
+        "input_shape_info": {"dynamic": {"node": n_node}},
+        "output_shape_info": {"dynamic": {"node": n_node}},
+        "input_shape": [input_n_time, n_node, input_n_feature],
+        "output_shape": [output_n_time, n_node, n_dyn],
+        "dim_order": {"dynamic": ["sample", "time", "node", "feature"]},
+        "feature_order": feature_order,
+    }

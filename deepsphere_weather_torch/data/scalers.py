@@ -1,11 +1,16 @@
-"""Per-feature global standardization, numpy only (no pandas).
+"""Scalers, numpy only (no pandas).
 
-The port's copy of `GlobalStandardScaler` from
-`deepsphere_weather_tpu/data/scalers.py`, with the same `.npz` + JSON
-header file format, so a scaler saved by either stack loads in the other.
-The time-grouped scalers (anomaly, climatology) need pandas' calendar
-fields there; they and the min-max and sequential scalers are not ported
-yet, and `load_scaler` raises for them.
+The port's copy of the global scalers of
+`deepsphere_weather_tpu/data/scalers.py`: `GlobalStandardScaler` and
+`GlobalMinMaxScaler` (per-feature statistics over time and node, fitted
+from an array or streamed over a `SphericalDataset`), `SequentialScaler`
+(composition) and `load_scaler`, with the same `.npz` + JSON header file
+format, so a scaler saved by either package loads in the other.
+
+The time-grouped scalers (`AnomalyScaler`, `Climatology`) group times
+with pandas' calendar fields there; the machine with the card has no
+pandas, and they are not ported yet (ROADMAP Queue 1 item 4):
+`load_scaler` raises NotImplementedError for their files.
 """
 
 from __future__ import annotations
@@ -16,10 +21,24 @@ from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["GlobalStandardScaler", "load_scaler"]
+__all__ = ["GlobalStandardScaler", "GlobalMinMaxScaler", "SequentialScaler",
+           "load_scaler"]
 
 
-class GlobalStandardScaler:
+class _BaseScaler:
+    kind = "base"
+
+    def _state(self):
+        raise NotImplementedError
+
+    def save(self, path):
+        header, arrays = self._state()
+        header["kind"] = self.kind
+        np.savez_compressed(Path(path), __header__=json.dumps(header),
+                            **arrays)
+
+
+class GlobalStandardScaler(_BaseScaler):
     """Per-feature global standardization over (time, node)."""
 
     kind = "global_standard"
@@ -39,16 +58,30 @@ class GlobalStandardScaler:
         self.feature_order = feature_order
         return self
 
+    def fit_dataset(self, ds, chunk: int = 1024) -> "GlobalStandardScaler":
+        """Streaming fit over a SphericalDataset (constant memory)."""
+        n, s1, s2 = 0, 0.0, 0.0
+        for lo in range(0, ds.n_time, chunk):
+            block = ds.read_stacked(np.arange(lo, min(lo + chunk, ds.n_time)))
+            x = block.reshape(-1, block.shape[-1]).astype(np.float64)
+            n += x.shape[0]
+            s1 = s1 + x.sum(axis=0)
+            s2 = s2 + (x ** 2).sum(axis=0)
+        self.mean = s1 / n
+        std = np.sqrt(np.maximum(s2 / n - self.mean ** 2, 0))
+        self.std = np.where(std > 0, std, 1.0)
+        self.feature_order = list(ds.feature_order)
+        return self
+
     def transform(self, x, time=None):
         return (x - self.mean) / self.std
 
     def inverse_transform(self, x, time=None):
         return x * self.std + self.mean
 
-    def save(self, path):
-        header = {"feature_order": self.feature_order, "kind": self.kind}
-        np.savez_compressed(Path(path), __header__=json.dumps(header),
-                            mean=self.mean, std=self.std)
+    def _state(self):
+        return ({"feature_order": self.feature_order},
+                {"mean": self.mean, "std": self.std})
 
     @classmethod
     def _from_state(cls, header, arrays):
@@ -56,12 +89,110 @@ class GlobalStandardScaler:
                    feature_order=header.get("feature_order"))
 
 
+class GlobalMinMaxScaler(_BaseScaler):
+    """Per-feature min-max scaling to [0, 1]."""
+
+    kind = "global_minmax"
+
+    def __init__(self, vmin=None, vmax=None, feature_order=None):
+        self.vmin, self.vmax = vmin, vmax
+        self.feature_order = feature_order
+
+    def fit(self, data: np.ndarray, feature_order=None):
+        self.vmin = data.min(axis=(0, 1)).astype(np.float64)
+        self.vmax = data.max(axis=(0, 1)).astype(np.float64)
+        self.feature_order = feature_order
+        return self
+
+    def fit_dataset(self, ds, chunk: int = 1024):
+        vmin = np.full(ds.n_feature, np.inf)
+        vmax = np.full(ds.n_feature, -np.inf)
+        for lo in range(0, ds.n_time, chunk):
+            block = ds.read_stacked(np.arange(lo, min(lo + chunk, ds.n_time)))
+            vmin = np.minimum(vmin, block.min(axis=(0, 1)))
+            vmax = np.maximum(vmax, block.max(axis=(0, 1)))
+        self.vmin, self.vmax = vmin, vmax
+        self.feature_order = list(ds.feature_order)
+        return self
+
+    def _range(self):
+        d = np.asarray(self.vmax) - np.asarray(self.vmin)
+        # constant features (zero range) scale by 1 to stay finite
+        return np.where(d > 0, d, 1.0)
+
+    def transform(self, x, time=None):
+        return (x - self.vmin) / self._range()
+
+    def inverse_transform(self, x, time=None):
+        return x * self._range() + self.vmin
+
+    def _state(self):
+        return ({"feature_order": self.feature_order},
+                {"vmin": self.vmin, "vmax": self.vmax})
+
+    @classmethod
+    def _from_state(cls, header, arrays):
+        return cls(vmin=arrays["vmin"], vmax=arrays["vmax"],
+                   feature_order=header.get("feature_order"))
+
+
+class SequentialScaler(_BaseScaler):
+    """Composition of scalers applied in order (xscaler.SequentialScaler,
+    reference train_predict_state.py:205-212). Saved as a directory of
+    `header.json` and one file per scaler."""
+
+    kind = "sequential"
+
+    def __init__(self, *scalers):
+        self.scalers = list(scalers)
+
+    def transform(self, x, time=None):
+        for s in self.scalers:
+            x = s.transform(x, time=time)
+        return x
+
+    def inverse_transform(self, x, time=None):
+        for s in reversed(self.scalers):
+            x = s.inverse_transform(x, time=time)
+        return x
+
+    def save(self, path):
+        path = Path(path)
+        header = {"kind": self.kind, "n": len(self.scalers)}
+        path.mkdir(parents=True, exist_ok=True)
+        (path / "header.json").write_text(json.dumps(header))
+        for i, s in enumerate(self.scalers):
+            s.save(path / f"scaler_{i}.npz")
+
+    @classmethod
+    def load(cls, path):
+        path = Path(path)
+        header = json.loads((path / "header.json").read_text())
+        return cls(*[load_scaler(path / f"scaler_{i}.npz")
+                     for i in range(header["n"])])
+
+
+_KINDS = {
+    "global_standard": GlobalStandardScaler,
+    "global_minmax": GlobalMinMaxScaler,
+}
+# time-grouped kinds of the JAX package, not ported yet
+_NOT_PORTED = ("anomaly", "climatology")
+
+
 def load_scaler(path):
-    """Load a saved scaler (global standard only in this port)."""
-    with np.load(Path(path), allow_pickle=False) as z:
+    """Load a saved scaler file (or a SequentialScaler directory)."""
+    path = Path(path)
+    if path.is_dir() and (path / "header.json").exists():
+        return SequentialScaler.load(path)
+    with np.load(path, allow_pickle=False) as z:
         header = json.loads(str(z["__header__"]))
         arrays = {k: z[k] for k in z.files if k != "__header__"}
-    if header["kind"] != GlobalStandardScaler.kind:
+    kind = header["kind"]
+    if kind in _NOT_PORTED:
         raise NotImplementedError(
-            f"scaler kind {header['kind']!r} is not ported yet")
-    return GlobalStandardScaler._from_state(header, arrays)
+            f"scaler kind {kind!r} ({path}) groups times with pandas in the "
+            "JAX package and is not ported yet (ROADMAP Queue 1 item 4)")
+    if kind not in _KINDS:
+        raise ValueError(f"unknown scaler kind {kind!r} in {path}")
+    return _KINDS[kind]._from_state(header, arrays)

@@ -1,7 +1,13 @@
 """Autoregressive execution: the loss, the training steps, the AR
-scheduler and the prediction rollout."""
+scheduler, the optimizer, the training driver and the predictions."""
 
 from .loss import AreaWeights, weighted_mse  # noqa: F401
+from .optim import Adam, clip_by_global_norm_, make_optimizer  # noqa: F401
+from .prediction import (  # noqa: F401
+    AutoregressivePredictions,
+    ForecastDataset,
+    rechunk_forecasts_for_verification,
+)
 from .scheduler import ARScheduler, EarlyStopping  # noqa: F401
 from .step import (  # noqa: F401
     assemble_input,
@@ -14,3 +20,4 @@ from .step import (  # noqa: F401
     make_validation_fn,
     reduce_gradients,
 )
+from .training import ARTrainingInfo, AutoregressiveTraining  # noqa: F401

@@ -250,28 +250,35 @@ def _gather_window_batch(data: Dict, widx: torch.Tensor) -> Dict:
 def make_cached_train_step(model, indexer: ARIndexer, optimizer,
                            n_scan_iterations: int,
                            ar_training_strategy: str = "RNN",
-                           remat: bool = False) -> Callable:
+                           remat: bool = False,
+                           mesh: Optional[ProcessMesh] = None) -> Callable:
     """Train step over a device-resident dataset: (data, widx, ar_weights,
     area_w=None) -> (total, per_iter); the same update as
-    `make_train_step` on the gathered batch."""
+    `make_train_step` on the gathered batch. With a `mesh`, `data` is the
+    rank's part (`parallel.put_device_dataset`) and `widx` its batch rows
+    (`parallel.shard_window_indices`)."""
     loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations,
-                              ar_training_strategy, remat=remat)
+                              ar_training_strategy, remat=remat, mesh=mesh)
 
     def train_step(data: Dict, widx, ar_weights, area_w=None):
         return _optimizer_step(model, optimizer, loss_fn,
                                _gather_window_batch(data, widx), ar_weights,
-                               area_w)
+                               area_w, mesh)
 
     return train_step
 
 
 def make_cached_validation_fn(model, indexer: ARIndexer,
-                              n_scan_iterations: int) -> Callable:
-    loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations, "RNN")
+                              n_scan_iterations: int,
+                              mesh: Optional[ProcessMesh] = None) -> Callable:
+    loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations, "RNN",
+                              mesh=mesh)
 
     @torch.no_grad()
     def validate(data: Dict, widx, ar_weights, area_w=None):
-        return loss_fn(_gather_window_batch(data, widx), ar_weights, area_w)
+        return _global_losses(
+            *loss_fn(_gather_window_batch(data, widx), ar_weights, area_w),
+            mesh)
 
     return validate
 

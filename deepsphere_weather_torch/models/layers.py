@@ -116,7 +116,8 @@ class ConvBlock(nn.Module):
         super().__init__()
         if batch_norm:
             raise NotImplementedError(
-                "batch/layer normalization is not ported yet")
+                "batch/layer normalization is not ported yet (ROADMAP Queue "
+                "1 item 5)")
         if conv_type != "graph":
             raise NotImplementedError(
                 "conv_type='image' (equiangular conv) is not ported yet")

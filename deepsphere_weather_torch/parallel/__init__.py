@@ -12,6 +12,8 @@ from .mesh import (  # noqa: F401
     batch_range,
     make_mesh,
     node_range,
+    put_device_dataset,
     shard_batch,
+    shard_window_indices,
     training_mesh,
 )

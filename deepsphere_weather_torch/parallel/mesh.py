@@ -16,8 +16,10 @@ talks:
 
 Rank layout: rank = data_rank * n_node + node_rank, the JAX mesh's
 reshape (n_data, n_node, n_member). The 'member' axis comes with the
-ensembles (ROADMAP Queue 1 item 9); `put_device_dataset` and
-`shard_window_indices` with the device-resident dataset (item 7).
+ensembles (ROADMAP Queue 1). `put_device_dataset` and
+`shard_window_indices` serve the device-resident dataset of the training
+driver: the pre-scaled mirror moves onto the device once, and each step
+moves only a [B, W] index batch.
 
 The caller initialises `torch.distributed` (`init_process_group`) and
 chooses its backend: `nccl` for one card per rank, `gloo` for ranks that
@@ -30,13 +32,15 @@ import dataclasses
 import warnings
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from .._device import resolve_device
 
 __all__ = ["ProcessMesh", "make_mesh", "training_mesh", "node_range",
-           "batch_range", "shard_batch", "TRAIN_BATCH_KEYS"]
+           "batch_range", "shard_batch", "put_device_dataset",
+           "shard_window_indices", "TRAIN_BATCH_KEYS"]
 
 # batch keys the train and validation steps read; other keys pass through
 TRAIN_BATCH_KEYS = ("dynamic", "bc", "static")
@@ -188,3 +192,39 @@ def shard_batch(batch: Dict, mesh: Optional[ProcessMesh]) -> Dict:
             t = t[b0:b1, ..., v0:v1, :]
         out[k] = t.contiguous().to(mesh.device)
     return out
+
+
+def put_device_dataset(dataset, mesh: Optional[ProcessMesh] = None,
+                       device="cuda") -> Dict:
+    """A dataset's pre-scaled mirror and static fields on the device, once
+    (`data.loader.AutoregressiveDataset.mirror_arrays`): the `data` dict
+    of `engine.make_cached_train_step`. Every timestep stays on every data
+    rank (a batch gathers arbitrary rows); with a node axis, a rank holds
+    its node range, as `shard_batch` gives it. On a mesh the mesh's device
+    is used, else `device`."""
+    dyn, bc, static = dataset.mirror_arrays()
+    device = mesh.device if mesh is not None else resolve_device(device)
+    nodes = slice(None)
+    if mesh is not None and mesh.n_node > 1:
+        nodes = slice(*node_range(dyn.shape[1], mesh))
+
+    def put(v, node_axis):
+        if v is None:
+            return None
+        t = torch.as_tensor(v)
+        t = t[nodes] if node_axis == 0 else t[:, nodes]
+        return t.contiguous().to(device)
+
+    return {"dynamic": put(dyn, 1), "bc": put(bc, 1),
+            "static": put(static, 0)}
+
+
+def shard_window_indices(widx, mesh: Optional[ProcessMesh] = None,
+                         device="cuda") -> torch.Tensor:
+    """A [B, W] window-index batch on the device: on a mesh, the data
+    shard's batch rows (`batch_range`) on the mesh's device."""
+    t = torch.as_tensor(np.asarray(widx, np.int64))
+    if mesh is None:
+        return t.to(resolve_device(device))
+    b0, b1 = batch_range(t.shape[0], mesh)
+    return t[b0:b1].to(mesh.device)

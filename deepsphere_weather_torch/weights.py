@@ -40,14 +40,16 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
 
 
 def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
-    """Port state dict -> nested dict of fp32 numpy arrays (JAX layout)."""
+    """Port state dict -> nested dict of fp32 numpy arrays (JAX layout),
+    copies: a later in-place update of the parameters leaves them as they
+    were, like the JAX package's immutable arrays."""
     tree: Dict = {}
     for key, v in state.items():
         *path, leaf = key.split(".")
         node = tree
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = v.detach().to("cpu", torch.float32).numpy()
+        node[leaf] = v.detach().to("cpu", torch.float32).numpy().copy()
     return tree
 
 

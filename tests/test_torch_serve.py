@@ -184,7 +184,8 @@ def _port_sources():
 
 
 def test_port_sources_import_no_jax():
-    banned = ("jax", "jaxlib", "deepsphere_weather_tpu", "pandas", "optax")
+    banned = ("jax", "jaxlib", "deepsphere_weather_tpu", "pandas", "optax",
+              "matplotlib")
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
@@ -208,7 +209,7 @@ def test_port_imports_no_jax_in_fresh_process():
             "sys.path.insert(0, 'tests')\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'deepsphere_weather_tpu', 'pandas')]\n"
+            "('jax', 'deepsphere_weather_tpu', 'pandas', 'matplotlib')]\n"
             "print('BAD', bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
