@@ -38,8 +38,9 @@ printed one per line:
              regimes of fp32 A against bf16 x
 4. slice     UNetSpherical, HEALPix-16, knn-20, max pool, increment
              learning, bf16, 7 features x 3 lags -> 2, seeded weights in
-             the JAX layout loaded through `weights.py`, behind
-             ForecastService (batch 16, block 4): a 20-step forecast of 16
+             the JAX layout loaded through `weights.py`, exported
+             (`torch.export`, in process) behind ForecastService (batch
+             16, block 4): a 20-step forecast of 16
              histories and 5 concurrent submit() requests; finite outputs
              of the right shapes, agreement with the same forward on the
              CPU plain path (3e-2; the CPU takes the card's ReLU and
@@ -112,8 +113,32 @@ printed one per line:
              training samples/s beside the bare step's (at the driver's AR
              depth, and phase train's AR6), AR20 seconds per reference
              time, peak device memory and K1's launches by part. It runs
-             last: the config asks for deterministic training
+             after the others: the config asks for deterministic training
              (torch.use_deterministic_algorithms, reset after it).
+12. serve16  protocol16's trained flagship served from artifacts, two
+             members: the experiment copied before its --resume epoch
+             (12 epochs) and the resumed one (13). `cli.predict` of the
+             resumed experiment, AR20 from 4 reference times: finite,
+             lead 1 within the bf16 bar (2e-2) of the experiment's own
+             forecast store, 10 K1 launches per forward; `cli.export_model`
+             of each member alone and of both (`member_dirs`; batch 16,
+             block 4), loaded from disk with the geometry builder made to
+             raise; the resumed member's artifact behind ForecastService:
+             its first block within 2e-2 of the in-process rollout of the
+             same weights, a 20-step forecast of 16 histories and 5
+             concurrent submit()s, exactly 10 K1 launches per forward; the
+             2-member artifact: exactly 10 K1 launches per forward for both
+             members (K5, the op's vmap rule), at twice the single
+             artifact's widths, each member's first step within 2e-2 of
+             its own single artifact (the first block's steps printed: the
+             batched GEMMs round otherwise in bf16, and the feedback
+             grows it), `summarize` finite; the HTTP server
+             (`cli.serve.serve`, port 0): /healthz, /v1/meta and a POST
+             within 2e-4 of svc.predict. It prints export and load seconds,
+             the .pt2 sizes, the forecast step of both artifacts, the
+             submit latency and the HTTP round trip, and times K5's one
+             launch per product against the member loop it replaces
+             (`k5_vmap_rule` under K1's row of the kernel line).
 
 The ranks of phases 7-9 are started after the kernels are built, join a
 `gloo` process group with a timeout, and the phase waits for them with a
@@ -133,6 +158,7 @@ import json
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -194,6 +220,9 @@ PG_TIMEOUT_S, RANKS_LIMIT_S = 300, 900
 PROTOCOL_CONFIG = "configs/UNetSpherical/Healpix_400km/MaxPool-Graph_knn.json"
 PROTOCOL_EPOCHS, PROTOCOL_AR_PREDICT = 12, 20
 PROTOCOL_INPUT_K, PROTOCOL_CYCLE = (-18, -12, -6), 6
+# serve16: reference times of cli.predict; the HTTP answer's bar against
+# svc.predict (the JAX package's serving test's)
+SERVE_FRTS, HTTP_TOL = 4, 2e-4
 GATHERS_PER_FORWARD = sum(PRODUCTS_PER_LEVEL)
 # seeded ReZero weights are scaled by this for training: at U(0.5, 1.5)
 # the random network's rollout grows several-fold per iteration
@@ -794,6 +823,18 @@ def forward_vs_cpu(device, subdiv, params, x, nz=None):
             "gaps": gaps, "decisions": sum(d.numel() for d in decisions)}
 
 
+def count_forwards(rollout):
+    """Make `rollout.call` count the model forwards it runs (block_size
+    per call) into the returned one-element list."""
+    forwards, call = [0], rollout.call
+
+    def counted(*args):
+        forwards[0] += rollout.meta["block_size"]
+        return call(*args)
+    rollout.call = counted
+    return forwards
+
+
 def phase_slice(device, subdiv, batch, n_steps):
     """Drive the forecast service; returns the main-path figures."""
     import torch
@@ -836,8 +877,9 @@ def phase_slice(device, subdiv, batch, n_steps):
         batch_size=batch, block_size=BLOCK, static=static, n_bc_features=F_BC,
         timestep_hours=6.0)
     svc = ForecastService(rollout, scaler=scaler, scaler_bc=scaler_bc)
-    forwards = [0]
-    model.register_forward_hook(lambda *_: forwards.__setitem__(0, forwards[0] + 1))
+    # the exported program runs the model's graph, not its module: count
+    # the forwards by the blocks called
+    forwards = count_forwards(rollout)
 
     hist, bc = history(batch), boundary(batch, n_steps)
     svc.predict(hist, n_steps=BLOCK, bc=bc[:, :BLOCK])          # warm-up
@@ -1859,7 +1901,9 @@ def phase_protocol(device, card_line, bare_ar6_ms):
     """protocol16: the flagship config (bf16, full width and depth)
     trained, forecast AR20 and verified through the port's CLI entry point
     (`cli.train_predict.main`) on toy HEALPix-16 data; then one --resume
-    epoch. Returns K1's launches by part."""
+    epoch. Returns K1's launches by part and, for serve16, the temporary
+    directory (the caller removes it), the data directory, the resumed
+    experiment and a copy of the experiment from before the resume."""
     import shutil
 
     import torch
@@ -2005,6 +2049,9 @@ def phase_protocol(device, card_line, bare_ar6_ms):
                               f"{'loads' if bloscio.available() else 'absent'}"
                               " on this machine")
 
+        # serve16's first member: the experiment before the resume
+        member0 = os.path.join(root, "member0", os.path.basename(exp))
+        shutil.copytree(exp, member0)
         # one --resume epoch from the checkpoint just written
         cfg["training_settings"]["epochs"] = 1
         with open(cfg_path, "w") as f:
@@ -2041,9 +2088,374 @@ def phase_protocol(device, card_line, bare_ar6_ms):
                           f"{time.perf_counter() - t0:.1f} s")
         return {"forward": parts["train_forward"] + parts["validation"]
                 + parts["predict"], "backward": parts["train_backward"],
-                "parts": parts}
-    finally:
+                "parts": parts, "root": root,
+                "data": os.path.join(root, "data"), "exp": str(exp2),
+                "member0": member0}
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
+
+
+# ---------------------------------------------------------------------------
+# serve16: serving protocol16's flagship from artifacts
+# ---------------------------------------------------------------------------
+
+class _RefuseGeometry:
+    """Within the block, building a geometry raises: an artifact must load
+    and run without the model or its geometry."""
+
+    def __enter__(self):
+        import deepsphere_weather_torch.models.geometry as geometry
+        import deepsphere_weather_torch.models.unet as unet
+
+        def refuse(*a, **k):
+            raise AssertionError("loading an artifact built a geometry")
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (geometry, "build_model_geometry"),
+            (geometry, "cached_graph_laplacian"),
+            (unet, "build_model_geometry"))]
+        for m, n, _ in self.saved:
+            setattr(m, n, refuse)
+
+    def __exit__(self, *exc):
+        for m, n, fn in self.saved:
+            setattr(m, n, fn)
+
+
+def record_widths(fn):
+    """Run fn() and return the widths of the K1 launches it made (the
+    registered op calls the module's wrapper by name)."""
+    from deepsphere_weather_torch.ops import bcsr
+
+    widths, kernel = [], bcsr.bcsr_super_spmm
+
+    def record(a, idx, x, nz=None):
+        widths.append(x.shape[1])
+        return kernel(a, idx, x, nz)
+    bcsr.bcsr_super_spmm = record
+    try:
+        fn()
+    finally:
+        bcsr.bcsr_super_spmm = kernel
+    return widths
+
+
+def _serve_inputs(data, meta, batch, n_steps, seed):
+    """Physical-unit histories [batch, H, V, F] and boundary conditions
+    [batch, n_steps, n_input_k, V, F_bc] at seeded reference positions of
+    the toy stores."""
+    from deepsphere_weather_torch.cli.common import open_datasets
+
+    dyn, bc, _ = open_datasets(data)
+    H, fc = meta["history_size"], meta["forecast_cycle"]
+    in_k = np.asarray(meta["input_k"])
+    rng = np.random.default_rng(seed)
+    t0s = rng.integers(H, dyn.n_time - n_steps * fc, size=batch)
+    hist = np.stack([dyn.read_stacked(np.arange(t - H + 1, t + 1))
+                     for t in t0s])
+    bcs = np.stack([np.stack([bc.read_stacked(t + s * fc + in_k)
+                              for s in range(n_steps)]) for t in t0s])
+    return hist.astype(np.float32), bcs.astype(np.float32)
+
+
+def phase_serve16(device, card_line, proto):
+    """serve16: protocol16's trained flagship (bf16, full width and depth)
+    served from artifacts on disk: `cli.predict` on the resumed
+    experiment, `cli.export_model` of one member and of both, the
+    artifacts loaded with the geometry builder refused, the service, the
+    2-member ensemble through K5's rule, and the HTTP server. Returns the
+    launches and readings."""
+    import io
+    import urllib.request
+
+    import torch
+
+    from deepsphere_weather_torch.cli.common import (
+        load_experiment_model,
+        open_datasets,
+    )
+    from deepsphere_weather_torch.cli.export_model import main as export_main
+    from deepsphere_weather_torch.cli.predict import main as predict_main
+    from deepsphere_weather_torch.cli.serve import serve
+    from deepsphere_weather_torch.data.ar import ARIndexer
+    from deepsphere_weather_torch.engine.prediction import ForecastDataset
+    from deepsphere_weather_torch.engine.step import make_rollout_block
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from deepsphere_weather_torch.serve import ForecastService
+
+    data, exp, member0 = proto["data"], proto["exp"], proto["member0"]
+    out = os.path.join(proto["root"], "serve16")
+    bar = BARS["bf16"]
+    t_phase = time.perf_counter()
+
+    # cli.predict: AR20 from reference times of the resumed experiment's
+    # own forecast store (written by its --resume run, same weights)
+    store = ForecastDataset.open(os.path.join(
+        exp, "model_predictions", "forecast_chunked", "test_forecasts.zarr"))
+    # (from the first third: the AR20 rollout stays inside the BC store)
+    pick = np.linspace(0, store.n_frt // 3, SERVE_FRTS).astype(int)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    fc = predict_main(exp, data, forecast_reference_times=[
+        str(t) for t in store.forecast_reference_time[pick]],
+        ar_iterations=PROTOCOL_AR_PREDICT,
+        out_path=os.path.join(out, "long_forecasts.zarr"), verbose=False,
+        device=device)
+    t_predict = time.perf_counter() - t0
+    predict_launches = launch_counts[KERNEL]
+    arr = np.stack([fc.variables[n][...] for n in fc.feature_order], -1)
+    want = (SERVE_FRTS, PROTOCOL_AR_PREDICT + 1, 12 * SLICE_SUBDIV ** 2,
+            F_DYN)
+    if arr.shape != want or not np.isfinite(arr).all():
+        raise AssertionError(f"cli.predict store {arr.shape}, want {want} "
+                             "finite")
+    lead1 = {n: rel_err(fc.variables[n][:, 1, :],
+                        store.variables[n][...][pick, 1, :])
+             for n in fc.feature_order}
+    if not max(lead1.values()) <= bar:
+        raise AssertionError(f"cli.predict lead 1 vs the experiment's store "
+                             f"{lead1} (bar {bar})")
+    if (predict_launches != LAUNCHES_PER_FORWARD * (PROTOCOL_AR_PREDICT + 1)
+            or sum(launch_counts.values()) != predict_launches):
+        raise AssertionError(f"cli.predict launched {dict(launch_counts)}")
+    log("serve16", f"cli.predict AR{PROTOCOL_AR_PREDICT} of {SERVE_FRTS} "
+                   f"reference times: {arr.shape} finite, lead 1 vs the "
+                   f"experiment's store {lead1} (bar {bar}), "
+                   f"{predict_launches} {KERNEL} launches, {t_predict:.2f} s")
+
+    # cli.export_model: each member alone, and both stacked
+    dirs = {"single": os.path.join(out, "single"),
+            "single0": os.path.join(out, "single0"),
+            "ensemble": os.path.join(out, "ensemble")}
+    kw = dict(batch_size=BATCH, block_size=BLOCK, verbose=False,
+              device=device)
+    secs = {}
+    for name, src, members in (("single", exp, None),
+                               ("single0", member0, None),
+                               ("ensemble", exp, [member0, exp])):
+        t0 = time.perf_counter()
+        export_main(src, data, out=dirs[name], member_dirs=members, **kw)
+        secs[f"export_{name}"] = time.perf_counter() - t0
+    mb = {k: os.path.getsize(os.path.join(d, "rollout.pt2")) / 1e6
+          for k, d in dirs.items()}
+    with _RefuseGeometry():
+        svcs = {}
+        for name, d in dirs.items():
+            t0 = time.perf_counter()
+            svcs[name] = ForecastService.from_dir(d)
+            secs[f"load_{name}"] = time.perf_counter() - t0
+        server, http_svc = serve(dirs["single"], port=0, block=False)
+    svc, ens = svcs["single"], svcs["ensemble"]
+    log("serve16", f"exported and loaded (geometry builder refused): "
+                   + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+                   + "; rollout.pt2 " + ", ".join(
+                       f"{k} {v:.1f} MB" for k, v in mb.items()))
+
+    try:
+        meta = svc.meta
+        hist, bc = _serve_inputs(data, meta, BATCH, N_STEPS, SEED + 20)
+        forwards = {k: count_forwards(s.rollout) for k, s in svcs.items()}
+        first = {k: svcs[k].predict(hist, BLOCK, bc[:, :BLOCK])
+                 for k in ("single", "single0")}              # warm-up
+        # in-process rollout of the same weights, first block (scaled)
+        datasets = open_datasets(data)
+        _, model = load_experiment_model(exp, datasets, device)
+        rollout, _ = make_rollout_block(model, ARIndexer.build(
+            meta["input_k"], meta["output_k"], meta["forecast_cycle"], 1),
+            BLOCK)
+        bc0 = bc[:, :BLOCK]
+        if svc.scaler_bc is not None:
+            bc0 = svc.scaler_bc.transform(bc0)
+        with torch.inference_mode():
+            _, _, ref = rollout(
+                torch.from_numpy(svc.scaler.transform(hist).astype(
+                    np.float32)).to(device), None,
+                torch.from_numpy(bc0.astype(np.float32)).to(device),
+                torch.from_numpy(datasets[2].read_stacked()).to(device))
+        e_inproc = rel_err(svc.scaler.transform(first["single"]),
+                           ref.float().cpu().numpy())
+        if not e_inproc <= bar:
+            raise AssertionError(f"artifact vs in-process rollout "
+                                 f"{e_inproc:.3e} > {bar}")
+        widths = {}
+        launches = {}
+        figs = {}
+        for name in ("single", "ensemble"):
+            s = svcs[name]
+            widths[name] = record_widths(
+                lambda s=s: s.predict(hist, BLOCK, bc[:, :BLOCK]))
+            reset_launch_counts()
+            forwards[name][0] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = s.predict(hist, N_STEPS, bc)
+            torch.cuda.synchronize()
+            figs[f"{name}_step_ms"] = 1e3 * (time.perf_counter() - t0) / N_STEPS
+            launches[name] = (launch_counts[KERNEL], forwards[name][0])
+            if (launch_counts[KERNEL] != LAUNCHES_PER_FORWARD
+                    * forwards[name][0] or forwards[name][0] == 0
+                    or sum(launch_counts.values()) != launch_counts[KERNEL]):
+                raise AssertionError(
+                    f"{name}: {dict(launch_counts)} launches for "
+                    f"{forwards[name][0]} forwards; want "
+                    f"{LAUNCHES_PER_FORWARD} {KERNEL} each, nothing else")
+            members = (2,) if name == "ensemble" else ()
+            if (res.shape != members + (BATCH, N_STEPS, 1, meta["n_node"],
+                                        F_DYN) or not np.isfinite(res).all()):
+                raise AssertionError(f"{name} forecast {res.shape} is not "
+                                     "finite of the right shape")
+            figs[name] = res
+        if widths["ensemble"] != [2 * w for w in widths["single"]]:
+            raise AssertionError(f"ensemble widths {widths['ensemble']} are "
+                                 f"not twice the single's {widths['single']}")
+        # each member against its own single artifact, step by step over
+        # the first block. The member-stacked program runs the dense GEMMs
+        # as batched ones (other cuBLAS kernels, other roundings in bf16),
+        # and the feedback grows their difference step by step: the bf16
+        # bar holds for the first step, one forward; the block's are
+        # recorded
+        e_steps = [[rel_err(svc.scaler.transform(figs["ensemble"][i][:, j]),
+                            svc.scaler.transform(first[k][:, j]))
+                    for j in range(BLOCK)]
+                   for i, k in enumerate(("single0", "single"))]
+        if not max(e[0] for e in e_steps) <= bar:
+            raise AssertionError(f"ensemble members vs their single artifacts "
+                                 f"at the first step {[e[0] for e in e_steps]}"
+                                 f" (bar {bar}; by step {e_steps})")
+        summary = ForecastService.summarize(figs["ensemble"])
+        if not all(np.isfinite(v).all() for v in summary.values()):
+            raise AssertionError("ensemble summary not finite")
+
+        # 5 concurrent single-sample requests
+        t0 = time.perf_counter()
+        futs = [None] * N_SUBMIT
+        threads = [threading.Thread(target=lambda i=i: futs.__setitem__(
+            i, svc.submit(hist[i], n_steps=BLOCK, bc=bc[i, :BLOCK])))
+            for i in range(N_SUBMIT)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        answers = [f.result(timeout=600) for f in futs]
+        t_submit = time.perf_counter() - t0
+        e_submit = max(rel_err(svc.scaler.transform(a),
+                               svc.scaler.transform(first["single"][i]))
+                       for i, a in enumerate(answers))
+        if not e_submit <= bar:
+            raise AssertionError(f"submit answers vs predict {e_submit:.3e}")
+
+        # HTTP
+        base = f"http://127.0.0.1:{server.server_port}"
+        with urllib.request.urlopen(base + "/healthz", timeout=60) as r:
+            if json.loads(r.read()) != {"status": "ok"}:
+                raise AssertionError("/healthz")
+        with urllib.request.urlopen(base + "/v1/meta", timeout=60) as r:
+            if json.loads(r.read()) != meta:
+                raise AssertionError("/v1/meta differs from the artifact's")
+        buf = io.BytesIO()
+        np.savez(buf, history=hist, bc=bc[:, :BLOCK])
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + f"/v1/predict?n_steps={BLOCK}",
+                                     data=buf.getvalue(), method="POST")
+        with urllib.request.urlopen(req, timeout=600) as r:
+            got = np.load(io.BytesIO(r.read()))["forecast"]
+        t_http = time.perf_counter() - t0
+        e_http = rel_err(svc.scaler.transform(got),
+                         svc.scaler.transform(first["single"]))
+        if not e_http <= HTTP_TOL:
+            raise AssertionError(f"HTTP forecast vs svc.predict {e_http:.3e}"
+                                 f" > {HTTP_TOL}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        http_svc.close()
+        for s in svcs.values():
+            s.close()
+
+    per_fwd = widths["single"][:LAUNCHES_PER_FORWARD]
+    log("serve16", f"single artifact: in-process rollout {e_inproc:.3e}, "
+                   f"{launches['single'][0]} {KERNEL} launches for "
+                   f"{launches['single'][1]} forwards, widths per forward "
+                   f"{per_fwd}; {N_SUBMIT} submits vs predict {e_submit:.3e}")
+    log("serve16", f"2-member artifact: {launches['ensemble'][0]} {KERNEL} "
+                   f"launches for {launches['ensemble'][1]} forwards "
+                   f"({LAUNCHES_PER_FORWARD} per forward for both members, "
+                   f"K5's rule), widths per forward "
+                   f"{widths['ensemble'][:LAUNCHES_PER_FORWARD]}; members vs "
+                   f"their single artifacts, steps 1-{BLOCK}: "
+                   f"{np.round(e_steps, 6).tolist()} (bar {bar} at step 1); "
+                   "summary finite")
+    log("serve16", f"HTTP /healthz, /v1/meta, POST vs svc.predict "
+                   f"{e_http:.3e} (bar {HTTP_TOL})")
+    log("serve16", f"times ({card_line}): export single "
+                   f"{secs['export_single']:.2f} s, ensemble "
+                   f"{secs['export_ensemble']:.2f} s; load single "
+                   f"{secs['load_single']:.2f} s, ensemble "
+                   f"{secs['load_ensemble']:.2f} s; rollout.pt2 single "
+                   f"{mb['single']:.1f} MB, ensemble {mb['ensemble']:.1f} MB; "
+                   f"forecast step (batch {BATCH}, {N_STEPS} steps) single "
+                   f"{figs['single_step_ms']:.2f} ms, 2-member "
+                   f"{figs['ensemble_step_ms']:.2f} ms; {N_SUBMIT} submits "
+                   f"{1e3 * t_submit:.1f} ms; HTTP round trip (batch {BATCH},"
+                   f" {BLOCK} steps) {1e3 * t_http:.1f} ms; phase "
+                   f"{time.perf_counter() - t_phase:.1f} s")
+    k5 = k5_vmap_times(model.geometry.cheb_ops[0].bcsr, per_fwd, device)
+    log("serve16", f"K5 over one forward's {len(per_fwd)} products, 2 "
+                   f"members: vmapped vs member loop max abs "
+                   f"{k5['max_abs_err']:.3e}; one K1 launch at twice the "
+                   f"width {k5['ms_vmapped']:.4f} ms vs one per member "
+                   f"{k5['ms_member_loop']:.4f} ms (device_ms); eager "
+                   f"torch.func.vmap {k5['eager_vmap_ms']:.4f} ms per "
+                   f"product (CUDA events, host-bound) ({card_line})")
+    return {"launches": {"serve16_predict": (predict_launches, 0),
+                         "serve16_single": (launches["single"][0], 0),
+                         "serve16_ensemble": (launches["ensemble"][0], 0)},
+            "k5": {"launches": launches["ensemble"][0],
+                   "widths_single": per_fwd,
+                   "widths_ensemble": widths["ensemble"][
+                       :LAUNCHES_PER_FORWARD], **k5}}
+
+
+def k5_vmap_times(op, widths, device, n_members=2):
+    """K5's rule against the loop it replaces, over the products of one
+    forward (padded widths `widths`, bf16) for `n_members` members:
+    `torch.func.vmap(op.matvec)` against the member loop (the fold is
+    exact per column: max abs error), then the launches the artifact
+    runs, one at n_members times the width against one per member
+    (`device_ms`, summed over the products), and the eager vmap's host
+    time per product (`time_ms`; the artifact's graph has no functorch
+    left in it)."""
+    import torch
+
+    from deepsphere_weather_torch.ops import bcsr
+
+    kind, a, idx, nz = op.forward_layout()
+    rng = np.random.default_rng(SEED + 21)
+    res = {"ms_vmapped": 0.0, "ms_member_loop": 0.0, "eager_vmap_ms": 0.0,
+           "max_abs_err": 0.0}
+    with torch.inference_mode():
+        for w in widths:
+            x = torch.from_numpy(rng.standard_normal(
+                (n_members, op.rows, w)).astype(np.float32)).to(
+                    device, torch.bfloat16)
+            vm = torch.func.vmap(op.matvec)
+            y, loop = vm(x), torch.stack([op.matvec(xi) for xi in x])
+            e = rel_err(y.float().cpu(), loop.float().cpu())
+            if not e <= BARS["bf16"]:
+                raise AssertionError(f"K5: vmapped product vs the member "
+                                     f"loop {e:.3e} at width {w}")
+            res["max_abs_err"] = max(res["max_abs_err"], float(
+                (y.float() - loop.float()).abs().max()))
+            folded = x.movedim(0, 1).reshape(op.rows, n_members * w)
+            res["ms_vmapped"] += device_ms(
+                lambda: bcsr.bcsr_super_spmm(a, idx, folded, nz))
+            res["ms_member_loop"] += device_ms(
+                lambda: [bcsr.bcsr_super_spmm(a, idx, xi, nz) for xi in x])
+            res["eager_vmap_ms"] += time_ms(lambda: vm(x)) / len(widths)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2315,12 +2727,23 @@ def main() -> int:
     if args.profile:
         phase_profile(tr["model"], device, BATCH, tr["steps"], tr64["step"])
     proto = phase_protocol(device, card_line, tr["ms"]["train16"])
-    rows[0]["launches_by_path"]["protocol16"] = [proto["forward"],
-                                                 proto["backward"]]
+    try:
+        serve16 = phase_serve16(device, card_line, proto)
+    finally:
+        shutil.rmtree(proto["root"], ignore_errors=True)
     rows[0]["launches_protocol16"] = proto["parts"]
-    rows[0]["launches_forward"] += proto["forward"]
-    rows[0]["launches_backward"] += proto["backward"]
-    rows[0]["launches"] += proto["forward"] + proto["backward"]
+    for path, (fwd, bwd) in [("protocol16", (proto["forward"],
+                                             proto["backward"]))] + list(
+            serve16["launches"].items()):
+        rows[0]["launches_by_path"][path] = [fwd, bwd]
+        rows[0]["launches_forward"] += fwd
+        rows[0]["launches_backward"] += bwd
+        rows[0]["launches"] += fwd + bwd
+    # K5 (`custom_vmap`, pallas_spmm.py:998): the vmap rule of the
+    # registered op, which launches K1 once per product for all members
+    rows[0]["k5_vmap_rule"] = {
+        "replaces": "deepsphere_weather_tpu/ops/pallas_spmm.py:998",
+        "source": "deepsphere_weather_torch/ops/bcsr.py", **serve16["k5"]}
     log("times", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

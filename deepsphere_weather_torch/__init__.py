@@ -3,8 +3,10 @@
 Spherical weather forecasting with Chebyshev graph convolutions, for one
 NVIDIA H100 (sm_90a): HEALPix knn geometry, the block-sparse Laplacian
 operator with its hand-written CUDA kernels (`kernels/`), UNetSpherical,
-serving, training (also node- and data-parallel) and the train -> predict
--> verify driver `cli/train_predict.py` with its zarr data stack. The JAX
+serving from `torch.export` artifacts (single and member-stacked
+ensembles; `cli/export_model.py`, `cli/serve.py`), training (also node-
+and data-parallel), the train -> predict -> verify driver
+`cli/train_predict.py` with its zarr data stack and `cli/predict.py`. The JAX
 package `deepsphere_weather_tpu` is the reference the port is tested
 against; nothing here imports it or JAX.
 

@@ -1,1 +1,3 @@
-"""Command-line drivers."""
+"""Command-line drivers: train_predict (train, predict and verify),
+predict (long rollouts of a trained experiment), export_model (serving
+artifacts) and serve (HTTP over an artifact)."""

@@ -6,9 +6,8 @@ a model predicted with a different scaler than it was trained with
 silently produces garbage, and a split that disagrees with the configured
 test_period leaks test data into training. (Reference anchors:
 SequentialScaler composition in the driver, train_predict_state.py:
-205-212; pinned year split, :217-236.) The time-grouped scalers are not
-ported yet: a config that names one raises NotImplementedError
-(`data.scalers.load_scaler`).
+205-212; pinned year split, :217-236.) Any scaler file of either package
+resolves, the time-grouped anomaly and climatology scalers included.
 """
 
 from __future__ import annotations
@@ -16,7 +15,65 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Dict, Tuple
 
-__all__ = ["resolve_scalers", "split_datasets", "build_schedulers"]
+__all__ = ["resolve_scalers", "split_datasets", "build_schedulers",
+           "open_datasets", "load_experiment_model"]
+
+
+def open_datasets(data_dir) -> Tuple:
+    """(dynamic, bc or None, static or None) datasets of a data directory:
+    <data_dir>/Data/dynamic/time_chunked/dynamic.zarr,
+    <data_dir>/Data/bc/time_chunked/bc.zarr and <data_dir>/Data/static.zarr.
+    """
+    from ..data import SphericalDataset, StaticDataset
+
+    data_dir = Path(data_dir)
+    data_dynamic = SphericalDataset.open(
+        data_dir / "Data" / "dynamic" / "time_chunked" / "dynamic.zarr")
+    bc_path = data_dir / "Data" / "bc" / "time_chunked" / "bc.zarr"
+    data_bc = SphericalDataset.open(bc_path) if bc_path.exists() else None
+    static_path = data_dir / "Data" / "static.zarr"
+    data_static = (StaticDataset.open(static_path)
+                   if static_path.exists() else None)
+    return data_dynamic, data_bc, data_static
+
+
+def load_experiment_model(model_dir, datasets: Tuple, device="cuda"):
+    """-> (config, model) of a trained experiment directory: the model its
+    config.json describes, at the precision it was trained with, on
+    `device`, with the weights of model_weights/model.npz. The tensor
+    layout the data gives is checked against the experiment's
+    tensor_info.json (reference predict_state.py:162)."""
+    import json
+
+    from ..config import (check_same_dict, get_ar_settings,
+                          get_model_settings, get_training_settings,
+                          read_config_file)
+    from ..data import get_ar_model_tensor_info
+    from ..models import get_model
+    from ..utils import Checkpointer
+
+    model_dir = Path(model_dir)
+    cfg = read_config_file(model_dir / "config.json")
+    model_settings = get_model_settings(cfg)
+    data_dynamic, data_bc, data_static = datasets
+    tensor_info = get_ar_model_tensor_info(get_ar_settings(cfg), data_dynamic,
+                                           data_static=data_static,
+                                           data_bc=data_bc)
+    saved_info_path = model_dir / "tensor_info.json"
+    if saved_info_path.exists():
+        check_same_dict(json.loads(json.dumps(tensor_info, default=str)),
+                        json.loads(saved_info_path.read_text()))
+    model_kwargs = {k: v for k, v in model_settings.items()
+                    if k != "architecture_name"}
+    model_kwargs["pool_method"] = str(model_kwargs["pool_method"]).lower()
+    # the precision the model was trained with (a bf16-trained model must
+    # not predict in fp32)
+    model_kwargs["numeric_precision"] = get_training_settings(cfg).get(
+        "numeric_precision", "float32")
+    model = get_model(model_settings["architecture_name"], tensor_info,
+                      device=device, **model_kwargs)
+    Checkpointer(model_dir).load_model(model)
+    return cfg, model.eval()
 
 
 def resolve_scalers(dl_settings: Dict, data_dir, data_dynamic=None,

@@ -52,11 +52,7 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
         read_config_file,
         write_config_file,
     )
-    from ..data import (
-        SphericalDataset,
-        StaticDataset,
-        get_ar_model_tensor_info,
-    )
+    from ..data import get_ar_model_tensor_info
     from ..data.zarrstore import read_bytes_counter
     from ..engine import (
         AreaWeights,
@@ -71,7 +67,8 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
     from ..sphere import build_sampling
     from ..utils import Checkpointer, set_deterministic_training
     from ..verif import deterministic, global_summary
-    from .common import build_schedulers, resolve_scalers, split_datasets
+    from .common import (build_schedulers, open_datasets, resolve_scalers,
+                         split_datasets)
 
     t_start = time.time()
     cfg = read_config_file(cfg_path)
@@ -92,13 +89,7 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
     data_dir = Path(data_dir)
 
     # --- open data --------------------------------------------------------
-    data_dynamic = SphericalDataset.open(
-        data_dir / "Data" / "dynamic" / "time_chunked" / "dynamic.zarr")
-    bc_path = data_dir / "Data" / "bc" / "time_chunked" / "bc.zarr"
-    data_bc = SphericalDataset.open(bc_path) if bc_path.exists() else None
-    static_path = data_dir / "Data" / "static.zarr"
-    data_static = (StaticDataset.open(static_path)
-                   if static_path.exists() else None)
+    data_dynamic, data_bc, data_static = open_datasets(data_dir)
 
     # --- scaler (config-selected composition, the GlobalStandardScaler
     #     fitted and saved when none is given) ----------------------------

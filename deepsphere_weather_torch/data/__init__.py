@@ -12,10 +12,13 @@ from .dataset import (  # noqa: F401
 )
 from .loader import AutoregressiveDataLoader, AutoregressiveDataset  # noqa: F401
 from .scalers import (  # noqa: F401
+    AnomalyScaler,
+    Climatology,
     GlobalMinMaxScaler,
     GlobalStandardScaler,
     SequentialScaler,
     load_scaler,
+    time_group_indices,
 )
 from .toy import generate_toy_data  # noqa: F401
 from .zarrstore import ZarrArray, ZarrGroup, create_group, open_group  # noqa: F401

@@ -16,9 +16,12 @@ cannot overwrite them; a writer thread inverse-scales, rounds and
 compresses them into the store (and the RAM buffer of `keep_in_memory`)
 while the card computes the next block.
 
-Not ported: the JAX package's ensemble perturbations (`perturbation`,
-with `noise_block`: ROADMAP Queue 1 items 4 and 6) and BatchNorm running
-statistics (item 5).
+`perturbation` perturbs a member of an ensemble as the JAX package does:
+one smooth analysis-error field per reference time on the input history
+and an independent model-error field on every step's prediction (the
+rollout's `noise_block`), drawn from numpy's generator in the JAX order,
+so both packages perturb identically. Not ported: BatchNorm running
+statistics (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -198,6 +201,17 @@ def AutoregressivePredictions(
     # raw buffer would exceed DSW_VERIF_RAM_BYTES (default 16 GB) or half
     # of free RAM.
     keep_in_memory: bool = False,
+    # ensemble-calibration perturbations: dict with
+    #   basis      [V, n_modes] unit-pointwise-variance spatial basis
+    #              (data.toy.perturbation_basis)
+    #   ic_sigma   [F] per-variable analysis-error std (SCALED space):
+    #              one smooth field per reference time added to the whole
+    #              input history (perturbed-analysis member)
+    #   step_sigma [F] per-variable stochastic model-error std (SCALED
+    #              space): an independent smooth field added to every AR
+    #              step's prediction before feedback (y = f(x) + eps)
+    #   seed       int (vary per member)
+    perturbation: Optional[Dict] = None,
     verbose: bool = False,
 ) -> ForecastDataset:
     """Roll out forecasts; returns the (streamed) ForecastDataset.
@@ -315,6 +329,16 @@ def AutoregressivePredictions(
     out_arrays = {name: g[name] for name in data_dynamic.feature_order}
     _read_bc = make_bc_reader(data_dynamic, data_bc, bc_generator, scaler_bc)
 
+    basis = ic_sigma = step_sigma = perturb_rng = None
+    if perturbation is not None:
+        perturb_rng = np.random.default_rng(int(perturbation.get("seed", 0)))
+        basis = np.asarray(perturbation["basis"], np.float32)     # [V, M]
+        if perturbation.get("ic_sigma") is not None:
+            ic_sigma = np.asarray(perturbation["ic_sigma"], np.float32)
+        if perturbation.get("step_sigma") is not None:
+            step_sigma = np.asarray(perturbation["step_sigma"], np.float32)
+    n_hist_filled = min(indexer.output_k) - min_k
+
     mem: Optional[Dict[str, np.ndarray]] = None
     if keep_in_memory:
         import os
@@ -383,51 +407,70 @@ def AutoregressivePredictions(
     wthread.start()
 
     try:
-        for lo in range(0, len(t0s), batch_size):
-            sel = t0s[lo: lo + batch_size]
-            B = len(sel)
-            # init history: truth (scaled) at offsets [min_k, max_out]
-            hist = np.zeros((B, H, V, F), dtype=np.float32)
-            for b, t0 in enumerate(sel):
-                t_hist = np.arange(t0 + min_k, t0 + min(indexer.output_k))
-                vals = data_dynamic.read_stacked(t_hist)
-                if scaler is not None:
-                    vals = scaler.transform(
-                        vals,
-                        time=data_dynamic.time[t_hist]).astype(np.float32)
-                hist[b, : len(t_hist)] = vals
-            hist = torch.from_numpy(hist).to(device)
-            wmask = (torch.zeros(H, dtype=torch.bool, device=device)
-                     if keep_first else None)
+        with torch.inference_mode():
+            for lo in range(0, len(t0s), batch_size):
+                sel = t0s[lo: lo + batch_size]
+                B = len(sel)
+                # init history: truth (scaled) at offsets [min_k, max_out]
+                hist = np.zeros((B, H, V, F), dtype=np.float32)
+                for b, t0 in enumerate(sel):
+                    t_hist = np.arange(t0 + min_k, t0 + min(indexer.output_k))
+                    vals = data_dynamic.read_stacked(t_hist)
+                    if scaler is not None:
+                        vals = scaler.transform(
+                            vals,
+                            time=data_dynamic.time[t_hist]).astype(np.float32)
+                    hist[b, : len(t_hist)] = vals
+                if ic_sigma is not None:
+                    # one smooth analysis-error field per reference time,
+                    # added to every input history step (scaled space)
+                    coeff = perturb_rng.standard_normal(
+                        (B, basis.shape[1], F)).astype(np.float32)
+                    field = np.einsum("vm,bmf->bvf", basis, coeff) * ic_sigma
+                    hist[:, :n_hist_filled] += field[:, None]
+                hist = torch.from_numpy(hist).to(device)
+                wmask = (torch.zeros(H, dtype=torch.bool, device=device)
+                         if keep_first else None)
 
-            n_blocks = (n_steps + ar_blocks - 1) // ar_blocks
-            step0 = 0
-            for blk in range(n_blocks):
-                steps = min(ar_blocks, n_steps - step0)
-                fn = (tail_fn
-                      if (tail_fn is not None and steps < ar_blocks)
-                      else rollout_fn)
-                # bc for iterations [step0, step0+steps)
-                bc_block = None
-                if data_bc is not None or bc_generator is not None:
-                    in_offs = np.asarray(indexer.input_k)
-                    bc_rows = [
-                        _read_bc(t0, (step0 + j) * indexer.forecast_cycle
-                                 + in_offs)
-                        for b, t0 in enumerate(sel) for j in range(steps)]
-                    n_fb = bc_rows[0].shape[-1]
-                    bc_np = np.asarray(bc_rows, dtype=np.float32).reshape(
-                        B, steps, len(indexer.input_k), V, n_fb)
-                    bc_block = torch.from_numpy(bc_np).to(device)
-                hist, wmask, preds = fn(hist, wmask, bc_block, static)
-                # the host copy, before the next block is queued
-                wq.put((preds[:, :steps].cpu().numpy(), lo, B, step0,
-                        steps))
-                if werr:
-                    raise werr[0]
-                step0 += steps
-            if verbose:
-                print(f"predicted frts {lo}..{lo + B - 1} / {len(t0s)}")
+                n_blocks = (n_steps + ar_blocks - 1) // ar_blocks
+                step0 = 0
+                for blk in range(n_blocks):
+                    steps = min(ar_blocks, n_steps - step0)
+                    fn = (tail_fn
+                          if (tail_fn is not None and steps < ar_blocks)
+                          else rollout_fn)
+                    # bc for iterations [step0, step0+steps)
+                    bc_block = None
+                    if data_bc is not None or bc_generator is not None:
+                        in_offs = np.asarray(indexer.input_k)
+                        bc_rows = [
+                            _read_bc(t0, (step0 + j) * indexer.forecast_cycle
+                                     + in_offs)
+                            for b, t0 in enumerate(sel) for j in range(steps)]
+                        n_fb = bc_rows[0].shape[-1]
+                        bc_np = np.asarray(bc_rows, dtype=np.float32).reshape(
+                            B, steps, len(indexer.input_k), V, n_fb)
+                        bc_block = torch.from_numpy(bc_np).to(device)
+                    noise_block = None
+                    if step_sigma is not None:
+                        # an independent model-error field per step, added
+                        # before feedback (engine/step.py)
+                        coeff = perturb_rng.standard_normal(
+                            (B, steps, n_out, basis.shape[1], F)
+                        ).astype(np.float32)
+                        noise_block = torch.from_numpy(np.ascontiguousarray(
+                            np.einsum("vm,bsomf->bsovf", basis, coeff)
+                            * step_sigma)).to(device)
+                    hist, wmask, preds = fn(hist, wmask, bc_block, static,
+                                            noise_block)
+                    # the host copy, before the next block is queued
+                    wq.put((preds[:, :steps].cpu().numpy(), lo, B, step0,
+                            steps))
+                    if werr:
+                        raise werr[0]
+                    step0 += steps
+                if verbose:
+                    print(f"predicted frts {lo}..{lo + B - 1} / {len(t0s)}")
     finally:
         wq.put(None)
         wthread.join()

@@ -287,13 +287,20 @@ def make_rollout_block(model, indexer: ARIndexer,
                        block_size: int) -> Tuple[Callable, int]:
     """Build the block-rollout function. Returns (rollout_fn, H).
 
-    rollout_fn(hist, wmask, bc_block, static) ->
+    rollout_fn(hist, wmask, bc_block, static, noise_block=None) ->
     (new_hist, new_wmask, preds [B, block, n_out, V, F]) with hist
-    [B, H, V, F_dyn], bc_block [B, block, n_in, V, F_bc] or None (its
-    length sets the block; `block_size` otherwise), static [V, F_static] or
-    None. `wmask` is the keep-first written-mask: None unless
+    [B, H, V, F_dyn], bc_block [B, block, n_in, V, F_bc] or None, static
+    [V, F_static] or None. The block is as long as bc_block, else as
+    noise_block, else `block_size`. `noise_block` ([B, block, n_out, V, F],
+    scaled space) is added to each step's prediction before feedback and
+    emission (y = f(x) + eps): the stochastic model-error perturbation of
+    ensembles. `wmask` is the keep-first written-mask: None unless
     keep_first_feedback(indexer); then start with torch.zeros(H, bool) and
     thread the returned mask into the next block.
+
+    The function records gradients when they are on: callers that only
+    predict run it under `torch.inference_mode()` (or `torch.no_grad()`,
+    which `torch.export` traces; it takes no inference tensors).
     """
     fc = indexer.forecast_cycle
     min_k = min(indexer.input_k)
@@ -303,10 +310,10 @@ def make_rollout_block(model, indexer: ARIndexer,
     out_pos = [k - min_k for k in indexer.output_k]
     keep_first = keep_first_feedback(indexer)
 
-    @torch.inference_mode()
     def rollout(hist: torch.Tensor, wmask: Optional[torch.Tensor],
                 bc_block: Optional[torch.Tensor],
-                static: Optional[torch.Tensor]):
+                static: Optional[torch.Tensor],
+                noise_block: Optional[torch.Tensor] = None):
         if keep_first and wmask is None:
             raise ValueError(
                 "this indexer keeps FIRST predictions "
@@ -317,7 +324,9 @@ def make_rollout_block(model, indexer: ARIndexer,
             wmask = None
         ip = torch.as_tensor(in_pos, device=hist.device)
         op = torch.as_tensor(out_pos, device=hist.device)
-        n_steps = bc_block.shape[1] if bc_block is not None else block_size
+        n_steps = (bc_block.shape[1] if bc_block is not None
+                   else noise_block.shape[1] if noise_block is not None
+                   else block_size)
         h = hist
         preds = []
         for i in range(n_steps):
@@ -330,6 +339,8 @@ def make_rollout_block(model, indexer: ARIndexer,
                 parts.append(bc_block[:, i])              # [B, n_in, V, Fb]
             parts.append(x_dyn)
             y = model(torch.cat(parts, dim=-1))           # [B, n_out, V, Fd]
+            if noise_block is not None:
+                y = y + noise_block[:, i]
             y_write = y
             if keep_first:
                 prev = h.index_select(1, op)

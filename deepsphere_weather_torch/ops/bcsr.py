@@ -54,7 +54,7 @@ __all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy", "super_nonzero_slots",
            "bcsr_spmm", "bcsr_spmm_reference",
            "bcsr_spmm_rows", "bcsr_spmm_rows_reference",
            "BlockSparseOperator", "ShardedBlockSparseOperator",
-           "launch_counts", "reset_launch_counts"]
+           "spmm", "launch_counts", "reset_launch_counts"]
 
 _BS = 128
 
@@ -547,32 +547,88 @@ def _layout_rows(layout) -> int:
             else a.shape[0] * a.shape[2])
 
 
+# The full-range product as a registered op: `torch.export` traces it
+# through its fake (shape and dtype only) and `torch.func.vmap` through its
+# vmap rule. Its body is the wrapper of the layout, so device dispatch and
+# the launch counts stay the wrapper's.
+@torch.library.custom_op(
+    "deepsphere_weather_torch::spmm", mutates_args=(),
+    schema="(Tensor a, Tensor idx, Tensor x, Tensor? nz, bool super_layout)"
+           " -> Tensor")
+def spmm(a, idx, x, nz, super_layout):
+    """A @ x on a super-row (`super_layout`) or plain BCSR layout, x
+    fitted to the layout's rows by the caller: the module's wrapper
+    `bcsr_super_spmm` or `bcsr_spmm` (round_a=True), looked up by name at
+    each call, so a replaced module attribute is the one that runs."""
+    if super_layout:
+        return bcsr_super_spmm(a, idx, x, nz)
+    return bcsr_spmm(a, idx, x, nz)
+
+
+@spmm.register_fake
+def _(a, idx, x, nz, super_layout):
+    rows = (a.shape[0] * a.shape[1] * a.shape[2] if super_layout
+            else a.shape[0] * a.shape[2])
+    return x.new_empty((rows, x.shape[1]), dtype=_x_regime(x))
+
+
+def _spmm_vmap(info, in_dims, a, idx, x, nz, super_layout):
+    """K5 (`custom_vmap` of `_partitioned_spmm`): a mapped x [K, n, m]
+    folds into the columns, one product on [n, K*m], reshaped back. The
+    product is linear per column, so this is exact."""
+    a_d, idx_d, x_d, nz_d, _ = in_dims
+    if a_d is not None or idx_d is not None or nz_d is not None:
+        raise NotImplementedError(
+            "vmap over BlockSparseOperator arrays themselves is not "
+            "supported (one shared operator per vmap is: the mapped "
+            "axis folds into the matvec columns)")
+    if x_d is None:
+        return spmm(a, idx, x, nz, super_layout), None
+    x = x.movedim(x_d, 0)
+    k, n, m = x.shape
+    y = spmm(a, idx, x.movedim(0, 1).reshape(n, k * m).contiguous(), nz,
+             super_layout)
+    return y.reshape(y.shape[0], k, m).movedim(1, 0), 0
+
+
+torch.library.register_vmap(spmm, _spmm_vmap)
+
+
 def _run_mv(layout: _Layout, x_pad: torch.Tensor, n_out: int) -> torch.Tensor:
-    """One product on `layout`, x fitted to its rows, output to n_out."""
+    """One product on `layout` (the registered op), x fitted to its rows,
+    output to n_out."""
     kind, a, idx, nz = layout
     x_fit = _fit_rows(x_pad, _layout_rows(layout))
-    y = (bcsr_super_spmm(a, idx, x_fit, nz) if kind == "super"
-         else bcsr_spmm(a, idx, x_fit, nz))
-    return _fit_rows(y, n_out)
+    return _fit_rows(spmm(a, idx, x_fit, nz, kind == "super"), n_out)
 
 
 class _MatVec(torch.autograd.Function):
     """y = A @ x_pad, with the JAX operator's custom VJP: the backward
-    computes A^T @ g in the primal's dtype on the transposed layout. The
-    operator arrays get no gradient."""
+    computes A^T @ g in the primal's dtype on the transposed layout
+    (`kind_t`, `a_t`, `idx_t`, `nz_t`: the forward's own arrays when A is
+    symmetric). The operator arrays get no gradient. In torch.func's form
+    (`setup_context`, `generate_vmap_rule`): vmap runs it through the op's
+    rule, forward and backward."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x_pad, op):
-        ctx.op = op
-        ctx.x_dtype = x_pad.dtype
-        return _run_mv(op.forward_layout(), x_pad, x_pad.shape[0])
+    def forward(x_pad, kind, a, idx, nz, kind_t, a_t, idx_t, nz_t):
+        return _run_mv((kind, a, idx, nz), x_pad, x_pad.shape[0])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x_pad, _, _, _, _, kind_t, a_t, idx_t, nz_t = inputs
+        ctx.kind_t, ctx.x_dtype = kind_t, x_pad.dtype
+        ctx.save_for_backward(a_t, idx_t, nz_t)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
+        a_t, idx_t, nz_t = ctx.saved_tensors
         g = g.to(ctx.x_dtype).contiguous()
-        gx = _run_mv(ctx.op.transpose_layout(), g, g.shape[0])
-        return gx.to(ctx.x_dtype), None
+        gx = _run_mv((ctx.kind_t, a_t, idx_t, nz_t), g, g.shape[0])
+        return (gx.to(ctx.x_dtype),) + (None,) * 8
 
 
 class BlockSparseOperator:
@@ -668,7 +724,10 @@ class BlockSparseOperator:
         if x.dtype != torch.bfloat16:
             x = x.float()
         x_pad = F.pad(x, (0, m_pad - m, 0, self.rows - n)).contiguous()
-        return _MatVec.apply(x_pad, self)[:n, :m]
+        if not torch.is_grad_enabled():
+            return _run_mv(self.forward_layout(), x_pad, x_pad.shape[0])[:n, :m]
+        return _MatVec.apply(x_pad, *self.forward_layout(),
+                             *self.transpose_layout())[:n, :m]
 
     def row_shard(self, v0: int, v1: int, group) -> "ShardedBlockSparseOperator":
         """The rows [v0, v1) of this operator for one rank of the node

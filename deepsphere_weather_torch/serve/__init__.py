@@ -1,4 +1,11 @@
-"""Serving: the packaged block rollout and the forecast service."""
+"""Serving: the exported block rollout, its artifacts on disk and the
+forecast service."""
 
-from .export import TorchRollout, export_rollout  # noqa: F401
+from .export import (  # noqa: F401
+    ExportedRollout,
+    export_ensemble_rollout,
+    export_rollout,
+    load_artifact,
+    save_artifact,
+)
 from .service import ForecastService  # noqa: F401

@@ -1,17 +1,17 @@
-"""Forecast service over a `TorchRollout`.
+"""Forecast service over an exported rollout (`serve.export`).
 
 Port of `ForecastService` from `deepsphere_weather_tpu/serve/service.py`:
 
+- loading from an artifact directory (`from_dir`),
 - input scaling / output inverse scaling with the scalers,
 - batch padding to the rollout's batch size (oversized batches split),
 - block-chunked rollouts of any length (`n_steps`): the history carry stays
   on the device between blocks,
+- ensemble artifacts: every member starts from the same history, the
+  forecasts gain a leading member axis (`summarize` reduces it),
 - request micro-batching: concurrent single-sample `submit()` calls are
   coalesced into one padded device batch, waiting at most
   `max_batch_delay_s` for it to fill.
-
-Ensemble (member-stacked) rollouts and loading from an artifact directory
-are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,12 +19,13 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import Future
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from .export import TorchRollout
+from .export import ExportedRollout, load_artifact
 
 __all__ = ["ForecastService"]
 
@@ -40,13 +41,13 @@ class _Request:
 
 
 class ForecastService:
-    """Serve forecasts from a block rollout.
+    """Serve forecasts from an exported block rollout.
 
-    >>> svc = ForecastService(export_rollout(model, params, ...), scaler)
+    >>> svc = ForecastService.from_dir("artifacts/healpix16")
     >>> fc = svc.predict(history, n_steps=20)      # [B, 20, n_out, V, F]
     """
 
-    def __init__(self, rollout: TorchRollout, scaler=None, scaler_bc=None,
+    def __init__(self, rollout: ExportedRollout, scaler=None, scaler_bc=None,
                  max_batch_delay_s: float = 0.005):
         self.rollout = rollout
         self.meta = rollout.meta
@@ -57,6 +58,16 @@ class ForecastService:
         self._queue: List[_Request] = []
         self._worker: Optional[threading.Thread] = None
         self._closed = False
+
+    @classmethod
+    def from_dir(cls, path, **kwargs) -> "ForecastService":
+        rollout, scaler, scaler_bc = load_artifact(Path(path))
+        return cls(rollout, scaler=scaler, scaler_bc=scaler_bc, **kwargs)
+
+    @property
+    def n_members(self) -> int:
+        """> 0 for ensemble artifacts (member-stacked rollout)."""
+        return int(self.meta.get("n_members", 0))
 
     def _validate(self, history: np.ndarray, bc, n_steps: int):
         m = self.meta
@@ -75,7 +86,7 @@ class ForecastService:
         if n_bc > 0:
             if bc is None:
                 raise ValueError(
-                    f"rollout requires boundary conditions "
+                    f"artifact requires boundary conditions "
                     f"[B, n_steps, {m['n_input_k']}, {V}, {n_bc}]")
             bc = np.asarray(bc, np.float32)
             if squeeze and bc.ndim == 4:
@@ -84,7 +95,7 @@ class ForecastService:
             if bc.shape != want:
                 raise ValueError(f"bc must be {want}; got {bc.shape}")
         elif bc is not None:
-            raise ValueError("rollout takes no boundary conditions")
+            raise ValueError("artifact takes no boundary conditions")
         return history, bc, squeeze
 
     def _scale_history(self, history):
@@ -99,16 +110,19 @@ class ForecastService:
 
     def _run_blocks(self, hist_scaled: np.ndarray, bc_scaled,
                     n_steps: int) -> np.ndarray:
-        """hist [B, H, V, F] scaled -> preds (scaled) [B, n_steps, n_out, V, F]."""
+        """hist [B, H, V, F] scaled -> preds (scaled) [B, n_steps, n_out, V,
+        F], or [M, B, n_steps, n_out, V, F] for ensemble artifacts (every
+        member starts from the same history)."""
         m = self.meta
-        bs, block = m["batch_size"], m["block_size"]
+        bs, block, M = m["batch_size"], m["block_size"], self.n_members
+        batch_axis = 1 if M else 0
         B = hist_scaled.shape[0]
         if B > bs:
             outs = [self._run_blocks(hist_scaled[i:i + bs],
                                      None if bc_scaled is None
                                      else bc_scaled[i:i + bs], n_steps)
                     for i in range(0, B, bs)]
-            return np.concatenate(outs, axis=0)
+            return np.concatenate(outs, axis=batch_axis)
         pad = bs - B
         if pad:
             hist_scaled = np.concatenate(
@@ -126,6 +140,8 @@ class ForecastService:
                     [bc_scaled, np.repeat(bc_scaled[-1:], pad, axis=0)])
             bc_scaled = torch.as_tensor(bc_scaled, device=dev)
         hist = torch.as_tensor(hist_scaled, device=dev)
+        if M:   # the analysis state, every member's carry
+            hist = hist[None].expand((M,) + hist.shape).contiguous()
         chunks = []
         for b in range(n_blocks):
             if bc_scaled is None:
@@ -134,7 +150,9 @@ class ForecastService:
                 hist, preds = self.rollout.call(
                     hist, bc_scaled[:, b * block:(b + 1) * block])
             chunks.append(preds)
-        preds = torch.cat(chunks, dim=1).cpu().numpy()
+        preds = torch.cat(chunks, dim=batch_axis + 1).cpu().numpy()
+        if M:
+            return preds[:, :B, :n_steps]
         return preds[:B, :n_steps]
 
     def predict(self, history, n_steps: int, bc=None,
@@ -154,7 +172,19 @@ class ForecastService:
         if not scaled and self.scaler is not None:
             preds = np.asarray(self.scaler.inverse_transform(preds),
                                np.float32)
-        return preds[0] if squeeze else preds
+        if not squeeze:
+            return preds
+        return preds[:, 0] if self.n_members else preds[0]
+
+    @staticmethod
+    def summarize(members: np.ndarray, axis: int = 0) -> dict:
+        """Ensemble member reductions: mean, median and spread (std over
+        members)."""
+        members = np.asarray(members)
+        ddof = 1 if members.shape[axis] > 1 else 0
+        return {"mean": members.mean(axis=axis),
+                "median": np.median(members, axis=axis),
+                "spread": members.std(axis=axis, ddof=ddof)}
 
     def leadtimes(self, n_steps: int) -> np.ndarray:
         """Leadtimes [n_steps, n_out]: hours when timestep_hours is known,
@@ -213,7 +243,9 @@ class ForecastService:
                     preds = np.asarray(
                         self.scaler.inverse_transform(preds), np.float32)
                 for i, r in enumerate(batch):
-                    r.future.set_result(preds[i, :r.n_steps])
+                    r.future.set_result(
+                        preds[:, i, :r.n_steps] if self.n_members
+                        else preds[i, :r.n_steps])
             except Exception as e:  # noqa: BLE001 — fail the whole batch
                 for r in batch:
                     if not r.future.done():

@@ -1,4 +1,5 @@
-"""Verification: deterministic skills and their summaries."""
+"""Verification: deterministic skills, their summaries and the benchmark
+forecasts."""
 
 from .deterministic import (  # noqa: F401
     SkillDataset,
@@ -9,3 +10,4 @@ from .deterministic import (  # noqa: F401
     latitudinal_summary,
     longitudinal_summary,
 )
+from .benchmarks import climatology_skills, persistence_skills  # noqa: F401

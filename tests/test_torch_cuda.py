@@ -6,8 +6,10 @@ plain versions (exactly in the fp32-x regimes; the bf16-x tensor-core body
 at the bf16 bar: it sums in another order), the slot lists (every column
 tile, zero row blocks, the list against walking every slot), K4's split of
 fp32 A into bf16 hi + lo told apart from K3's rounding on a product that
-cancels (`tests/torch_split_probe.py`: under 2^-14 and above it), and one
-training step against the CPU plain path.
+cancels (`tests/torch_split_probe.py`: under 2^-14 and above it), one
+training step against the CPU plain path, K5 (the op's vmap rule: one
+launch per vmapped product, forward and backward) and exported artifacts
+(single and 2-member) saved, loaded and run on the card.
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without
 one. This file imports neither JAX nor the JAX package, so it also runs on
@@ -449,3 +451,99 @@ def test_train_step_matches_cpu(cuda, dt):
     print(f"{dt}: {steered}worst gradient {worst[1]} {worst[0]:.3e} (tol "
           f"{tol:g}); one-element gradients: sum of |terms| / |sum| "
           f"{min(cancel):.3g} to {max(cancel):.3g}")
+
+
+@pytest.mark.parametrize("layout,kernel", [
+    ("super", "bcsr_super_spmm"), ("plain", "bcsr_spmm")], ids=["K1", "K3"])
+def test_vmapped_matvec_is_one_launch(cuda, layout, kernel):
+    # K5: vmap over 2 members folds them into the columns: one launch per
+    # product, forward and backward, at the bf16 bar against the member
+    # loop on the card and the CPU plain path; fp32 gradients 2 L^T (L x)
+    g = build_graph("healpix", {"subdivisions": 8, "nest": True}, k=20)
+    rps = 2 if layout == "super" else 0
+    rng = np.random.default_rng(5)
+    x_np = rng.standard_normal((2, g.n_nodes, 320)).astype(np.float32)
+    op = BlockSparseOperator.from_scipy(g.L, dtype=torch.bfloat16,
+                                        rows_per_super=rps, device=cuda)
+    x = torch.from_numpy(x_np).to(cuda, torch.bfloat16)
+    before = dict(launch_counts)
+    with torch.no_grad():
+        y = torch.func.vmap(op.matvec)(x)
+    torch.cuda.synchronize()
+    assert launch_counts[kernel] == before[kernel] + 1
+    assert sum(launch_counts.values()) == sum(before.values()) + 1
+    with torch.no_grad():
+        loop = torch.stack([op.matvec(xi) for xi in x])
+        cpu = torch.func.vmap(BlockSparseOperator.from_scipy(
+            g.L, dtype=torch.bfloat16, rows_per_super=rps,
+            device="cpu").matvec)(x.cpu())
+    assert rel_err(y.float(), loop.float()) <= TOL["bf16"]
+    assert rel_err(y.float(), cpu.float()) <= TOL["bf16"]
+
+    op32 = BlockSparseOperator.from_scipy(g.L, rows_per_super=rps,
+                                          device=cuda)
+    x32 = torch.from_numpy(x_np).to(cuda)
+    before = dict(launch_counts)
+    grad = torch.func.vmap(torch.func.grad(
+        lambda xi: (op32.matvec(xi) ** 2).sum()))(x32)
+    torch.cuda.synchronize()
+    assert launch_counts[kernel] == before[kernel] + 2
+    L = g.L.astype(np.float64)
+    want = np.stack([2.0 * (L.T @ (L @ xi.astype(np.float64))) for xi in x_np])
+    assert rel_err(grad, torch.from_numpy(want)) <= 1e-5
+
+
+def test_artifact_on_card(cuda, tmp_path):
+    # HEALPix-8 bf16 (level 0 block-sparse: K1), exported, saved and
+    # loaded on the card: the single artifact against the in-process
+    # rollout and the 2-member one against each member's, at the bf16 bar
+    # (3e-2, the train step's: two steps of roundings); 10 K1 launches per
+    # forward for one member or both
+    from deepsphere_weather_torch.engine.step import make_rollout_block
+    from deepsphere_weather_torch.serve import (
+        export_ensemble_rollout,
+        export_rollout,
+        load_artifact,
+        save_artifact,
+    )
+
+    info = {"input_n_feature": 2, "output_n_feature": 2, "input_n_time": 3,
+            "output_n_time": 1, "input_shape_info": {"dynamic": {"node": 768}},
+            "output_shape_info": {"dynamic": {"node": 768}}}
+    model = UNetSpherical(info, "healpix", {"subdivisions": 8, "nest": True},
+                          knn=20, increment_learning=True, dense_threshold=767,
+                          numeric_precision="bfloat16", device=cuda)
+    states = []
+    for seed in (6, 7):
+        tree = seeded_params(model, seed)
+        for blk in tree.values():
+            if isinstance(blk, dict):
+                blk["rezero_weight"] *= 0.1
+        states.append(params_from_jax(tree))
+    kw = dict(input_k=[-3, -2, -1], output_k=[0], forecast_cycle=1,
+              batch_size=2, block_size=2)
+    save_artifact(tmp_path / "single", export_rollout(model, states[0], **kw))
+    save_artifact(tmp_path / "ensemble",
+                  export_ensemble_rollout(model, states, **kw))
+    single, _, _ = load_artifact(tmp_path / "single")
+    ensemble, _, _ = load_artifact(tmp_path / "ensemble")
+    assert single.meta["platforms"] == ["cuda"]
+    assert ensemble.meta["n_members"] == 2
+
+    hist = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (2, 4, 768, 2)).astype(np.float32)).to(cuda)
+    refs = []
+    for state in states:
+        model.load_state_dict(state)
+        rollout, _ = make_rollout_block(model, ARIndexer.build(
+            [-3, -2, -1], [0], 1, 1), 2)
+        with torch.inference_mode():
+            refs.append(rollout(hist, None, None, None)[2].float())
+    for rollout, inp, want in ((single, hist, refs[0]),
+                               (ensemble, torch.stack([hist, hist]),
+                                torch.stack(refs))):
+        before = launch_counts["bcsr_super_spmm"]
+        _, preds = rollout.call(inp)
+        torch.cuda.synchronize()
+        assert launch_counts["bcsr_super_spmm"] - before == 2 * 10
+        assert rel_err(preds.float(), want) <= TRAIN_TOL["bf16"]

@@ -280,12 +280,15 @@ def test_scaler_files_cross_load(toy, tmp_path, which):
     assert type(load_scaler(tmp_path / f"jax_{name}")) is type(scaler)
 
 
-def test_time_grouped_scaler_files_are_refused(toy, tmp_path):
+def test_time_grouped_scaler_files_load(toy, tmp_path):
     jdyn = toy["jax"][0]
-    JAnomalyScaler(time_groups="month").fit(
-        jdyn.read_all(), jdyn.time).save(tmp_path / "anom.npz")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        load_scaler(tmp_path / "anom.npz")
+    jscaler = JAnomalyScaler(time_groups="month").fit(
+        jdyn.read_all(), jdyn.time)
+    jscaler.save(tmp_path / "anom.npz")
+    loaded = load_scaler(tmp_path / "anom.npz")
+    x = jdyn.read_all()[:8]
+    np.testing.assert_array_equal(loaded.transform(x, time=jdyn.time[:8]),
+                                  jscaler.transform(x, time=jdyn.time[:8]))
 
 
 def test_device_dataset_and_window_indices(toy):

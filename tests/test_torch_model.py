@@ -155,8 +155,9 @@ def test_rollout_blocks_match_jax():
     for blk in range(2):
         bc = rng.standard_normal(
             (B, 3, len(INPUT_K), V, F_BC)).astype(np.float32)
-        h, _, preds = rollout(h, None, torch.from_numpy(bc),
-                              torch.from_numpy(static))
+        with torch.no_grad():
+            h, _, preds = rollout(h, None, torch.from_numpy(bc),
+                                  torch.from_numpy(static))
         jh, _, jpreds = jrollout(jparams, jh, None, jnp.asarray(bc),
                                  jnp.asarray(static), geom)
         assert preds.shape == (B, 3, 1, V, F_DYN)
@@ -194,7 +195,8 @@ def test_rollout_keep_first_mask_matches_jax():
     jh, jw = jnp.asarray(hist), jnp.zeros((H,), bool)
     geom = jmodel.geometry_pytree()
     for blk in range(2):
-        h, w, preds = rollout(h, w, None, None)
+        with torch.no_grad():
+            h, w, preds = rollout(h, w, None, None)
         jh, jw, jpreds = jrollout(jparams, jh, jw, None, None, geom)
         np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
         assert preds.shape == (B, 3, 2, n, F_DYN)
