@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, the HEALPix-16 bf16 forecast service, the
-HEALPix-16 AR6 bf16 training step (and its HEALPix-64 AR2 form) and the
-same step node- and data-parallel, on the card and checks them, in phases
+HEALPix-16 AR6 bf16 training step (and its HEALPix-64 AR2 form), the
+same step node- and data-parallel, with BatchNorm and for 2 members at
+once, the train -> predict -> verify CLI, serving from artifacts and SWAG
+fine-tuning with its ensemble, on the card and checks them, in phases
 printed one per line:
 
 1. card      name and power limit (nvidia-smi)
@@ -117,7 +119,7 @@ printed one per line:
              (torch.use_deterministic_algorithms, reset after it).
 12. serve16  protocol16's trained flagship served from artifacts, two
              members: the experiment copied before its --resume epoch
-             (12 epochs) and the resumed one (13). `cli.predict` of the
+             (6 epochs) and the resumed one (7). `cli.predict` of the
              resumed experiment, AR20 from 4 reference times: finite,
              lead 1 within the bf16 bar (2e-2) of the experiment's own
              forecast store, 10 K1 launches per forward; `cli.export_model`
@@ -139,6 +141,36 @@ printed one per line:
              submit latency and the HTTP round trip, and times K5's one
              launch per product against the member loop it replaces
              (`k5_vmap_rule` under K1's row of the kernel line).
+13. bn16     (run after phase 9) the flagship built with BatchNorm: 3
+             `with_norm_state` steps (bf16, AR6, batch 16), exactly 70 + 68
+             K1 launches each, the running statistics finite and moved by
+             every step, the step time; one fp32 batch-2 step (level 0
+             block-sparse) against the CPU with the card's decisions:
+             losses, gradients and running statistics at 3e-2 (a norm bias
+             that feeds another BatchNorm against its block's norm scale:
+             its gradient cancels); `bn_update` over 2 toy batches, then
+             an eval-mode 20-step forecast of 16 toy histories with those
+             statistics: finite, 10 K1 launches per forward
+14. ens16    (after bn16) 2 flagship members from two seeds
+             (`models.MemberStack`) trained together, the member step
+             (`torch.func.grad` under `torch.func.vmap`, bf16, AR6, batch
+             16), 3 steps: exactly 70 + 68 K1 launches per step for both
+             members, each at twice the single step's width but the 2
+             products on the shared batch, the member step's time beside
+             the single step's (phase train); one fp32 batch-2 member step
+             against each member's single step on the card (1e-4: losses,
+             gradients clipped by a bound between the members' norms, so
+             one member clips, and parameters)
+15. swag16   (after serve16) `cli.finetune_swag.main` on protocol16's
+             resumed experiment: 1 epoch, 3 members, a collection every 2nd
+             scoring, AR20 on the toy test period; K1's launches by part
+             (fine-tune forward and backward, validation, member rollouts:
+             their sum is every launch), `model_swag.npz` with 2 models or
+             more, member and median stores [201, 21, 3072, 2] finite, the
+             ensemble store, CRPS growing from lead 1 to lead 20; then
+             `cli.export_model --swag_samples 2`: one block of the
+             artifact, 10 K1 launches per forward at twice the single
+             model's widths; fine-tune, per-member and export seconds.
 
 The ranks of phases 7-9 are started after the kernels are built, join a
 `gloo` process group with a timeout, and the phase waits for them with a
@@ -147,7 +179,8 @@ script exits non-zero. The lines before the last are the kernel table as
 JSON and the card; the last line is {"ok": true, "device": {...}}. Without
 CUDA it exits non-zero at once.
 `--profile` adds the device time by kernel of three forwards, of two
-train steps with each level-0 kernel (K1, K3) and of two HEALPix-64 steps.
+train steps with each level-0 kernel (K1, K3), of two HEALPix-64 steps,
+and of two ens16 member steps beside two single steps on their batch.
 """
 
 from __future__ import annotations
@@ -216,13 +249,26 @@ NODE16_STEPS, MESH16_STEPS, NODE64_STEPS = 3, 1, 2
 FP32_DENSE_THRESHOLD = 2048
 PG_TIMEOUT_S, RANKS_LIMIT_S = 300, 900
 # protocol16: the shipped flagship config through the CLI, bf16, epochs cut
-# to fit about 90 s of training on an H100; AR20 forecasts
+# to about 30 s of training on an H100 (12 until the swag16 phase came:
+# the script stays near half its time limit); AR20 forecasts
 PROTOCOL_CONFIG = "configs/UNetSpherical/Healpix_400km/MaxPool-Graph_knn.json"
-PROTOCOL_EPOCHS, PROTOCOL_AR_PREDICT = 12, 20
+PROTOCOL_EPOCHS, PROTOCOL_AR_PREDICT = 6, 20
 PROTOCOL_INPUT_K, PROTOCOL_CYCLE = (-18, -12, -6), 6
 # serve16: reference times of cli.predict; the HTTP answer's bar against
 # svc.predict (the JAX package's serving test's)
 SERVE_FRTS, HTTP_TOL = 4, 2e-4
+# bn16: with_norm_state steps; bn_update's toy store (six-hour steps) and
+# its batches
+BN_STEPS, BN_UPDATE_STEPS, BN_UPDATE_BATCHES = 3, 80, 2
+# ens16: members, member steps, the fp32 member-vs-single bar and the
+# Adam eps of that check: Adam's first step is lr g / (|g| + eps), so with
+# eps 1e-7 an element whose gradient is rounding-small steps by up to lr
+# in whichever direction its rounding gives (3.8e-4 of uconv2.res_kernel,
+# H100, 700 W); with 1e-3 the step follows the gradient
+ENS_MEMBERS, ENS_STEPS, ENS_TOL, ENS_CHECK_EPS = 2, 3, 1e-4, 1e-3
+# swag16: members predicted, collection every SWAG_FREQ-th scoring, members
+# of the exported artifact
+SWAG_SAMPLES, SWAG_FREQ, SWAG_EXPORT = 3, 2, 2
 GATHERS_PER_FORWARD = sum(PRODUCTS_PER_LEVEL)
 # seeded ReZero weights are scaled by this for training: at U(0.5, 1.5)
 # the random network's rollout grows several-fold per iteration
@@ -780,14 +826,16 @@ def tensor_info(n_node):
 
 
 def build_flagship(device, subdiv, params=None, geometry=None,
-                   precision="bfloat16", dense_threshold=None):
+                   precision="bfloat16", dense_threshold=None,
+                   batch_norm=False):
     from deepsphere_weather_torch.models import UNetSpherical
 
     model = UNetSpherical(
         tensor_info(12 * subdiv ** 2), "healpix",
         {"subdivisions": subdiv, "nest": True}, knn=KNN, pool_method="max",
         increment_learning=True, numeric_precision=precision,
-        dense_threshold=dense_threshold, geometry=geometry, device=device)
+        dense_threshold=dense_threshold, geometry=geometry, device=device,
+        batch_norm=batch_norm)
     if params is not None:
         model.load_state_dict(params)
     return model.eval()
@@ -820,7 +868,10 @@ def forward_vs_cpu(device, subdiv, params, x, nz=None):
     return {"err": rel_err((y - x_last).numpy(), (y_cpu - x_last).numpy()),
             "err_own": rel_err((y - x_last).numpy(),
                                (y_own - x_last).numpy()),
-            "gaps": gaps, "decisions": sum(d.numel() for d in decisions)}
+            # a ReLU decides per element, a max pool per window
+            "gaps": gaps, "decisions": sum(
+                d.numel() // (d.shape[2] if d.dim() == 4 else 1)
+                for d in decisions)}
 
 
 def count_forwards(rollout):
@@ -1004,18 +1055,19 @@ def grads_close(grads, ref, sums, tol, what="card vs CPU"):
     error over max abs of the reference's. A one-element gradient (a
     ReZero weight, the increment scale) is one sum over a block's output
     whose terms cancel: it is held against the sum of its terms'
-    magnitudes (`sums`, from `term_sums` on the reference model). Returns
-    (worst error, key)."""
+    magnitudes (`sums`, from `term_sums` on the reference model); any
+    other key in `sums` against the scale given there. Returns (worst
+    error, key)."""
     worst = (0.0, "")
     for k, g in grads.items():
         r = ref[k].double()
         if r.numel() == 1 and k not in sums:
             raise AssertionError(f"{k}: one element, but no sum of terms")
-        scale = sums[k] if r.numel() == 1 else float(r.abs().max())
+        scale = sums[k] if k in sums else float(r.abs().max())
         e = float((g.double().cpu() - r).abs().max()) / scale
         worst = max(worst, (e, k))
         if not e <= tol:
-            raise AssertionError(f"gradient of {k}: {what} {e:.3e} > {tol}")
+            raise AssertionError(f"{k}: {what} {e:.3e} > {tol}")
     return worst
 
 
@@ -2640,6 +2692,484 @@ def phase_profile(model, device, batch, train_steps, step64, n_fwd=3,
                               "level")
 
 
+# ---------------------------------------------------------------------------
+# bn16, ens16, swag16: probabilistic forecasting on the flagship
+# ---------------------------------------------------------------------------
+
+def _step_launches(model, step):
+    """Wrap `step` so that each call records its (forward, backward) K1
+    launches into the returned list: the forward ends at the model's last
+    forward call of the step (a forward hook on `model`, which also fires
+    under torch.func's functional_call)."""
+    from deepsphere_weather_torch.ops.bcsr import launch_counts
+
+    at_forward, per_step = [], []
+    hook = model.register_forward_hook(
+        lambda *_: at_forward.append(launch_counts[KERNEL]))
+
+    def run(*args):
+        before = launch_counts[KERNEL]
+        at_forward.clear()
+        out = step(*args)
+        if at_forward:                  # while the hook is on
+            per_step.append((at_forward[-1] - before,
+                             launch_counts[KERNEL] - at_forward[-1]))
+        return out
+    return run, per_step, hook
+
+
+def _want_step_launches(per_step, label, phase):
+    want = (LAUNCHES_PER_FORWARD * (TRAIN_AR + 1),
+            LAUNCHES_PER_FORWARD * (TRAIN_AR + 1) - NO_GRAD_PRODUCTS)
+    for i, got in enumerate(per_step):
+        if tuple(got) != want:
+            raise AssertionError(f"{label} step {i}: {got} forward and "
+                                 f"backward {KERNEL} launches, want {want}")
+    log(phase, f"{label}: {want[0]} forward + {want[1]} backward {KERNEL} "
+               f"launches in each of {len(per_step)} steps")
+    return want[0] * len(per_step), want[1] * len(per_step)
+
+
+def _fp32_step(device, params, seed_batch, members=None, clip=None):
+    """One fp32 batch-2 step of the flagship (level 0 block-sparse) with
+    its gradients kept: losses, gradients (clipped when `clip`) and the
+    parameters after it. `members` (a list of state dicts) runs the
+    member step over their stack instead."""
+    from deepsphere_weather_torch.engine import (
+        Adam,
+        make_member_train_step,
+        make_train_step,
+    )
+    from deepsphere_weather_torch.models import MemberStack
+
+    model = build_flagship(device, SLICE_SUBDIV, params, precision="float32",
+                           dense_threshold=FP32_DENSE_THRESHOLD).train()
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = train_batch(indexer, model.input_n_node, TRAIN_CHECK_BATCH,
+                       device, seed_batch)
+    owner = model if members is None else MemberStack.from_states(model,
+                                                                  members)
+    opt = Adam(owner.parameters(), lr=LR, gradient_clipping=clip or 0.0,
+               member_axis=members is not None, eps=ENS_CHECK_EPS)
+    make = make_train_step if members is None else make_member_train_step
+    _, per_iter = make(owner, indexer, opt, TRAIN_AR + 1)(data, w, area_w)
+    return {"per_iter": per_iter.detach().cpu().double(),
+            "grads": {k: p.grad.detach().cpu().double()
+                      for k, p in owner.named_parameters()},
+            "params": {k: p.detach().cpu().double()
+                       for k, p in owner.named_parameters()}}
+
+
+def phase_bn16(device, card_line):
+    """bn16: the flagship with BatchNorm. 3 with_norm_state steps (bf16,
+    AR6, batch 16): exactly 70 + 68 K1 launches each, the running
+    statistics finite and moved by every step; one fp32 batch-2 step on
+    the card against the CPU with the card's decisions (`steer`): losses,
+    gradients and running statistics at the 3e-2 bar; `bn_update` over a
+    few toy batches, then an eval-mode 20-step forecast of 16 histories:
+    finite, 10 K1 launches per forward."""
+    import torch
+
+    from deepsphere_weather_torch.data import (
+        GlobalStandardScaler,
+        generate_toy_data,
+    )
+    from deepsphere_weather_torch.engine import (
+        make_ar_loss_fn,
+        make_rollout_block,
+        make_train_step,
+    )
+    from deepsphere_weather_torch.engine.step import fold_running_stats
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from deepsphere_weather_torch.prob import bn_update
+    from torch_grad_terms import cancelling_norm_biases, term_sums
+    from torch_steer import steer
+
+    t_phase = time.perf_counter()
+    model = build_flagship(device, SLICE_SUBDIV, batch_norm=True).train()
+    model.load_state_dict(train_params(model, SEED + 20))
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = train_batch(indexer, model.input_n_node, BATCH, device, SEED + 21)
+    opt = torch.optim.Adam(model.parameters(), lr=LR, eps=ADAM_EPS)
+    step, per_step, hook = _step_launches(model, make_train_step(
+        model, indexer, opt, TRAIN_AR + 1, with_norm_state=True))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses = []
+    for i in range(BN_STEPS):
+        before = {k: v.clone() for k, v in model.norm_state().items()}
+        total, _ = step(data, w, area_w)
+        losses.append(float(total))
+        for k, v in model.norm_state().items():
+            if not bool(torch.isfinite(v).all()) or torch.equal(v, before[k]):
+                raise AssertionError(f"bn16 step {i}: running {k} not "
+                                     "finite or not moved")
+    hook.remove()
+    train_launches = dict(launch_counts)
+    f_train, b_train = _want_step_launches(per_step, f"bn16 HEALPix-"
+                                           f"{SLICE_SUBDIV} AR{TRAIN_AR} batch "
+                                           f"{BATCH} bf16", "bn16")
+    if sum(train_launches.values()) != f_train + b_train:
+        raise AssertionError(f"bn16: launches {train_launches}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"bn16 losses {losses}")
+    t_step = time_steps({"bn16": lambda: step(data, w, area_w)}, BATCH,
+                        card_line)["bn16"]
+
+    # one fp32 batch-2 step, card vs CPU (the CPU takes the card's
+    # ReLU and max-pool decisions)
+    params = train_params(model, SEED + 22)
+    runs = []
+    decisions = None
+    for dev in (device, torch.device("cpu")):
+        m = build_flagship(dev, SLICE_SUBDIV, params, precision="float32",
+                           dense_threshold=FP32_DENSE_THRESHOLD,
+                           batch_norm=True).train()
+        decisions, gaps = steer(m, None if dev == device else decisions)
+        sums = term_sums(m)
+        idx, aw, ww = train_setup(m, TRAIN_AR)
+        d = train_batch(idx, m.input_n_node, TRAIN_CHECK_BATCH, dev,
+                        SEED + 23)
+        total, (per_iter, stats) = make_ar_loss_fn(
+            m, idx, TRAIN_AR + 1, collect_stats=True)(d, ww, aw)
+        total.backward()
+        fold_running_stats(m.norm_state(), stats)
+        runs.append((per_iter.detach().cpu().numpy(), grads_of(m),
+                     {k: v.detach().cpu().double()
+                      for k, v in m.norm_state().items()}, sums, gaps))
+    (pi, g, st, _, _), (pi_c, g_c, st_c, sums, gaps) = runs
+    e_loss = rel_err(pi, pi_c)
+    # a norm bias feeding another BatchNorm block: held against its
+    # block's norm scale (`cancelling_norm_biases`)
+    for k, scale_key in cancelling_norm_biases(model).items():
+        sums[k] = float(g_c[scale_key].abs().max())
+    e_grad, worst = grads_close(g, g_c, sums, SLICE_TOL, "bn16 card vs CPU")
+    e_stats = max(rel_err(st[k].numpy(), st_c[k].numpy()) for k in st)
+    log("bn16", f"fp32 batch {TRAIN_CHECK_BATCH} step (level 0 "
+                f"block-sparse), card vs CPU with the card's decisions "
+                f"({len(gaps)} differed, gaps up to "
+                f"{max(gaps, default=0.0):.2e}): per-iteration losses "
+                f"{e_loss:.3e}, gradients worst {e_grad:.3e} ({worst}), "
+                f"running statistics {e_stats:.3e}; bar {SLICE_TOL}")
+    if not (e_loss <= SLICE_TOL and e_stats <= SLICE_TOL):
+        raise AssertionError(f"bn16 card vs CPU: losses {e_loss:.3e}, "
+                             f"statistics {e_stats:.3e}")
+
+    # bn_update over toy batches, then an eval-mode forecast of 16
+    # histories of the same (scaled) toy store
+    root = tempfile.mkdtemp(prefix="dsw_bn16_")
+    try:
+        dyn, bc, static = generate_toy_data(
+            os.path.join(root, "data"), sampling_kwargs={
+                "subdivisions": SLICE_SUBDIV, "nest": True},
+            n_timesteps=BN_UPDATE_STEPS, seed=SEED + 24)
+        scaler = GlobalStandardScaler().fit_dataset(dyn)
+        scaler_bc = GlobalStandardScaler().fit_dataset(bc)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        state = bn_update(model, data_dynamic=dyn, data_bc=bc,
+                          data_static=static, scaler=scaler,
+                          scaler_bc=scaler_bc, input_k=list(INPUT_K),
+                          output_k=[0], forecast_cycle=1,
+                          ar_iterations=TRAIN_AR, batch_size=BATCH,
+                          max_batches=BN_UPDATE_BATCHES, num_workers=2)
+        torch.cuda.synchronize()
+        t_bn = time.perf_counter() - t0
+        bn_launches = launch_counts[KERNEL]
+        rollout, H = make_rollout_block(model, indexer, N_STEPS,
+                                        norm_state=state)
+        in_k = np.asarray(INPUT_K)
+        t0s = np.random.default_rng(SEED + 25).integers(
+            H, dyn.n_time - N_STEPS, size=BATCH)
+        hist = np.stack([scaler.transform(dyn.read_stacked(
+            np.arange(t - H + 1, t + 1))) for t in t0s])
+        bcs = np.stack([np.stack([scaler_bc.transform(bc.read_stacked(
+            t + s + in_k)) for s in range(N_STEPS)]) for t in t0s])
+        static_t = static.read_stacked()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = BN_UPDATE_BATCHES * LAUNCHES_PER_FORWARD * (TRAIN_AR + 1)
+    if bn_launches != want or not all(bool(torch.isfinite(v).all())
+                                      for v in state.values()):
+        raise AssertionError(f"bn_update: {bn_launches} launches (want "
+                             f"{want}), statistics finite "
+                             f"{[bool(torch.isfinite(v).all()) for v in state.values()]}")
+    def dev(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    reset_launch_counts()
+    with torch.inference_mode():
+        _, _, preds = rollout(dev(hist), None, dev(bcs), dev(static_t))
+    torch.cuda.synchronize()
+    fc_launches = launch_counts[KERNEL]
+    if (not bool(torch.isfinite(preds).all())
+            or fc_launches != LAUNCHES_PER_FORWARD * N_STEPS):
+        raise AssertionError(f"bn16 eval forecast: finite "
+                             f"{bool(torch.isfinite(preds).all())}, "
+                             f"{fc_launches} launches")
+    log("bn16", f"bn_update {BN_UPDATE_BATCHES} toy batches of {BATCH} "
+                f"(AR{TRAIN_AR}, {bn_launches} {KERNEL} launches) "
+                f"{t_bn:.2f} s; eval-mode forecast {tuple(preds.shape)} "
+                f"finite, {fc_launches} launches ({LAUNCHES_PER_FORWARD} per "
+                f"forward); step {t_step:.2f} ms; phase "
+                f"{time.perf_counter() - t_phase:.1f} s ({card_line})")
+    return {"launches": {"bn16_train": (f_train, b_train),
+                         "bn16_bn_update": (bn_launches, 0),
+                         "bn16_forecast": (fc_launches, 0)},
+            "ms": t_step}
+
+
+def phase_ens16(device, card_line, single_ms, profile=False):
+    """ens16: 2 flagship members trained together (bf16, AR6, batch 16,
+    member step: torch.func.grad under vmap). 3 steps: exactly 70 + 68 K1
+    launches per step for both members, at twice the single step's widths
+    (but the first convolution's 2 products on the shared batch); then one
+    fp32 batch-2 member step against each member's single step on the
+    card (1e-4), with a clip between the members' gradient norms. With
+    `profile`, the device time of 2 member steps and of 2 single steps on
+    the same batch (`_profile`)."""
+    import torch
+
+    from deepsphere_weather_torch.engine import (
+        Adam,
+        make_member_train_step,
+        make_train_step,
+    )
+    from deepsphere_weather_torch.models import MemberStack
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    t_phase = time.perf_counter()
+    model = build_flagship(device, SLICE_SUBDIV).train()
+    members = [train_params(model, SEED + 30 + m) for m in range(ENS_MEMBERS)]
+    model.load_state_dict(members[0])
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = train_batch(indexer, model.input_n_node, BATCH, device, SEED + 32)
+    single = make_train_step(model, indexer, torch.optim.Adam(
+        model.parameters(), lr=LR, eps=ADAM_EPS), TRAIN_AR + 1)
+    single_widths = record_widths(lambda: single(data, w, area_w))
+    stack = MemberStack.from_states(model, members)
+    opt = Adam(stack.parameters(), lr=LR, member_axis=True)
+    step, per_step, hook = _step_launches(model, make_member_train_step(
+        stack, indexer, opt, TRAIN_AR + 1))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    widths = record_widths(lambda: step(data, w, area_w))
+    losses = []
+    for _ in range(ENS_STEPS - 1):
+        total, _ = step(data, w, area_w)
+        losses.append(total.float().cpu().numpy())
+    hook.remove()
+    ens_launches = dict(launch_counts)
+    f_ens, b_ens = _want_step_launches(per_step, f"ens16 {ENS_MEMBERS} "
+                                       f"members, HEALPix-{SLICE_SUBDIV} "
+                                       f"AR{TRAIN_AR} batch {BATCH} bf16",
+                                       "ens16")
+    if sum(ens_launches.values()) != f_ens + b_ens:
+        raise AssertionError(f"ens16: launches {ens_launches}")
+    shared = NO_GRAD_PRODUCTS
+    if (len(widths) != len(single_widths)
+            or widths[:shared] != single_widths[:shared]
+            or widths[shared:] != [2 * x for x in single_widths[shared:]]):
+        raise AssertionError(f"ens16 widths {widths} vs single "
+                             f"{single_widths}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"ens16 losses {losses}")
+    ms = time_steps({"ens16 member step": lambda: step(data, w, area_w)},
+                    BATCH, card_line)["ens16 member step"]
+    log("ens16", f"widths: {len(widths)} K1 launches a member step, "
+                 f"{shared} at the single widths (shared input) and the rest "
+                 f"at twice: {sorted(set(widths))} vs single "
+                 f"{sorted(set(single_widths))}; member step {ms:.2f} ms "
+                 f"for {ENS_MEMBERS} members vs the single step "
+                 f"{single_ms:.2f} ms ({ms / single_ms:.2f}x; "
+                 f"{card_line})")
+    if profile:
+        _profile(lambda: single(data, w, area_w), 2,
+                 f"2 single steps beside ens16, AR{TRAIN_AR} batch {BATCH}")
+        _profile(lambda: step(data, w, area_w), 2,
+                 f"2 ens16 member steps, {ENS_MEMBERS} members, AR{TRAIN_AR} "
+                 f"batch {BATCH}")
+
+    # fp32 batch-2: the member step against each member's single step
+    fp32 = [train_params(model, SEED + 33 + m) for m in range(ENS_MEMBERS)]
+    fp32[1]["res_increment"] = fp32[1]["res_increment"] * 3
+    norms = []
+    for p in fp32:
+        r = _fp32_step(device, p, SEED + 35)
+        norms.append(float(sum((g ** 2).sum() for g in r["grads"].values())
+                           ** 0.5))
+    clip = float(np.sqrt(norms[0] * norms[1]))
+    mem = _fp32_step(device, None, SEED + 35, members=fp32, clip=clip)
+    worst = {"losses": (0.0, ""), "grads": (0.0, ""), "params": (0.0, "")}
+    for m, p in enumerate(fp32):
+        one = _fp32_step(device, p, SEED + 35, clip=clip)
+        worst["losses"] = max(worst["losses"], (rel_err(
+            mem["per_iter"][m].numpy(), one["per_iter"].numpy()),
+            f"member {m}"))
+        for part in ("grads", "params"):
+            # a one-element tensor (a ReZero weight, the increment scale:
+            # one sum over a block's output, whose terms cancel) against
+            # the largest of the set
+            top = max(float(r.abs().max()) for r in one[part].values())
+            e, key = grads_close(
+                {k: v[m] for k, v in mem[part].items()}, one[part],
+                {k: top for k, r in one[part].items() if r.numel() == 1},
+                ENS_TOL, f"ens16 member {m} {part} vs its single step")
+            worst[part] = max(worst[part], (e, f"member {m} {key}"))
+    log("ens16", f"fp32 batch {TRAIN_CHECK_BATCH} member step vs each "
+                 f"member's single step: gradient norms "
+                 f"{np.round(norms, 4).tolist()}, clip {clip:.4f} (member "
+                 f"{int(np.argmax(norms))} clips), Adam eps "
+                 f"{ENS_CHECK_EPS:g}, worst: "
+                 + ", ".join(f"{k} {e:.3e} ({key})"
+                             for k, (e, key) in worst.items())
+                 + f" (bar {ENS_TOL}); phase "
+                 f"{time.perf_counter() - t_phase:.1f} s")
+    if not all(e <= ENS_TOL for e, _ in worst.values()):
+        raise AssertionError(f"ens16 member vs single {worst}")
+    return {"launches": {"ens16_train": (f_ens, b_ens)}, "ms": ms,
+            "widths": widths, "single_widths": single_widths}
+
+
+def phase_swag16(device, card_line, proto):
+    """swag16: `cli.finetune_swag.main` on protocol16's trained flagship
+    (1 epoch, 3 members, collection every 2nd scoring, AR20 on the toy
+    test period), K1's launches by part; then `cli.export_model
+    --swag_samples 2`: one block of the artifact, 10 K1 launches per
+    forward at twice the widths."""
+    import torch
+
+    from deepsphere_weather_torch.cli.common import (
+        load_experiment_model,
+        open_datasets,
+    )
+    from deepsphere_weather_torch.cli.export_model import main as export_main
+    from deepsphere_weather_torch.cli.finetune_swag import main as finetune
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from deepsphere_weather_torch.serve import load_artifact
+
+    t_phase = time.perf_counter()
+    exp = proto["exp"]
+    rec, undo = _instrument_protocol()
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out, gs = finetune(exp, proto["data"], epochs=1,
+                           nb_samples=SWAG_SAMPLES, swag_freq=SWAG_FREQ,
+                           ar_iterations_prediction=PROTOCOL_AR_PREDICT,
+                           device=device, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(launch_counts)
+    finally:
+        undo()
+        torch.use_deterministic_algorithms(False)
+    parts = {k: rec[k] for k in ("train_forward", "train_backward",
+                                 "validation", "predict")}
+    if any(n <= 0 for n in parts.values()) or (
+            launches[KERNEL] != sum(parts.values())
+            or sum(launches.values()) != launches[KERNEL]):
+        raise AssertionError(f"swag16 launches {launches}, parts {parts}")
+    with np.load(os.path.join(exp, "model_weights", "model_swag.npz")) as z:
+        n_models = int(z["scalars"][0])
+        swag_finite = all(np.isfinite(z[k]).all() for k in z.files)
+    if n_models < 2 or not swag_finite:
+        raise AssertionError(f"model_swag.npz: {n_models} models, finite "
+                             f"{swag_finite}")
+    V = 12 * SLICE_SUBDIV ** 2
+    for fc in out["members"] + [out["median"]]:
+        arr = np.stack([fc.variables[n][...] for n in fc.feature_order], -1)
+        want = (fc.n_frt, PROTOCOL_AR_PREDICT + 1, V, F_DYN)
+        if arr.shape != want or not np.isfinite(arr).all():
+            raise AssertionError(f"swag16 store {arr.shape}, want {want}")
+    ens = out["ensemble"]
+    e0 = ens.variables[ens.feature_order[0]]
+    if e0.shape[0] != SWAG_SAMPLES or not np.isfinite(e0[...]).all():
+        raise AssertionError(f"ensemble store {e0.shape}")
+    rmse = np.asarray(gs["RMSE"])
+    with np.load(os.path.join(exp, "model_skills",
+                              "swag_probabilistic_global_skill.npz")) as z:
+        crps = np.asarray(z["skill_CRPS"])
+    if not (np.isfinite(rmse).all() and np.isfinite(crps).all()
+            and (crps[PROTOCOL_AR_PREDICT] > crps[1]).all()):
+        raise AssertionError(f"median RMSE {rmse}, CRPS lead 1 {crps[1]} "
+                             f"-> {crps[PROTOCOL_AR_PREDICT]}")
+    secs = rec["seconds"]
+    n_frt = out["members"][0].n_frt
+    log("swag16", f"finetune_swag: {rec['train_steps']} updates, "
+                  f"{n_models} SWAG models, {SWAG_SAMPLES} members x "
+                  f"{n_frt} reference times AR{PROTOCOL_AR_PREDICT}, "
+                  f"stores finite; median RMSE lead 1 "
+                  f"{np.round(rmse[1], 4).tolist()} -> lead "
+                  f"{PROTOCOL_AR_PREDICT} "
+                  f"{np.round(rmse[PROTOCOL_AR_PREDICT], 4).tolist()}, CRPS "
+                  f"{np.round(crps[1], 4).tolist()} -> "
+                  f"{np.round(crps[PROTOCOL_AR_PREDICT], 4).tolist()}; "
+                  f"{KERNEL} launches {parts} = {launches[KERNEL]}")
+    predict_s = wall - secs.get("train", 0.0)
+    log("swag16", f"wall seconds: main {wall:.1f} (fine-tune "
+                  f"{secs.get('train', float('nan')):.1f}, members, stores "
+                  f"and verification {predict_s:.1f}: "
+                  f"{predict_s / SWAG_SAMPLES:.1f} s per member) "
+                  f"({card_line})")
+
+    # the SWAG-sampled ensemble artifact
+    art = os.path.join(proto["root"], "artifact_swag")
+    t0 = time.perf_counter()
+    export_main(exp, proto["data"], out=art, batch_size=BATCH,
+                block_size=BLOCK, swag_samples=SWAG_EXPORT, device=device,
+                verbose=False)
+    t_export = time.perf_counter() - t0
+    rollout, _, _ = load_artifact(art)
+    m = rollout.meta
+    rng = np.random.default_rng(SEED + 40)
+    hist = rng.standard_normal((SWAG_EXPORT, m["batch_size"],
+                                m["history_size"], m["n_node"],
+                                m["n_dynamic_features"])).astype(np.float32)
+    bc = rng.standard_normal((m["batch_size"], m["block_size"],
+                              m["n_input_k"], m["n_node"],
+                              m["n_bc_features"])).astype(np.float32)
+    reset_launch_counts()
+    called = []
+    widths = record_widths(lambda: called.append(rollout.call(hist, bc)))
+    preds = called[0][1]
+    export_launches = launch_counts[KERNEL]
+    n_fwd = m["block_size"]
+    _, model = load_experiment_model(exp, open_datasets(proto["data"]),
+                                     device)
+    x = torch.zeros((m["batch_size"], m["n_input_k"], m["n_node"],
+                     F_STATIC + F_BC + F_DYN), device=device)
+    with torch.no_grad():
+        single = record_widths(lambda: model(x))
+    if (len(widths) != LAUNCHES_PER_FORWARD * n_fwd
+            or export_launches != len(widths)
+            or widths[:LAUNCHES_PER_FORWARD] != [2 * x for x in single]
+            or not bool(torch.isfinite(preds).all())):
+        raise AssertionError(f"swag16 artifact: {len(widths)} launches for "
+                             f"{n_fwd} forwards, widths "
+                             f"{widths[:LAUNCHES_PER_FORWARD]} vs single "
+                             f"{single}")
+    log("swag16", f"export --swag_samples {SWAG_EXPORT} {t_export:.1f} s; "
+                  f"one block ({n_fwd} steps, batch {m['batch_size']}): "
+                  f"{len(widths)} {KERNEL} launches ({LAUNCHES_PER_FORWARD} "
+                  f"per forward), widths {widths[:LAUNCHES_PER_FORWARD]} = "
+                  f"twice the single model's; phase "
+                  f"{time.perf_counter() - t_phase:.1f} s ({card_line})")
+    fwd = parts["train_forward"] + parts["validation"] + parts["predict"]
+    return {"launches": {"swag16": (fwd, parts["train_backward"]),
+                         "swag16_export": (export_launches, 0)},
+            "parts": parts}
+
+
 def main() -> int:
     import argparse
 
@@ -2648,8 +3178,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for 3 forwards, "
-                         "2 train steps with each level-0 kernel and 2 "
-                         "HEALPix-64 train steps")
+                         "2 train steps with each level-0 kernel, 2 "
+                         "HEALPix-64 train steps and 2 ens16 member steps "
+                         "beside 2 single steps")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2676,6 +3207,9 @@ def main() -> int:
     node = phase_node(device, card_line, tr["per_iter"], tr64["per_iter"])
     node["launches"]["mesh16"] = phase_mesh(device, card_line,
                                             tr["per_iter"], node["grad_ref"])
+    bn16 = phase_bn16(device, card_line)
+    ens16 = phase_ens16(device, card_line, tr["ms"]["train16"],
+                        args.profile)
 
     from deepsphere_weather_torch.ops import BlockSparseOperator
 
@@ -2729,12 +3263,16 @@ def main() -> int:
     proto = phase_protocol(device, card_line, tr["ms"]["train16"])
     try:
         serve16 = phase_serve16(device, card_line, proto)
+        swag16 = phase_swag16(device, card_line, proto)
     finally:
         shutil.rmtree(proto["root"], ignore_errors=True)
     rows[0]["launches_protocol16"] = proto["parts"]
+    rows[0]["launches_swag16"] = swag16["parts"]
     for path, (fwd, bwd) in [("protocol16", (proto["forward"],
                                              proto["backward"]))] + list(
-            serve16["launches"].items()):
+            serve16["launches"].items()) + list(
+            bn16["launches"].items()) + list(
+            ens16["launches"].items()) + list(swag16["launches"].items()):
         rows[0]["launches_by_path"][path] = [fwd, bwd]
         rows[0]["launches_forward"] += fwd
         rows[0]["launches_backward"] += bwd
@@ -2743,7 +3281,13 @@ def main() -> int:
     # registered op, which launches K1 once per product for all members
     rows[0]["k5_vmap_rule"] = {
         "replaces": "deepsphere_weather_tpu/ops/pallas_spmm.py:998",
-        "source": "deepsphere_weather_torch/ops/bcsr.py", **serve16["k5"]}
+        "source": "deepsphere_weather_torch/ops/bcsr.py", **serve16["k5"],
+        "launches_by_path": {
+            "serve16_ensemble": serve16["launches"]["serve16_ensemble"],
+            "ens16_train": ens16["launches"]["ens16_train"],
+            "swag16_export": swag16["launches"]["swag16_export"]},
+        "widths_ens16": ens16["widths"][:LAUNCHES_PER_FORWARD],
+        "widths_ens16_single": ens16["single_widths"][:LAUNCHES_PER_FORWARD]}
     log("times", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -5,8 +5,11 @@ NVIDIA H100 (sm_90a): HEALPix knn geometry, the block-sparse Laplacian
 operator with its hand-written CUDA kernels (`kernels/`), UNetSpherical,
 serving from `torch.export` artifacts (single and member-stacked
 ensembles; `cli/export_model.py`, `cli/serve.py`), training (also node-
-and data-parallel), the train -> predict -> verify driver
-`cli/train_predict.py` with its zarr data stack and `cli/predict.py`. The JAX
+and data-parallel, with BatchNorm, or for DeepEnsemble members in one
+step), the train -> predict -> verify driver `cli/train_predict.py` with
+its zarr data stack, `cli/predict.py`, and probabilistic forecasting
+(`prob/`: SWAG, `bn_update`, ensemble rollouts and stores;
+`cli/finetune_swag.py`; `verif/probabilistic.py`). The JAX
 package `deepsphere_weather_tpu` is the reference the port is tested
 against; nothing here imports it or JAX.
 

@@ -10,13 +10,20 @@ Usage:
     python -m deepsphere_weather_torch.cli.export_model \\
         --model_dir EXP/<model-name> --data_dir DATA \\
         --out artifacts/<model-name> [--batch_size 4] [--block_size 10] \\
-        [--member_dirs EXP1/<model-name> EXP2/<model-name>] [--device cpu]
+        [--member_dirs EXP1/<model-name> EXP2/<model-name>] \\
+        [--swag_samples N [--sampling_scale 0.5] [--no_swag_cov] \\
+         [--seed 0]] [--device cpu]
 
 The artifact is exported on the card unless `--device cpu` asks for the
 CPU (without CUDA the default raises); it loads on that device type only.
 The scalers are the data directory's GlobalStandardScaler_{dynamic,bc}.npz
 files, as the JAX driver reads them, whatever scaler the experiment's
 config names.
+
+A BatchNorm model is exported as the JAX package exports it: the rollout
+carries no running statistics, so the artifact normalizes with each
+batch's statistics, and `swag_samples` members get no `bn_update` (a
+reference defect, ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -28,13 +35,16 @@ import numpy as np
 
 
 def main(model_dir, data_dir, out=None, batch_size: int = 4,
-         block_size: int = 10, swag_samples: int = 0, member_dirs=None,
-         verbose: bool = True, device="cuda"):
-    """Ensemble artifacts: `member_dirs` stacks the checkpoints of
-    separately trained DeepEnsemble members (of `model_dir`'s
-    configuration), rolled out in one member-stacked program. Sampling
-    `swag_samples` members from a SWAG checkpoint is not ported yet (the
-    JAX driver's `sampling_scale`, `swag_cov` and `seed` come with it)."""
+         block_size: int = 10, swag_samples: int = 0,
+         sampling_scale: float = 0.5, swag_cov: bool = True,
+         member_dirs=None, seed: int = 0, verbose: bool = True,
+         device="cuda"):
+    """Ensemble artifacts, rolled out in one member-stacked program:
+    `swag_samples=N` samples N member parameter sets from the experiment's
+    SWAG posterior (model_weights/model_swag.npz; a `torch.Generator`
+    seeded with `seed` on the export device draws them); `member_dirs`
+    stacks the checkpoints of separately trained DeepEnsemble members (of
+    `model_dir`'s configuration)."""
     from .._device import resolve_device
     from ..config import get_ar_settings
     from ..data import load_scaler
@@ -44,10 +54,6 @@ def main(model_dir, data_dir, out=None, batch_size: int = 4,
 
     if member_dirs and swag_samples:
         raise ValueError("pass either member_dirs or swag_samples, not both")
-    if swag_samples:
-        raise NotImplementedError(
-            "swag_samples needs prob/swag.py, which is not ported yet "
-            "(ROADMAP Queue 1 item 6)")
     model_dir, data_dir = Path(model_dir), Path(data_dir)
     device = resolve_device(device)
     datasets = open_datasets(data_dir)
@@ -67,6 +73,16 @@ def main(model_dir, data_dir, out=None, batch_size: int = 4,
             Checkpointer(Path(d)).load_model(model)
             member_params.append({k: v.clone()
                                   for k, v in model.state_dict().items()})
+    elif swag_samples:
+        import torch
+
+        from ..prob import SWAG
+        swag = SWAG(model)
+        swag.load(model_dir / "model_weights" / "model_swag.npz")
+        generator = torch.Generator(device=device).manual_seed(int(seed))
+        member_params = [swag.sample(generator, scale=sampling_scale,
+                                     cov=swag_cov)
+                         for _ in range(swag_samples)]
 
     timestep_hours = float(data_dynamic.timestep / np.timedelta64(1, "h"))
     export_kwargs = dict(
@@ -105,13 +121,17 @@ def cli():
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--block_size", type=int, default=10)
     p.add_argument("--swag_samples", type=int, default=0)
+    p.add_argument("--sampling_scale", type=float, default=0.5)
+    p.add_argument("--no_swag_cov", action="store_true")
     p.add_argument("--member_dirs", nargs="*", default=None)
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; raises without a card) or 'cpu'")
     a = p.parse_args()
     main(a.model_dir, a.data_dir, out=a.out, batch_size=a.batch_size,
          block_size=a.block_size, swag_samples=a.swag_samples,
-         member_dirs=a.member_dirs, device=a.device)
+         sampling_scale=a.sampling_scale, swag_cov=not a.no_swag_cov,
+         member_dirs=a.member_dirs, seed=a.seed, device=a.device)
 
 
 if __name__ == "__main__":

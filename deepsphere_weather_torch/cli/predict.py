@@ -36,6 +36,7 @@ def main(model_dir, data_dir, forecast_reference_times=None,
     from .._device import resolve_device
     from ..config import get_ar_settings, get_dataloader_settings
     from ..engine import AutoregressivePredictions
+    from ..utils import Checkpointer
     from .common import load_experiment_model, open_datasets, resolve_scalers
 
     model_dir = Path(model_dir)
@@ -44,6 +45,17 @@ def main(model_dir, data_dir, forecast_reference_times=None,
     data_dynamic, data_bc, data_static = datasets
     cfg, model = load_experiment_model(model_dir, datasets, device)
     ar_settings = get_ar_settings(cfg)
+    # BatchNorm models: eval-mode prediction needs the running statistics
+    # checkpointed by training (norm_state.npz)
+    norm_state = None
+    if model.has_batch_norm:
+        norm_state = Checkpointer(model_dir).load_norm_state(
+            model.norm_state())
+        if norm_state is None:
+            raise FileNotFoundError(
+                f"{model_dir}: batch_norm model has no "
+                "model_weights/norm_state.npz — retrain or run "
+                "prob.bn.bn_update to produce running statistics")
     # the trained model's own scaler composition (from its config.json):
     # predicting with a different scaler than training silently produces
     # garbage in physical units
@@ -65,7 +77,7 @@ def main(model_dir, data_dir, forecast_reference_times=None,
             return toa_solar_radiation(times, lat, lon)[..., None]
 
     forecast = AutoregressivePredictions(
-        model,
+        model, norm_state=norm_state,
         data_dynamic=data_dynamic, data_bc=data_bc,
         bc_generator=bc_generator, data_static=data_static,
         scaler=scaler, scaler_bc=scaler_bc,

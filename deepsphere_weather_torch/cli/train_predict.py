@@ -142,6 +142,7 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
     optimizer = make_optimizer(model.parameters(), training_settings)
     resumed_scheduler = None
     resumed_early_stopping = None
+    initial_norm_state = None
     if resume:
         ck = Checkpointer(exp_path)
         if not ck.has_checkpoint():
@@ -150,6 +151,16 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
                 f"{exp_path / 'model_weights' / 'model.npz'} — nothing to "
                 "resume (use --force for a fresh run)")
         ck.load_model(model)
+        if model.has_batch_norm:
+            # resuming trained BatchNorm weights with fresh running
+            # statistics would corrupt eval-mode validation (and the early
+            # stopping and AR growth it decides) until they re-converge
+            initial_norm_state = ck.load_norm_state(model.norm_state())
+            if initial_norm_state is None:
+                raise FileNotFoundError(
+                    f"--resume: batch_norm model but no running stats at "
+                    f"{exp_path / 'model_weights' / 'norm_state.npz'}. "
+                    "Re-estimate them via prob.bn.bn_update, or retrain.")
         sched_state = ck.load_scheduler_state()
         if sched_state is not None:
             _state = ck.load_training_state(optimizer, model)
@@ -212,13 +223,18 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
         device_cache=dl_settings.get("device_cache", "auto"),
         shuffle=dl_settings["random_shuffling"],
         shuffle_seed=int(training_settings["seed_random_shuffling"]),
+        initial_norm_state=initial_norm_state,
         verbose=verbose,
     )
 
     # --- prediction on the test period (reference: AR=20 -> +120 h,
     #     train_predict_state.py:484) --------------------------------------
+    # BatchNorm models predict in eval mode with the running statistics
+    # accumulated during training (the bn_update pass is for SWAG-sampled
+    # weights, whose statistics training never saw)
     forecast = AutoregressivePredictions(
         model,
+        norm_state=model.norm_state() if model.has_batch_norm else None,
         data_dynamic=test_dyn,
         data_bc=data_bc.subset(te_lo, te_hi) if data_bc else None,
         data_static=data_static,

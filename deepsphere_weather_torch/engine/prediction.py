@@ -20,8 +20,12 @@ while the card computes the next block.
 one smooth analysis-error field per reference time on the input history
 and an independent model-error field on every step's prediction (the
 rollout's `noise_block`), drawn from numpy's generator in the JAX order,
-so both packages perturb identically. Not ported: BatchNorm running
-statistics (ROADMAP Queue 1 item 5).
+so both packages perturb identically.
+
+A BatchNorm model predicts in eval mode with the `norm_state` it is given
+(its running statistics from training, or `prob.bn.bn_update`'s for
+sampled weights); without one it normalizes with each batch's statistics
+and warns, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -172,6 +176,7 @@ def make_bc_reader(data_dynamic, data_bc, bc_generator=None, scaler_bc=None):
 def AutoregressivePredictions(
     model,
     *,
+    norm_state: Optional[Dict[str, torch.Tensor]] = None,
     data_dynamic: SphericalDataset,
     data_bc: Optional[SphericalDataset] = None,
     bc_generator=None,
@@ -318,12 +323,22 @@ def AutoregressivePredictions(
     device = next(model.parameters()).device
     static = (torch.from_numpy(data_static.read_stacked()).to(device)
               if data_static is not None else None)
-    rollout_fn, H = make_rollout_block(model, indexer, ar_blocks)
+    if getattr(model, "has_batch_norm", False) and not norm_state:
+        import warnings
+
+        warnings.warn(
+            "model has BatchNorm but no norm_state was given: predictions "
+            "will normalize with per-batch statistics (torch train-mode "
+            "behavior). Pass norm_state=prob.bn.bn_update(...) for "
+            "eval-mode parity.")
+    rollout_fn, H = make_rollout_block(model, indexer, ar_blocks,
+                                       norm_state=norm_state)
     # the last block may be shorter: without BC the block length is the
     # function's, so a tail-sized one avoids running (and discarding) up
     # to ar_blocks-1 model evaluations per batch
     tail = n_steps % ar_blocks
-    tail_fn = (make_rollout_block(model, indexer, tail)[0]
+    tail_fn = (make_rollout_block(model, indexer, tail,
+                                  norm_state=norm_state)[0]
                if 0 < tail < ar_blocks and n_steps > ar_blocks else None)
     min_k = min(indexer.input_k)
     out_arrays = {name: g[name] for name in data_dynamic.feature_order}

@@ -21,11 +21,25 @@ eps=1e-7)`: both add eps outside the square root).
   node- and data-parallel step: GSPMD's collectives in the JAX package
   (`step.py:211-257`, `:315-330`) are written out here
   (`reduce_gradients`, the reported losses).
-- `make_rollout_block`: the rolling-history block rollout for prediction.
-
-Not ported yet: the BatchNorm variants (`with_norm_state`,
-`collect_stats`, `eval_mode`), the member (ensemble) steps and
-`noise_block`.
+- BatchNorm models (`models/layers.py`): `collect_stats` makes the loss
+  return every AR iteration's batch statistics, `with_norm_state` makes a
+  train step fold them into the model's running statistics after the
+  update (`fold_running_stats`: one momentum-0.1 update per model call,
+  in order, under `no_grad`), and `eval_mode` makes a validation function
+  normalize with the running statistics.
+- The member (DeepEnsemble) steps `make_member_train_step`,
+  `make_cached_member_train_step`, `make_member_validation_fn` and
+  `make_cached_member_validation_fn` run every member of a
+  `models.MemberStack` at once: `torch.func.grad` of the loss through
+  `functional_call` under `torch.func.vmap`, the batch shared. Each
+  block-sparse product is one launch for all members, forward and
+  backward (the registered op's vmap rule and `_MatVec`'s generated one).
+  Gradient clipping is per member (`engine.optim.Adam(member_axis=True)`),
+  as the JAX package clips inside its vmap; Adam itself is elementwise,
+  so one optimizer over the stacked parameters is exact.
+- `make_rollout_block`: the rolling-history block rollout for prediction,
+  with the model-error perturbation `noise_block` and, for BatchNorm
+  models, eval-mode normalization with a given `norm_state`.
 """
 
 from __future__ import annotations
@@ -42,9 +56,11 @@ from ..parallel.mesh import ProcessMesh, node_range
 from .loss import weighted_mse
 
 __all__ = ["assemble_input", "keep_first_feedback", "make_ar_loss_fn",
-           "make_train_step", "make_validation_fn", "make_cached_train_step",
-           "make_cached_validation_fn", "make_rollout_block",
-           "reduce_gradients"]
+           "fold_running_stats", "make_train_step", "make_validation_fn",
+           "make_cached_train_step", "make_cached_validation_fn",
+           "make_member_train_step", "make_cached_member_train_step",
+           "make_member_validation_fn", "make_cached_member_validation_fn",
+           "make_rollout_block", "reduce_gradients"]
 
 
 def keep_first_feedback(indexer: ARIndexer) -> bool:
@@ -71,11 +87,25 @@ def assemble_input(dyn_buf: torch.Tensor, bc: Optional[torch.Tensor],
     return torch.cat(parts, dim=-1)
 
 
+def _flat_stats(stats: Dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A model call's nested statistics -> {buffer name: tensor}."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in stats.items():
+        if isinstance(v, dict):
+            out.update(_flat_stats(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
 def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
                     ar_training_strategy: str = "RNN",
                     remat: bool = False,
-                    mesh: Optional[ProcessMesh] = None) -> Callable:
-    """Build loss(batch, ar_weights, area_w=None) -> (total, per_iter).
+                    mesh: Optional[ProcessMesh] = None,
+                    collect_stats: bool = False,
+                    eval_mode: bool = False) -> Callable:
+    """Build loss(batch, ar_weights, area_w=None, tensors=None) ->
+    (total, per_iter), or (total, (per_iter, stats)) with `collect_stats`.
 
     batch: {'dynamic': [B, W, V, Fd], 'bc': [B, W, V, Fb] (optional),
     'static': [V, Fs] (optional)} on the model's device; ar_weights: at
@@ -84,15 +114,34 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
     per_iter is [n_scan_iterations]. On a `mesh` with a node axis, V is
     this rank's node shard of the batch, area_w is still the whole [V_all]
     vector (this function takes the rank's range and normalises by the
-    whole sum), and the losses are the rank's shares (`weighted_mse`)."""
+    whole sum), and the losses are the rank's shares (`weighted_mse`).
+
+    `tensors` ({name: tensor}, parameters and/or buffers) runs the model
+    on them (`torch.func.functional_call`) instead of its own: the member
+    steps pass one member's under `vmap`.
+
+    BatchNorm models: `collect_stats` returns the statistics of every
+    model call, {buffer name: [n_scan_iterations, C]}, detached (they feed
+    the running update only); `eval_mode` normalizes with the running
+    statistics (the model's buffers, or those in `tensors`): the JAX
+    package validates BatchNorm models so, as the reference does under
+    model.eval()."""
     if ar_training_strategy not in ("RNN", "AR"):
         raise ValueError("ar_training_strategy must be 'RNN' or 'AR'")
+    if collect_stats and eval_mode:
+        raise ValueError("collect_stats is a training-mode channel")
+    if (mesh is not None and (mesh.n_node > 1 or mesh.n_data > 1)
+            and getattr(model, "has_batch_norm", False)):
+        raise NotImplementedError(
+            "BatchNorm statistics over a node or data mesh are not ported "
+            "(each rank would normalize with its shard's statistics)")
     in_pos = np.asarray(indexer.input_pos)
     out_pos = np.asarray(indexer.output_pos)
     detach = ar_training_strategy == "AR"
     keep_first = keep_first_feedback(indexer)
 
-    def loss_fn(batch: Dict, ar_weights, area_w=None):
+    def loss_fn(batch: Dict, ar_weights, area_w=None,
+                tensors: Optional[Dict[str, torch.Tensor]] = None):
         dyn = batch["dynamic"]
         bc = batch.get("bc")
         static = batch.get("static")
@@ -101,9 +150,20 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
         pouts = torch.as_tensor(out_pos, dtype=torch.long, device=dev)
         weights, w_sum = _node_weights(area_w, dyn.shape[2], mesh)
 
+        def forward(x):
+            kw = {"train": False} if eval_mode else {}
+            stats = {} if collect_stats else None
+            if stats is not None:
+                kw["stats_out"] = stats
+            if tensors is not None:
+                y = torch.func.functional_call(model, tensors, (x,), kw)
+            else:
+                y = model(x, **kw)
+            return y, (None if stats is None else _flat_stats(stats))
+
         def step(dyn_buf, written, i):
             x = assemble_input(dyn_buf, bc, static, pins[i])
-            y_pred = model(x)
+            y_pred, stats = forward(x)
             loss = weighted_mse(y_pred, dyn.index_select(1, pouts[i]),
                                 weights, w_sum=w_sum)
             y_write = y_pred.detach() if detach else y_pred
@@ -114,25 +174,53 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
                 wmask = written[pouts[i]]
                 y_write = torch.where(wmask[None, :, None, None], prev, y_write)
                 written = written.index_fill(0, pouts[i], True)
-            return dyn_buf.index_copy(1, pouts[i], y_write), written, loss
+            return (dyn_buf.index_copy(1, pouts[i], y_write), written, loss,
+                    stats)
 
         dyn_buf = dyn
         written = torch.zeros(dyn.shape[1], dtype=torch.bool, device=dev)
-        losses = []
+        losses, all_stats = [], []
         for i in range(n_scan_iterations):
             if remat:
-                dyn_buf, written, loss = checkpoint(
+                dyn_buf, written, loss, stats = checkpoint(
                     step, dyn_buf, written, i, use_reentrant=False)
             else:
-                dyn_buf, written, loss = step(dyn_buf, written, i)
+                dyn_buf, written, loss, stats = step(dyn_buf, written, i)
             losses.append(loss)
+            all_stats.append(stats)
         per_iter = torch.stack(losses)
         w = torch.as_tensor(ar_weights, dtype=torch.float32,
                             device=dev)[:n_scan_iterations]
         w = w / torch.clamp(w.sum(), min=1e-12)
-        return (per_iter * w).sum(), per_iter
+        total = (per_iter * w).sum()
+        if collect_stats:
+            stats = {k: torch.stack([s[k] for s in all_stats])
+                     for k in all_stats[0]}
+            return total, (per_iter, stats)
+        return total, per_iter
 
     return loss_fn
+
+
+@torch.no_grad()
+def fold_running_stats(norm_state: Dict[str, torch.Tensor],
+                       scan_stats: Dict[str, torch.Tensor],
+                       momentum: float = 0.1) -> Dict[str, torch.Tensor]:
+    """In place: fold a loss's per-iteration batch statistics into the
+    running statistics; returns `norm_state`.
+
+    norm_state: {name: [C]} (or member-stacked [M, C]); scan_stats the
+    same names with the scan axis before C ([n_scan, C] or [M, n_scan,
+    C]). Each AR iteration's model call applies one momentum update in
+    order, as torch BN updates in every training-mode forward (the JAX
+    package's `fold_running_stats`)."""
+    for name, state in norm_state.items():
+        stats = scan_stats[name]
+        out = state.clone()
+        for i in range(stats.shape[-2]):
+            out = (1.0 - momentum) * out + momentum * stats[..., i, :]
+        state.copy_(out)
+    return norm_state
 
 
 def _node_weights(area_w, n_local: int, mesh: Optional[ProcessMesh]):
@@ -184,23 +272,33 @@ def _global_losses(total, per_iter, mesh):
 
 
 def _optimizer_step(model, optimizer, loss_fn, batch, ar_weights, area_w,
-                    mesh=None):
+                    mesh=None, with_norm_state=False):
     optimizer.zero_grad(set_to_none=True)
-    total, per_iter = loss_fn(batch, ar_weights, area_w)
+    total, aux = loss_fn(batch, ar_weights, area_w)
     total.backward()
     reduce_gradients(model, mesh)
     optimizer.step()
-    return _global_losses(total, per_iter, mesh)
+    if with_norm_state:
+        per_iter, stats = aux
+        fold_running_stats(model.norm_state(), stats)
+        aux = per_iter
+    return _global_losses(total, aux, mesh)
 
 
 def make_train_step(model, indexer: ARIndexer, optimizer,
                     n_scan_iterations: int,
                     ar_training_strategy: str = "RNN",
                     remat: bool = False,
-                    mesh: Optional[ProcessMesh] = None) -> Callable:
+                    mesh: Optional[ProcessMesh] = None,
+                    with_norm_state: bool = False) -> Callable:
     """Train step: (batch, ar_weights, area_w=None) -> (total, per_iter),
     detached, after one update of `optimizer` (over `model`'s
     parameters). Nothing synchronizes with the host.
+
+    `with_norm_state` (BatchNorm models): each AR iteration's batch
+    statistics then fold into the model's running statistics after the
+    update (`fold_running_stats`), as the JAX step folds them into the
+    norm_state it threads.
 
     With a `mesh`, one rank's step: `batch` is its shard
     (`parallel.shard_batch`), `area_w` the whole [V] weights (the step
@@ -210,21 +308,24 @@ def make_train_step(model, indexer: ARIndexer, optimizer,
     returned losses are the global ones. Every rank runs the same update,
     so parameters that start equal (`weights.broadcast_params`) stay so."""
     loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations,
-                              ar_training_strategy, remat=remat, mesh=mesh)
+                              ar_training_strategy, remat=remat, mesh=mesh,
+                              collect_stats=with_norm_state)
 
     def train_step(batch: Dict, ar_weights, area_w=None):
         return _optimizer_step(model, optimizer, loss_fn, batch, ar_weights,
-                               area_w, mesh)
+                               area_w, mesh, with_norm_state)
 
     return train_step
 
 
 def make_validation_fn(model, indexer: ARIndexer, n_scan_iterations: int,
-                       mesh: Optional[ProcessMesh] = None) -> Callable:
+                       mesh: Optional[ProcessMesh] = None,
+                       eval_mode: bool = False) -> Callable:
     """(batch, ar_weights, area_w=None) -> (total, per_iter), no gradient;
-    with a `mesh` as `make_train_step`'s."""
+    with a `mesh` as `make_train_step`'s. `eval_mode` (BatchNorm models)
+    normalizes with the model's running statistics."""
     loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations, "RNN",
-                              mesh=mesh)
+                              mesh=mesh, eval_mode=eval_mode)
 
     @torch.no_grad()
     def validate(batch: Dict, ar_weights, area_w=None):
@@ -251,28 +352,32 @@ def make_cached_train_step(model, indexer: ARIndexer, optimizer,
                            n_scan_iterations: int,
                            ar_training_strategy: str = "RNN",
                            remat: bool = False,
-                           mesh: Optional[ProcessMesh] = None) -> Callable:
+                           mesh: Optional[ProcessMesh] = None,
+                           with_norm_state: bool = False) -> Callable:
     """Train step over a device-resident dataset: (data, widx, ar_weights,
     area_w=None) -> (total, per_iter); the same update as
-    `make_train_step` on the gathered batch. With a `mesh`, `data` is the
-    rank's part (`parallel.put_device_dataset`) and `widx` its batch rows
+    `make_train_step` on the gathered batch (`with_norm_state` as
+    there). With a `mesh`, `data` is the rank's part
+    (`parallel.put_device_dataset`) and `widx` its batch rows
     (`parallel.shard_window_indices`)."""
     loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations,
-                              ar_training_strategy, remat=remat, mesh=mesh)
+                              ar_training_strategy, remat=remat, mesh=mesh,
+                              collect_stats=with_norm_state)
 
     def train_step(data: Dict, widx, ar_weights, area_w=None):
         return _optimizer_step(model, optimizer, loss_fn,
                                _gather_window_batch(data, widx), ar_weights,
-                               area_w, mesh)
+                               area_w, mesh, with_norm_state)
 
     return train_step
 
 
 def make_cached_validation_fn(model, indexer: ARIndexer,
                               n_scan_iterations: int,
-                              mesh: Optional[ProcessMesh] = None) -> Callable:
+                              mesh: Optional[ProcessMesh] = None,
+                              eval_mode: bool = False) -> Callable:
     loss_fn = make_ar_loss_fn(model, indexer, n_scan_iterations, "RNN",
-                              mesh=mesh)
+                              mesh=mesh, eval_mode=eval_mode)
 
     @torch.no_grad()
     def validate(data: Dict, widx, ar_weights, area_w=None):
@@ -283,8 +388,130 @@ def make_cached_validation_fn(model, indexer: ARIndexer,
     return validate
 
 
-def make_rollout_block(model, indexer: ARIndexer,
-                       block_size: int) -> Tuple[Callable, int]:
+# ---------------------------------------------------------------------------
+# Member-parallel (DeepEnsemble) steps over a `models.MemberStack`
+# ---------------------------------------------------------------------------
+
+def _member_update(stack, optimizer, loss_fn, batch, ar_weights, area_w,
+                   with_norm_state):
+    """One update of every member: per-member gradients from `torch.func`
+    (grad under vmap, the batch shared), then one optimizer step over the
+    stacked parameters and, with norm state, the per-member fold."""
+    params = {k: p.detach() for k, p in stack.named_parameters()}
+    buffers = stack.norm_state()
+
+    def one(p, b):
+        def loss(p_):
+            total, aux = loss_fn(batch, ar_weights, area_w,
+                                 tensors={**p_, **b})
+            return total, (total.detach(), aux)
+        grads, (total, aux) = torch.func.grad(loss, has_aux=True)(p)
+        return grads, total, aux
+
+    grads, total, aux = torch.func.vmap(one)(params, buffers)
+    optimizer.zero_grad(set_to_none=True)
+    for name, p in stack.named_parameters():
+        p.grad = grads[name]
+    optimizer.step()
+    if with_norm_state:
+        aux, stats = aux
+        fold_running_stats(buffers, stats)
+    return total.detach(), aux.detach()
+
+
+def _member_loss(stack, indexer, n_scan_iterations, ar_training_strategy,
+                 remat, with_norm_state):
+    if remat:
+        raise NotImplementedError(
+            "remat=True in member steps: torch.utils.checkpoint does not run "
+            "under torch.func.grad and vmap; train members without remat")
+    if getattr(stack, "n_members", None) is None:
+        raise TypeError("member steps take a models.MemberStack")
+    return make_ar_loss_fn(stack.model, indexer, n_scan_iterations,
+                           ar_training_strategy,
+                           collect_stats=with_norm_state)
+
+
+def make_member_train_step(stack, indexer: ARIndexer, optimizer,
+                           n_scan_iterations: int,
+                           ar_training_strategy: str = "RNN",
+                           remat: bool = False,
+                           with_norm_state: bool = False) -> Callable:
+    """Member-parallel train step over a `models.MemberStack`:
+    (batch, ar_weights, area_w=None) -> (total [M], per_iter [M, n_scan]),
+    detached, after one update of `optimizer` (over `stack.parameters()`;
+    `engine.optim.Adam(member_axis=True)` clips each member by its own
+    global norm). Every member trains on the same batch. With
+    `with_norm_state` each member's statistics fold into its own running
+    statistics (`stack.norm_state()`, [M, C]). `remat` raises."""
+    loss_fn = _member_loss(stack, indexer, n_scan_iterations,
+                           ar_training_strategy, remat, with_norm_state)
+
+    def train_step(batch: Dict, ar_weights, area_w=None):
+        return _member_update(stack, optimizer, loss_fn, batch, ar_weights,
+                              area_w, with_norm_state)
+
+    return train_step
+
+
+def make_cached_member_train_step(stack, indexer: ARIndexer, optimizer,
+                                  n_scan_iterations: int,
+                                  ar_training_strategy: str = "RNN",
+                                  remat: bool = False,
+                                  with_norm_state: bool = False) -> Callable:
+    """`make_member_train_step` over a device-resident dataset: (data,
+    widx, ar_weights, area_w=None); the window batch is gathered once and
+    shared by every member."""
+    loss_fn = _member_loss(stack, indexer, n_scan_iterations,
+                           ar_training_strategy, remat, with_norm_state)
+
+    def train_step(data: Dict, widx, ar_weights, area_w=None):
+        return _member_update(stack, optimizer, loss_fn,
+                              _gather_window_batch(data, widx), ar_weights,
+                              area_w, with_norm_state)
+
+    return train_step
+
+
+def _member_validate(stack, loss_fn, batch, ar_weights, area_w):
+    def one(t):
+        return loss_fn(batch, ar_weights, area_w, tensors=t)
+    with torch.no_grad():
+        return torch.func.vmap(one)(stack.tensors())
+
+
+def make_member_validation_fn(stack, indexer: ARIndexer,
+                              n_scan_iterations: int,
+                              eval_mode: bool = False) -> Callable:
+    """(batch, ar_weights, area_w=None) -> (total [M], per_iter [M,
+    n_scan]), no gradient; `eval_mode` normalizes each member with its
+    own running statistics."""
+    loss_fn = make_ar_loss_fn(stack.model, indexer, n_scan_iterations, "RNN",
+                              eval_mode=eval_mode)
+
+    def validate(batch: Dict, ar_weights, area_w=None):
+        return _member_validate(stack, loss_fn, batch, ar_weights, area_w)
+
+    return validate
+
+
+def make_cached_member_validation_fn(stack, indexer: ARIndexer,
+                                     n_scan_iterations: int,
+                                     eval_mode: bool = False) -> Callable:
+    loss_fn = make_ar_loss_fn(stack.model, indexer, n_scan_iterations, "RNN",
+                              eval_mode=eval_mode)
+
+    def validate(data: Dict, widx, ar_weights, area_w=None):
+        return _member_validate(stack, loss_fn,
+                                _gather_window_batch(data, widx), ar_weights,
+                                area_w)
+
+    return validate
+
+
+def make_rollout_block(model, indexer: ARIndexer, block_size: int,
+                       norm_state: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Tuple[Callable, int]:
     """Build the block-rollout function. Returns (rollout_fn, H).
 
     rollout_fn(hist, wmask, bc_block, static, noise_block=None) ->
@@ -298,6 +525,11 @@ def make_rollout_block(model, indexer: ARIndexer,
     keep_first_feedback(indexer); then start with torch.zeros(H, bool) and
     thread the returned mask into the next block.
 
+    A non-empty `norm_state` ({buffer name: tensor}, the running
+    statistics of a BatchNorm model) makes every model call normalize in
+    eval mode with it; without one a BatchNorm model normalizes with each
+    batch's statistics, as the JAX rollout does.
+
     The function records gradients when they are on: callers that only
     predict run it under `torch.inference_mode()` (or `torch.no_grad()`,
     which `torch.export` traces; it takes no inference tensors).
@@ -309,6 +541,12 @@ def make_rollout_block(model, indexer: ARIndexer,
     in_pos = [k - min_k for k in indexer.input_k]
     out_pos = [k - min_k for k in indexer.output_k]
     keep_first = keep_first_feedback(indexer)
+    if norm_state:
+        def forward(x):
+            return torch.func.functional_call(model, norm_state, (x,),
+                                              {"train": False})
+    else:
+        forward = model
 
     def rollout(hist: torch.Tensor, wmask: Optional[torch.Tensor],
                 bc_block: Optional[torch.Tensor],
@@ -338,7 +576,7 @@ def make_rollout_block(model, indexer: ARIndexer,
             if bc_block is not None:
                 parts.append(bc_block[:, i])              # [B, n_in, V, Fb]
             parts.append(x_dyn)
-            y = model(torch.cat(parts, dim=-1))           # [B, n_out, V, Fd]
+            y = forward(torch.cat(parts, dim=-1))         # [B, n_out, V, Fd]
             if noise_block is not None:
                 y = y + noise_block[:, i]
             y_write = y

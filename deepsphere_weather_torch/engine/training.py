@@ -20,16 +20,29 @@ and validation steps of `engine/step.py` with:
   once and each step gathers its windows there
   (`make_cached_train_step`); otherwise the loader streams assembled
   batches to the device (`make_train_step`);
-- an optional node- and data-parallel `mesh` (`parallel.make_mesh`).
+- an optional node- and data-parallel `mesh` (`parallel.make_mesh`);
+- BatchNorm models: every step folds its batch statistics into the
+  running statistics (the model's buffers, `engine.step.fold_running_stats`),
+  validation scores in eval mode with them, and checkpoints save them
+  (`model_weights/norm_state.npz`, restored by the divergence rescue). As
+  in the JAX package, a run starts from fresh statistics (mean 0, var 1)
+  unless `initial_norm_state` gives others;
+- member-parallel ensembles (`n_members`): `model` is then a
+  `models.MemberStack` of that many members, every member advances in one
+  step on shared batches (`make_member_train_step`), the scalar metrics
+  are member means (early stopping and AR growth act on the mean) and the
+  per-member validation losses land in `ARTrainingInfo.per_member_loss`;
+- SWAG collection (`swag`, `swag_model`, `swag_freq`, `swa_start`): at a
+  scoring interval with `update >= swa_start`, every `swag_freq`-th one
+  collects the parameters into `swag_model` (`prob.SWAG`).
 
 The model holds its parameters and the optimizer its state, both updated
 in place; a resumed run loads them first (`utils.Checkpointer`). Steps are
 queued without a host synchronization; the loss is read once per scoring
 interval.
 
-Not ported: member-stacked ensembles (`n_members` raises) and SWAG
-collection (ROADMAP Queue 1 item 6), BatchNorm models (item 5: the model
-refuses `batch_norm` when it is built), and the training plots
+Not ported: the member axis of a mesh (ROADMAP Queue 1 item 6a; `n_members`
+with a mesh of more than one rank raises) and the training plots
 (`ARTrainingInfo.plots`, item 9).
 """
 
@@ -53,8 +66,11 @@ from ..parallel.mesh import (TRAIN_BATCH_KEYS, put_device_dataset,
 from ..utils.checkpoint import Checkpointer
 from .optim import Adam
 from .scheduler import ARScheduler, EarlyStopping
-from .step import (make_cached_train_step, make_cached_validation_fn,
-                   make_train_step, make_validation_fn)
+from .step import (make_cached_member_train_step,
+                   make_cached_member_validation_fn, make_cached_train_step,
+                   make_cached_validation_fn, make_member_train_step,
+                   make_member_validation_fn, make_train_step,
+                   make_validation_fn)
 
 __all__ = ["ARTrainingInfo", "AutoregressiveTraining"]
 
@@ -91,7 +107,8 @@ class ARTrainingInfo:
     ar_growth_events: List[int] = dataclasses.field(default_factory=list)
     epoch_boundaries: List[int] = dataclasses.field(default_factory=list)
     samples_per_sec: List[float] = dataclasses.field(default_factory=list)
-    # member-parallel runs only (not ported): stays empty
+    # member-parallel runs: per-member validation loss at each scoring
+    # interval ([n_intervals][n_members]); empty for single-member runs
     per_member_loss: List[List[float]] = dataclasses.field(default_factory=list)
 
     def to_dict(self) -> Dict:
@@ -104,6 +121,32 @@ class ARTrainingInfo:
     @classmethod
     def load(cls, path) -> "ARTrainingInfo":
         return cls(**json.loads(Path(path).read_text()))
+
+
+@torch.no_grad()
+def _start_norm_state(model, initial: Optional[Dict], n_members):
+    """The running statistics a run starts from, in place: `initial`, or
+    fresh ones (mean 0, var 1) as the JAX driver starts. A member stack
+    takes a single-model state broadcast to every member; any other shape
+    raises (the JAX package's check)."""
+    state = model.norm_state()
+    for name, buf in state.items():
+        if initial is None:
+            buf.fill_(0.0 if name.endswith("mean") else 1.0)
+            continue
+        given = torch.as_tensor(initial[name], dtype=buf.dtype)
+        single = buf.shape[1:] if n_members is not None else buf.shape
+        if n_members is not None and given.shape == single:
+            given = given.expand_as(buf)
+        elif given.shape != buf.shape:
+            raise ValueError(
+                f"initial_norm_state leaf shape {tuple(given.shape)} "
+                f"matches neither the single-model template "
+                f"{tuple(single)} nor the member-stacked "
+                f"{(n_members,) + tuple(single)}" if n_members is not None
+                else f"initial_norm_state {name} has shape "
+                     f"{tuple(given.shape)}, the model's {tuple(buf.shape)}")
+        buf.copy_(given.to(buf.device))
 
 
 def _put_batch(batch: Dict, mesh, device) -> Dict:
@@ -168,19 +211,41 @@ def AutoregressiveTraining(
     autotune_num_workers: bool = False,
     shuffle: bool = True,
     shuffle_seed: int = 69,
+    # SWAG hooks (reference finetune_swag.py:354-401)
+    swag: bool = False,
+    swag_model=None,
+    swag_freq: int = 10,
+    swa_start: int = 0,
     n_members: Optional[int] = None,
+    initial_norm_state: Optional[Dict] = None,
     verbose: bool = True,
 ):
     """Train `model` in place; returns (model, optimizer, ARTrainingInfo).
 
     `optimizer` defaults to `engine.optim.Adam(model.parameters(),
-    learning_rate)` (the JAX package's `optax.adam(lr, eps=1e-7)`). The
-    batches and the area weights go to the model's device (a mesh's
-    device on a mesh)."""
-    if n_members is not None:
+    learning_rate)` (the JAX package's `optax.adam(lr, eps=1e-7)`; with
+    `n_members`, clipping per member). The batches and the area weights go
+    to the model's device (a mesh's device on a mesh).
+
+    With `n_members`, `model` is a `models.MemberStack` of that many
+    members. `initial_norm_state` ({buffer name: tensor}) starts a
+    BatchNorm model's running statistics; for a member stack a
+    single-model state is broadcast to every member."""
+    if n_members is not None and swag:
+        raise ValueError("member-parallel training does not compose with "
+                         "SWAG collection (collect per member separately)")
+    if n_members is not None and mesh is not None and \
+            mesh.n_data * mesh.n_node > 1:
+        # the member steps reduce nothing over a mesh's groups: each rank
+        # would train its members on its own shard alone
         raise NotImplementedError(
-            "member-parallel ensembles are not ported yet (ROADMAP Queue 1 "
-            "item 6)")
+            "member-parallel training over a mesh of more than one rank is "
+            "not ported (ROADMAP Queue 1 item 6a, the mesh's member axis): "
+            "train the member stack on one device")
+    if n_members is not None and getattr(model, "n_members",
+                                         None) != n_members:
+        raise TypeError(f"n_members={n_members} needs a models.MemberStack "
+                        f"of {n_members} members as `model`")
     if early_stopping_reset_on_growth not in ("counter", "full"):
         raise ValueError("early_stopping_reset_on_growth must be 'counter' "
                          "or 'full'")
@@ -190,7 +255,15 @@ def AutoregressiveTraining(
         next(model.parameters()).device
     if optimizer is None:
         # reference: Adam(lr, eps=1e-7) (train_predict_state.py:334)
-        optimizer = Adam(model.parameters(), lr=learning_rate)
+        optimizer = Adam(model.parameters(), lr=learning_rate,
+                         member_axis=n_members is not None)
+    if (n_members is not None and getattr(optimizer, "gradient_clipping", 0)
+            and not getattr(optimizer, "member_axis", False)):
+        raise ValueError("a member stack clips each member by its own norm: "
+                         "build the optimizer with member_axis=True")
+    has_bn = bool(getattr(model, "has_batch_norm", False))
+    if has_bn:
+        _start_norm_state(model, initial_norm_state, n_members)
     if ar_scheduler is None:
         ar_scheduler = ARScheduler(method="Constant",
                                    initial_ar_absolute_weights=[1.0] *
@@ -253,18 +326,33 @@ def AutoregressiveTraining(
     def get_steps(n_iters: int):
         if n_iters not in step_cache:
             n_scan = n_iters + 1
-            mk_train = make_cached_train_step if use_cache else make_train_step
-            mk_val = (make_cached_validation_fn if use_cache
-                      else make_validation_fn)
-            step_cache[n_iters] = (
-                mk_train(model, indexer, optimizer, n_scan,
-                         ar_training_strategy, remat=remat, mesh=mesh),
-                mk_val(model, indexer, n_scan, mesh=mesh),
-            )
+            if n_members is not None:
+                step_cache[n_iters] = (
+                    (make_cached_member_train_step if use_cache
+                     else make_member_train_step)(
+                        model, indexer, optimizer, n_scan,
+                        ar_training_strategy, remat=remat,
+                        with_norm_state=has_bn),
+                    (make_cached_member_validation_fn if use_cache
+                     else make_member_validation_fn)(
+                        model, indexer, n_scan, eval_mode=has_bn))
+            else:
+                step_cache[n_iters] = (
+                    (make_cached_train_step if use_cache
+                     else make_train_step)(
+                        model, indexer, optimizer, n_scan,
+                        ar_training_strategy, remat=remat, mesh=mesh,
+                        with_norm_state=has_bn),
+                    (make_cached_validation_fn if use_cache
+                     else make_validation_fn)(
+                        model, indexer, n_scan, mesh=mesh,
+                        eval_mode=has_bn))
         return step_cache[n_iters]
 
     def save_checkpoint():
         ckpt.save_model(model)
+        if has_bn:
+            ckpt.save_norm_state(model.norm_state())
         ckpt.save_training_state(optimizer, model, ar_scheduler.state_dict(),
                                  early_stopping.state_dict())
 
@@ -280,6 +368,7 @@ def AutoregressiveTraining(
     # an already-exploding run's first post-growth validation would become
     # the stage's "best" and disarm the guard; best_ever survives resets
     best_ever = np.inf
+    swag_counter = 0
     model.train()
     for epoch in range(epochs):
         if stop:
@@ -319,8 +408,9 @@ def AutoregressiveTraining(
             steps_in_interval += 1
 
             if update % scoring_interval == 0:
-                # one host synchronization per interval
-                total = float(total)
+                # one host synchronization per interval; member runs
+                # report the member mean
+                total = float(total.mean())
                 dt = time.perf_counter() - t_interval
                 info.iterations.append(update)
                 info.training_total_loss.append(total)
@@ -339,7 +429,9 @@ def AutoregressiveTraining(
                 ar_scheduler.step()
                 # --- validation -----------------------------------------
                 val_loss = total
-                per_iter_val = [float(x) for x in per_iter.cpu().numpy()]
+                per_member = None
+                per_iter_val = [float(x) for x in per_iter.reshape(
+                    -1, per_iter.shape[-1]).mean(0).cpu().numpy()]
                 if val_ds is not None:
                     _, val_fn = get_steps(n_iters)
                     vloader = AutoregressiveDataLoader(
@@ -363,12 +455,17 @@ def AutoregressiveTraining(
                                 and nb >= validation_batches):
                             break
                     if nb:
-                        val_loss = float(tot) / nb
-                        per_iter_val = [float(x) for x in
-                                        (per / nb).cpu().numpy()]
+                        val_loss = float(tot.mean()) / nb
+                        if n_members is not None:
+                            per_member = [float(x) for x in
+                                          (tot / nb).cpu().numpy()]
+                        per_iter_val = [float(x) for x in (per / nb).reshape(
+                            -1, per.shape[-1]).mean(0).cpu().numpy()]
                 info.validation_iterations.append(update)
                 info.validation_total_loss.append(val_loss)
                 info.per_iteration_loss.append(per_iter_val)
+                if per_member is not None:
+                    info.per_member_loss.append(per_member)
                 info.ar_weights_history.append(
                     [float(x) for x in ar_scheduler.ar_weights])
                 if verbose:
@@ -378,6 +475,12 @@ def AutoregressiveTraining(
                           f"{np.round(ar_scheduler.ar_weights, 3)} "
                           f"({info.samples_per_sec[-1]:.1f} samples/s)",
                           flush=True)
+
+                # --- SWAG collection -----------------------------------
+                if swag and swag_model is not None and update >= swa_start:
+                    swag_counter += 1
+                    if swag_counter % swag_freq == 0:
+                        swag_model.collect_model(model)
 
                 # restart the throughput clock after validation and
                 # checkpointing, so their time is not charged to the next
@@ -404,6 +507,8 @@ def AutoregressiveTraining(
                         cur_lr *= 0.5
                         ckpt.load_model(model)
                         ckpt.load_training_state(optimizer, model)
+                        if has_bn:
+                            ckpt.load_norm_state(model.norm_state())
                         _set_opt_lr(optimizer, cur_lr)
                         early_stopping.reset()
                         kind = "exploding" if exploded else "non-finite"

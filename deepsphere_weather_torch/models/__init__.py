@@ -5,7 +5,13 @@ from .geometry import (  # noqa: F401
     build_model_geometry,
     shard_geometry,
 )
-from .layers import ConvBlock, ResBlock, get_activation  # noqa: F401
+from .layers import (  # noqa: F401
+    ConvBlock,
+    ResBlock,
+    block_has_batch_norm,
+    get_activation,
+)
+from .members import MemberStack  # noqa: F401
 from .unet import UNetSpherical  # noqa: F401
 
 # the JAX package's architectures (`deepsphere_weather_tpu/models`); only

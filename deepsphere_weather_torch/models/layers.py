@@ -1,11 +1,26 @@
 """Model building blocks: ConvBlock and ResBlock.
 
 Port of `deepsphere_weather_tpu/models/layers.py` as `nn.Module`s, with the
-same parameter names (`weight`, `bias`, `rezero_weight`, `res_kernel`,
-`res_bias`) and shapes, the same activation map and the same He/Glorot
-initialization table. Graph convolutions without normalization only,
-which is what every shipped configuration uses: 'batch'/'layer' norm and
-the equiangular image convolution raise `NotImplementedError`.
+same parameter names (`weight`, `bias`, `norm_scale`, `norm_bias`,
+`rezero_weight`, `res_kernel`, `res_bias`) and shapes, the same activation
+map and the same He/Glorot initialization table. Graph convolutions only:
+the equiangular image convolution raises `NotImplementedError`.
+
+Normalization (`batch_norm`) follows the JAX package's functional design,
+not `nn.BatchNorm1d`'s in-place one:
+
+- True / 'batch': BatchNorm over every leading axis (batch and node), in
+  fp32 whatever the compute dtype, eps 1e-5. `train=True` (the default,
+  as in the JAX `apply`) normalizes with the batch's biased statistics;
+  `train=False` with the running statistics, the buffers `mean` and `var`
+  (registered non-persistent: `state_dict()` stays the JAX params tree,
+  and the running statistics are the JAX `norm_state`, saved apart).
+  A forward never updates them: with a `stats_out` dict it only collects
+  its batch mean and unbiased variance there, and the caller folds them
+  in (`engine.step.fold_running_stats`, `prob.bn.bn_update`), outside any
+  gradient or `torch.func.vmap`.
+- 'layer' / 'layernorm': stateless normalization over the channels.
+- False: none (every shipped configuration).
 """
 
 from __future__ import annotations
@@ -19,7 +34,10 @@ from torch import nn
 
 from ..ops.cheb import ChebOperator, cheb_conv
 
-__all__ = ["get_activation", "init_cheb_weight", "ConvBlock", "ResBlock"]
+__all__ = ["get_activation", "init_cheb_weight", "ConvBlock", "ResBlock",
+           "block_has_batch_norm"]
+
+NORM_EPS = 1e-5
 
 _RELU_FAMILY = {
     "relu", "celu", "selu", "prelu", "hardswish", "mish", "silu", "swish",
@@ -105,23 +123,32 @@ def init_cheb_weight(in_channels: int, out_channels: int, kernel_size: int,
 
 
 class ConvBlock(nn.Module):
-    """Chebyshev conv -> activation."""
+    """Chebyshev conv -> [norm] -> activation -> [norm] (module docstring)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  cheb_op: Optional[ChebOperator],
                  kernel_size: int = 3, conv_type: str = "graph",
                  bias: bool = True, batch_norm=False,
+                 batch_norm_before_activation: bool = False,
                  activation: bool = True, activation_fun: str = "relu",
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if batch_norm:
-            raise NotImplementedError(
-                "batch/layer normalization is not ported yet (ROADMAP Queue "
-                "1 item 5)")
+        if batch_norm is True or batch_norm == "batch":
+            self.norm_kind: Optional[str] = "batch"
+        elif batch_norm in ("layer", "layernorm"):
+            self.norm_kind = "layer"
+        elif not batch_norm:
+            self.norm_kind = None
+        else:
+            raise ValueError(f"batch_norm must be bool, 'batch' or 'layer'; "
+                             f"got {batch_norm!r}")
         if conv_type != "graph":
             raise NotImplementedError(
                 "conv_type='image' (equiangular conv) is not ported yet")
+        if self.norm_kind:
+            bias = False
         self.cheb_op = cheb_op
+        self.norm_before_act = batch_norm_before_activation
         self.act = activation
         self.act_fun = get_activation(activation_fun)
         self.weight = nn.Parameter(init_cheb_weight(
@@ -130,13 +157,55 @@ class ConvBlock(nn.Module):
             device=device, generator=generator))
         self.bias = (nn.Parameter(torch.zeros(out_channels, device=device))
                      if bias else None)
+        if self.norm_kind:
+            self.norm_scale = nn.Parameter(torch.ones(out_channels,
+                                                      device=device))
+            self.norm_bias = nn.Parameter(torch.zeros(out_channels,
+                                                      device=device))
+        if self.norm_kind == "batch":
+            # the JAX norm_state: mean 0, var 1 (torch BN's initial buffers)
+            self.register_buffer("mean", torch.zeros(out_channels,
+                                                     device=device),
+                                 persistent=False)
+            self.register_buffer("var", torch.ones(out_channels,
+                                                   device=device),
+                                 persistent=False)
+
+    def _norm(self, x: torch.Tensor, train: bool,
+              stats_out: Optional[dict]) -> torch.Tensor:
+        # statistics in fp32 whatever the compute dtype
+        x32 = x.float()
+        if self.norm_kind == "layer":
+            mean = x32.mean(dim=-1, keepdim=True)
+            var = x32.var(dim=-1, unbiased=False, keepdim=True)
+        elif train:
+            # per channel over every leading (batch, node) axis, biased
+            dims = tuple(range(x32.dim() - 1))
+            mean = x32.mean(dim=dims)
+            var = x32.var(dim=dims, unbiased=False)
+            if stats_out is not None:
+                # the running update takes the unbiased variance
+                n = x32.numel() // x32.shape[-1]
+                stats_out["mean"] = mean.detach()
+                stats_out["var"] = (var * (n / max(n - 1, 1))).detach()
+        else:
+            mean, var = self.mean, self.var
+        xn = (x32 - mean) * torch.rsqrt(var + NORM_EPS)
+        return (xn * self.norm_scale + self.norm_bias).to(x.dtype)
 
     def forward(self, x: torch.Tensor,
-                cheb_op: Optional[ChebOperator] = None) -> torch.Tensor:
+                cheb_op: Optional[ChebOperator] = None, train: bool = True,
+                stats_out: Optional[dict] = None) -> torch.Tensor:
+        """`train` and `stats_out` only matter for 'batch' normalization
+        (module docstring)."""
         x = cheb_conv(cheb_op if cheb_op is not None else self.cheb_op,
                       x, self.weight, self.bias)
+        if self.norm_kind and self.norm_before_act:
+            x = self._norm(x, train, stats_out)
         if self.act:
             x = self.act_fun(x)
+        if self.norm_kind and not self.norm_before_act:
+            x = self._norm(x, train, stats_out)
         return x
 
 
@@ -163,6 +232,12 @@ class ResBlock(nn.Module):
                 tmp_in, tmp_out, cheb_op, device=device, generator=generator,
                 **kw))
             tmp_in = tmp_out
+        last = getattr(self, f"convblock{self.n_blocks}")
+        if last.norm_kind == "batch":
+            # the last BN of each residual branch starts at zero scale and
+            # bias, so the block starts as identity
+            nn.init.zeros_(last.norm_scale)
+            nn.init.zeros_(last.norm_bias)
         self.rezero_weight = nn.Parameter(torch.zeros(1, device=device))
         self.needs_projection = in_channels != self.out_channels[-1]
         if self.needs_projection:
@@ -175,10 +250,18 @@ class ResBlock(nn.Module):
                 torch.zeros(self.out_channels[-1], device=device))
 
     def forward(self, x: torch.Tensor,
-                cheb_op: Optional[ChebOperator] = None) -> torch.Tensor:
+                cheb_op: Optional[ChebOperator] = None, train: bool = True,
+                stats_out: Optional[dict] = None) -> torch.Tensor:
+        """`stats_out` collects each 'batch' block's statistics under its
+        name (`convblock1`, ...), as the JAX norm_state nests them."""
         out = x
         for i in range(self.n_blocks):
-            out = getattr(self, f"convblock{i + 1}")(out, cheb_op=cheb_op)
+            name = f"convblock{i + 1}"
+            blk = getattr(self, name)
+            sub = (stats_out.setdefault(name, {})
+                   if stats_out is not None and blk.norm_kind == "batch"
+                   else None)
+            out = blk(out, cheb_op=cheb_op, train=train, stats_out=sub)
         out = out * self.rezero_weight.to(out.dtype)
         if self.needs_projection:
             res = ((x.float() @ self.res_kernel.to(x.dtype).float()).to(x.dtype)
@@ -186,3 +269,12 @@ class ResBlock(nn.Module):
         else:
             res = x
         return out + res
+
+
+def block_has_batch_norm(block) -> bool:
+    """True when a ConvBlock, or any ConvBlock of a ResBlock, uses 'batch'
+    normalization (and so has running statistics)."""
+    if isinstance(block, ResBlock):
+        return any(getattr(block, f"convblock{i + 1}").norm_kind == "batch"
+                   for i in range(block.n_blocks))
+    return block.norm_kind == "batch"

@@ -20,7 +20,7 @@ from torch import nn
 from .._device import resolve_device
 from ..sphere.samplings import check_skip_connection
 from .geometry import ModelGeometry, build_model_geometry
-from .layers import ResBlock
+from .layers import ResBlock, block_has_batch_norm
 
 __all__ = ["UNetSpherical"]
 
@@ -43,7 +43,8 @@ class UNetSpherical(nn.Module):
         graph_type: str = "knn",
         knn: int = 20,
         bias: bool = True,
-        batch_norm: bool = False,
+        batch_norm=False,
+        batch_norm_before_activation: bool = False,
         activation: bool = True,
         activation_fun: str = "relu",
         pool_method: str = "max",
@@ -88,7 +89,10 @@ class UNetSpherical(nn.Module):
 
         convblock_kwargs = dict(kernel_size=kernel_size_conv,
                                 conv_type=geometry.conv_type, bias=bias,
-                                batch_norm=batch_norm, activation=activation,
+                                batch_norm=batch_norm,
+                                batch_norm_before_activation=(
+                                    batch_norm_before_activation),
+                                activation=activation,
                                 activation_fun=activation_fun)
 
         def res(level, cin, couts):
@@ -107,6 +111,26 @@ class UNetSpherical(nn.Module):
         if increment_learning:
             self.res_increment = nn.Parameter(torch.zeros(1, device=device))
 
+    BLOCKS = ("conv1", "conv2", "conv3", "uconv2", "uconv1", "uconv1_final")
+
+    @property
+    def has_batch_norm(self) -> bool:
+        """True when the model uses 'batch' normalization: eval-mode passes
+        then read its running statistics (`norm_state`)."""
+        return any(block_has_batch_norm(getattr(self, n)) for n in self.BLOCKS)
+
+    def init_norm_state(self) -> Dict[str, torch.Tensor]:
+        """Fresh running statistics (mean 0, var 1), keyed like the
+        buffers (`conv1.convblock1.mean`, ...); empty without
+        BatchNorm. `weights.norm_state_to_jax` gives the JAX nesting."""
+        return {k: (torch.zeros_like(v) if k.endswith("mean")
+                    else torch.ones_like(v))
+                for k, v in self.named_buffers()}
+
+    def norm_state(self) -> Dict[str, torch.Tensor]:
+        """The running statistics, the buffers themselves (not copies)."""
+        return dict(self.named_buffers())
+
     def _skip(self, h, enc):
         if self.skip_connection == "stack":
             return torch.cat((h, enc), dim=2)
@@ -116,8 +140,20 @@ class UNetSpherical(nn.Module):
             return (h + enc) * 0.5
         return h
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = True,
+                stats_out: Optional[dict] = None) -> torch.Tensor:
+        """With 'batch' normalization, `train=True` (the default, as in the
+        JAX `apply`) normalizes with each batch's statistics and
+        `train=False` with the running ones; a `stats_out` dict collects
+        this call's batch statistics, nested like the JAX norm_state
+        (`stats_out["conv1"]["convblock1"]["mean"]`)."""
         g = self.geometry
+
+        def nkw(name):
+            sub = (stats_out.setdefault(name, {})
+                   if stats_out is not None
+                   and block_has_batch_norm(getattr(self, name)) else None)
+            return {"train": train, "stats_out": sub}
         ops, pools, unpools = g.cheb_ops, g.pools, g.unpools
         # the geometry's level-0 nodes: all of them, or a node shard's
         # (`shard_geometry`)
@@ -129,17 +165,18 @@ class UNetSpherical(nn.Module):
         h = x.permute(0, 2, 1, 3).reshape(
             B, n_node, self.input_channels).to(self.compute_dtype)
 
-        x_enc1 = self.conv1(h, cheb_op=ops[0])
+        x_enc1 = self.conv1(h, cheb_op=ops[0], **nkw("conv1"))
         x_enc2_ini, idx1 = pools[0](x_enc1)
-        x_enc2 = self.conv2(x_enc2_ini, cheb_op=ops[1])
+        x_enc2 = self.conv2(x_enc2_ini, cheb_op=ops[1], **nkw("conv2"))
         x_enc3_ini, idx2 = pools[1](x_enc2)
-        x_enc3 = self.conv3(x_enc3_ini, cheb_op=ops[2])
+        x_enc3 = self.conv3(x_enc3_ini, cheb_op=ops[2], **nkw("conv3"))
 
         h = self._skip(unpools[1](x_enc3, idx2), x_enc2)
-        h = self.uconv2(h, cheb_op=ops[1])
+        h = self.uconv2(h, cheb_op=ops[1], **nkw("uconv2"))
         h = self._skip(unpools[0](h, idx1), x_enc1)
-        h = self.uconv1(h, cheb_op=ops[0])
-        h = self.uconv1_final(h, cheb_op=ops[0])
+        h = self.uconv1(h, cheb_op=ops[0], **nkw("uconv1"))
+        h = self.uconv1_final(h, cheb_op=ops[0],
+                              **nkw("uconv1_final"))
 
         # [B, V, T*F] -> [B, T_out, V, F_out], fp32 at the model boundary
         h = h.float().reshape(B, n_node, self.output_n_time,

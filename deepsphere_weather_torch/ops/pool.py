@@ -9,7 +9,6 @@ pools and the equiangular pools are not ported yet.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 __all__ = ["HealpixAvgPool", "HealpixAvgUnpool", "HealpixMaxPool",
            "HealpixMaxUnpool", "build_pool_unpool"]
@@ -52,7 +51,10 @@ class HealpixMaxUnpool:
 
     def __call__(self, x, idx):
         B, D, C = x.shape
-        onehot = F.one_hot(idx, self.k).permute(0, 1, 3, 2).to(x.dtype)
+        # one_hot by comparison (F.one_hot checks its values on the host,
+        # which torch.func.vmap refuses): [B, D, k, C]
+        children = torch.arange(self.k, device=idx.device)
+        onehot = (idx[:, :, None, :] == children[:, None]).to(x.dtype)
         return (onehot * x[:, :, None, :]).reshape(B, D * self.k, C)
 
 

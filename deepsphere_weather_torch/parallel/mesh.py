@@ -15,8 +15,9 @@ talks:
   `models.geometry.shard_geometry`).
 
 Rank layout: rank = data_rank * n_node + node_rank, the JAX mesh's
-reshape (n_data, n_node, n_member). The 'member' axis comes with the
-ensembles (ROADMAP Queue 1). `put_device_dataset` and
+reshape (n_data, n_node, n_member). The 'member' axis is not ported yet
+(ROADMAP Queue 1 item 6a): member stacks run on one device
+(`models.MemberStack`). `put_device_dataset` and
 `shard_window_indices` serve the device-resident dataset of the training
 driver: the pre-scaled mirror moves onto the device once, and each step
 moves only a [B, W] index batch.
@@ -87,8 +88,9 @@ def make_mesh(n_data: Optional[int] = None, n_member: int = 1,
     the mesh leaves idle."""
     if n_member > 1:
         raise NotImplementedError(
-            "make_mesh: the 'member' axis is not ported yet (it comes with "
-            "the ensembles, ROADMAP Queue 1 item 9)")
+            "make_mesh: the 'member' axis is not ported yet (ROADMAP Queue 1 "
+            "item 6a, the mesh's member axis); member stacks train and roll "
+            "out on one device (models.MemberStack)")
     if world_size is None:
         _require_initialized()
         world_size = dist.get_world_size()

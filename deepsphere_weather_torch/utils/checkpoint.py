@@ -21,8 +21,16 @@ either package resumes in the other:
   port's `engine.optim.Adam` carries the two switches
   (`gradient_clipping`, `inject_lr`); a plain `torch.optim.Adam` is
   `optax.adam` alone.
+- `model_weights/norm_state.npz`: a BatchNorm model's running statistics
+  (`conv1/convblock1/mean`, `.../var`: the buffers' names with `/`), the
+  JAX `norm_state`; written only when the model has some.
 - `training_info/state.json`: the AR scheduler and early-stopping state
   dicts.
+
+A member stack (`models.MemberStack`) saves every array with its leading
+[M] axis, as the JAX package saves its vmapped params, norm state and
+optimizer state: optax's `count` (and an injected learning rate) is then
+an [M] vector too.
 
 No pickle: checkpoints are portable and inspectable.
 """
@@ -37,8 +45,8 @@ import numpy as np
 import torch
 
 __all__ = ["save_arrays", "load_arrays", "model_arrays", "load_model_arrays",
-           "optimizer_arrays", "load_optimizer_arrays", "adam_prefix",
-           "Checkpointer"]
+           "norm_state_arrays", "load_norm_state_arrays", "optimizer_arrays",
+           "load_optimizer_arrays", "adam_prefix", "Checkpointer"]
 
 FORMAT = "dsw_tpu_pytree_v1"
 
@@ -84,6 +92,28 @@ def load_model_arrays(model: torch.nn.Module, arrays: Dict[str, np.ndarray]):
     return model
 
 
+def norm_state_arrays(norm_state: Dict[str, torch.Tensor]
+                      ) -> Dict[str, np.ndarray]:
+    """Running statistics {buffer name: tensor} as fp32 numpy arrays keyed
+    by JAX tree path."""
+    return {_key(k): v.detach().to("cpu", torch.float32).numpy()
+            for k, v in norm_state.items()}
+
+
+@torch.no_grad()
+def load_norm_state_arrays(norm_state: Dict[str, torch.Tensor],
+                           arrays: Dict[str, np.ndarray]):
+    """In place: every tensor of `norm_state` (the model's buffers) from
+    {tree path: array}; a single-model array broadcasts over a member
+    axis. KeyError names the first missing key."""
+    for k, v in norm_state.items():
+        if _key(k) not in arrays:
+            raise KeyError(f"checkpoint missing key {_key(k)!r}")
+        v.copy_(torch.from_numpy(np.asarray(arrays[_key(k)], np.float32)
+                                 ).to(v.device).expand_as(v))
+    return norm_state
+
+
 def adam_prefix(optimizer) -> str:
     """Tree path prefix of the Adam state in optax's pytree (module
     docstring)."""
@@ -114,12 +144,15 @@ def optimizer_arrays(optimizer, model: torch.nn.Module
             "cpu", torch.float32).numpy()
     if len(counts) != 1:
         raise ValueError(f"parameters at different Adam steps {counts}")
-    count = np.asarray(counts.pop(), np.int32)
+    # a member stack's optax state is vmapped: one count (and lr) a member
+    members = getattr(model, "n_members", None)
+    shape = () if members is None else (members,)
+    count = np.full(shape, counts.pop(), np.int32)
     out[f"{prefix}.count"] = count
     if getattr(optimizer, "inject_lr", False):
         out[".count"] = count
-        out[".hyperparams/learning_rate"] = np.asarray(
-            optimizer.param_groups[0]["lr"], np.float32)
+        out[".hyperparams/learning_rate"] = np.full(
+            shape, optimizer.param_groups[0]["lr"], np.float32)
     return out
 
 
@@ -134,7 +167,7 @@ def load_optimizer_arrays(optimizer, model: torch.nn.Module,
             raise KeyError(f"checkpoint missing key {key!r}")
         return arrays[key]
 
-    step = float(get(f"{prefix}.count"))
+    step = float(np.asarray(get(f"{prefix}.count")).reshape(-1)[0])
     for name, p in model.named_parameters():
         moments = [torch.from_numpy(np.asarray(
             get(f"{prefix}.{m}/{_key(name)}"), np.float32)).reshape(
@@ -143,7 +176,8 @@ def load_optimizer_arrays(optimizer, model: torch.nn.Module,
                               "exp_avg": moments[0],
                               "exp_avg_sq": moments[1]}
     if getattr(optimizer, "inject_lr", False):
-        lr = float(get(".hyperparams/learning_rate"))
+        lr = float(np.asarray(get(".hyperparams/learning_rate")
+                              ).reshape(-1)[0])
         for group in optimizer.param_groups:
             group["lr"] = lr
     return optimizer
@@ -154,6 +188,7 @@ class Checkpointer:
 
     Layout (the JAX package's, after the reference experiment contract):
       <exp_dir>/model_weights/model.npz          final/best weights
+      <exp_dir>/model_weights/norm_state.npz     BatchNorm running stats
       <exp_dir>/model_weights/model_epoch_N.npz  per-epoch (optional)
       <exp_dir>/training_info/state.json         scheduler + early stopping
       <exp_dir>/training_info/opt_state.npz      optimizer state
@@ -190,6 +225,22 @@ class Checkpointer:
             self.exp_dir / "training_info" / "opt_state.npz"))
         return json.loads(
             (self.exp_dir / "training_info" / "state.json").read_text())
+
+    def save_norm_state(self, norm_state: Dict[str, torch.Tensor],
+                        name: str = "norm_state.npz"):
+        """BatchNorm running statistics (nothing saved when empty)."""
+        if norm_state:
+            save_arrays(self.exp_dir / "model_weights" / name,
+                        norm_state_arrays(norm_state))
+
+    def load_norm_state(self, norm_state: Dict[str, torch.Tensor],
+                        name: str = "norm_state.npz"):
+        """In place: `norm_state` (the model's buffers) from the saved
+        statistics; returns it, or None when the file is absent."""
+        path = self.exp_dir / "model_weights" / name
+        if not path.exists():
+            return None
+        return load_norm_state_arrays(norm_state, load_arrays(path))
 
     def has_checkpoint(self, name: str = "model.npz") -> bool:
         return (self.exp_dir / "model_weights" / name).exists()

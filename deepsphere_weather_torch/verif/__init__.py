@@ -1,5 +1,5 @@
-"""Verification: deterministic skills, their summaries and the benchmark
-forecasts."""
+"""Verification: deterministic and probabilistic skills, their summaries
+and the benchmark forecasts."""
 
 from .deterministic import (  # noqa: F401
     SkillDataset,
@@ -11,3 +11,9 @@ from .deterministic import (  # noqa: F401
     longitudinal_summary,
 )
 from .benchmarks import climatology_skills, persistence_skills  # noqa: F401
+from .probabilistic import (  # noqa: F401
+    crps_ensemble,
+    ensemble_spread_skill,
+    probabilistic,
+    rank_histogram,
+)

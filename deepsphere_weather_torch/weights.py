@@ -7,6 +7,14 @@ so a path maps to a state-dict key by joining with dots. Both directions
 carry numpy arrays on the JAX side and fp32 tensors on the port side.
 `broadcast_params` gives every rank of a mesh rank 0's parameters, as the
 JAX package replicates them over its mesh (`device_put` replicated).
+
+The BatchNorm running statistics cross the same way: the JAX `norm_state`
+(`conv1/convblock1/{mean,var}`) is the port's buffers under the same
+dotted names (`norm_state_from_jax`, `norm_state_to_jax`). Member-stacked
+trees (DeepEnsemble members, SWAG samples: every leaf with a leading [M]
+axis, as `jax.vmap` stacks them) map to `torch.func.stack_module_state`'s
+layout, {name: [M, ...]}, by the same functions; `stack_states` and
+`member_state` stack and take apart per-member state dicts.
 """
 
 from __future__ import annotations
@@ -18,8 +26,9 @@ import torch
 
 from .parallel.collectives import broadcast_
 
-__all__ = ["params_from_jax", "params_to_jax", "seeded_params",
-           "broadcast_params"]
+__all__ = ["params_from_jax", "params_to_jax", "norm_state_from_jax",
+           "norm_state_to_jax", "stack_states", "member_state",
+           "seeded_params", "broadcast_params"]
 
 
 def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
@@ -53,6 +62,30 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
     return tree
 
 
+def norm_state_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """JAX norm_state (nested {mean, var} leaves, member-stacked or not)
+    -> the port's running statistics {buffer name: fp32 tensor}."""
+    return params_from_jax(tree)
+
+
+def norm_state_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
+    """The port's running statistics -> the JAX norm_state nesting, fp32
+    numpy copies."""
+    return params_to_jax(state)
+
+
+def stack_states(states) -> Dict[str, torch.Tensor]:
+    """Per-member state dicts with the same keys -> {key: [M, ...]}, in
+    the first one's key order."""
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+
+def member_state(stacked: Dict[str, torch.Tensor], i: int
+                 ) -> Dict[str, torch.Tensor]:
+    """Member i of a {key: [M, ...]} stack (views)."""
+    return {k: v[i] for k, v in stacked.items()}
+
+
 def seeded_params(model: torch.nn.Module, seed: int) -> Dict:
     """Every parameter of `model` drawn from np.random.default_rng(seed),
     in the JAX layout.
@@ -60,8 +93,9 @@ def seeded_params(model: torch.nn.Module, seed: int) -> Dict:
     Unlike the init, nothing is zero: the ReZero weights, biases and the
     increment scale start at zero after init, which would multiply every
     convolution branch by 0 and hide it from a comparison. Weights use
-    the He-normal scale of their fan-in; the ReZero weights and the
-    increment scale are drawn from U(0.5, 1.5)."""
+    the He-normal scale of their fan-in; the ReZero weights, the
+    increment scale and the normalization scales are drawn from
+    U(0.5, 1.5)."""
     rng = np.random.default_rng(seed)
     tree = params_to_jax(model.state_dict())
 
@@ -69,7 +103,7 @@ def seeded_params(model: torch.nn.Module, seed: int) -> Dict:
         for k, v in node.items():
             if isinstance(v, dict):
                 fill(v)
-            elif k in ("rezero_weight", "res_increment"):
+            elif k in ("rezero_weight", "res_increment", "norm_scale"):
                 node[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
             elif k == "weight":             # [Fin, K, Fout]
                 std = np.sqrt(2.0 / (v.shape[0] * v.shape[1]))

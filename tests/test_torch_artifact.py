@@ -424,7 +424,9 @@ def test_http_endpoints(exp, artifacts):
 
 
 def test_export_model_swag_samples_raises(exp):
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # an experiment without a SWAG posterior has nothing to sample
+    # (tests/test_torch_swag.py exports one that has)
+    with pytest.raises(FileNotFoundError, match="model_swag.npz"):
         export_main(exp["dirs"][0], exp["data"], swag_samples=2,
                     device="cpu", verbose=False)
     with pytest.raises(ValueError, match="not both"):

@@ -23,7 +23,8 @@ one bf16 output rounding); a training step's losses and gradients, per
 gradient key, 1e-5 (fp32, the CPU taking the card's ReLU and max-pool
 decisions) and 3e-2 (bf16: roundings at the same points in another
 order); a one-element gradient against the sum of its terms' magnitudes,
-see the test.
+see the test; the BatchNorm step's bf16 gradients to the larger of 3e-2
+and the CPU's own bf16-vs-fp32 gap on the key (see the test).
 """
 
 import numpy as np
@@ -53,7 +54,7 @@ from deepsphere_weather_torch.ops import (  # noqa: E402
 )
 from deepsphere_weather_torch.sphere import build_graph  # noqa: E402
 from deepsphere_weather_torch.weights import params_from_jax, seeded_params  # noqa: E402
-from torch_grad_terms import term_sums  # noqa: E402
+from torch_grad_terms import cancelling_norm_biases, term_sums  # noqa: E402
 from torch_split_probe import SPLIT_BAR, split_probe  # noqa: E402
 from torch_steer import steer  # noqa: E402
 
@@ -547,3 +548,196 @@ def test_artifact_on_card(cuda, tmp_path):
         torch.cuda.synchronize()
         assert launch_counts["bcsr_super_spmm"] - before == 2 * 10
         assert rel_err(preds.float(), want) <= TRAIN_TOL["bf16"]
+
+
+def _hp8_model(dev, dt, tree=None, batch_norm=False):
+    info = {"input_n_feature": 5, "output_n_feature": 2, "input_n_time": 3,
+            "output_n_time": 1, "input_shape_info": {"dynamic": {"node": 768}},
+            "output_shape_info": {"dynamic": {"node": 768}}}
+    model = UNetSpherical(
+        info, "healpix", {"subdivisions": 8, "nest": True}, knn=8,
+        increment_learning=True, dense_threshold=767, batch_norm=batch_norm,
+        numeric_precision="bfloat16" if dt == "bf16" else "float32",
+        device=dev)
+    if tree is not None:
+        model.load_state_dict(params_from_jax(tree))
+    return model
+
+
+def _hp8_tree(model, seed, increment=1.0):
+    tree = seeded_params(model, seed)
+    for blk in tree.values():
+        if isinstance(blk, dict):
+            blk["rezero_weight"] *= 0.1
+    tree["res_increment"] *= increment
+    return tree
+
+
+def _hp8_batch(dev, indexer, seed=3):
+    rng = np.random.default_rng(seed)
+    W = indexer.window_size
+    batch = {"dynamic": rng.standard_normal((2, W, 768, 2)),
+             "bc": rng.standard_normal((2, W, 768, 1)),
+             "static": rng.standard_normal((768, 2))}
+    return {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+            for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("dt", ["fp32", "bf16"])
+def test_batchnorm_step_matches_cpu(cuda, dt):
+    # the BatchNorm flagship form at HEALPix-8 AR2 (level 0 block-sparse):
+    # one with_norm_state loss (statistics collected, folded into the
+    # running ones) and its gradients on the card against the CPU plain
+    # path, the CPU taking the card's ReLU and max-pool decisions; 58 K1
+    # launches. A norm bias whose output reaches another BatchNorm through
+    # no activation is held against its block's norm scale
+    # (`cancelling_norm_biases`): the H100 read
+    # conv1.convblock1.norm_bias 0.37 of itself apart, its largest element
+    # 2e-5.
+    # bf16: BatchNorm's backward subtracts the mean of its incoming
+    # gradient and of its product with the normalized input; deeper in the
+    # network those terms cancel to a small remainder, which bf16 rounding
+    # alone moves: the CPU's own bf16 step, on the same decisions, reads
+    # up to about 1e-1 from its fp32 step (conv2's weights). So each bf16
+    # gradient is held against the CPU's bf16 one to the larger of the bar
+    # and that CPU rounding gap on its key; a fault of the card's path
+    # reads far above both. The card's own bf16-vs-fp32 gap is printed
+    # beside it.
+    from deepsphere_weather_torch.engine import fold_running_stats
+
+    indexer = ARIndexer.build([-3, -2, -1], [0], 1, 2)
+    cpu = torch.device("cpu")
+    # the card first (its decisions are taken by every other run), then
+    # the CPU; in bf16 also both at fp32 on the same decisions
+    plan = [(cuda, dt), (cpu, dt)]
+    if dt == "bf16":
+        plan += [(cpu, "fp32"), (cuda, "fp32")]
+    tree, pinned, runs = None, None, []
+    for dev, prec in plan:
+        model = _hp8_model(dev, prec, batch_norm=True)
+        tree = tree or _hp8_tree(model, 5)
+        model.load_state_dict(params_from_jax(tree))
+        decisions, _ = steer(model, pinned)
+        sums = term_sums(model)
+        area_w = AreaWeights(model.geometry.samplings[0], device=dev)
+        before = dict(launch_counts)
+        total, (per_iter, stats) = make_ar_loss_fn(
+            model, indexer, 3, collect_stats=True)(
+            _hp8_batch(dev, indexer), np.ones(3, np.float32), area_w)
+        total.backward()
+        fold_running_stats(model.norm_state(), stats)
+        pinned = pinned or decisions
+        runs.append({"per_iter": per_iter.detach().cpu(),
+                     "grads": _grads(model), "sums": sums,
+                     "stats": {k: v.cpu() for k, v in
+                               model.norm_state().items()},
+                     "launches": launch_counts["bcsr_super_spmm"]
+                     - before["bcsr_super_spmm"]})
+    card, ref = runs[:2]
+    # every gradient's scale is the CPU's fp32 step's
+    truth = runs[2] if dt == "bf16" else ref
+    cancelling = cancelling_norm_biases(model)
+
+    def gaps(got, want):
+        out = {}
+        for k, v in got["grads"].items():
+            scale = truth["sums"].get(k, float(truth["grads"][k].abs().max()))
+            if k in cancelling:
+                scale = float(truth["grads"][cancelling[k]].abs().max())
+            out[k] = float((v - want["grads"][k]).abs().max()) / scale
+        return out
+
+    assert card["launches"] == 3 * 10 + 3 * 10 - 2
+    assert ref["launches"] == 0
+    tol = TRAIN_TOL[dt]
+    assert rel_err(card["per_iter"], ref["per_iter"]) <= tol
+    for k, v in card["stats"].items():
+        assert rel_err(v, ref["stats"][k]) <= tol, k
+    err = gaps(card, ref)
+    bar = dict.fromkeys(err, tol)
+    if dt == "bf16":
+        cpu_gap, card_gap = gaps(ref, runs[2]), gaps(card, runs[3])
+        bar = {k: max(tol, cpu_gap[k]) for k in err}
+        # every key above the bar 3e-2 (held to the CPU's gap), largest
+        # first, and the one nearest its bar
+        shown = sorted((k for k in err if err[k] > tol), key=err.get)[::-1]
+        shown += [max(err, key=lambda k: err[k] / bar[k])]
+        print("bf16 gradients, card vs CPU / CPU bf16 vs fp32 / card bf16 "
+              "vs fp32: " + "; ".join(
+                  f"{k} {err[k]:.3e} / {cpu_gap[k]:.3e} / {card_gap[k]:.3e}"
+                  for k in shown))
+    for k in err:
+        assert err[k] <= bar[k], (k, err[k], bar[k])
+
+
+def test_member_step_is_one_launch_per_product(cuda):
+    # 2 members (bf16, HEALPix-8 AR2, level 0 block-sparse) in one member
+    # step: as many K1 launches as one member's step (58), each at twice
+    # the single widths but the two on the shared input; each member's
+    # losses and clipped gradients at the bf16 bar of its own single step
+    # on the card (member 1's increment x3: the clip, between the two
+    # gradient norms, clips member 1 alone)
+    from deepsphere_weather_torch.engine import (
+        Adam,
+        make_member_train_step,
+        make_train_step,
+    )
+    from deepsphere_weather_torch.models import MemberStack
+    from deepsphere_weather_torch.ops import bcsr
+
+    indexer = ARIndexer.build([-3, -2, -1], [0], 1, 2)
+    model = _hp8_model(cuda, "bf16")
+    trees = [_hp8_tree(model, 6 + m, 1.0 + 2 * m) for m in range(2)]
+    data = _hp8_batch(cuda, indexer, 7)
+    area_w = AreaWeights(model.geometry.samplings[0], device=cuda)
+    w = np.ones(3, np.float32)
+    widths, kernel = [], bcsr.bcsr_super_spmm
+
+    def record(a, idx, x, nz=None):
+        widths.append(x.shape[1])
+        return kernel(a, idx, x, nz)
+
+    single = []
+    for tree in trees:
+        model.load_state_dict(params_from_jax(tree))
+        model.zero_grad()
+        make_ar_loss_fn(model, indexer, 3)(data, w, area_w)[0].backward()
+        single.append(float(torch.stack([p.grad.float().square().sum()
+                                         for p in model.parameters()])
+                            .sum().sqrt()))
+    clip = float(np.sqrt(single[0] * single[1]))
+    runs = []
+    for m, tree in enumerate(trees):
+        model.load_state_dict(params_from_jax(tree))
+        opt = Adam(model.parameters(), 1e-4, gradient_clipping=clip)
+        bcsr.bcsr_super_spmm = record
+        try:
+            widths.clear()
+            _, per_iter = make_train_step(model, indexer, opt, 3)(
+                data, w, area_w)
+        finally:
+            bcsr.bcsr_super_spmm = kernel
+        runs.append((per_iter.cpu(), _grads(model), list(widths)))
+    stack = MemberStack.from_states(model, [params_from_jax(t)
+                                            for t in trees])
+    opt = Adam(stack.parameters(), 1e-4, gradient_clipping=clip,
+               member_axis=True)
+    before = launch_counts["bcsr_super_spmm"]
+    bcsr.bcsr_super_spmm = record
+    try:
+        widths.clear()
+        _, per_iter = make_member_train_step(stack, indexer, opt, 3)(
+            data, w, area_w)
+    finally:
+        bcsr.bcsr_super_spmm = kernel
+    assert launch_counts["bcsr_super_spmm"] - before == 58 == len(widths)
+    one = runs[0][2]
+    assert widths[:2] == one[:2] and widths[2:] == [2 * x for x in one[2:]]
+    grads = {k: p.grad.double().cpu() for k, p in stack.named_parameters()}
+    for m, (single_iter, single_grads, _) in enumerate(runs):
+        assert rel_err(per_iter[m], single_iter) <= TRAIN_TOL["bf16"]
+        scale = max(float(v.abs().max()) for v in single_grads.values())
+        for k, v in single_grads.items():
+            denom = scale if v.numel() == 1 else float(v.abs().max())
+            err = float((grads[k][m] - v).abs().max()) / denom
+            assert err <= TRAIN_TOL["bf16"], (m, k, err)

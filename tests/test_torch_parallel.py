@@ -260,7 +260,7 @@ def test_mesh_validation():
     with pytest.warns(UserWarning, match="idle"), \
             pytest.raises(RuntimeError, match="not initialized"):
         make_mesh(n_node=3, world_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6a"):
         make_mesh(n_member=2, world_size=8, device="cpu")
     assert training_mesh(1, 1, 1) is None
     with pytest.raises(RuntimeError, match="needs 4 ranks"):

@@ -33,3 +33,29 @@ def term_sums(model):
     if getattr(model, "increment_learning", False):
         watch(model.uconv1_final, "res_increment", model.res_increment)
     return sums
+
+
+def cancelling_norm_biases(model):
+    """{bias name: scale name} for each norm bias of `model` whose output
+    reaches the next ConvBlock's BatchNorm through no activation (the
+    graph convolution between them maps a per-channel constant to one):
+    the next norm removes any per-channel constant the bias adds, so its
+    gradient cancels to a remainder about a thousandth of its block's, of
+    which rounding makes a large share. Compare it against the gradient of
+    its block's norm scale (the name given). A bias with a ReLU on the way
+    (norm before this block's activation, or the next block's activation
+    before its norm) does not cancel and is held at its own scale."""
+    out = {}
+    for name in getattr(model, "BLOCKS", ()):
+        res = getattr(model, name)
+        for i in range(1, res.n_blocks):
+            blk = getattr(res, f"convblock{i}")
+            nxt = getattr(res, f"convblock{i + 1}")
+            if blk.norm_kind != "batch" or nxt.norm_kind != "batch":
+                continue
+            act_after = blk.act and blk.norm_before_act
+            act_before = nxt.act and not nxt.norm_before_act
+            if not (act_after or act_before):
+                key = f"{name}.convblock{i}.norm_bias"
+                out[key] = key.replace("norm_bias", "norm_scale")
+    return out

@@ -4,7 +4,11 @@ A ReLU or max-pool decision that one rounding flips changes a seeded
 network's output and gradients by far more than the rounding. To compare
 two runs that round differently (card and CPU), the second takes the
 first's decisions, and each decision that differs from its own is
-reported with how far its input sat from the kink or tie. Used by the
+reported with how far its input sat from the kink or tie. A max pool's
+decision is its set of maximal elements per window: its gradient splits
+evenly over a tie (as `amax` and the JAX package's `max` do), and in bf16
+exact ties are common, so one rounding that makes or breaks a tie moves
+the gradient below the pool even where the argmax agrees. Used by the
 card tests and by chip_smoke.py (a helper module, not a test)."""
 
 import dataclasses
@@ -16,11 +20,15 @@ from deepsphere_weather_torch.models import ConvBlock
 
 def steer(model, pinned=None):
     """Route the model's ReLUs and max pools through a recorder of their
-    decisions (ReLU: x > 0; pool: the argmax), in call order. With
-    `pinned`, another run's decisions are taken instead, and where they
-    differ from this run's own, `gaps` gets how far this run's input sat
-    from the kink (|x|) or tie (the gap), over the call's largest |x|.
-    Returns (decisions, gaps), filled as the model runs."""
+    decisions (ReLU: x > 0, [B, V, C]; pool: the window's maximal
+    elements, [B, V/k, k, C]), in call order. With `pinned`, another
+    run's decisions are taken instead: a pool then outputs this run's
+    value at the pinned argmax (the first maximal element) and splits its
+    gradient over the pinned tie; on an input without a gradient only its
+    argmax is compared. Where they differ from this run's own, `gaps` gets
+    how far this run's input sat from the kink (|x|) or from the window's
+    max, over the call's largest |x|. Returns (decisions, gaps), filled
+    as the model runs."""
     decisions, gaps = [], []
     taken = None if pinned is None else iter(pinned)
 
@@ -39,18 +47,27 @@ def steer(model, pinned=None):
     def steered(pool):
         def call(x):
             y, idx = pool(x)
+            B, D, C = idx.shape
+            g = x.reshape(B, D, pool.k, C)
+            ties = g == y[:, :, None]
             if taken is not None:
                 want = next(taken).to(x.device)
-                B, D, C = idx.shape
-                g = x.reshape(B, D, pool.k, C)
-                if (want != idx).any():
+                differ = want != ties
+                if not x.requires_grad:
+                    # without a gradient only the argmax reaches the output
+                    differ &= (want.int().argmax(dim=2) != idx)[:, :, None]
+                # a call whose decisions all agree keeps the pool's own
+                # output
+                if differ.any():
                     gd = g.detach()
-                    gap = (gd.gather(2, idx[:, :, None])
-                           - gd.gather(2, want[:, :, None])).abs()[:, :, 0]
-                    gaps.append(float(gap[want != idx].max()
-                                      / gd.abs().max()))
-                y, idx = g.gather(2, want[:, :, None])[:, :, 0], want
-            decisions.append(idx.cpu())
+                    gap = gd.amax(2, keepdim=True) - gd
+                    gaps.append(float(gap[differ].max() / gd.abs().max()))
+                    idx = want.int().argmax(dim=2)
+                    val = gd.gather(2, idx[:, :, None])[:, :, 0]
+                    # forward: val; gradient: evenly over the pinned tie
+                    y = val + ((g - gd) * want).sum(2) / want.sum(2)
+                    ties = want
+            decisions.append(ties.cpu())
             return y, idx
         return call
 
