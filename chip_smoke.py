@@ -6,9 +6,10 @@
 Drives the port's main paths, the HEALPix-16 bf16 forecast service, the
 HEALPix-16 AR6 bf16 training step (and its HEALPix-64 AR2 form), the
 same step node- and data-parallel, with BatchNorm and for 2 members at
-once, the train -> predict -> verify CLI, serving from artifacts and SWAG
-fine-tuning with its ensemble, on the card and checks them, in phases
-printed one per line:
+once, the train -> predict -> verify CLI, serving from artifacts, SWAG
+fine-tuning with its ensemble, and six shipped configurations over the
+other samplings, graph types and pools with the variant architectures,
+on the card and checks them, in phases printed one per line:
 
 1. card      name and power limit (nvidia-smi)
 2. build     both CUDA kernels (and the header they share), compiled side
@@ -119,7 +120,7 @@ printed one per line:
              (torch.use_deterministic_algorithms, reset after it).
 12. serve16  protocol16's trained flagship served from artifacts, two
              members: the experiment copied before its --resume epoch
-             (6 epochs) and the resumed one (7). `cli.predict` of the
+             (4 epochs) and the resumed one (5). `cli.predict` of the
              resumed experiment, AR20 from 4 reference times: finite,
              lead 1 within the bf16 bar (2e-2) of the experiment's own
              forecast store, 10 K1 launches per forward; `cli.export_model`
@@ -171,6 +172,44 @@ printed one per line:
              `cli.export_model --swag_samples 2`: one block of the
              artifact, 10 K1 launches per forward at twice the single
              model's widths; fine-tune, per-member and export seconds.
+16. grids400 (after swag16) six shipped configurations at their full
+             400 km size and the shipped UNet widths (7 features x 3 lags
+             -> 2), cut to bf16 (at the shipped fp32 every 400 km level is
+             dense): Equiangular_400km/MaxPool-Graph_voronoi,
+             Equiangular_400km_tropics/AvgPool-Graph_knn (odd dimensions),
+             Icosahedral_400km/LearnPool-Graph_mesh (learned logits),
+             Cubed_400km/MaxAreaPool-Graph_knn,
+             O24/MaxValPool-Graph_voronoi (scatter unpool) and
+             Healpix_400km/InterpPool-Graph_mesh, each built through
+             `models.get_model` as the CLI builds it: its level sizes, the
+             nonzero/total 128x128 blocks of level 0's forward layout (and
+             of the transposed one for voronoi, whose backward runs it) and
+             the geometry's host seconds (numpy remap; a fresh machine's
+             disk cache is empty); 3 AR6
+             batch-16 steps (RNN, area-weighted MSE, the port's Adam with
+             eps 1e-7 and the config's clipping): finite, decreasing
+             losses, exactly 70 + 68 K1 launches each, the step ms; K1 at
+             every (layout, width) shape the step launched, forward and
+             backward, against its plain version and scipy (bf16 bar); an
+             fp32 batch-2 AR2 step on the card against the CPU with the
+             card's ReLU and argmax-pool decisions (`steer`), per key at
+             1e-5, learned logits included; a 20-step forecast of 16
+             histories through ForecastService (10 K1 launches per
+             forward). For O24 also K1 per launch on both layouts at the
+             step's widths beside the bound and cuSPARSE. Then the O24
+             config through `cli.train_predict.main` (bf16, 1 epoch, toy O24
+             data, AR20 predict, verify: finite losses, store and RMSE) and
+             `cli.export_model`, its artifact loaded with the geometry
+             builder refused and its first step within the bf16 bar of the
+             in-process rollout, after the remap pools' scatter and
+             gather backward are shown to repeat bitwise under
+             `torch.use_deterministic_algorithms` (the config asks for
+             deterministic training); and each variant architecture
+             (ResNetSpherical, EPDNetSpherical, DownscalingNetSpherical at
+             HEALPix-16, ConvNetSpherical with conv_type='image' at
+             Equiangular_400km): one bf16 forward and backward, finite,
+             exactly the level-0 K1 launches its blocks give. It prints the
+             phase's seconds, geometry (host) apart.
 
 The ranks of phases 7-9 are started after the kernels are built, join a
 `gloo` process group with a timeout, and the phase waits for them with a
@@ -249,10 +288,11 @@ NODE16_STEPS, MESH16_STEPS, NODE64_STEPS = 3, 1, 2
 FP32_DENSE_THRESHOLD = 2048
 PG_TIMEOUT_S, RANKS_LIMIT_S = 300, 900
 # protocol16: the shipped flagship config through the CLI, bf16, epochs cut
-# to about 30 s of training on an H100 (12 until the swag16 phase came:
-# the script stays near half its time limit); AR20 forecasts
+# to about 20 s of training on an H100 (12 until the swag16 phase came, 6
+# until grids400: the script stays well inside its time limit); AR20
+# forecasts
 PROTOCOL_CONFIG = "configs/UNetSpherical/Healpix_400km/MaxPool-Graph_knn.json"
-PROTOCOL_EPOCHS, PROTOCOL_AR_PREDICT = 6, 20
+PROTOCOL_EPOCHS, PROTOCOL_AR_PREDICT = 4, 20
 PROTOCOL_INPUT_K, PROTOCOL_CYCLE = (-18, -12, -6), 6
 # serve16: reference times of cli.predict; the HTTP answer's bar against
 # svc.predict (the JAX package's serving test's)
@@ -269,6 +309,35 @@ ENS_MEMBERS, ENS_STEPS, ENS_TOL, ENS_CHECK_EPS = 2, 3, 1e-4, 1e-3
 # swag16: members predicted, collection every SWAG_FREQ-th scoring, members
 # of the exported artifact
 SWAG_SAMPLES, SWAG_FREQ, SWAG_EXPORT = 3, 2, 2
+# grids400: six shipped configurations at their full 400 km size and the
+# shipped UNet widths, cut to bf16 (at the shipped fp32 every 400 km level
+# is dense and no kernel runs): all six pool methods, all three graph
+# types, six of the seven sampling directories. Per configuration:
+# bf16 AR6 batch-16 steps, the AR depth of the fp32 card-vs-CPU step; the
+# CLI configuration, the six-hour steps of its toy store and its epochs;
+# the bar of the fp32 check's differing decisions (fp32 rounding of their
+# kink or tie, as tests/test_torch_cuda.py holds it)
+GRIDS400 = ("Equiangular_400km/MaxPool-Graph_voronoi",
+            "Equiangular_400km_tropics/AvgPool-Graph_knn",
+            "Icosahedral_400km/LearnPool-Graph_mesh",
+            "Cubed_400km/MaxAreaPool-Graph_knn",
+            "O24/MaxValPool-Graph_voronoi",
+            "Healpix_400km/InterpPool-Graph_mesh")
+GRIDS_STEPS, GRIDS_CHECK_AR = 3, 2
+# the step's timing windows and the exported forecast's block (each
+# export traces the block's model calls on the host): the phase stays
+# near 150 s
+GRIDS_TIME_WINDOWS, GRIDS_BLOCK = 2, 2
+GRIDS_CLI, GRIDS_CLI_STEPS, GRIDS_CLI_EPOCHS = (
+    "O24/MaxValPool-Graph_voronoi", 1000, 1)
+KINK_TOL = 1e-6
+# level-0 block-sparse products of one forward of each variant (2 per
+# convolution at level 0) and those of them on the raw input, which get
+# no backward: ResNet 20 + 5 convolutions, EPDNet 2 + 12 + 2,
+# DownscalingNet 3 at the fine level (its input is the coarse level's);
+# ConvNetSpherical convolves images, with no operator
+VARIANTS = {"ResNetSpherical": (50, 2), "EPDNetSpherical": (32, 2),
+            "DownscalingNetSpherical": (6, 0), "ConvNetSpherical": (0, 0)}
 GATHERS_PER_FORWARD = sum(PRODUCTS_PER_LEVEL)
 # seeded ReZero weights are scaled by this for training: at U(0.5, 1.5)
 # the random network's rollout grows several-fold per iteration
@@ -886,30 +955,16 @@ def count_forwards(rollout):
     return forwards
 
 
-def phase_slice(device, subdiv, batch, n_steps):
-    """Drive the forecast service; returns the main-path figures."""
-    import torch
-
+def synthetic_service(model, params, batch, n_steps, rng, block=BLOCK):
+    """`model` (with `params` loaded when given) exported behind
+    ForecastService (batch `batch`, block `block`), with scalers fitted to
+    synthetic physical-unit inputs drawn from `rng`, and a history and
+    boundary conditions of `batch` samples for `n_steps` steps. Returns
+    (service, rollout, history, bc, scaler)."""
     from deepsphere_weather_torch.data.scalers import GlobalStandardScaler
-    from deepsphere_weather_torch.ops.bcsr import (
-        launch_counts,
-        reset_launch_counts,
-    )
     from deepsphere_weather_torch.serve import ForecastService, export_rollout
-    from deepsphere_weather_torch.weights import params_from_jax, seeded_params
 
-    t0 = time.perf_counter()
-    model = build_flagship(device, subdiv)
     V = model.input_n_node
-    params = params_from_jax(seeded_params(model, SEED))
-    ops = model.geometry.cheb_ops
-    if ops[0].bcsr is None or ops[0].bcsr.svals.dtype != torch.bfloat16:
-        raise AssertionError("level 0 must run the bf16 block-sparse operator")
-    log("slice", f"UNetSpherical HEALPix-{subdiv} levels "
-                 f"{model.geometry.n_nodes} (level 0 block-sparse bf16), "
-                 f"built in {time.perf_counter() - t0:.1f} s")
-
-    rng = np.random.default_rng(SEED + 1)
     H = 1 - min(INPUT_K)
 
     def history(n):             # z500 (~5400 m) and t850 (~270 K) scales
@@ -925,14 +980,40 @@ def phase_slice(device, subdiv, batch, n_steps):
     scaler_bc = GlobalStandardScaler().fit(boundary(2, 4).reshape(-1, V, F_BC))
     rollout = export_rollout(
         model, params, input_k=INPUT_K, output_k=[0], forecast_cycle=1,
-        batch_size=batch, block_size=BLOCK, static=static, n_bc_features=F_BC,
+        batch_size=batch, block_size=block, static=static, n_bc_features=F_BC,
         timestep_hours=6.0)
     svc = ForecastService(rollout, scaler=scaler, scaler_bc=scaler_bc)
+    return svc, rollout, history(batch), boundary(batch, n_steps), scaler
+
+
+def phase_slice(device, subdiv, batch, n_steps):
+    """Drive the forecast service; returns the main-path figures."""
+    import torch
+
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from deepsphere_weather_torch.weights import params_from_jax, seeded_params
+
+    t0 = time.perf_counter()
+    model = build_flagship(device, subdiv)
+    V = model.input_n_node
+    params = params_from_jax(seeded_params(model, SEED))
+    ops = model.geometry.cheb_ops
+    if ops[0].bcsr is None or ops[0].bcsr.svals.dtype != torch.bfloat16:
+        raise AssertionError("level 0 must run the bf16 block-sparse operator")
+    log("slice", f"UNetSpherical HEALPix-{subdiv} levels "
+                 f"{model.geometry.n_nodes} (level 0 block-sparse bf16), "
+                 f"built in {time.perf_counter() - t0:.1f} s")
+
+    rng = np.random.default_rng(SEED + 1)
+    svc, rollout, hist, bc, scaler = synthetic_service(model, params, batch,
+                                                       n_steps, rng)
     # the exported program runs the model's graph, not its module: count
     # the forwards by the blocks called
     forwards = count_forwards(rollout)
 
-    hist, bc = history(batch), boundary(batch, n_steps)
     svc.predict(hist, n_steps=BLOCK, bc=bc[:, :BLOCK])          # warm-up
 
     # the main path: counts from 0, then a forecast and concurrent requests
@@ -1019,7 +1100,7 @@ def train_params(model, seed):
 
     tree = seeded_params(model, seed)
     for block in tree.values():
-        if isinstance(block, dict):
+        if isinstance(block, dict) and "rezero_weight" in block:
             block["rezero_weight"] *= TRAIN_REZERO_SCALE
     return params_from_jax(tree)
 
@@ -1107,12 +1188,14 @@ def phase_train_check(device, subdiv, batch):
             raise AssertionError(f"card vs CPU {what}: {e:.3e} > {SLICE_TOL}")
 
 
-def run_train(model, ar_iters, batch, n_steps, label):
+def run_train(model, ar_iters, batch, n_steps, label, clip=None,
+              phase="train"):
     """The training main path: n_steps of make_train_step on one fixed
-    batch, counts from 0. Returns losses and per-step launches."""
+    batch, counts from 0, the port's Adam (clipping the global gradient
+    norm at `clip` when given). Returns losses and per-step launches."""
     import torch
 
-    from deepsphere_weather_torch.engine import make_train_step
+    from deepsphere_weather_torch.engine import Adam, make_train_step
     from deepsphere_weather_torch.ops.bcsr import (
         launch_counts,
         reset_launch_counts,
@@ -1121,7 +1204,8 @@ def run_train(model, ar_iters, batch, n_steps, label):
     indexer, area_w, w = train_setup(model, ar_iters)
     data = train_batch(indexer, model.input_n_node, batch,
                        next(model.parameters()).device, SEED + 8)
-    opt = torch.optim.Adam(model.parameters(), lr=LR, eps=ADAM_EPS)
+    opt = Adam(model.parameters(), lr=LR, eps=ADAM_EPS,
+               gradient_clipping=clip)
     step = make_train_step(model, indexer, opt, ar_iters + 1)
     at_forward = []
     hook = model.register_forward_hook(
@@ -1147,9 +1231,9 @@ def run_train(model, ar_iters, batch, n_steps, label):
     if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
         raise AssertionError(f"{label}: losses {losses} are not finite and "
                              "decreasing")
-    log("train", f"{label}: {n_steps} steps, losses {losses[0]:.6g} -> "
-                 f"{losses[-1]:.6g}, {seconds:.2f} s with the first step; "
-                 f"launches {launches}")
+    log(phase, f"{label}: {n_steps} steps, losses {losses[0]:.6g} -> "
+               f"{losses[-1]:.6g}, {seconds:.2f} s with the first step; "
+               f"launches {launches}")
     return {"losses": losses, "per_step": per_step, "launches": launches,
             "per_iter": torch.stack(per_iters).cpu().numpy(),
             "step": lambda: step(data, w, area_w)}
@@ -1173,17 +1257,18 @@ def check_launches(res, kernel, per_forward, n_calls, label, phase="train"):
     return want_f * n, want_b * n
 
 
-def time_steps(steps, batch, card_line):
+def time_steps(steps, batch, card_line, windows=None):
     """ms per train step of each of `steps` ({label: step}): windows of
     TIME_STEPS chained steps on the host clock, ended by
     torch.cuda.synchronize(), taken in turns (A B B A ...) so that drift
     on the card or its host falls on every label alike; best of
-    TIME_WINDOWS windows each."""
+    `windows` (TIME_WINDOWS) windows each."""
     import torch
 
+    windows = windows or TIME_WINDOWS
     labels = list(steps)
     best = dict.fromkeys(labels, float("inf"))
-    for w in range(TIME_WINDOWS):
+    for w in range(windows):
         for label in (labels if w % 2 == 0 else labels[::-1]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1195,7 +1280,7 @@ def time_steps(steps, batch, card_line):
     for label in labels:
         log("times", f"{label}: {1e3 * best[label]:.2f} ms per train step, "
                      f"{batch / best[label]:.2f} samples/s (best of "
-                     f"{TIME_WINDOWS} windows of {TIME_STEPS} steps, taken "
+                     f"{windows} windows of {TIME_STEPS} steps, taken "
                      f"in turns; {card_line})")
     return {label: 1e3 * t for label, t in best.items()}
 
@@ -1295,16 +1380,22 @@ def step_products(step):
     return matvecs, launches
 
 
-def check_step_products(model, step, subdiv):
+def check_step_products(model, step, subdiv, laplacian=None,
+                        phase="train64", name=None):
     """Every level's K1 at each width one train step gives it, forward
     and backward: against its plain version on the same input (bf16 bar)
-    and against scipy with that level's Laplacian; and every shape the
-    step launched K1 at is one of those checked. Returns the (level,
-    width, dtype, operator) of each product."""
+    and against scipy with that level's Laplacian (`laplacian(level)`,
+    HEALPix-`subdiv`'s knn one by default); and every shape the step
+    launched K1 at is one of those checked. Returns the (level, width,
+    dtype, operator) of each product."""
     import torch
 
     from deepsphere_weather_torch.ops.bcsr import _fit_rows, _layout_rows
 
+    if laplacian is None:
+        def laplacian(level):
+            return _laplacian(subdiv >> level)
+    name = name or f"HEALPix-{subdiv}"
     matvecs, launched = step_products(step)
     ops = [c.bcsr for c in model.geometry.cheb_ops]
     device = next(model.parameters()).device
@@ -1313,12 +1404,12 @@ def check_step_products(model, step, subdiv):
     products = sorted((next(i for i, o in enumerate(ops) if o is op), width,
                        dt, op) for (_, width, dt), op in matvecs.items())
     for level, width, dt, op in products:
-        L = _laplacian(subdiv >> level)
+        L = laplacian(level)
         n, bar = L.shape[0], BARS["bf16" if dt == torch.bfloat16 else "fp32"]
         x = torch.from_numpy(rng.standard_normal((n, width)).astype(
             np.float32)).to(device, dt)
         g = torch.randn_like(x)
-        label = f"HEALPix-{subdiv} level {level} width {width}"
+        label = f"{name} level {level} width {width}"
         # forward: the kernel vs its plain version (raises), then vs scipy
         fwd = measure(op, L, x, device, label, timed=False)
         e_fwd = rel_err(fwd["y"].float().cpu(), L @ x.float().cpu().numpy())
@@ -1337,10 +1428,10 @@ def check_step_products(model, step, subdiv):
         e_bwd_plain = rel_err(xg.grad.float().cpu(), want.float().cpu())
         e_bwd = rel_err(xg.grad.float().cpu(),
                         L.T @ g.float().cpu().numpy())
-        log("train64", f"K1 {label} {str(dt)[6:]}: forward vs plain version "
-                       f"{fwd['rel_err_plain']:.3e}, vs scipy {e_fwd:.3e}; "
-                       f"backward vs plain version {e_bwd_plain:.3e}, vs "
-                       f"scipy L^T g {e_bwd:.3e} (bar {bar:g})")
+        log(phase, f"K1 {label} {str(dt)[6:]}: forward vs plain version "
+                   f"{fwd['rel_err_plain']:.3e}, vs scipy {e_fwd:.3e}; "
+                   f"backward vs plain version {e_bwd_plain:.3e}, vs "
+                   f"scipy L^T g {e_bwd:.3e} (bar {bar:g})")
         for e, what in ((e_fwd, "forward vs scipy"),
                         (e_bwd_plain, "backward vs plain version"),
                         (e_bwd, "backward vs scipy")):
@@ -1356,10 +1447,10 @@ def check_step_products(model, step, subdiv):
     if not launched <= checked:
         raise AssertionError(f"the step launched K1 at shapes no check "
                              f"covered: {sorted(launched - checked)}")
-    log("train64", f"{len(matvecs)} (level, width) products of the step, "
-                   f"forward and backward: worst vs plain version "
-                   f"{worst['plain']:.3e}, vs scipy {worst['scipy']:.3e}; "
-                   f"they cover all {len(launched)} launch shapes")
+    log(phase, f"{len(matvecs)} (level, width) products of the step, "
+               f"forward and backward: worst vs plain version "
+               f"{worst['plain']:.3e}, vs scipy {worst['scipy']:.3e}; "
+               f"they cover all {len(launched)} launch shapes")
     return products
 
 
@@ -2159,13 +2250,15 @@ class _RefuseGeometry:
     def __enter__(self):
         import deepsphere_weather_torch.models.geometry as geometry
         import deepsphere_weather_torch.models.unet as unet
+        import deepsphere_weather_torch.models.variants as variants
 
         def refuse(*a, **k):
             raise AssertionError("loading an artifact built a geometry")
         self.saved = [(m, n, getattr(m, n)) for m, n in (
             (geometry, "build_model_geometry"),
             (geometry, "cached_graph_laplacian"),
-            (unet, "build_model_geometry"))]
+            (unet, "build_model_geometry"),
+            (variants, "build_model_geometry"))]
         for m, n, _ in self.saved:
             setattr(m, n, refuse)
 
@@ -3170,6 +3263,504 @@ def phase_swag16(device, card_line, proto):
             "parts": parts}
 
 
+# ---------------------------------------------------------------------------
+# grids400: every sampling, graph type and pool method at 400 km
+# ---------------------------------------------------------------------------
+
+def _grids_config(name):
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "configs", "UNetSpherical", f"{name}.json")) as f:
+        return json.load(f)
+
+
+def grids_model(device, cfg, precision, dense_threshold=None):
+    """The config's model through `models.get_model`, as the CLI builds it,
+    at the smoke's tensor_info, in `precision`."""
+    from deepsphere_weather_torch.models import get_model
+    from deepsphere_weather_torch.sphere import build_sampling
+
+    ms = cfg["model_settings"]
+    kw = {k: v for k, v in ms.items() if k != "architecture_name"}
+    kw["pool_method"] = str(kw["pool_method"]).lower()
+    n = build_sampling(ms["sampling"], dict(ms["sampling_kwargs"])).n_nodes
+    return get_model(ms["architecture_name"], tensor_info(n), device=device,
+                     numeric_precision=precision,
+                     dense_threshold=dense_threshold, **kw)
+
+
+def _grid_laplacian(cfg, geometry):
+    """level -> the config's prepared Laplacian at that level (scipy)."""
+    from deepsphere_weather_torch.models.geometry import cached_graph_laplacian
+
+    ms = cfg["model_settings"]
+    return lambda level: cached_graph_laplacian(
+        ms["sampling"], geometry.samplings[level].kwargs_dict, ms["knn"],
+        ms["graph_type"])[1]
+
+
+def _layout_blocks(n, a, idx):
+    """'nonzero/total' 128x128 blocks of the n x n matrix a super-row
+    layout holds, and the layout's union width max_u."""
+    nnz, _, _ = _block_counts(KERNEL, a, idx)
+    n_rb = -(-n // 128)
+    return f"{nnz}/{n_rb * n_rb} (max_u {idx.shape[1]})"
+
+
+class _Transposed:
+    """An operator's transposed layout as a forward one, for `measure`."""
+
+    def __init__(self, op):
+        self.op, self.rows = op, op.rows
+
+    def forward_layout(self):
+        return self.op.transpose_layout()
+
+
+def grids_card_vs_cpu(device, cfg, params, label):
+    """The fp32 batch-2 AR2 loss and gradients of the config's model
+    (level 0 block-sparse) on the card and on the CPU plain path, the CPU
+    taking the card's ReLU and argmax-pool decisions (`steer`): per
+    parameter key at GRAD_BAR, learned logits included, one-element
+    gradients against the sum of their terms' magnitudes; every decision
+    that differed within KINK_TOL of its kink or tie."""
+    import torch
+
+    from deepsphere_weather_torch.engine import make_ar_loss_fn
+    from torch_grad_terms import term_sums
+    from torch_steer import steer
+
+    runs, decisions = [], None
+    for dev in (device, torch.device("cpu")):
+        m = grids_model(dev, cfg, "float32",
+                        dense_threshold=FP32_DENSE_THRESHOLD).train()
+        if m.geometry.cheb_ops[0].bcsr is None:
+            raise AssertionError(f"{label}: fp32 level 0 must be "
+                                 "block-sparse")
+        m.load_state_dict(params)
+        decisions, gaps = steer(m, None if dev == device else decisions)
+        sums = term_sums(m)
+        indexer, area_w, w = train_setup(m, GRIDS_CHECK_AR)
+        data = train_batch(indexer, m.input_n_node, TRAIN_CHECK_BATCH, dev,
+                           SEED + 31)
+        total, per_iter = make_ar_loss_fn(m, indexer, GRIDS_CHECK_AR + 1)(
+            data, w, area_w)
+        total.backward()
+        runs.append((per_iter.detach().cpu().numpy(), grads_of(m), sums,
+                     gaps))
+    (pi, g, _, _), (pi_c, g_c, sums, gaps) = runs
+    e_loss = rel_err(pi, pi_c)
+    e_grad, worst = grads_close(g, g_c, sums, GRAD_BAR, f"{label} card vs CPU")
+    logits = sorted(k for k in g if k.startswith(("pool", "unpool")))
+    log("grids400", f"{label}: fp32 batch {TRAIN_CHECK_BATCH} AR"
+                    f"{GRIDS_CHECK_AR} loss and gradients (level 0 "
+                    f"block-sparse fp32), card vs CPU with the card's "
+                    f"decisions ({len(gaps)} differed, up to "
+                    f"{max(gaps, default=0.0):.2e} from their kink or tie, "
+                    f"bar {KINK_TOL:g}): per-iteration losses {e_loss:.3e}, "
+                    f"{len(g)} gradients worst {e_grad:.3e} ({worst})"
+                    f"{', learned logits ' + str(logits) if logits else ''}; "
+                    f"bar {GRAD_BAR:g}")
+    if not (e_loss <= GRAD_BAR and max(gaps, default=0.0) <= KINK_TOL):
+        raise AssertionError(f"{label} card vs CPU: losses {e_loss:.3e}, "
+                             f"decision gaps {gaps}")
+
+
+def grids_config(device, name, index, card_line):
+    """One grids400 configuration (module docstring). Returns its K1
+    launches (training forward, backward; forecast), step and forecast ms,
+    geometry seconds and, for the voronoi O24 config, its timed rows."""
+    import torch
+
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from deepsphere_weather_torch.sphere import cache_dir
+
+    cfg = _grids_config(name)
+    t_cfg = time.perf_counter()
+    model = grids_model(device, cfg, "bfloat16").train()
+    t_geom = time.perf_counter() - t_cfg
+    geom = model.geometry
+    op = geom.cheb_ops[0].bcsr
+    if (op is None or op.svals.dtype != torch.bfloat16
+            or any(o.bcsr is not None for o in geom.cheb_ops[1:])):
+        raise AssertionError(f"{name}: level 0 alone must run the bf16 "
+                             "block-sparse operator")
+    voronoi = cfg["model_settings"]["graph_type"] == "voronoi"
+    if op.symmetric == voronoi:
+        raise AssertionError(f"{name}: symmetric {op.symmetric}")
+    blocks = f"forward layout {_layout_blocks(op.n, op.svals, op.ucols)}"
+    if voronoi:
+        blocks += (", transposed layout "
+                   f"{_layout_blocks(op.n, op.svals_t, op.ucols_t)}")
+    log("grids400", f"{name}: levels {geom.n_nodes}, pools "
+                    f"{type(geom.pools[0]).__name__}/"
+                    f"{type(geom.unpools[0]).__name__}; level 0 bf16 "
+                    f"nonzero/total 128x128 blocks: {blocks}; geometry "
+                    f"built in {t_geom:.1f} s (host, numpy; disk cache "
+                    f"{cache_dir()})")
+
+    params = train_params(model, SEED + 30 + index)
+    model.load_state_dict(params)
+    clip = cfg["training_settings"]["gradient_clipping"]
+    label = f"{name} AR{TRAIN_AR} batch {BATCH}"
+    res = run_train(model, TRAIN_AR, BATCH, GRIDS_STEPS, label, clip=clip,
+                    phase="grids400")
+    train = check_launches(res, KERNEL, LAUNCHES_PER_FORWARD, TRAIN_AR + 1,
+                           label, phase="grids400")
+    step_ms = time_steps({label: res["step"]}, BATCH, card_line,
+                         GRIDS_TIME_WINDOWS)[label]
+    laplacian = _grid_laplacian(cfg, geom)
+    products = check_step_products(model, res["step"], None, laplacian,
+                                   phase="grids400", name=name)
+    grids_card_vs_cpu(device, cfg, params, name)
+
+    # a 20-step forecast of 16 histories through ForecastService
+    svc, rollout, hist, bc, _ = synthetic_service(
+        model.eval(), None, BATCH, N_STEPS,
+        np.random.default_rng(SEED + 32 + index), block=GRIDS_BLOCK)
+    forwards = count_forwards(rollout)
+    svc.predict(hist, n_steps=GRIDS_BLOCK, bc=bc[:, :GRIDS_BLOCK])  # warm-up
+    reset_launch_counts()
+    forwards[0] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = svc.predict(hist, n_steps=N_STEPS, bc=bc)
+    torch.cuda.synchronize()
+    fc_ms = 1e3 * (time.perf_counter() - t0) / N_STEPS
+    svc.close()
+    fc = launch_counts[KERNEL]
+    V = model.input_n_node
+    if (out.shape != (BATCH, N_STEPS, 1, V, F_DYN) or not np.isfinite(out).all()
+            or fc != LAUNCHES_PER_FORWARD * forwards[0] or not forwards[0]
+            or sum(launch_counts.values()) != fc):
+        raise AssertionError(f"{name} forecast {out.shape} finite "
+                             f"{np.isfinite(out).all()}, launches "
+                             f"{dict(launch_counts)} for {forwards[0]} "
+                             "forwards")
+    rows = None
+    if name == GRIDS_CLI:
+        rows = grids_kernel_rows(op, laplacian(0), products, device,
+                                 card_line)
+    log("grids400", f"{name}: train step {step_ms:.2f} ms (batch {BATCH}, "
+                    f"AR{TRAIN_AR}), {train[0]} + {train[1]} {KERNEL} "
+                    f"launches over {GRIDS_STEPS} steps; forecast "
+                    f"{out.shape} finite, {fc_ms:.2f} ms per step ({fc} "
+                    f"launches, {LAUNCHES_PER_FORWARD} per forward); "
+                    f"config {time.perf_counter() - t_cfg:.1f} s, of it "
+                    f"geometry {t_geom:.1f} s ({card_line})")
+    return {"train": train, "forecast": (fc, 0), "step_ms": step_ms,
+            "forecast_ms": fc_ms, "geometry_s": t_geom, "rows": rows,
+            "seconds": time.perf_counter() - t_cfg}
+
+
+def grids_kernel_rows(op, L, products, device, card_line):
+    """K1 per launch on a voronoi level 0, forward layout and its
+    transposed one (the backward's), at each width the training step
+    gives level 0: time (`device_ms`) beside the bound over its nonzero
+    blocks and cuSPARSE's time of the same product (L, resp. L^T),
+    held to its plain version (in `measure`). One entry per (layout,
+    width)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 33)
+    out = {}
+    widths = sorted({w for level, w, dt, _ in products if level == 0})
+    for kind, lop, mat in (("forward", op, L), ("transposed", _Transposed(op),
+                                                 L.T.tocsr())):
+        out[kind] = []
+        for w in widths:
+            x = torch.from_numpy(rng.standard_normal(
+                (mat.shape[0], w)).astype(np.float32)).to(device,
+                                                          torch.bfloat16)
+            r = measure(lop, mat, x, device, f"{GRIDS_CLI} {kind} width {w}")
+            log("grids400", f"{KERNEL} {GRIDS_CLI} level 0 {kind} layout "
+                            f"x[{mat.shape[0]}, {w}]: {r['ms']:.4f} ms (bound "
+                            f"{r['bound_ms']:.4f} ms by {r['bound_by']}, "
+                            f"plain {r['plain_ms']:.4f} ms, cuSPARSE "
+                            f"{r['library_ms']:.4f} ms), blocks "
+                            f"{r['blocks_nonzero']}, vs plain version "
+                            f"{r['rel_err_plain']:.3e} ({card_line})")
+            out[kind].append({"width": w, **{k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err")}})
+    return out
+
+
+def grids_cli(device, card_line):
+    """The O24 MaxVal voronoi config through the entry points a user
+    calls: `cli.train_predict.main` in bf16 on toy O24 data (1 epoch, AR20
+    predict, verify), `cli.export_model` of the experiment, loaded in a
+    fresh ForecastService with the geometry builder refused, its first
+    step against the in-process rollout of the same weights. Returns the
+    K1 launches (forward, backward) and seconds."""
+    import torch
+
+    from deepsphere_weather_torch.cli.common import (
+        load_experiment_model,
+        open_datasets,
+    )
+    from deepsphere_weather_torch.cli.export_model import main as export_main
+    from deepsphere_weather_torch.cli.train_predict import main as train_main
+    from deepsphere_weather_torch.data import generate_toy_data
+    from deepsphere_weather_torch.data.ar import ARIndexer
+    from deepsphere_weather_torch.engine.prediction import ForecastDataset
+    from deepsphere_weather_torch.engine.step import make_rollout_block
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from deepsphere_weather_torch.serve import ForecastService
+
+    t_cli = time.perf_counter()
+    cfg = _grids_config(GRIDS_CLI)
+    ms = cfg["model_settings"]
+    root = tempfile.mkdtemp(prefix="dsw_grids400_")
+    try:
+        t0 = time.perf_counter()
+        data = os.path.join(root, "data")
+        generate_toy_data(data, sampling=ms["sampling"],
+                          sampling_kwargs=ms["sampling_kwargs"],
+                          n_timesteps=GRIDS_CLI_STEPS, seed=SEED)
+        t_data = time.perf_counter() - t0
+        cfg["training_settings"].update(numeric_precision="bfloat16",
+                                        epochs=GRIDS_CLI_EPOCHS)
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        rec, undo = _instrument_protocol()
+        try:
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            exp, gs = train_main(cfg_path, data, os.path.join(root, "exp"),
+                                 force=True,
+                                 ar_iterations_prediction=PROTOCOL_AR_PREDICT,
+                                 device=device, verbose=False)
+            torch.cuda.synchronize()
+            t_main = time.perf_counter() - t0
+            launches = dict(launch_counts)
+        finally:
+            undo()
+            torch.use_deterministic_algorithms(False)
+        parts = {k: rec[k] for k in ("train_forward", "train_backward",
+                                     "validation", "predict")}
+        if (min(parts.values()) <= 0 or launches[KERNEL] != sum(parts.values())
+                or sum(launches.values()) != launches[KERNEL]):
+            raise AssertionError(f"{GRIDS_CLI} CLI launches {launches}, by "
+                                 f"part {parts}")
+        with open(os.path.join(exp, "training_info",
+                               "ar_training_info.json")) as f:
+            info = json.load(f)
+        losses = info["training_total_loss"] + info["validation_total_loss"]
+        fc = ForecastDataset.open(os.path.join(
+            exp, "model_predictions", "forecast_chunked",
+            "test_forecasts.zarr"))
+        arr = np.stack([fc.variables[n][...] for n in fc.feature_order], -1)
+        V = arr.shape[2]
+        want = (fc.n_frt, PROTOCOL_AR_PREDICT + 1, V, F_DYN)
+        rmse = np.asarray(gs["RMSE"])
+        if (not losses or not np.isfinite(losses).all() or arr.shape != want
+                or not np.isfinite(arr).all() or not np.isfinite(rmse).all()
+                or not os.path.exists(os.path.join(
+                    exp, "model_skills", "deterministic_global_skill.npz"))):
+            raise AssertionError(f"{GRIDS_CLI} CLI: losses finite "
+                                 f"{np.isfinite(losses).all()}, store "
+                                 f"{arr.shape} (want {want}), RMSE {rmse}")
+        log("grids400", f"{GRIDS_CLI} through cli.train_predict.main (bf16, "
+                        f"{GRIDS_CLI_EPOCHS} epoch, toy O24 data of "
+                        f"{GRIDS_CLI_STEPS} six-hour steps, {t_data:.1f} s): "
+                        f"{rec['train_steps']} updates, losses finite, "
+                        f"forecast store {arr.shape} finite, RMSE lead 1 "
+                        f"{np.round(rmse[1], 4).tolist()} lead "
+                        f"{PROTOCOL_AR_PREDICT} "
+                        f"{np.round(rmse[PROTOCOL_AR_PREDICT], 4).tolist()}; "
+                        f"{KERNEL} launches {parts}; main {t_main:.1f} s")
+
+        art = os.path.join(root, "artifact")
+        t0 = time.perf_counter()
+        export_main(exp, data, out=art, batch_size=BATCH, block_size=BLOCK,
+                    verbose=False, device=device)
+        t_export = time.perf_counter() - t0
+        with _RefuseGeometry():
+            svc = ForecastService.from_dir(art)
+        hist, bc = _serve_inputs(data, svc.meta, BATCH, BLOCK, SEED + 34)
+        reset_launch_counts()
+        first = svc.predict(hist, BLOCK, bc)
+        served = launch_counts[KERNEL]
+        svc.close()
+        datasets = open_datasets(data)
+        _, model = load_experiment_model(exp, datasets, device)
+        meta = svc.meta
+        rollout, _ = make_rollout_block(model, ARIndexer.build(
+            meta["input_k"], meta["output_k"], meta["forecast_cycle"], 1),
+            BLOCK)
+        bc0 = bc if svc.scaler_bc is None else svc.scaler_bc.transform(bc)
+        with torch.inference_mode():
+            _, _, ref = rollout(
+                torch.from_numpy(svc.scaler.transform(hist).astype(
+                    np.float32)).to(device), None,
+                torch.from_numpy(bc0.astype(np.float32)).to(device),
+                torch.from_numpy(datasets[2].read_stacked()).to(device))
+        ref = ref.float().cpu().numpy()
+        e1 = rel_err(svc.scaler.transform(first)[:, 0], ref[:, 0])
+        if (not e1 <= BARS["bf16"] or served != LAUNCHES_PER_FORWARD * BLOCK
+                or not np.isfinite(first).all()):
+            raise AssertionError(f"{GRIDS_CLI} artifact: step 1 vs the "
+                                 f"in-process rollout {e1:.3e}, {served} "
+                                 "launches")
+        log("grids400", f"{GRIDS_CLI}: cli.export_model {t_export:.1f} s; "
+                        f"the artifact, loaded with the geometry builder "
+                        f"refused, forecasts {first.shape} finite, step 1 vs "
+                        f"the in-process rollout of the same weights "
+                        f"{e1:.3e} (bar {BARS['bf16']}), {served} {KERNEL} "
+                        f"launches for {BLOCK} steps ({card_line})")
+        fwd = (parts["train_forward"] + parts["validation"] + parts["predict"]
+               + served)
+        return {"launches": (fwd, parts["train_backward"]), "parts": parts,
+                "seconds": time.perf_counter() - t_cli}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def grids_variants(device, card_line):
+    """Each variant architecture: one bf16 forward and backward, the graph
+    variants at HEALPix-16 (K1 at level 0), ConvNetSpherical at
+    Equiangular_400km with conv_type='image'; finite, and exactly the
+    level-0 K1 launches their blocks give (`VARIANTS`)."""
+    import torch
+
+    from deepsphere_weather_torch.models import get_model
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    out = {}
+    for arch, (per_fwd, no_grad) in VARIANTS.items():
+        if arch == "ConvNetSpherical":
+            sampling, kw = "equiangular", {"nlat": 36, "nlon": 72}
+            extra = {"conv_type": "image"}
+        else:
+            sampling = "healpix"
+            kw = {"subdivisions": SLICE_SUBDIV, "nest": True}
+            extra = {"knn": KNN}
+        n = 12 * SLICE_SUBDIV ** 2 if sampling == "healpix" else 36 * 72
+        info = tensor_info(n)
+        if arch == "DownscalingNetSpherical":
+            info["input_shape_info"] = {"dynamic": {"node": n // 4}}
+        model = get_model(arch, info, sampling=sampling, sampling_kwargs=kw,
+                          numeric_precision="bfloat16", device=device,
+                          **extra).train()
+        model.load_state_dict(train_params(model, SEED + 40))
+        n_in = info["input_shape_info"]["dynamic"]["node"]
+        x = torch.from_numpy(np.random.default_rng(SEED + 41).standard_normal(
+            (BATCH, len(INPUT_K), n_in, F_STATIC + F_BC + F_DYN)).astype(
+                np.float32)).to(device)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        y = model(x)
+        fwd = launch_counts[KERNEL]
+        (y.float() ** 2).mean().backward()
+        torch.cuda.synchronize()
+        bwd = launch_counts[KERNEL] - fwd
+        grads_finite = all(bool(torch.isfinite(p.grad).all())
+                           for p in model.parameters())
+        if (y.shape != (BATCH, 1, n, F_DYN) or not bool(torch.isfinite(y).all())
+                or not grads_finite or (fwd, bwd) != (per_fwd,
+                                                     per_fwd - no_grad)
+                or sum(launch_counts.values()) != fwd + bwd):
+            raise AssertionError(f"{arch}: output {tuple(y.shape)} finite "
+                                 f"{bool(torch.isfinite(y).all())}, gradients "
+                                 f"finite {grads_finite}, launches "
+                                 f"{dict(launch_counts)}; want {per_fwd} + "
+                                 f"{per_fwd - no_grad} {KERNEL}")
+        log("grids400", f"{arch} ({sampling} {kw}, {extra}): bf16 forward "
+                        f"{tuple(y.shape)} and backward finite, {fwd} + {bwd} "
+                        f"{KERNEL} launches ({card_line})")
+        out[f"grids400_{arch}"] = (fwd, bwd)
+    return out
+
+
+def grids_determinism(device, card_line):
+    """The remap pools under the configs' `deterministic_training`: the
+    MaxVal pool and unpool (`scatter_add`, where two destinations that
+    chose one source add up) and the interp pool and unpool (whose
+    backward accumulates), O24 level 0 -> 1, bf16, batch 16, 128
+    channels, 6 repeats of the forward and backward without and with
+    `torch.use_deterministic_algorithms`. With it, outputs and input
+    gradients must repeat bitwise; without it, what they do is printed."""
+    import torch
+
+    from deepsphere_weather_torch.ops.pool import build_pool_unpool
+    from deepsphere_weather_torch.sphere import build_sampling
+
+    src = build_sampling("gauss", {"nlat": 48, "nlon": "ecmwf-octahedral"})
+    dst = build_sampling("gauss", {"nlat": 24, "nlon": "ecmwf-octahedral"})
+    rng = np.random.default_rng(SEED + 35)
+    x0, g = (torch.from_numpy(rng.standard_normal(
+        (BATCH, src.n_nodes, 128)).astype(np.float32)).to(
+            device, torch.bfloat16) for _ in range(2))
+    out = {}
+    for deterministic in (False, True):
+        torch.use_deterministic_algorithms(deterministic)
+        try:
+            for method in ("maxval", "interp"):
+                pool, unpool = build_pool_unpool(method, src, dst,
+                                                 device=device)
+                runs = []
+                for _ in range(6):
+                    x = x0.clone().requires_grad_()
+                    y, idx = pool(x)
+                    z = unpool(y, idx)
+                    z.backward(g)
+                    runs.append((z.detach(), x.grad))
+                out[(method, deterministic)] = (
+                    all(torch.equal(z, runs[0][0]) for z, _ in runs),
+                    all(torch.equal(gx, runs[0][1]) for _, gx in runs))
+                if idx is not None:
+                    repeated = int(((idx[:, :, None, :] == idx[:, None, :, :])
+                                    .sum(2) > 1).sum())
+        finally:
+            torch.use_deterministic_algorithms(False)
+    log("grids400", "remap pools repeated 6 times (outputs, input gradients "
+                    "bitwise equal): " + ", ".join(
+                        f"{m} {'with' if d else 'without'} deterministic "
+                        f"algorithms {v}" for (m, d), v in out.items())
+                    + f"; {repeated} repeated MaxVal indices ({card_line})")
+    if not all(v == (True, True) for (_, d), v in out.items() if d):
+        raise AssertionError(f"a remap pool does not repeat under "
+                             f"deterministic algorithms: {out}")
+
+
+def phase_grids400(device, card_line):
+    """grids400 (module docstring): the six configurations, the O24 CLI
+    run and the variants. Returns K1's launches by path and the readings."""
+    t_phase = time.perf_counter()
+    launches, figs, rows = {}, {}, None
+    for i, name in enumerate(GRIDS400):
+        r = grids_config(device, name, i, card_line)
+        launches[f"grids400_{name}"] = (r["train"][0] + r["forecast"][0],
+                                        r["train"][1])
+        figs[name] = {k: r[k] for k in ("step_ms", "forecast_ms",
+                                        "geometry_s", "seconds")}
+        rows = r["rows"] or rows
+    grids_determinism(device, card_line)
+    cli = grids_cli(device, card_line)
+    launches[f"grids400_{GRIDS_CLI}_cli"] = cli["launches"]
+    launches.update(grids_variants(device, card_line))
+    geom_s = sum(f["geometry_s"] for f in figs.values())
+    total = time.perf_counter() - t_phase
+    log("grids400", f"phase {total:.1f} s: geometry (host) {geom_s:.1f} s, "
+                    f"the rest (device steps, checks, exports, the CLI) "
+                    f"{total - geom_s:.1f} s; per config "
+                    + ", ".join(f"{k} {v['seconds']:.1f} s"
+                                for k, v in figs.items())
+                    + f"; CLI {cli['seconds']:.1f} s ({card_line})")
+    return {"launches": launches, "figs": figs, "rows": rows,
+            "cli_parts": cli["parts"]}
+
+
 def main() -> int:
     import argparse
 
@@ -3268,11 +3859,17 @@ def main() -> int:
         shutil.rmtree(proto["root"], ignore_errors=True)
     rows[0]["launches_protocol16"] = proto["parts"]
     rows[0]["launches_swag16"] = swag16["parts"]
+    grids = phase_grids400(device, card_line)
+    rows[0]["launches_grids400_cli"] = grids["cli_parts"]
+    # K1 per launch at each of the O24 voronoi level 0's step widths,
+    # forward layout and the transposed one its backward runs
+    rows[0]["grids400_o24_shapes"] = grids["rows"]
     for path, (fwd, bwd) in [("protocol16", (proto["forward"],
                                              proto["backward"]))] + list(
             serve16["launches"].items()) + list(
             bn16["launches"].items()) + list(
-            ens16["launches"].items()) + list(swag16["launches"].items()):
+            ens16["launches"].items()) + list(
+            swag16["launches"].items()) + list(grids["launches"].items()):
         rows[0]["launches_by_path"][path] = [fwd, bwd]
         rows[0]["launches_forward"] += fwd
         rows[0]["launches_backward"] += bwd

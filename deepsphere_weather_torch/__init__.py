@@ -1,9 +1,11 @@
 """deepsphere_weather_torch — the PyTorch/CUDA port of deepsphere_weather_tpu.
 
 Spherical weather forecasting with Chebyshev graph convolutions, for one
-NVIDIA H100 (sm_90a): HEALPix knn geometry, the block-sparse Laplacian
-operator with its hand-written CUDA kernels (`kernels/`), UNetSpherical,
-serving from `torch.export` artifacts (single and member-stacked
+NVIDIA H100 (sm_90a): the healpix, equiangular, icosahedral, cubed and
+gauss samplings with knn, voronoi and mesh Laplacians and every pool
+(`sphere/`, `ops/pool.py`), the block-sparse Laplacian operator with its
+hand-written CUDA kernels (`kernels/`), UNetSpherical and the variant
+architectures (`models.get_model`), serving from `torch.export` artifacts (single and member-stacked
 ensembles; `cli/export_model.py`, `cli/serve.py`), training (also node-
 and data-parallel, with BatchNorm, or for DeepEnsemble members in one
 step), the train -> predict -> verify driver `cli/train_predict.py` with

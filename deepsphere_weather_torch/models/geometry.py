@@ -1,12 +1,14 @@
 """Model geometry: per-level graphs, Chebyshev operators, pool/unpool ops.
 
-Port of `deepsphere_weather_tpu/models/geometry.py` for HEALPix knn graphs
-with hierarchical pooling. Levels of at most `dense_threshold` nodes keep a
-dense Laplacian; larger levels use the block-sparse operator (the CUDA
-kernel on the card), stored in `operator_dtype`. The default threshold is
-the JAX package's: 2048 for a bf16 operator, 8192 otherwise.
-`shard_geometry` gives one node rank's part of a geometry (node-parallel
-training).
+Port of `deepsphere_weather_tpu/models/geometry.py`: every sampling, graph
+type ('knn', 'voronoi', 'mesh'), pool method and `conv_type`. Levels of at
+most `dense_threshold` nodes keep a dense Laplacian; larger levels use the
+block-sparse operator (the CUDA kernel on the card), stored in
+`operator_dtype`. The default threshold is the JAX package's: 2048 for a
+bf16 operator, 8192 otherwise. `conv_type='image'` (equiangular only)
+builds no operator: its `cheb_ops` are None per level. `shard_geometry`
+gives one node rank's part of a HEALPix geometry with hierarchical pools
+(node-parallel training).
 """
 
 from __future__ import annotations
@@ -21,7 +23,13 @@ from scipy import sparse
 from .._device import resolve_device
 from ..ops.bcsr import BlockSparseOperator
 from ..ops.cheb import ChebOperator
-from ..ops.pool import build_pool_unpool
+from ..ops.pool import (
+    HealpixAvgPool,
+    HealpixAvgUnpool,
+    HealpixMaxPool,
+    HealpixMaxUnpool,
+    build_pool_unpool,
+)
 from ..parallel.mesh import ProcessMesh, node_range
 from ..sphere import (
     Sampling,
@@ -44,10 +52,11 @@ class ModelGeometry:
     row-sharded operators; its `n_nodes` are the local counts."""
 
     samplings: List[Sampling]
-    cheb_ops: List[ChebOperator]
+    cheb_ops: List[Optional[ChebOperator]]    # None per level for 'image'
     pools: List                               # len depth-1
     unpools: List
     conv_type: str
+    lonlat_ratio: Optional[float] = None      # nlon / nlat (equiangular)
     node_ranges: Optional[List[Tuple[int, int]]] = None
 
     @property
@@ -91,8 +100,6 @@ def build_model_geometry(
     sampling = check_sampling(sampling)
     conv_type = check_conv_type(conv_type, sampling)
     pool_method = check_pool_method(pool_method)
-    if conv_type != "graph":
-        raise NotImplementedError("conv_type='image' is not ported yet")
     device = resolve_device(device)
     op_dtype = torch.float32 if operator_dtype is None else operator_dtype
     if dense_threshold is None:
@@ -105,8 +112,12 @@ def build_model_geometry(
             coarsen_sampling_kwargs(sampling, kwargs_list[-1], coarsening))
 
     samplings: List[Sampling] = []
-    cheb_ops: List[ChebOperator] = []
+    cheb_ops: List[Optional[ChebOperator]] = []
     for kw in kwargs_list:
+        if conv_type == "image":
+            samplings.append(build_sampling(sampling, kw))
+            cheb_ops.append(None)
+            continue
         samp, L = cached_graph_laplacian(sampling, kw, knn, graph_type)
         samplings.append(samp)
         if samp.n_nodes <= dense_threshold:
@@ -123,11 +134,17 @@ def build_model_geometry(
     pools, unpools = [], []
     for lvl in range(depth - 1):
         p, u = build_pool_unpool(pool_method, samplings[lvl],
-                                 samplings[lvl + 1])
+                                 samplings[lvl + 1],
+                                 kernel_size=kernel_size_pooling,
+                                 device=device)
         pools.append(p)
         unpools.append(u)
+    lonlat_ratio = None
+    if sampling == "equiangular":
+        lonlat_ratio = sampling_kwargs["nlon"] / sampling_kwargs["nlat"]
     return ModelGeometry(samplings=samplings, cheb_ops=cheb_ops, pools=pools,
-                         unpools=unpools, conv_type=conv_type)
+                         unpools=unpools, conv_type=conv_type,
+                         lonlat_ratio=lonlat_ratio)
 
 
 def shard_geometry(geometry: ModelGeometry,
@@ -135,8 +152,14 @@ def shard_geometry(geometry: ModelGeometry,
     """This rank's part of `geometry` on a node mesh: at every level the
     node range of its node shard and the operator's rows for it
     (`ChebOperator.row_shard` over the mesh's node group). Nested HEALPix
-    ordering keeps pooling inside a shard, so the pools are unchanged.
-    Without a mesh or with one node shard, `geometry` itself.
+    ordering keeps the hierarchical pools inside a shard, so they are
+    unchanged. Without a mesh or with one node shard, `geometry` itself.
+
+    Raises NotImplementedError for any other geometry: a remap or
+    equiangular pool, or a non-HEALPix sampling, has windows and supports
+    that cross the node shards, which would need gathers around every
+    pool (ROADMAP Queue 1 item 7a); an image convolution has no operator
+    to shard.
 
     Raises ValueError when a level's nodes do not divide over the node
     ranks (JAX's `device_put` refuses such an uneven layout too). Since
@@ -144,6 +167,19 @@ def shard_geometry(geometry: ModelGeometry,
     makes every shard's nodes divide by the ratio."""
     if mesh is None or mesh.n_node == 1:
         return geometry
+    hierarchical = (HealpixMaxPool, HealpixAvgPool, HealpixMaxUnpool,
+                    HealpixAvgUnpool)
+    names = {s.name for s in geometry.samplings}
+    bad = [type(p).__name__ for p in geometry.pools + geometry.unpools
+           if not isinstance(p, hierarchical)]
+    if names != {"healpix"} or bad or geometry.conv_type != "graph":
+        raise NotImplementedError(
+            f"node-sharding a {'/'.join(sorted(names))} geometry with "
+            f"{sorted(set(bad)) or 'hierarchical HEALPix'} pools and "
+            f"conv_type {geometry.conv_type!r} is not ported: only nested "
+            "HEALPix with the hierarchical max/avg pools keeps every pool "
+            "inside a node shard (ROADMAP Queue 1 item 7a); train this "
+            "geometry on one node shard")
     for lvl, n_lvl in enumerate(geometry.n_nodes):
         if n_lvl % mesh.n_node:
             raise ValueError(f"level {lvl}: {n_lvl} nodes do not divide over "

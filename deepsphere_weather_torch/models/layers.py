@@ -3,8 +3,10 @@
 Port of `deepsphere_weather_tpu/models/layers.py` as `nn.Module`s, with the
 same parameter names (`weight`, `bias`, `norm_scale`, `norm_bias`,
 `rezero_weight`, `res_kernel`, `res_bias`) and shapes, the same activation
-map and the same He/Glorot initialization table. Graph convolutions only:
-the equiangular image convolution raises `NotImplementedError`.
+map and the same He/Glorot initialization table. `conv_type='graph'` is the
+Chebyshev convolution over the level's Laplacian; `conv_type='image'` the
+equiangular 2D convolution (`ops/conv2d.py`), its `weight` [kh, kw, Cin,
+Cout] as in the JAX package.
 
 Normalization (`batch_norm`) follows the JAX package's functional design,
 not `nn.BatchNorm1d`'s in-place one:
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cheb import ChebOperator, cheb_conv
+from ..ops.conv2d import equiangular_conv2d
 
 __all__ = ["get_activation", "init_cheb_weight", "ConvBlock", "ResBlock",
            "block_has_batch_norm"]
@@ -131,6 +134,8 @@ class ConvBlock(nn.Module):
                  bias: bool = True, batch_norm=False,
                  batch_norm_before_activation: bool = False,
                  activation: bool = True, activation_fun: str = "relu",
+                 periodic_padding: bool = True,
+                 nlat: Optional[int] = None, nlon: Optional[int] = None,
                  device=None, generator: Optional[torch.Generator] = None):
         super().__init__()
         if batch_norm is True or batch_norm == "batch":
@@ -142,19 +147,33 @@ class ConvBlock(nn.Module):
         else:
             raise ValueError(f"batch_norm must be bool, 'batch' or 'layer'; "
                              f"got {batch_norm!r}")
-        if conv_type != "graph":
-            raise NotImplementedError(
-                "conv_type='image' (equiangular conv) is not ported yet")
+        if conv_type not in ("graph", "image"):
+            raise ValueError("conv_type must be 'graph' or 'image'")
+        if conv_type == "image" and (nlat is None or nlon is None):
+            raise ValueError("conv_type='image' needs the grid's nlat and "
+                             "nlon")
         if self.norm_kind:
             bias = False
+        self.conv_type = conv_type
         self.cheb_op = cheb_op
+        self.periodic_padding = periodic_padding
+        self.nlat, self.nlon = nlat, nlon
         self.norm_before_act = batch_norm_before_activation
         self.act = activation
         self.act_fun = get_activation(activation_fun)
-        self.weight = nn.Parameter(init_cheb_weight(
-            in_channels, out_channels, kernel_size,
-            activation=activation_fun if activation else "linear",
-            device=device, generator=generator))
+        act_for_init = activation_fun if activation else "linear"
+        if conv_type == "graph":
+            weight = init_cheb_weight(
+                in_channels, out_channels, kernel_size,
+                activation=act_for_init, device=device, generator=generator)
+        else:
+            # HWIO kernel, He-normal over its fan-in Cin * k^2
+            std = math.sqrt(_he_scale(act_for_init)
+                            / (in_channels * kernel_size ** 2))
+            weight = std * torch.randn(
+                (kernel_size, kernel_size, in_channels, out_channels),
+                generator=generator, device=device)
+        self.weight = nn.Parameter(weight)
         self.bias = (nn.Parameter(torch.zeros(out_channels, device=device))
                      if bias else None)
         if self.norm_kind:
@@ -198,8 +217,12 @@ class ConvBlock(nn.Module):
                 stats_out: Optional[dict] = None) -> torch.Tensor:
         """`train` and `stats_out` only matter for 'batch' normalization
         (module docstring)."""
-        x = cheb_conv(cheb_op if cheb_op is not None else self.cheb_op,
-                      x, self.weight, self.bias)
+        if self.conv_type == "graph":
+            x = cheb_conv(cheb_op if cheb_op is not None else self.cheb_op,
+                          x, self.weight, self.bias)
+        else:
+            x = equiangular_conv2d(x, self.weight, self.bias, self.nlat,
+                                   self.nlon, self.periodic_padding)
         if self.norm_kind and self.norm_before_act:
             x = self._norm(x, train, stats_out)
         if self.act:

@@ -1,4 +1,5 @@
-"""Graph operators: Chebyshev convolution, block-sparse SpMM, pooling."""
+"""Operators: Chebyshev convolution, block-sparse SpMM, equiangular image
+convolution, pooling."""
 
 from .bcsr import (  # noqa: F401
     BlockSparseOperator,
@@ -19,10 +20,29 @@ from .bcsr import (  # noqa: F401
     super_nonzero_slots,
 )
 from .cheb import ChebOperator, cheb_conv  # noqa: F401
+from .conv2d import (  # noqa: F401
+    equiangular_1d_to_2d,
+    equiangular_2d_to_1d,
+    equiangular_conv2d,
+)
 from .pool import (  # noqa: F401
+    EllMatrix,
+    EquiangularAvgPool,
+    EquiangularAvgUnpool,
+    EquiangularMaxPool,
+    EquiangularMaxUnpool,
+    GeneralAvgPool,
+    GeneralAvgUnpool,
+    GeneralLearnPool,
+    GeneralLearnUnpool,
+    GeneralMaxAreaPool,
+    GeneralMaxAreaUnpool,
+    GeneralMaxValPool,
+    GeneralMaxValUnpool,
     HealpixAvgPool,
     HealpixAvgUnpool,
     HealpixMaxPool,
     HealpixMaxUnpool,
     build_pool_unpool,
+    sparse_to_ell,
 )

@@ -1,4 +1,4 @@
-"""Sphere geometry: HEALPix sampling, knn graphs, prepared Laplacians."""
+"""Sphere geometry: samplings, graphs, Laplacians, conservative remapping."""
 
 from .samplings import (  # noqa: F401
     Sampling,
@@ -16,5 +16,12 @@ from .graph import (  # noqa: F401
     estimate_lmax,
     scale_operator,
     prepare_laplacian,
+    compute_cotan_laplacian,
+)
+from .remap import (  # noqa: F401
+    cell_areas,
+    area_weights,
+    compute_interpolation_weights,
+    build_pooling_matrices,
 )
 from .cache import cache_dir, cached_arrays  # noqa: F401

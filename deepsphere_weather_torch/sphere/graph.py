@@ -1,11 +1,13 @@
-"""Spherical knn graphs and Laplacians (numpy/scipy, build time).
+"""Spherical graphs and Laplacians (numpy/scipy, build time).
 
-The port's own copy of the knn path of `deepsphere_weather_tpu/sphere/graph.py`:
-gaussian-kernel knn adjacency, symmetric normalized Laplacian, largest
-eigenvalue with a fixed ARPACK start vector, and the rescale to [-1, 1].
-The arithmetic is the same line for line, so the prepared Laplacian equals
-the JAX package's to fp32 round-off. The cotangent graph types ('voronoi',
-'mesh') raise `NotImplementedError` until they are ported.
+The port's own copy of `deepsphere_weather_tpu/sphere/graph.py`, without the
+ELL export: gaussian-kernel knn adjacency and its symmetric normalized
+Laplacian ('knn'), the cotangent Laplacian of the spherical Delaunay
+triangulation, mass-lumped M^-1 L ('voronoi', not symmetric) or
+M^-1/2 L M^-1/2 ('mesh', symmetric), the largest eigenvalue with a fixed
+ARPACK start vector, and the rescale to [-1, 1]. The arithmetic is the
+same line for line, so the prepared Laplacian equals the JAX package's to
+fp32 round-off.
 """
 
 from __future__ import annotations
@@ -16,23 +18,27 @@ from typing import Dict, Optional
 import numpy as np
 from scipy import sparse
 from scipy.sparse import linalg as sparse_linalg
-from scipy.spatial import cKDTree
+from scipy.spatial import ConvexHull, cKDTree
 
 from .samplings import Sampling, build_sampling
 
 __all__ = ["SphereGraph", "knn_adjacency", "normalized_laplacian",
            "estimate_lmax", "scale_operator", "prepare_laplacian",
-           "build_graph"]
+           "triangulate", "compute_cotan_laplacian", "build_graph"]
 
 
 @dataclasses.dataclass
 class SphereGraph:
-    """A spherical sampling + its knn graph and prepared Laplacian."""
+    """A spherical sampling + its graph and prepared Laplacian."""
 
     sampling: Sampling
     k: int
-    W: sparse.csr_matrix
-    L: sparse.csr_matrix          # normalized Laplacian, eigenvalues rescaled to [-1, 1]
+    # the knn adjacency; None for the cotangent graph types, whose
+    # operator comes from the triangulation
+    W: Optional[sparse.csr_matrix]
+    L: sparse.csr_matrix          # eigenvalues rescaled to [-1, 1]
+    # False for 'voronoi' (M^-1 L): the block-sparse operator then carries
+    # the transposed layout for its backward
     is_symmetric: bool = True
 
     @property
@@ -118,15 +124,76 @@ def prepare_laplacian(laplacian: sparse.spmatrix) -> sparse.csr_matrix:
     return laplacian.tocsr().astype(np.float32)
 
 
+def triangulate(coords: np.ndarray):
+    """Spherical Delaunay triangulation: for unit-sphere points the
+    convex hull's facets are the spherical Delaunay triangles."""
+    return np.asarray(coords), ConvexHull(coords).simplices
+
+
+def compute_cotan_laplacian(coords: np.ndarray, return_mass: bool = False):
+    """Cotangent Laplacian L of the spherical triangulation and its
+    barycentric-lumped mass matrix M (a third of each incident triangle's
+    area): M^-1 L, or (L, M) with `return_mass`."""
+    v, f = triangulate(coords)
+    n = v.shape[0]
+    i0, i1, i2 = f[:, 0], f[:, 1], f[:, 2]
+
+    def _cot(a, b, c):
+        # cotangent of the angle at vertex a, for triangle (a, b, c)
+        u = v[b] - v[a]
+        w = v[c] - v[a]
+        cross = np.linalg.norm(np.cross(u, w), axis=1)
+        dot = np.einsum("ij,ij->i", u, w)
+        return dot / np.maximum(cross, 1e-30)
+
+    cot0 = _cot(i0, i1, i2)  # angle at v0, opposite edge (1,2)
+    cot1 = _cot(i1, i2, i0)  # angle at v1, opposite edge (2,0)
+    cot2 = _cot(i2, i0, i1)  # angle at v2, opposite edge (0,1)
+
+    rows = np.concatenate([i1, i2, i2, i0, i0, i1])
+    cols = np.concatenate([i2, i1, i0, i2, i1, i0])
+    vals = 0.5 * np.concatenate([cot0, cot0, cot1, cot1, cot2, cot2])
+    Wc = sparse.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    L = sparse.diags(np.asarray(Wc.sum(axis=1)).ravel()) - Wc
+    asym = sparse.csr_matrix(L - L.T)
+    assert (np.abs(asym.data).max() if asym.nnz else 0.0) < 1e-8
+
+    tri_area = 0.5 * np.linalg.norm(np.cross(v[i1] - v[i0], v[i2] - v[i0]),
+                                    axis=1)
+    mass = np.zeros(n)
+    for ii in (i0, i1, i2):
+        np.add.at(mass, ii, tri_area / 3.0)
+    if return_mass:
+        return L, sparse.diags(mass)
+    Minv = sparse.diags(1.0 / mass)
+    return Minv @ L
+
+
 def build_graph(name: str, sampling_kwargs: Dict, k: int = 20,
                 graph_type: str = "knn",
                 sampling: Optional[Sampling] = None) -> SphereGraph:
-    """Build sampling + knn graph + prepared (rescaled) Laplacian."""
-    if graph_type != "knn":
-        raise NotImplementedError(
-            f"graph_type {graph_type!r} is not ported yet (knn only)")
+    """Build sampling + graph + prepared (rescaled) Laplacian.
+
+    'knn': the normalized knn-graph Laplacian; 'voronoi': the mass-lumped
+    cotangent Laplacian M^-1 L; 'mesh': the symmetric M^-1/2 L M^-1/2 of
+    the same triangulation. `is_symmetric` is computed from the prepared
+    operator."""
     if sampling is None:
         sampling = build_sampling(name, sampling_kwargs)
-    W = knn_adjacency(sampling.coords_3d, k=k)
-    L = prepare_laplacian(normalized_laplacian(W))
-    return SphereGraph(sampling=sampling, k=k, W=W, L=L, is_symmetric=True)
+    coords = sampling.coords_3d
+    W = None
+    if graph_type == "knn":
+        W = knn_adjacency(coords, k=k)
+        L0 = normalized_laplacian(W)
+    elif graph_type == "voronoi":
+        L0 = compute_cotan_laplacian(coords)
+    elif graph_type == "mesh":
+        Lc, M = compute_cotan_laplacian(coords, return_mass=True)
+        m_isqrt = sparse.diags(1.0 / np.sqrt(M.diagonal()))
+        L0 = m_isqrt @ Lc @ m_isqrt
+    else:
+        raise ValueError("graph_type must be 'knn', 'mesh' or 'voronoi'")
+    L = prepare_laplacian(L0)
+    d = sparse_linalg.norm(L - L.T) if L.nnz else 0.0
+    sym = bool(d <= 1e-8 * max(sparse_linalg.norm(L), 1e-30))
+    return SphereGraph(sampling=sampling, k=k, W=W, L=L, is_symmetric=sym)

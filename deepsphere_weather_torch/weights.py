@@ -2,7 +2,8 @@
 
 The JAX package keeps parameters in nested dicts (`conv1/convblock1/weight`,
 `.../bias`, `conv1/rezero_weight`, `conv1/res_kernel`, `conv1/res_bias`,
-`res_increment`); the port's `nn.Module`s use the same names and shapes,
+`res_increment`, the learned pools' logits `pool{lvl}` and `unpool{lvl}`,
+and the variants' blocks); the port's `nn.Module`s use the same names and shapes,
 so a path maps to a state-dict key by joining with dots. Both directions
 carry numpy arrays on the JAX side and fp32 tensors on the port side.
 `broadcast_params` gives every rank of a mesh rank 0's parameters, as the
@@ -95,7 +96,9 @@ def seeded_params(model: torch.nn.Module, seed: int) -> Dict:
     convolution branch by 0 and hide it from a comparison. Weights use
     the He-normal scale of their fan-in; the ReZero weights, the
     increment scale and the normalization scales are drawn from
-    U(0.5, 1.5)."""
+    U(0.5, 1.5); the learned pools' logits (`pool{lvl}`, `unpool{lvl}`)
+    are their initial values (log of the remap weights) plus
+    N(0, 0.1^2)."""
     rng = np.random.default_rng(seed)
     tree = params_to_jax(model.state_dict())
 
@@ -105,9 +108,12 @@ def seeded_params(model: torch.nn.Module, seed: int) -> Dict:
                 fill(v)
             elif k in ("rezero_weight", "res_increment", "norm_scale"):
                 node[k] = rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
-            elif k == "weight":             # [Fin, K, Fout]
-                std = np.sqrt(2.0 / (v.shape[0] * v.shape[1]))
+            elif k == "weight":   # [Fin, K, Fout] or [kh, kw, Cin, Cout]
+                std = np.sqrt(2.0 / np.prod(v.shape[:-1]))
                 node[k] = (std * rng.standard_normal(v.shape)).astype(np.float32)
+            elif k.startswith(("pool", "unpool")):      # [D, W] logits
+                node[k] = (v + 0.1 * rng.standard_normal(v.shape)).astype(
+                    np.float32)
             elif k == "res_kernel":         # [Fin, Fout]
                 lim = 1.0 / np.sqrt(v.shape[0])
                 node[k] = rng.uniform(-lim, lim, v.shape).astype(np.float32)

@@ -199,6 +199,17 @@ def test_port_sources_import_no_jax():
                 assert name.split(".")[0] not in banned, f"{path}: {name}"
 
 
+def test_import_checks_cover_every_sampling_module():
+    """The checks above glob the package: the modules of the samplings,
+    graphs, remap, pools, image convolution and variant architectures
+    are among those they read and import."""
+    mods = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for m in ("sphere/samplings.py", "sphere/graph.py", "sphere/remap.py",
+              "ops/pool.py", "ops/conv2d.py", "models/variants.py",
+              "models/geometry.py"):
+        assert f"deepsphere_weather_torch/{m}" in mods
+
+
 def test_port_imports_no_jax_in_fresh_process():
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)

@@ -48,6 +48,8 @@ def cancelling_norm_biases(model):
     out = {}
     for name in getattr(model, "BLOCKS", ()):
         res = getattr(model, name)
+        if not isinstance(res, ResBlock):
+            continue
         for i in range(1, res.n_blocks):
             blk = getattr(res, f"convblock{i}")
             nxt = getattr(res, f"convblock{i + 1}")

@@ -8,8 +8,12 @@ reported with how far its input sat from the kink or tie. A max pool's
 decision is its set of maximal elements per window: its gradient splits
 evenly over a tie (as `amax` and the JAX package's `max` do), and in bf16
 exact ties are common, so one rounding that makes or breaks a tie moves
-the gradient below the pool even where the argmax agrees. Used by the
-card tests and by chip_smoke.py (a helper module, not a test)."""
+the gradient below the pool even where the argmax agrees. The pools that
+decide are the argmax pools: HEALPix and equiangular max (a window of
+the grid) and the remap 'maxval' pool (the weighted values over a
+destination's support), each with a `candidates` method that its own
+call reduces. Used by the card tests and by chip_smoke.py (a
+helper module, not a test)."""
 
 import dataclasses
 
@@ -19,9 +23,9 @@ from deepsphere_weather_torch.models import ConvBlock
 
 
 def steer(model, pinned=None):
-    """Route the model's ReLUs and max pools through a recorder of their
-    decisions (ReLU: x > 0, [B, V, C]; pool: the window's maximal
-    elements, [B, V/k, k, C]), in call order. With `pinned`, another
+    """Route the model's ReLUs and argmax pools through a recorder of their
+    decisions (ReLU: x > 0, [B, V, C]; pool: the maximal elements of each
+    output's candidates, [B, D, W, C]), in call order. With `pinned`, another
     run's decisions are taken instead: a pool then outputs this run's
     value at the pinned argmax (the first maximal element) and splits its
     gradient over the pinned tie; on an input without a gradient only its
@@ -45,27 +49,32 @@ def steer(model, pinned=None):
         return torch.where(mask, x, torch.zeros_like(x))
 
     def steered(pool):
+        if not hasattr(pool, "candidates"):
+            return pool
+
         def call(x):
             y, idx = pool(x)
-            B, D, C = idx.shape
-            g = x.reshape(B, D, pool.k, C)
+            g, to_idx = pool.candidates(x)
             ties = g == y[:, :, None]
             if taken is not None:
                 want = next(taken).to(x.device)
                 differ = want != ties
                 if not x.requires_grad:
                     # without a gradient only the argmax reaches the output
-                    differ &= (want.int().argmax(dim=2) != idx)[:, :, None]
+                    differ &= (want.int().argmax(dim=2)
+                               != ties.int().argmax(dim=2))[:, :, None]
                 # a call whose decisions all agree keeps the pool's own
                 # output
                 if differ.any():
                     gd = g.detach()
                     gap = gd.amax(2, keepdim=True) - gd
-                    gaps.append(float(gap[differ].max() / gd.abs().max()))
-                    idx = want.int().argmax(dim=2)
-                    val = gd.gather(2, idx[:, :, None])[:, :, 0]
+                    scale = gd[torch.isfinite(gd)].abs().max()
+                    gaps.append(float(gap[differ].max() / scale))
+                    j = want.int().argmax(dim=2)
+                    idx = to_idx(j)
+                    val = gd.gather(2, j[:, :, None])[:, :, 0]
                     # forward: val; gradient: evenly over the pinned tie
-                    y = val + ((g - gd) * want).sum(2) / want.sum(2)
+                    y = val + torch.where(want, g - gd, 0).sum(2) / want.sum(2)
                     ties = want
             decisions.append(ties.cpu())
             return y, idx
