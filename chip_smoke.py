@@ -7,9 +7,11 @@ Drives the port's main paths, the HEALPix-16 bf16 forecast service, the
 HEALPix-16 AR6 bf16 training step (and its HEALPix-64 AR2 form), the
 same step node- and data-parallel, with BatchNorm and for 2 members at
 once, the train -> predict -> verify CLI, serving from artifacts, SWAG
-fine-tuning with its ensemble, and six shipped configurations over the
+fine-tuning with its ensemble, six shipped configurations over the
 other samplings, graph types and pools with the variant architectures,
-on the card and checks them, in phases printed one per line:
+and the whole mesh (members over ranks, BatchNorm over a data or node
+mesh, node-sharded grids), on the card and checks them, in phases
+printed one per line:
 
 1. card      name and power limit (nvidia-smi)
 2. build     both CUDA kernels (and the header they share), compiled side
@@ -210,8 +212,51 @@ on the card and checks them, in phases printed one per line:
              Equiangular_400km): one bf16 forward and backward, finite,
              exactly the level-0 K1 launches its blocks give. It prints the
              phase's seconds, geometry (host) apart.
+17. ensmesh16 (after ens16) 4 flagship members (bf16, AR6, batch 16)
+             over member ranks, 4 spawned ranks sharing the card: the
+             member step (`make_member_train_step(mesh)`) on 1 x 2 x 2 and
+             on 2 x 1 x 2 (data x node x member), 2 steps each: every
+             member's losses (gathered over the member group) within 3e-2
+             of the single-process 4-member step's; on 1 x 2 x 2 exactly
+             70 + 68 K2 launches a rank a step at ens16's 2-member widths
+             (K5 over K2: both members of a rank folded into one launch a
+             product) and 22 gathers a model call (one a product), on
+             2 x 1 x 2 70 + 68 K1; each member's parameters identical on
+             its data and node ranks; K2 at every (level, width) the
+             member step launched, forward and backward, against its
+             plain version and scipy's rows (bf16 bar); then
+             `ensemble_rollout_predictions(mesh=)` of the 4 members on
+             1 x 1 x 2 over a toy HEALPix-16 store: every rank's [4, ...]
+             within the bf16 bar of one process's, 40 K1 launches a rank
+             for its 2 members, 2 gathers.
+18. bnmesh16 (after ensmesh16) bn16's step on 2 x 1 and 1 x 2 (2
+             ranks): 2 `with_norm_state` steps, the statistics over the
+             whole mesh's batch: losses and running statistics within 3e-2
+             of bn16's steps, the statistics identical on both ranks,
+             70 + 68 K1 (2 x 1) or K2 (1 x 2) launches a step; the fp32
+             batch-2 BatchNorm step on both meshes: every gradient Adam
+             steps on against the single-process card step's, per key at
+             3e-2 (a norm bias that feeds another BatchNorm against its
+             block's norm scale).
+19. gridsnode400 (after grids400) Equiangular_400km/MaxPool-Graph_voronoi
+             and Cubed_400km/MaxAreaPool-Graph_knn on 1 x 2 (bf16, AR6,
+             batch 16), 2 steps each: losses within 3e-2 of one process's
+             steps, exactly 70 + 68 K2 launches a step, 26 gathers a model
+             call (22 products, the 2 pools and 2 unpools gathering over
+             the node group), parameters identical on both ranks; K2 at
+             every step shape, forward and backward (voronoi: the
+             transposed layout), against its plain version and scipy's
+             rows; one bf16 forward and backward of ConvNetSpherical
+             (`conv_type='image'`, Equiangular_400km) on 1 x 2: finite, 7
+             gathers (one an image convolution), loss and gradients
+             within 3e-2 of one process. Then K2 per launch
+             (`device_ms`) at the member-folded level-0 widths and on the
+             voronoi transposed layout, beside its bound, its plain
+             version and cuSPARSE's CSR row slice (`member_folded`,
+             `voronoi_transposed` under K2's row of the kernel line). It
+             prints the three phases' seconds together.
 
-The ranks of phases 7-9 are started after the kernels are built, join a
+The ranks of phases 7-9 and 17-19 are started after the kernels are built, join a
 `gloo` process group with a timeout, and the phase waits for them with a
 limit; a rank that fails fails its phase. Any failed phase raises, and the
 script exits non-zero. The lines before the last are the kernel table as
@@ -339,6 +384,20 @@ KINK_TOL = 1e-6
 VARIANTS = {"ResNetSpherical": (50, 2), "EPDNetSpherical": (32, 2),
             "DownscalingNetSpherical": (6, 0), "ConvNetSpherical": (0, 0)}
 GATHERS_PER_FORWARD = sum(PRODUCTS_PER_LEVEL)
+# ensmesh16, bnmesh16, gridsnode400 (ranks sharing the card over gloo):
+# the members of the member meshes (data x node x member) and their steps;
+# the rollout's member ranks, its toy store's six-hour steps, its steps
+# and reference times; the BatchNorm meshes (data x node); two grids400
+# configurations on 1 x 2, whose UNet calls each gather before their 2
+# pools and 2 unpools
+MESH_MEMBERS, MESH_STEPS = 4, 2
+ENSMESH = ((1, 2, 2), (2, 1, 2))
+ENSMESH_ROLLOUT_MEMBERS, ENSMESH_STORE_STEPS = 2, 40
+ENSMESH_ROLL, ENSMESH_T0S = 4, (5, 9, 13, 17)
+BNMESH = ((2, 1), (1, 2))
+GRIDSNODE = ("Equiangular_400km/MaxPool-Graph_voronoi",
+             "Cubed_400km/MaxAreaPool-Graph_knn")
+POOL_GATHERS = 4
 # seeded ReZero weights are scaled by this for training: at U(0.5, 1.5)
 # the random network's rollout grows several-fold per iteration
 TRAIN_REZERO_SCALE = 0.1
@@ -1557,21 +1616,23 @@ def run_ranks(world, tasks):
 
 
 def _sharded_model(mesh, subdiv, param_seed, precision="bfloat16",
-                   dense_threshold=None):
+                   dense_threshold=None, batch_norm=False):
     """The flagship at `subdiv` with rank 0's seeded weights on every rank
-    and this rank's node shard of the geometry."""
+    and this rank's node shard of the geometry (level 0 row-sharded on a
+    node mesh)."""
     from deepsphere_weather_torch.models import shard_geometry
     from deepsphere_weather_torch.ops import ShardedBlockSparseOperator
     from deepsphere_weather_torch.weights import broadcast_params
 
     model = build_flagship(mesh.device, subdiv, precision=precision,
-                           dense_threshold=dense_threshold).train()
+                           dense_threshold=dense_threshold,
+                           batch_norm=batch_norm).train()
     model.load_state_dict(train_params(model, param_seed))
     broadcast_params(model, mesh)
     n = model.input_n_node
     model.geometry = shard_geometry(model.geometry, mesh)
-    if not isinstance(model.geometry.cheb_ops[0].bcsr,
-                      ShardedBlockSparseOperator):
+    if mesh.n_node > 1 and not isinstance(model.geometry.cheb_ops[0].bcsr,
+                                          ShardedBlockSparseOperator):
         raise AssertionError("level 0 must run the row-sharded operator")
     return model, n
 
@@ -1586,15 +1647,9 @@ def rank_train(rank, device, subdiv, n_data, n_node, ar_iters, batch,
     import torch
 
     from deepsphere_weather_torch.engine import make_train_step
-    from deepsphere_weather_torch.ops.bcsr import (
-        launch_counts,
-        reset_launch_counts,
-    )
     from deepsphere_weather_torch.parallel import (
-        collective_counts,
         make_mesh,
         node_range,
-        reset_collective_counts,
         shard_batch,
     )
 
@@ -1606,48 +1661,28 @@ def rank_train(rank, device, subdiv, n_data, n_node, ar_iters, batch,
                        mesh)
     opt = torch.optim.Adam(model.parameters(), lr=LR, eps=ADAM_EPS)
     step = make_train_step(model, indexer, opt, ar_iters + 1, mesh=mesh)
-    at_start, at_end = [], []
-    model.register_forward_pre_hook(lambda *_: at_start.append(
-        collective_counts["all_gather"]))
-    model.register_forward_hook(lambda *_: at_end.append(
-        (dict(launch_counts), collective_counts["all_gather"])))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path: counts from 0
-    reset_launch_counts()
-    reset_collective_counts()
-    per_iter, per_step, gathers, seconds = [], [], [], []
-    for _ in range(n_steps):
-        before = dict(launch_counts)
-        at_start.clear()
-        at_end.clear()
-        t0 = time.perf_counter()
-        _, losses = step(data, w, area_w)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        per_iter.append(losses.cpu().numpy())
-        fwd = {k: at_end[-1][0][k] - before[k] for k in before}
-        bwd = {k: launch_counts[k] - at_end[-1][0][k] for k in before}
-        per_step.append((fwd, bwd))
-        gathers.append([e - s for s, (_, e) in zip(at_start, at_end)])
+    res = _counted_steps(model, lambda: step(data, w, area_w)[1].cpu().numpy(),
+                         n_steps)
     out = {"mesh": (mesh.data_rank, mesh.node_rank), "node_range": (v0, v1),
-           "per_iter": np.stack(per_iter), "per_step": per_step,
-           "gathers": gathers, "seconds": seconds,
-           "launches": dict(launch_counts),
-           "collectives": dict(collective_counts),
+           "per_iter": np.stack(res.pop("outs")),
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "params": torch.cat([p.detach().reshape(-1).cpu()
-                                for p in model.parameters()]).numpy()}
+           "params": torch_flat(model), **res}
     if check_products:
         out["products"] = check_sharded_products(
-            model, lambda: step(data, w, area_w), subdiv)
+            model, lambda: step(data, w, area_w),
+            lambda level: _laplacian(subdiv >> level), f"HEALPix-{subdiv}")
     return out
 
 
-def rank_grads(rank, device, subdiv, n_data, n_node, batch):
+def rank_grads(rank, device, subdiv, n_data, n_node, batch,
+               batch_norm=False):
     """The first fp32 step of one rank on an n_data x n_node mesh (level 0
-    block-sparse fp32, K2), from `phase_train_check`'s weights and batch:
-    the global per-iteration losses make_train_step returns and the
+    block-sparse fp32, K2 on a node mesh), from `phase_train_check`'s
+    weights and batch (with BatchNorm: statistics over the mesh): the
+    global per-iteration losses make_train_step returns and the
     gradients, reduced over the mesh, that Adam steps on."""
     import torch
 
@@ -1656,7 +1691,7 @@ def rank_grads(rank, device, subdiv, n_data, n_node, batch):
 
     mesh = make_mesh(n_data=n_data, n_node=n_node, device=device)
     model, n = _sharded_model(mesh, subdiv, SEED + 6, "float32",
-                              FP32_DENSE_THRESHOLD)
+                              FP32_DENSE_THRESHOLD, batch_norm)
     indexer, area_w, w = train_setup(model, TRAIN_AR)
     data = shard_batch(train_batch(indexer, n, batch, mesh.device, SEED + 7),
                        mesh)
@@ -1669,13 +1704,16 @@ def rank_grads(rank, device, subdiv, n_data, n_node, batch):
             "per_iter": per_iter.cpu().numpy(), "grads": grads}
 
 
-def single_grads(device, subdiv, batch):
-    """`rank_grads`' step in one process: the reference."""
+def single_grads(device, subdiv, batch, batch_norm=False):
+    """`rank_grads`' step in one process: the reference. With BatchNorm a
+    norm bias that feeds another BatchNorm is held against its block's
+    norm scale (its gradient cancels, `cancelling_norm_biases`)."""
     from deepsphere_weather_torch.engine import make_ar_loss_fn
-    from torch_grad_terms import term_sums
+    from torch_grad_terms import cancelling_norm_biases, term_sums
 
     model = build_flagship(device, subdiv, precision="float32",
-                           dense_threshold=FP32_DENSE_THRESHOLD).train()
+                           dense_threshold=FP32_DENSE_THRESHOLD,
+                           batch_norm=batch_norm).train()
     model.load_state_dict(train_params(model, SEED + 6))
     sums = term_sums(model)
     indexer, area_w, w = train_setup(model, TRAIN_AR)
@@ -1683,28 +1721,26 @@ def single_grads(device, subdiv, batch):
     total, per_iter = make_ar_loss_fn(model, indexer, TRAIN_AR + 1)(data, w,
                                                                     area_w)
     total.backward()
-    return per_iter.detach().cpu().numpy(), grads_of(model), sums
+    grads = grads_of(model)
+    for k, scale_key in cancelling_norm_biases(model).items():
+        sums[k] = float(grads[scale_key].abs().max())
+    return per_iter.detach().cpu().numpy(), grads, sums
 
 
-def check_sharded_products(model, step, subdiv):
-    """Every level's K2 at each width one sharded step gives it, forward
-    and backward: against its plain version on the same input (bf16 bar:
-    the tensor cores sum in another order) and against scipy's rows; every
-    shape the step launched K2 at is one of those checked, and each launch
-    had its slot list. All ranks run the same products, in one order (the
-    backward gathers)."""
+def check_sharded_products(model, step, laplacian, name):
+    """Every level's K2 at each width one sharded step launched it,
+    forward and backward: against its plain version on the same input
+    (bf16 bar: the tensor cores sum in another order) and against scipy's
+    rows (`laplacian`: level -> the level's scipy L); each launch had its
+    slot list. The widths are the launches' own: a member step folds its
+    members into them (K5 over K2). All ranks run the same products, in
+    one order (the backward gathers)."""
     import torch
-    import torch.nn.functional as F
 
     from deepsphere_weather_torch.ops import bcsr
 
-    matvecs, launched = {}, set()
-    matvec, kernel = (bcsr.ShardedBlockSparseOperator.matvec,
-                      bcsr.bcsr_super_spmm_rows)
-
-    def record_matvec(op, x):
-        matvecs.setdefault((id(op), x.shape[1], x.dtype), op)
-        return matvec(op, x)
+    launched = set()
+    kernel = bcsr.bcsr_super_spmm_rows
 
     def record_launch(a, idx, x, s0, s1, nz=None):
         if nz is None:
@@ -1712,20 +1748,23 @@ def check_sharded_products(model, step, subdiv):
         launched.add((a.data_ptr(), x.shape[1], x.dtype))
         return kernel(a, idx, x, s0, s1, nz)
 
-    bcsr.ShardedBlockSparseOperator.matvec = record_matvec
     bcsr.bcsr_super_spmm_rows = record_launch
     try:
         step()
     finally:
-        bcsr.ShardedBlockSparseOperator.matvec = matvec
         bcsr.bcsr_super_spmm_rows = kernel
     ops = [c.bcsr for c in model.geometry.cheb_ops]
+    level_of = {}
+    for level, op in enumerate(ops):
+        if op is not None:
+            for layout in (op.forward_layout(), op.transpose_layout()):
+                level_of[layout[1].data_ptr()] = level
     device = next(model.parameters()).device
-    checked, worst, lines = set(), {"plain": 0.0, "scipy": 0.0}, []
-    products = sorted((next(i for i, o in enumerate(ops) if o is op), width,
-                       str(dt), op) for (_, width, dt), op in matvecs.items())
-    for level, width, _, op in products:
-        L = _laplacian(subdiv >> level)
+    worst, lines = {"plain": 0.0, "scipy": 0.0}, []
+    products = sorted({(level_of[ptr], width)
+                       for ptr, width, _ in launched})
+    for level, width in products:
+        op, L = ops[level], laplacian(level)
         n, v0, v1 = L.shape[0], op.v0, op.v1
         dt = torch.bfloat16          # the flagship's bf16 activations
         rng = np.random.default_rng(SEED + 13 + level * 100003 + width)
@@ -1733,17 +1772,15 @@ def check_sharded_products(model, step, subdiv):
             np.float32)).to(device, dt)
         g = torch.from_numpy(rng.standard_normal((n, width)).astype(
             np.float32)).to(device, dt)
-        m_pad = width + (-width) % 128
         errs = {}
         for what, layout, inp in (("forward", op.forward_layout(), x),
                                   ("backward", op.transpose_layout(), g)):
             _, a, idx, nz, r0, full_rows = layout
-            inp_fit = F.pad(inp, (0, m_pad - width, 0, full_rows - n))
+            inp_fit = torch.nn.functional.pad(inp, (0, 0, 0, full_rows - n))
             y = kernel(a, idx, inp_fit, 0, a.shape[0], nz)
             errs[what + " plain"] = rel_err(y.float().cpu(), bcsr.
                 bcsr_super_spmm_rows_reference(a, idx, inp_fit, 0, a.shape[0],
                                                nz).float().cpu())
-            checked.add((a.data_ptr(), m_pad, dt))
         # through the operator: its forward rows and x.grad of <L x, g>
         xg = x[v0:v1].clone().requires_grad_()
         y = op.matvec(xg)
@@ -1752,7 +1789,7 @@ def check_sharded_products(model, step, subdiv):
             L @ x.float().cpu().numpy())[v0:v1])
         errs["backward scipy"] = rel_err(xg.grad.float().cpu().numpy(), (
             L.T @ g.float().cpu().numpy())[v0:v1])
-        label = f"HEALPix-{subdiv} level {level} width {width}"
+        label = f"{name} level {level} width {width}"
         if not all(e < BARS["bf16"] for e in errs.values()):
             raise AssertionError(f"K2 {label}: {errs}")
         worst["plain"] = max(worst["plain"], errs["forward plain"],
@@ -1761,11 +1798,18 @@ def check_sharded_products(model, step, subdiv):
                              errs["backward scipy"])
         lines.append(f"{label} rows [{v0}, {v1}): " + ", ".join(
             f"{k} {e:.3e}" for k, e in errs.items()))
-    if not launched <= checked:
-        raise AssertionError(f"the sharded step launched K2 at shapes no "
-                             f"check covered: {sorted(launched - checked)}")
-    return {"lines": lines, "worst": worst, "n_products": len(matvecs),
+    return {"lines": lines, "worst": worst, "n_products": len(products),
             "n_shapes": len(launched)}
+
+
+def _log_products(phase, mesh, p):
+    for line in p["lines"]:
+        log(phase, f"K2 {line}")
+    log(phase, f"rank {mesh}: {p['n_products']} (level, width) products of "
+               f"a sharded step, forward and backward: worst rel err vs "
+               f"plain version {p['worst']['plain']:.3e}, vs scipy's rows "
+               f"{p['worst']['scipy']:.3e} (bar {BARS['bf16']:g}); from all "
+               f"{p['n_shapes']} launch shapes")
 
 
 def _check_rank_runs(phase, ranks, ref_per_iter, per_forward, n_calls):
@@ -1856,16 +1900,7 @@ def phase_node(device, card_line, train_ref, train64_ref):
     k2["node64"] = _check_rank_runs("node64", node64, train64_ref,
                                     sum(PRODUCTS_PER_LEVEL), HP64_AR + 1)
     for r in node64:
-        p = r["products"]
-        for line in p["lines"]:
-            log("node64", f"K2 {line}")
-        log("node64", f"rank {r['mesh']}: {p['n_products']} (level, width) "
-                      f"products of a sharded step, forward and backward: "
-                      f"worst rel err vs plain version "
-                      f"{p['worst']['plain']:.3e}, vs scipy's rows "
-                      f"{p['worst']['scipy']:.3e} (bar "
-                      f"{BARS['bf16']:g}); they cover all {p['n_shapes']} "
-                      f"launch shapes")
+        _log_products("node64", r["mesh"], r["products"])
     ms64 = 1e3 * max(r["seconds"][-1] for r in node64)
     log("node64", f"HEALPix-{BIG_SUBDIV} AR{HP64_AR} batch {HP64_BATCH} bf16 "
                   f"on 1 x 2: {ms64:.2f} ms for the last step (host clock, "
@@ -1896,6 +1931,673 @@ def phase_mesh(device, card_line, train_ref, grad_ref):
                   f"data x 2 node ranks: both groups reduce; 4 ranks sharing "
                   f"one H100 over gloo ({card_line})")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# The whole mesh: members over ranks, BatchNorm statistics over the mesh,
+# node-sharded grids (spawned ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+def _counted_steps(model, step, n_steps, kernel=None):
+    """n_steps of step(), counts from 0: per step the launches forward and
+    backward (a forward hook on `model`, which also fires under
+    torch.func's functional_call, reads the counters), the gathers of
+    each model call, the host seconds and step()'s return; with `kernel`
+    (a wrapper's name in ops.bcsr), the widths it launched at in each
+    step."""
+    import torch
+
+    from deepsphere_weather_torch.ops import bcsr
+    from deepsphere_weather_torch.parallel import (
+        collective_counts,
+        reset_collective_counts,
+    )
+
+    at_start, at_end, widths = [], [], []
+    hooks = [model.register_forward_pre_hook(lambda *_: at_start.append(
+                 collective_counts["all_gather"])),
+             model.register_forward_hook(lambda *_: at_end.append(
+                 (dict(bcsr.launch_counts),
+                  collective_counts["all_gather"])))]
+    fn = getattr(bcsr, kernel) if kernel else None
+
+    def record(a, idx, x, *rest, **kw):
+        widths[-1].append(x.shape[1])
+        return fn(a, idx, x, *rest, **kw)
+
+    if kernel:
+        setattr(bcsr, kernel, record)
+    torch.cuda.synchronize()
+    bcsr.reset_launch_counts()
+    reset_collective_counts()
+    res = {"outs": [], "per_step": [], "gathers": [], "seconds": []}
+    try:
+        for _ in range(n_steps):
+            before = dict(bcsr.launch_counts)
+            at_start.clear()
+            at_end.clear()
+            widths.append([])
+            t0 = time.perf_counter()
+            res["outs"].append(step())
+            torch.cuda.synchronize()
+            res["seconds"].append(time.perf_counter() - t0)
+            res["per_step"].append((
+                {k: at_end[-1][0][k] - before[k] for k in before},
+                {k: bcsr.launch_counts[k] - at_end[-1][0][k]
+                 for k in before}))
+            res["gathers"].append([e - s for s, (_, e)
+                                   in zip(at_start, at_end)])
+    finally:
+        for h in hooks:
+            h.remove()
+        if kernel:
+            setattr(bcsr, kernel, fn)
+    res.update(launches=dict(bcsr.launch_counts),
+               collectives=dict(collective_counts), widths=widths)
+    return res
+
+
+def _mesh_members(model):
+    return [train_params(model, SEED + 60 + m) for m in range(MESH_MEMBERS)]
+
+
+def rank_members(rank, device, n_data, n_node, n_member,
+                 check_products=False):
+    """One rank of a member mesh (ensmesh16): this rank's members of the
+    4-member flagship stack (`parallel.member_range`; rank 0's weights on
+    every rank), MESH_STEPS member steps (`make_member_train_step(mesh)`:
+    bf16, AR6, batch 16, its data and node shard of the batch), counts
+    from 0. Returns every member's losses per step (gathered over the
+    member group), the launches and gathers of each step, its level-0
+    kernel's widths, its members' parameters after; with
+    `check_products`, K2 at every (level, width) the step launched."""
+    from deepsphere_weather_torch.engine import Adam, make_member_train_step
+    from deepsphere_weather_torch.models import MemberStack, shard_geometry
+    from deepsphere_weather_torch.parallel import (
+        make_mesh,
+        member_range,
+        shard_batch,
+    )
+    from deepsphere_weather_torch.weights import broadcast_params
+
+    mesh = make_mesh(n_data=n_data, n_node=n_node, n_member=n_member,
+                     device=device)
+    model = build_flagship(mesh.device, SLICE_SUBDIV).train()
+    stack = MemberStack.from_states(model, _mesh_members(model))
+    broadcast_params(stack, mesh)
+    m0, m1 = member_range(MESH_MEMBERS, mesh)
+    local = stack.select(m0, m1)
+    del stack
+    n = model.input_n_node
+    model.geometry = shard_geometry(model.geometry, mesh)
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = shard_batch(train_batch(indexer, n, BATCH, mesh.device, SEED + 61),
+                       mesh)
+    opt = Adam(local.parameters(), lr=LR, member_axis=True)
+    step = make_member_train_step(local, indexer, opt, TRAIN_AR + 1,
+                                  mesh=mesh)
+    res = _counted_steps(model, lambda: step(data, w, area_w), MESH_STEPS,
+                         ROW_KERNEL if n_node > 1 else KERNEL)
+    out = {"mesh": (mesh.data_rank, mesh.node_rank, mesh.member_rank),
+           "members": (m0, m1),
+           "per_iter": np.stack([p.float().cpu().numpy()
+                                 for _, p in res.pop("outs")]),
+           "params": {k: v.detach().float().cpu().numpy()
+                      for k, v in local.named_parameters()}, **res}
+    if check_products:
+        out["products"] = check_sharded_products(
+            model, lambda: step(data, w, area_w),
+            lambda level: _laplacian(SLICE_SUBDIV >> level),
+            f"HEALPix-{SLICE_SUBDIV} {m1 - m0}-member step")
+    return out
+
+
+def _rollout_stores(root):
+    from deepsphere_weather_torch.data import (
+        GlobalStandardScaler,
+        SphericalDataset,
+        StaticDataset,
+    )
+
+    dyn = SphericalDataset.open(os.path.join(
+        root, "Data/dynamic/time_chunked/dynamic.zarr"))
+    bc = SphericalDataset.open(os.path.join(
+        root, "Data/bc/time_chunked/bc.zarr"))
+    return {"data_dynamic": dyn, "data_bc": bc,
+            "data_static": StaticDataset.open(os.path.join(
+                root, "Data/static.zarr")),
+            "scaler": GlobalStandardScaler().fit_dataset(dyn),
+            "scaler_bc": GlobalStandardScaler().fit_dataset(bc)}
+
+
+def ensemble_rollout(device, root, mesh=None):
+    """`ensemble_rollout_predictions` of the 4 ensmesh16 members over the
+    toy store at `root` (scaled space), from ENSMESH_T0S, with the K1
+    launches and gathers it made."""
+    from deepsphere_weather_torch.data.ar import ARIndexer
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from deepsphere_weather_torch.parallel import (
+        collective_counts,
+        reset_collective_counts,
+    )
+    from deepsphere_weather_torch.prob import ensemble_rollout_predictions
+    from deepsphere_weather_torch.weights import stack_states
+
+    model = build_flagship(device, SLICE_SUBDIV)
+    stacked = stack_states(_mesh_members(model))
+    reset_launch_counts()
+    reset_collective_counts()
+    preds = ensemble_rollout_predictions(
+        model, stacked, **_rollout_stores(root), inverse_scale=False,
+        indexer=ARIndexer.build(list(INPUT_K), [0], 1, ENSMESH_ROLL - 1),
+        n_steps=ENSMESH_ROLL, t0s=np.asarray(ENSMESH_T0S),
+        batch_size=len(ENSMESH_T0S), mesh=mesh)
+    return {"preds": preds, "launches": dict(launch_counts),
+            "gathers": collective_counts["all_gather"]}
+
+
+def rank_rollout(rank, device, root):
+    """The member-sharded ensemble rollout on a 1 x 1 x 2 mesh (the other
+    ranks of the world idle)."""
+    from deepsphere_weather_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_data=1, n_node=1, n_member=ENSMESH_ROLLOUT_MEMBERS,
+                     device=device)
+    if mesh is None:
+        return None
+    return {"mesh": mesh.member_rank,
+            **ensemble_rollout(mesh.device, root, mesh)}
+
+
+def _mesh_ms(ranks):
+    """ms of the best step after the first, on the slower rank."""
+    return 1e3 * min(max(r["seconds"][i] for r in ranks)
+                     for i in range(1, len(ranks[0]["seconds"])))
+
+
+def _check_member_ranks(phase, ranks, ref, kernel, label):
+    """ensmesh16's checks of one member mesh's ranks (module docstring):
+    losses, launches and gathers per step, parameters across the data
+    and node ranks of each member. Returns (forward, backward) launches
+    over the ranks."""
+    total = [0, 0]
+    sharded = kernel == ROW_KERNEL
+    for r in ranks:
+        where = f"{label} rank {r['mesh']} members {r['members']}"
+        e = rel_err(r["per_iter"], ref[:len(r["per_iter"])])
+        if not e <= SLICE_TOL:
+            raise AssertionError(f"{phase} {where}: losses of every member "
+                                 f"vs the single-process step {e:.3e}")
+        f, b = check_launches(r, kernel, LAUNCHES_PER_FORWARD, TRAIN_AR + 1,
+                              where, phase)
+        total[0] += f
+        total[1] += b
+        want = GATHERS_PER_FORWARD if sharded else 0
+        if any(gs != [want] * (TRAIN_AR + 1) for gs in r["gathers"]):
+            raise AssertionError(f"{phase} {where}: gathers per model call "
+                                 f"{r['gathers']}, want {want}")
+        log(phase, f"{where}: losses of all {MESH_MEMBERS} members vs the "
+                   f"single-process member step {e:.3e} (tol {SLICE_TOL}); "
+                   f"{want} gathers in each model call (one a product, for "
+                   f"both members); collectives {r['collectives']}; host "
+                   f"seconds per step {np.round(r['seconds'], 3).tolist()}")
+    first = {}
+    for r in ranks:
+        mine = first.setdefault(r["members"], r)
+        for k, v in r["params"].items():
+            if not np.array_equal(v, mine["params"][k]):
+                raise AssertionError(f"{phase} {label}: members "
+                                     f"{r['members']} differ between ranks "
+                                     f"{mine['mesh']} and {r['mesh']} ({k})")
+    log(phase, f"{label}: each member's parameters identical on all of its "
+               f"data and node ranks ({len(ranks)} ranks)")
+    return tuple(total)
+
+
+def phase_ensmesh16(device, card_line, ens_widths):
+    """ensmesh16 (module docstring). `ens_widths`: ens16's K1 widths of
+    one 2-member step, which each rank's 2 members must launch K2 at."""
+    import torch
+
+    from deepsphere_weather_torch.data import generate_toy_data
+    from deepsphere_weather_torch.engine import Adam, make_member_train_step
+    from deepsphere_weather_torch.models import MemberStack
+
+    t_phase = time.perf_counter()
+    model = build_flagship(device, SLICE_SUBDIV).train()
+    stack = MemberStack.from_states(model, _mesh_members(model))
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = train_batch(indexer, model.input_n_node, BATCH, device, SEED + 61)
+    step = make_member_train_step(
+        stack, indexer, Adam(stack.parameters(), lr=LR, member_axis=True),
+        TRAIN_AR + 1)
+    ref = np.stack([step(data, w, area_w)[1].float().cpu().numpy()
+                    for _ in range(MESH_STEPS)])
+    del stack, step
+    root = tempfile.mkdtemp(prefix="dsw_ensmesh16_")
+    try:
+        generate_toy_data(root, sampling_kwargs={
+            "subdivisions": SLICE_SUBDIV, "nest": True},
+            n_timesteps=ENSMESH_STORE_STEPS, seed=SEED + 62)
+        roll_ref = ensemble_rollout(device, root)
+        (d1, j1, m1), (d2, j2, m2) = ENSMESH
+        ranks = run_ranks(4, [
+            (rank_members, {"device": str(device), "n_data": d1,
+                            "n_node": j1, "n_member": m1,
+                            "check_products": True}),
+            (rank_members, {"device": str(device), "n_data": d2,
+                            "n_node": j2, "n_member": m2}),
+            (rank_rollout, {"device": str(device), "root": root})])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {}
+    node, data_ranks = [r[0] for r in ranks], [r[1] for r in ranks]
+    launches["ensmesh16_1x2x2"] = _check_member_ranks(
+        "ensmesh16", node, ref, ROW_KERNEL, "1 x 2 x 2")
+    launches["ensmesh16_2x1x2"] = _check_member_ranks(
+        "ensmesh16", data_ranks, ref, KERNEL, "2 x 1 x 2")
+    for r in node:
+        if any(ws != ens_widths for ws in r["widths"]):
+            raise AssertionError(f"ensmesh16 rank {r['mesh']}: K2 widths "
+                                 f"{r['widths']} vs ens16's 2-member K1 "
+                                 f"widths {ens_widths}")
+        _log_products("ensmesh16", r["mesh"], r["products"])
+    log("ensmesh16", f"1 x 2 x 2: every rank's K2 launches at ens16's "
+                     f"2-member widths {sorted(set(ens_widths))} (the "
+                     f"members folded into one launch per product, K5 over "
+                     f"K2)")
+    roll = [r[2] for r in ranks if r[2] is not None]
+    want_k1 = LAUNCHES_PER_FORWARD * ENSMESH_ROLL
+    for r in roll:
+        e = rel_err(r["preds"], roll_ref["preds"])
+        if (r["preds"].shape != roll_ref["preds"].shape or not e <= BARS["bf16"]
+                or r["launches"][KERNEL] != want_k1
+                or sum(r["launches"].values()) != want_k1
+                or r["gathers"] != 2):
+            raise AssertionError(f"ensmesh16 rollout member rank "
+                                 f"{r['mesh']}: {r['preds'].shape} vs "
+                                 f"{roll_ref['preds'].shape}, {e:.3e}, "
+                                 f"launches {r['launches']}, gathers "
+                                 f"{r['gathers']}")
+        log("ensmesh16", f"rollout on 1 x 1 x {ENSMESH_ROLLOUT_MEMBERS}, "
+                         f"member rank {r['mesh']}: every member's "
+                         f"{r['preds'].shape} vs the single process {e:.3e} "
+                         f"(bar {BARS['bf16']:g}); {want_k1} {KERNEL} "
+                         f"launches for its 2 members, 2 gathers")
+    launches["ensmesh16_rollout"] = (sum(r["launches"][KERNEL]
+                                         for r in roll), 0)
+    ms = {"1x2x2": _mesh_ms(node), "2x1x2": _mesh_ms(data_ranks)}
+    log("ensmesh16", f"{MESH_MEMBERS}-member step, HEALPix-{SLICE_SUBDIV} "
+                     f"AR{TRAIN_AR} batch {BATCH} bf16: "
+                     + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+                     + f" per step (host clock, the slower rank; 4 ranks "
+                     f"sharing one H100 over gloo: not a scaling number); "
+                     f"phase {time.perf_counter() - t_phase:.1f} s "
+                     f"({card_line})")
+    return {"launches": launches, "ms": ms}
+
+
+def rank_bn(rank, device, n_data, n_node):
+    """One rank of bn16's step on an n_data x n_node mesh: bn16's weights
+    and batch, MESH_STEPS `with_norm_state` steps, counts from 0; the
+    global losses, the running statistics after each step, the launches
+    and gathers of each."""
+    import torch
+
+    from deepsphere_weather_torch.engine import make_train_step
+    from deepsphere_weather_torch.parallel import make_mesh, shard_batch
+
+    mesh = make_mesh(n_data=n_data, n_node=n_node, device=device)
+    model, n = _sharded_model(mesh, SLICE_SUBDIV, SEED + 20, batch_norm=True)
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = shard_batch(train_batch(indexer, n, BATCH, mesh.device, SEED + 21),
+                       mesh)
+    opt = torch.optim.Adam(model.parameters(), lr=LR, eps=ADAM_EPS)
+    step = make_train_step(model, indexer, opt, TRAIN_AR + 1, mesh=mesh,
+                           with_norm_state=True)
+    stats = []
+
+    def one():
+        total, _ = step(data, w, area_w)
+        stats.append({k: v.float().cpu().numpy().copy()
+                      for k, v in model.norm_state().items()})
+        return float(total)
+
+    res = _counted_steps(model, one, MESH_STEPS)
+    return {"mesh": (mesh.data_rank, mesh.node_rank),
+            "losses": res.pop("outs"), "stats": stats, **res}
+
+
+def phase_bnmesh16(device, card_line, bn_ref):
+    """bnmesh16 (module docstring). `bn_ref`: bn16's losses and running
+    statistics after each of its steps."""
+    t_phase = time.perf_counter()
+    tasks = []
+    for n_data, n_node in BNMESH:
+        tasks.append((rank_bn, {"device": str(device), "n_data": n_data,
+                                "n_node": n_node}))
+        tasks.append((rank_grads, {"device": str(device),
+                                   "subdiv": SLICE_SUBDIV, "n_data": n_data,
+                                   "n_node": n_node,
+                                   "batch": TRAIN_CHECK_BATCH,
+                                   "batch_norm": True}))
+    ranks = run_ranks(2, tasks)
+    grad_ref = single_grads(device, SLICE_SUBDIV, TRAIN_CHECK_BATCH,
+                            batch_norm=True)
+    launches, ms = {}, {}
+    for i, (n_data, n_node) in enumerate(BNMESH):
+        label = f"{n_data} x {n_node}"
+        runs = [r[2 * i] for r in ranks]
+        kernel = ROW_KERNEL if n_node > 1 else KERNEL
+        total = [0, 0]
+        for r in runs:
+            where = f"{label} rank {r['mesh']}"
+            e_loss = rel_err(r["losses"], bn_ref["losses"][:MESH_STEPS])
+            e_stats = max(rel_err(st[k], bn_ref["stats"][s][k])
+                          for s, st in enumerate(r["stats"]) for k in st)
+            if not (e_loss <= SLICE_TOL and e_stats <= SLICE_TOL):
+                raise AssertionError(f"bnmesh16 {where}: losses {e_loss:.3e}"
+                                     f", running statistics {e_stats:.3e} vs "
+                                     "bn16's single-process steps")
+            f, b = check_launches(r, kernel, LAUNCHES_PER_FORWARD,
+                                  TRAIN_AR + 1, where, "bnmesh16")
+            total[0] += f
+            total[1] += b
+            log("bnmesh16", f"{where}: losses {np.round(r['losses'], 5)} vs "
+                            f"bn16's {e_loss:.3e}, running statistics after "
+                            f"each step {e_stats:.3e} (tol {SLICE_TOL}); "
+                            f"collectives {r['collectives']}")
+        for r in runs[1:]:
+            for s, st in enumerate(r["stats"]):
+                for k, v in st.items():
+                    if not np.array_equal(v, runs[0]["stats"][s][k]):
+                        raise AssertionError(f"bnmesh16 {label}: running "
+                                             f"{k} differs between ranks")
+        log("bnmesh16", f"{label}: running statistics identical on every "
+                        "rank after every step")
+        launches[f"bnmesh16_{n_data}x{n_node}"] = (kernel, tuple(total))
+        ms[label] = _mesh_ms(runs)
+        _check_grad_ranks("bnmesh16", [r[2 * i + 1] for r in ranks],
+                          grad_ref, f"{label} ranks, BatchNorm")
+    log("bnmesh16", f"BatchNorm flagship AR{TRAIN_AR} batch {BATCH} bf16: "
+                    + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+                    + f" per step (host clock, the slower rank; 2 ranks "
+                    f"sharing one H100 over gloo: not a scaling number); "
+                    f"phase {time.perf_counter() - t_phase:.1f} s "
+                    f"({card_line})")
+    return {"launches": launches, "ms": ms}
+
+
+def grids_reference(device, name, index):
+    """The single-process MESH_STEPS of one gridsnode400 configuration:
+    the per-iteration losses of each, the whole model (for its level-0
+    operator) and its Laplacian."""
+    from deepsphere_weather_torch.engine import Adam, make_train_step
+
+    cfg = _grids_config(name)
+    model = grids_model(device, cfg, "bfloat16").train()
+    model.load_state_dict(train_params(model, SEED + 70 + index))
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = train_batch(indexer, model.input_n_node, BATCH, device,
+                       SEED + 71 + index)
+    opt = Adam(model.parameters(), lr=LR, eps=ADAM_EPS,
+               gradient_clipping=cfg["training_settings"]["gradient_clipping"])
+    step = make_train_step(model, indexer, opt, TRAIN_AR + 1)
+    per_iter = np.stack([step(data, w, area_w)[1].float().cpu().numpy()
+                         for _ in range(MESH_STEPS)])
+    return per_iter, model, _grid_laplacian(cfg, model.geometry)
+
+
+def rank_grid(rank, device, name, index):
+    """One rank of a gridsnode400 configuration on 1 x 2: `grids_reference`'s
+    steps on its node shard (its pools gathering over the node group),
+    counts from 0; then K2 at every (level, width) the step launched."""
+    from deepsphere_weather_torch.engine import Adam, make_train_step
+    from deepsphere_weather_torch.models import shard_geometry
+    from deepsphere_weather_torch.parallel import make_mesh, shard_batch
+    from deepsphere_weather_torch.weights import broadcast_params
+
+    mesh = make_mesh(n_data=1, n_node=2, device=device)
+    cfg = _grids_config(name)
+    model = grids_model(mesh.device, cfg, "bfloat16").train()
+    model.load_state_dict(train_params(model, SEED + 70 + index))
+    broadcast_params(model, mesh)
+    n = model.input_n_node
+    laplacian = _grid_laplacian(cfg, model.geometry)
+    model.geometry = shard_geometry(model.geometry, mesh)
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = shard_batch(train_batch(indexer, n, BATCH, mesh.device,
+                                   SEED + 71 + index), mesh)
+    opt = Adam(model.parameters(), lr=LR, eps=ADAM_EPS,
+               gradient_clipping=cfg["training_settings"]["gradient_clipping"])
+    step = make_train_step(model, indexer, opt, TRAIN_AR + 1, mesh=mesh)
+    res = _counted_steps(model, lambda: step(data, w, area_w)[1].float()
+                         .cpu().numpy(), MESH_STEPS)
+    out = {"mesh": (mesh.data_rank, mesh.node_rank),
+           "per_iter": np.stack(res.pop("outs")),
+           "pools": [type(p).__name__ for p in model.geometry.pools
+                     + model.geometry.unpools],
+           "params": torch_flat(model), **res}
+    out["products"] = check_sharded_products(
+        model, lambda: step(data, w, area_w), laplacian, name)
+    return out
+
+
+def torch_flat(model):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1).float().cpu()
+                      for p in model.parameters()]).numpy()
+
+
+def image_conv_step(device, mesh=None):
+    """One bf16 forward and backward of ConvNetSpherical with
+    conv_type='image' at Equiangular_400km (36 x 72), seeded weights and
+    input: the loss mean((y)^2) (on a node mesh this rank's share, summed
+    over the node group), the gradients (reduced over the mesh) and the
+    gathers of the forward."""
+    import torch
+
+    from deepsphere_weather_torch.engine import reduce_gradients
+    from deepsphere_weather_torch.models import get_model, shard_geometry
+    from deepsphere_weather_torch.parallel import (
+        all_reduce_,
+        collective_counts,
+        node_range,
+        reset_collective_counts,
+    )
+    from deepsphere_weather_torch.weights import broadcast_params
+
+    n = 36 * 72
+    model = get_model("ConvNetSpherical", tensor_info(n),
+                      sampling="equiangular",
+                      sampling_kwargs={"nlat": 36, "nlon": 72},
+                      conv_type="image", numeric_precision="bfloat16",
+                      device=device).train()
+    model.load_state_dict(train_params(model, SEED + 75))
+    x = torch.from_numpy(np.random.default_rng(SEED + 76).standard_normal(
+        (BATCH, len(INPUT_K), n, F_STATIC + F_BC + F_DYN)).astype(
+            np.float32)).to(device)
+    if mesh is not None:
+        broadcast_params(model, mesh)
+        model.geometry = shard_geometry(model.geometry, mesh)
+        x = x[:, :, slice(*node_range(n, mesh))].contiguous()
+    reset_collective_counts()
+    y = model(x)
+    gathers = collective_counts["all_gather"]
+    loss = (y.float() ** 2).sum() / (BATCH * n * F_DYN)
+    loss.backward()
+    reduce_gradients(model, mesh)
+    loss = loss.detach()
+    if mesh is not None:
+        all_reduce_(loss, mesh.node_group)
+    return {"loss": float(loss), "grads": grads_of(model),
+            "finite": bool(torch.isfinite(y).all()), "gathers": gathers}
+
+
+def rank_image(rank, device):
+    from deepsphere_weather_torch.parallel import make_mesh
+
+    mesh = make_mesh(n_data=1, n_node=2, device=device)
+    return {"mesh": (mesh.data_rank, mesh.node_rank),
+            **image_conv_step(mesh.device, mesh)}
+
+
+def phase_gridsnode400(device, card_line):
+    """gridsnode400 (module docstring). Returns K2's launches by path and
+    the voronoi configuration's level-0 operator and Laplacian (for the
+    transposed layout's kernel row)."""
+    t_phase = time.perf_counter()
+    refs = [grids_reference(device, name, i)
+            for i, name in enumerate(GRIDSNODE)]
+    tasks = [(rank_grid, {"device": str(device), "name": name, "index": i})
+             for i, name in enumerate(GRIDSNODE)]
+    tasks.append((rank_image, {"device": str(device)}))
+    ranks = run_ranks(2, tasks)
+    launches, voronoi = {}, None
+    for i, name in enumerate(GRIDSNODE):
+        ref, model, laplacian = refs[i]
+        runs = [r[i] for r in ranks]
+        total = [0, 0]
+        want_gathers = GATHERS_PER_FORWARD + POOL_GATHERS
+        for r in runs:
+            where = f"{name} rank {r['mesh']}"
+            e = rel_err(r["per_iter"], ref)
+            if not e <= SLICE_TOL:
+                raise AssertionError(f"gridsnode400 {where}: losses vs the "
+                                     f"single-process steps {e:.3e}")
+            f, b = check_launches(r, ROW_KERNEL, LAUNCHES_PER_FORWARD,
+                                  TRAIN_AR + 1, where, "gridsnode400")
+            total[0] += f
+            total[1] += b
+            if (set(r["pools"]) != {"ShardedPool", "ShardedUnpool"}
+                    or any(gs != [want_gathers] * (TRAIN_AR + 1)
+                           for gs in r["gathers"])):
+                raise AssertionError(f"gridsnode400 {where}: pools "
+                                     f"{r['pools']}, gathers {r['gathers']}")
+            _log_products("gridsnode400", r["mesh"], r["products"])
+            log("gridsnode400", f"{where}: losses vs one process {e:.3e} "
+                                f"(tol {SLICE_TOL}); {want_gathers} gathers "
+                                f"a model call ({GATHERS_PER_FORWARD} "
+                                f"products, {POOL_GATHERS} pools and "
+                                f"unpools); host seconds per step "
+                                f"{np.round(r['seconds'], 3).tolist()}")
+        if not np.array_equal(runs[0]["params"], runs[1]["params"]):
+            raise AssertionError(f"gridsnode400 {name}: parameters differ "
+                                 "between the ranks")
+        launches[f"gridsnode400_{name}"] = tuple(total)
+        log("gridsnode400", f"{name} AR{TRAIN_AR} batch {BATCH} bf16 on 1 x "
+                            f"2: {_mesh_ms(runs):.2f} ms per step (the slower "
+                            f"rank; 2 ranks sharing one H100 over gloo: not "
+                            f"a scaling number); parameters identical on "
+                            f"both ranks")
+        if model.geometry.cheb_ops[0].bcsr.svals_t is not None:
+            voronoi = (model.geometry.cheb_ops[0].bcsr, laplacian(0))
+    one = image_conv_step(device)
+    for r in (rr[-1] for rr in ranks):
+        e_loss = rel_err(r["loss"], one["loss"])
+        e_grad, key = grads_close(r["grads"], one["grads"], {}, SLICE_TOL,
+                                  "image convolution on 1 x 2 vs one process")
+        if not (r["finite"] and e_loss <= SLICE_TOL and r["gathers"] == 7):
+            raise AssertionError(f"gridsnode400 image rank {r['mesh']}: "
+                                 f"finite {r['finite']}, loss {e_loss:.3e}, "
+                                 f"gathers {r['gathers']}")
+        log("gridsnode400", f"ConvNetSpherical conv_type='image' at "
+                            f"Equiangular_400km bf16 on 1 x 2, rank "
+                            f"{r['mesh']}: forward and backward finite, 7 "
+                            f"gathers (one a convolution), loss {e_loss:.3e} "
+                            f"and gradients worst {e_grad:.3e} ({key}) vs one "
+                            f"process (tol {SLICE_TOL})")
+    log("gridsnode400", f"phase {time.perf_counter() - t_phase:.1f} s "
+                        f"({card_line})")
+    return {"launches": launches, "voronoi": voronoi}
+
+
+def shard_rows_times(name, fn, plain, layout, L_rows, n, widths, device,
+                     label, rng):
+    """A row-range kernel (`fn`, its plain version `plain`) on one shard's
+    layout against the full x [n, w] at each width: per-launch averages of
+    its time (`device_ms`), its plain version's, cuSPARSE's on the CSR
+    row slice `L_rows` against the full x and the bound; the largest max
+    abs error vs the plain version (held to the bf16 bar: the tensor
+    cores sum in another order)."""
+    import torch
+    import torch.nn.functional as F
+
+    kind, a, idx, nz, r0, full_rows = layout
+    csr = _csr(L_rows, device, torch.bfloat16)
+    nnz, slots, x_blocks = _block_counts(
+        KERNEL if kind == "super" else PLAIN_KERNEL, a, idx)
+    acc = dict.fromkeys(("ms", "host_ms", "plain_ms", "library_ms",
+                         "bound_ms", "bytes_ms", "ops_ms"), 0.0)
+    err = 0.0
+    for w in widths:
+        x = torch.from_numpy(rng.standard_normal((n, w)).astype(
+            np.float32)).to(device, torch.bfloat16)
+        x_pad = F.pad(x, (0, (-w) % 128, 0, full_rows - n))
+        args = (a, idx, x_pad, 0, a.shape[0])
+        kw = {"nz": nz}
+        y, want = fn(*args, **kw), plain(*args, **kw)
+        e = float((y.float() - want.float()).abs().max())
+        e_rel = rel_err(y.float().cpu(), want.float().cpu())
+        if not e_rel < BARS["bf16"]:
+            raise AssertionError(f"{name} {label} width {w}: vs plain "
+                                 f"version max abs {e:.3e}, rel {e_rel:.3e}")
+        err = max(err, e)
+        t_bytes, t_ops = _bound(a, x, nnz, x_blocks,
+                                out_rows=L_rows.shape[0])
+        r = {"ms": device_ms(lambda: fn(*args, **kw)),
+             "host_ms": host_ms(lambda: fn(*args, **kw)),
+             "plain_ms": device_ms(lambda: plain(*args, **kw), n_iter=5),
+             "library_ms": device_ms(lambda: torch.sparse.mm(csr, x)),
+             "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
+             "ops_ms": t_ops}
+        log("times", f"{name} {label} rows of x[{n}, {w}]: {r['ms']:.4f} ms "
+                     f"(host enqueue {r['host_ms']:.4f} ms, bound "
+                     f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                     f"cuSPARSE {r['library_ms']:.4f} ms), vs plain version "
+                     f"max abs {e:.3e} rel {e_rel:.3e}, blocks {nnz}/{slots}, "
+                     f"x blocks read {x_blocks}/{full_rows // 128}")
+        for k in acc:
+            acc[k] += r[k] / len(widths)
+    acc["max_abs_err"] = err
+    acc["bound_by"] = ("bytes" if acc["bytes_ms"] >= acc["ops_ms"]
+                       else "operations")
+    acc["widths"] = list(widths)
+    return acc
+
+
+def k2_new_shapes(device, voronoi, batch):
+    """K2 at the shapes this round's phases gave it: HEALPix-16 level 0
+    rows [0, n/2) at ensmesh16's 2-member folded widths, and the voronoi
+    grids configuration's transposed layout (its backward) on rows
+    [0, n/2) at the single step's widths (`shard_rows_times`)."""
+    import torch
+
+    from deepsphere_weather_torch.ops import BlockSparseOperator, bcsr
+
+    fns = (bcsr.bcsr_super_spmm_rows, bcsr.bcsr_super_spmm_rows_reference)
+    rng = np.random.default_rng(SEED + 77)
+    L = _laplacian(SLICE_SUBDIV)
+    n = L.shape[0]
+    op = BlockSparseOperator.from_scipy(L, dtype=torch.bfloat16,
+                                        device=device)
+    widths = [batch * f for f in WIDTH_FEATURES]
+    folded = [2 * (w + (-w) % 128) for w in widths]
+    out = {"member_folded": shard_rows_times(
+        ROW_KERNEL, *fns, op.row_shard(0, n // 2, group=None).fwd,
+        L[:n // 2], n, folded, device,
+        f"HEALPix-{SLICE_SUBDIV} level 0, 2 members folded", rng)}
+    vop, vL = voronoi
+    vn = vL.shape[0]
+    out["voronoi_transposed"] = shard_rows_times(
+        ROW_KERNEL, *fns, vop.row_shard(0, vn // 2, group=None).bwd,
+        vL.T.tocsr()[:vn // 2], vn, widths, device,
+        f"{GRIDSNODE[0]} level 0 transposed", rng)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2649,68 +3351,27 @@ def kernel_row(name, op, device, subdiv, batch, launches):
 def row_range_times(kind, device, subdiv, batch):
     """A row-range kernel (K2 for kind "super", K3's row range for
     "plain") at the 10 level-0 shapes of one node16 forward (bf16, batch
-    16), on rank 0's shard (rows [0, n/2)) against the full x: per-launch
-    averages of its time (`device_ms`), its plain version's, cuSPARSE's on
-    the CSR row slice against the full x and the bound; the largest max
-    abs error vs the plain version (held to the bf16 bar: the tensor
-    cores sum in another order)."""
+    16), on rank 0's shard (rows [0, n/2)) against the full x
+    (`shard_rows_times`)."""
     import torch
-    import torch.nn.functional as F
 
     from deepsphere_weather_torch.ops import BlockSparseOperator, bcsr
 
     L = _laplacian(subdiv)
     n = L.shape[0]
-    v0, v1 = 0, n // 2
     op = BlockSparseOperator.from_scipy(
         L, dtype=torch.bfloat16, rows_per_super=2 if kind == "super" else 0,
         device=device)
-    _, a, idx, nz, r0, full_rows = op.row_shard(v0, v1, group=None).fwd
-    name = ROW_KERNEL if kind == "super" else PLAIN_ROW_KERNEL
-    fn, plain = ((bcsr.bcsr_super_spmm_rows, bcsr.bcsr_super_spmm_rows_reference)
-                 if kind == "super" else
-                 (bcsr.bcsr_spmm_rows, bcsr.bcsr_spmm_rows_reference))
-    kw = {"nz": nz}
-    csr = _csr(L[v0:v1], device, torch.bfloat16)
-    nnz, slots, x_blocks = _block_counts(
-        KERNEL if kind == "super" else PLAIN_KERNEL, a, idx)
-    rng = np.random.default_rng(SEED + 14)
-    acc = dict.fromkeys(("ms", "host_ms", "plain_ms", "library_ms",
-                         "bound_ms", "bytes_ms", "ops_ms"), 0.0)
-    widths = [batch * f for f in WIDTH_FEATURES]
-    err = 0.0
-    for w in widths:
-        x = torch.from_numpy(rng.standard_normal((n, w)).astype(
-            np.float32)).to(device, torch.bfloat16)
-        x_pad = F.pad(x, (0, (-w) % 128, 0, full_rows - n))
-        args = (a, idx, x_pad, 0, a.shape[0])
-        y, want = fn(*args, **kw), plain(*args, **kw)
-        e = float((y.float() - want.float()).abs().max())
-        e_rel = rel_err(y.float().cpu(), want.float().cpu())
-        if not e_rel < BARS["bf16"]:
-            raise AssertionError(f"{name} width {w}: vs plain version max abs "
-                                 f"{e:.3e}, rel {e_rel:.3e}")
-        err = max(err, e)
-        t_bytes, t_ops = _bound(a, x, nnz, x_blocks, out_rows=v1 - v0)
-        r = {"ms": device_ms(lambda: fn(*args, **kw)),
-             "host_ms": host_ms(lambda: fn(*args, **kw)),
-             "plain_ms": device_ms(lambda: plain(*args, **kw), n_iter=5),
-             "library_ms": device_ms(lambda: torch.sparse.mm(csr, x)),
-             "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
-             "ops_ms": t_ops}
-        log("times", f"{name} HEALPix-{subdiv} bf16 rows [{v0}, {v1}) "
-                     f"of x[{n}, {w}]: {r['ms']:.4f} ms (host enqueue "
-                     f"{r['host_ms']:.4f} ms, bound "
-                     f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                     f"cuSPARSE {r['library_ms']:.4f} ms), vs plain version "
-                     f"max abs {e:.3e} rel {e_rel:.3e}, blocks {nnz}/{slots}, "
-                     f"x blocks read {x_blocks}/{full_rows // 128}")
-        for k in acc:
-            acc[k] += r[k] / len(widths)
-    acc["max_abs_err"] = err
-    acc["bound_by"] = ("bytes" if acc["bytes_ms"] >= acc["ops_ms"]
-                       else "operations")
-    return acc
+    name, fn, plain = ((ROW_KERNEL, bcsr.bcsr_super_spmm_rows,
+                        bcsr.bcsr_super_spmm_rows_reference)
+                       if kind == "super" else
+                       (PLAIN_ROW_KERNEL, bcsr.bcsr_spmm_rows,
+                        bcsr.bcsr_spmm_rows_reference))
+    return shard_rows_times(
+        name, fn, plain, op.row_shard(0, n // 2, group=None).fwd,
+        L[:n // 2], n, [batch * f for f in WIDTH_FEATURES], device,
+        f"HEALPix-{subdiv} bf16 rows [0, {n // 2})",
+        np.random.default_rng(SEED + 14))
 
 
 def kernel_row_rows(device, subdiv, batch, launches):
@@ -2891,7 +3552,7 @@ def phase_bn16(device, card_line):
         model, indexer, opt, TRAIN_AR + 1, with_norm_state=True))
     torch.cuda.synchronize()
     reset_launch_counts()
-    losses = []
+    losses, step_stats = [], []
     for i in range(BN_STEPS):
         before = {k: v.clone() for k, v in model.norm_state().items()}
         total, _ = step(data, w, area_w)
@@ -2900,6 +3561,8 @@ def phase_bn16(device, card_line):
             if not bool(torch.isfinite(v).all()) or torch.equal(v, before[k]):
                 raise AssertionError(f"bn16 step {i}: running {k} not "
                                      "finite or not moved")
+        step_stats.append({k: v.float().cpu().numpy().copy()
+                           for k, v in model.norm_state().items()})
     hook.remove()
     train_launches = dict(launch_counts)
     f_train, b_train = _want_step_launches(per_step, f"bn16 HEALPix-"
@@ -3011,7 +3674,7 @@ def phase_bn16(device, card_line):
     return {"launches": {"bn16_train": (f_train, b_train),
                          "bn16_bn_update": (bn_launches, 0),
                          "bn16_forecast": (fc_launches, 0)},
-            "ms": t_step}
+            "ms": t_step, "losses": losses, "stats": step_stats}
 
 
 def phase_ens16(device, card_line, single_ms, profile=False):
@@ -3801,6 +4464,10 @@ def main() -> int:
     bn16 = phase_bn16(device, card_line)
     ens16 = phase_ens16(device, card_line, tr["ms"]["train16"],
                         args.profile)
+    t_mesh = time.perf_counter()
+    ensmesh = phase_ensmesh16(device, card_line, ens16["widths"])
+    bnmesh = phase_bnmesh16(device, card_line, bn16)
+    t_mesh = time.perf_counter() - t_mesh
 
     from deepsphere_weather_torch.ops import BlockSparseOperator
 
@@ -3860,20 +4527,45 @@ def main() -> int:
     rows[0]["launches_protocol16"] = proto["parts"]
     rows[0]["launches_swag16"] = swag16["parts"]
     grids = phase_grids400(device, card_line)
+    t_grids = time.perf_counter()
+    gridsnode = phase_gridsnode400(device, card_line)
+    t_mesh += time.perf_counter() - t_grids
+    log("times", f"ensmesh16, bnmesh16 and gridsnode400 together "
+                 f"{t_mesh:.1f} s")
     rows[0]["launches_grids400_cli"] = grids["cli_parts"]
     # K1 per launch at each of the O24 voronoi level 0's step widths,
     # forward layout and the transposed one its backward runs
     rows[0]["grids400_o24_shapes"] = grids["rows"]
+    # the paths of this round's mesh phases: K1 where no node axis is
+    # sharded, K2 where one is
+    mesh_paths = {
+        KERNEL: [("ensmesh16_2x1x2", ensmesh["launches"]["ensmesh16_2x1x2"]),
+                 ("ensmesh16_rollout",
+                  ensmesh["launches"]["ensmesh16_rollout"])],
+        ROW_KERNEL: [("ensmesh16_1x2x2",
+                      ensmesh["launches"]["ensmesh16_1x2x2"])]
+        + list(gridsnode["launches"].items())}
+    for path, (kernel, counts) in bnmesh["launches"].items():
+        mesh_paths[kernel].append((path, counts))
     for path, (fwd, bwd) in [("protocol16", (proto["forward"],
                                              proto["backward"]))] + list(
             serve16["launches"].items()) + list(
             bn16["launches"].items()) + list(
             ens16["launches"].items()) + list(
-            swag16["launches"].items()) + list(grids["launches"].items()):
+            swag16["launches"].items()) + list(
+            grids["launches"].items()) + mesh_paths[KERNEL]:
         rows[0]["launches_by_path"][path] = [fwd, bwd]
         rows[0]["launches_forward"] += fwd
         rows[0]["launches_backward"] += bwd
         rows[0]["launches"] += fwd + bwd
+    for path, (fwd, bwd) in mesh_paths[ROW_KERNEL]:
+        rows[2]["launches_by_path"][path] = [fwd, bwd]
+        rows[2]["launches_forward"] += fwd
+        rows[2]["launches_backward"] += bwd
+        rows[2]["launches"] += fwd + bwd
+    # K2 at the shapes of this round's phases: the member-folded level-0
+    # widths and the voronoi transposed layout
+    rows[2].update(k2_new_shapes(device, gridsnode["voronoi"], BATCH))
     # K5 (`custom_vmap`, pallas_spmm.py:998): the vmap rule of the
     # registered op, which launches K1 once per product for all members
     rows[0]["k5_vmap_rule"] = {
@@ -3884,7 +4576,13 @@ def main() -> int:
             "ens16_train": ens16["launches"]["ens16_train"],
             "swag16_export": swag16["launches"]["swag16_export"]},
         "widths_ens16": ens16["widths"][:LAUNCHES_PER_FORWARD],
-        "widths_ens16_single": ens16["single_widths"][:LAUNCHES_PER_FORWARD]}
+        "widths_ens16_single": ens16["single_widths"][:LAUNCHES_PER_FORWARD],
+        # the rule folds the members into K2's row-sharded product too
+        # (`spmm_rows`, the JAX rule around the partitioned op)
+        "covers": [KERNEL, ROW_KERNEL],
+        "row_rule_source": "deepsphere_weather_torch/ops/bcsr.py (spmm_rows)",
+        "launches_by_path_rows": {
+            "ensmesh16_1x2x2": ensmesh["launches"]["ensmesh16_1x2x2"]}}
     log("times", f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)

@@ -52,6 +52,7 @@ def main(model_dir, data_dir, epochs: int = 1, nb_samples: int = 5,
     from ..engine import (Adam, ARScheduler, AreaWeights,
                           AutoregressiveTraining, swa_schedule)
     from ..prob import SWAG, AutoregressiveSWAGPredictions
+    from ..parallel import training_mesh
     from ..sphere import build_sampling
     from ..utils import Checkpointer, set_deterministic_training
     from ..verif import deterministic, global_summary
@@ -105,8 +106,13 @@ def main(model_dir, data_dir, epochs: int = 1, nb_samples: int = 5,
                                                       0.0) or 0.0),
         lr_schedule=swa_schedule(base_lr, float(target_learning_rate),
                                  int(swa_start)))
+    # the main trainer's data x node mesh settings (None on 1 x 1)
+    mesh = training_mesh(training_settings.get("n_data_parallel", 1),
+                         training_settings.get("n_node_parallel", 1),
+                         device=device)
     model, _, info = AutoregressiveTraining(
         model,
+        mesh=mesh,
         training_data_dynamic=split["train"],
         validation_data_dynamic=split["val"],
         training_data_bc=split["train_bc"],

@@ -20,7 +20,9 @@ eps=1e-7)`: both add eps outside the square root).
   (`parallel.make_mesh`), the train and validation steps run one rank of a
   node- and data-parallel step: GSPMD's collectives in the JAX package
   (`step.py:211-257`, `:315-330`) are written out here
-  (`reduce_gradients`, the reported losses).
+  (`reduce_gradients`, the reported losses). A BatchNorm model's
+  training-mode statistics are then the global batch's
+  (`models.layers.batch_stats_over` around every model call).
 - BatchNorm models (`models/layers.py`): `collect_stats` makes the loss
   return every AR iteration's batch statistics, `with_norm_state` makes a
   train step fold them into the model's running statistics after the
@@ -36,7 +38,11 @@ eps=1e-7)`: both add eps outside the square root).
   backward (the registered op's vmap rule and `_MatVec`'s generated one).
   Gradient clipping is per member (`engine.optim.Adam(member_axis=True)`),
   as the JAX package clips inside its vmap; Adam itself is elementwise,
-  so one optimizer over the stacked parameters is exact.
+  so one optimizer over the stacked parameters is exact. With a `mesh`
+  the stack is this rank's members (`parallel.member_range`): each
+  member's gradients are reduced over the node and data groups as the
+  single step's are (nothing over the member group), and the per-member
+  losses are gathered over the member group into [M], in member order.
 - `make_rollout_block`: the rolling-history block rollout for prediction,
   with the model-error perturbation `noise_block` and, for BatchNorm
   models, eval-mode normalization with a given `norm_state`.
@@ -51,7 +57,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..data.ar import ARIndexer
-from ..parallel.collectives import all_reduce_
+from ..models.layers import batch_stats_over
+from ..parallel.collectives import all_reduce_, gather_rows
 from ..parallel.mesh import ProcessMesh, node_range
 from .loss import weighted_mse
 
@@ -130,11 +137,7 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
         raise ValueError("ar_training_strategy must be 'RNN' or 'AR'")
     if collect_stats and eval_mode:
         raise ValueError("collect_stats is a training-mode channel")
-    if (mesh is not None and (mesh.n_node > 1 or mesh.n_data > 1)
-            and getattr(model, "has_batch_norm", False)):
-        raise NotImplementedError(
-            "BatchNorm statistics over a node or data mesh are not ported "
-            "(each rank would normalize with its shard's statistics)")
+    stats_groups = _stats_groups(mesh)
     in_pos = np.asarray(indexer.input_pos)
     out_pos = np.asarray(indexer.output_pos)
     detach = ar_training_strategy == "AR"
@@ -155,10 +158,11 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
             stats = {} if collect_stats else None
             if stats is not None:
                 kw["stats_out"] = stats
-            if tensors is not None:
-                y = torch.func.functional_call(model, tensors, (x,), kw)
-            else:
-                y = model(x, **kw)
+            with batch_stats_over(stats_groups):
+                if tensors is not None:
+                    y = torch.func.functional_call(model, tensors, (x,), kw)
+                else:
+                    y = model(x, **kw)
             return y, (None if stats is None else _flat_stats(stats))
 
         def step(dyn_buf, written, i):
@@ -236,6 +240,16 @@ def _node_weights(area_w, n_local: int, mesh: Optional[ProcessMesh]):
         raise ValueError(f"area_w has {area_w.shape[0]} nodes, but the "
                          f"batch shard {n_local} of {n_local * mesh.n_node}")
     return area_w[v0:v1], area_w.sum()
+
+
+def _stats_groups(mesh: Optional[ProcessMesh]):
+    """The (group, ranks) pairs BatchNorm statistics are summed over: the
+    node and the data group of a mesh (not the member group: each member
+    normalizes with its own statistics)."""
+    if mesh is None:
+        return ()
+    return tuple((g, n) for g, n in ((mesh.node_group, mesh.n_node),
+                                     (mesh.data_group, mesh.n_data)) if n > 1)
 
 
 def _reduce(flat: torch.Tensor, mesh: Optional[ProcessMesh]) -> torch.Tensor:
@@ -392,11 +406,25 @@ def make_cached_validation_fn(model, indexer: ARIndexer,
 # Member-parallel (DeepEnsemble) steps over a `models.MemberStack`
 # ---------------------------------------------------------------------------
 
+def _member_losses(total, per_iter, mesh):
+    """The members' (total [M], per_iter [M, n_scan]), detached: each
+    rank's members reduced over the node and data groups as the single
+    step's losses are, then gathered over the member group."""
+    total, per_iter = total.detach(), per_iter.detach()
+    if mesh is None:
+        return total, per_iter
+    flat = _reduce(torch.cat([total[:, None], per_iter], dim=1), mesh)
+    if mesh.n_member > 1:
+        flat = gather_rows(flat, mesh.member_group, 0)
+    return flat[:, 0], flat[:, 1:]
+
+
 def _member_update(stack, optimizer, loss_fn, batch, ar_weights, area_w,
-                   with_norm_state):
+                   with_norm_state, mesh=None):
     """One update of every member: per-member gradients from `torch.func`
-    (grad under vmap, the batch shared), then one optimizer step over the
-    stacked parameters and, with norm state, the per-member fold."""
+    (grad under vmap, the batch shared), reduced over the mesh's node and
+    data groups, then one optimizer step over the stacked parameters and,
+    with norm state, the per-member fold."""
     params = {k: p.detach() for k, p in stack.named_parameters()}
     buffers = stack.norm_state()
 
@@ -412,15 +440,16 @@ def _member_update(stack, optimizer, loss_fn, batch, ar_weights, area_w,
     optimizer.zero_grad(set_to_none=True)
     for name, p in stack.named_parameters():
         p.grad = grads[name]
+    reduce_gradients(stack, mesh)
     optimizer.step()
     if with_norm_state:
         aux, stats = aux
         fold_running_stats(buffers, stats)
-    return total.detach(), aux.detach()
+    return _member_losses(total, aux, mesh)
 
 
 def _member_loss(stack, indexer, n_scan_iterations, ar_training_strategy,
-                 remat, with_norm_state):
+                 remat, with_norm_state, mesh):
     if remat:
         raise NotImplementedError(
             "remat=True in member steps: torch.utils.checkpoint does not run "
@@ -428,7 +457,7 @@ def _member_loss(stack, indexer, n_scan_iterations, ar_training_strategy,
     if getattr(stack, "n_members", None) is None:
         raise TypeError("member steps take a models.MemberStack")
     return make_ar_loss_fn(stack.model, indexer, n_scan_iterations,
-                           ar_training_strategy,
+                           ar_training_strategy, mesh=mesh,
                            collect_stats=with_norm_state)
 
 
@@ -436,20 +465,26 @@ def make_member_train_step(stack, indexer: ARIndexer, optimizer,
                            n_scan_iterations: int,
                            ar_training_strategy: str = "RNN",
                            remat: bool = False,
-                           with_norm_state: bool = False) -> Callable:
+                           with_norm_state: bool = False,
+                           mesh: Optional[ProcessMesh] = None) -> Callable:
     """Member-parallel train step over a `models.MemberStack`:
     (batch, ar_weights, area_w=None) -> (total [M], per_iter [M, n_scan]),
     detached, after one update of `optimizer` (over `stack.parameters()`;
     `engine.optim.Adam(member_axis=True)` clips each member by its own
     global norm). Every member trains on the same batch. With
     `with_norm_state` each member's statistics fold into its own running
-    statistics (`stack.norm_state()`, [M, C]). `remat` raises."""
+    statistics (`stack.norm_state()`, [M, C]). `remat` raises.
+
+    With a `mesh`, one rank's step: `stack` holds the rank's members
+    (`parallel.member_range`), `batch` and `area_w` are as in
+    `make_train_step`'s, and the returned losses are every member's,
+    gathered over the member group (module docstring)."""
     loss_fn = _member_loss(stack, indexer, n_scan_iterations,
-                           ar_training_strategy, remat, with_norm_state)
+                           ar_training_strategy, remat, with_norm_state, mesh)
 
     def train_step(batch: Dict, ar_weights, area_w=None):
         return _member_update(stack, optimizer, loss_fn, batch, ar_weights,
-                              area_w, with_norm_state)
+                              area_w, with_norm_state, mesh)
 
     return train_step
 
@@ -458,53 +493,59 @@ def make_cached_member_train_step(stack, indexer: ARIndexer, optimizer,
                                   n_scan_iterations: int,
                                   ar_training_strategy: str = "RNN",
                                   remat: bool = False,
-                                  with_norm_state: bool = False) -> Callable:
+                                  with_norm_state: bool = False,
+                                  mesh: Optional[ProcessMesh] = None
+                                  ) -> Callable:
     """`make_member_train_step` over a device-resident dataset: (data,
     widx, ar_weights, area_w=None); the window batch is gathered once and
-    shared by every member."""
+    shared by every member (`mesh` as in `make_cached_train_step`)."""
     loss_fn = _member_loss(stack, indexer, n_scan_iterations,
-                           ar_training_strategy, remat, with_norm_state)
+                           ar_training_strategy, remat, with_norm_state, mesh)
 
     def train_step(data: Dict, widx, ar_weights, area_w=None):
         return _member_update(stack, optimizer, loss_fn,
                               _gather_window_batch(data, widx), ar_weights,
-                              area_w, with_norm_state)
+                              area_w, with_norm_state, mesh)
 
     return train_step
 
 
-def _member_validate(stack, loss_fn, batch, ar_weights, area_w):
+def _member_validate(stack, loss_fn, batch, ar_weights, area_w, mesh):
     def one(t):
         return loss_fn(batch, ar_weights, area_w, tensors=t)
     with torch.no_grad():
-        return torch.func.vmap(one)(stack.tensors())
+        return _member_losses(*torch.func.vmap(one)(stack.tensors()), mesh)
 
 
 def make_member_validation_fn(stack, indexer: ARIndexer,
                               n_scan_iterations: int,
-                              eval_mode: bool = False) -> Callable:
+                              eval_mode: bool = False,
+                              mesh: Optional[ProcessMesh] = None) -> Callable:
     """(batch, ar_weights, area_w=None) -> (total [M], per_iter [M,
     n_scan]), no gradient; `eval_mode` normalizes each member with its
-    own running statistics."""
+    own running statistics; `mesh` as in `make_member_train_step`."""
     loss_fn = make_ar_loss_fn(stack.model, indexer, n_scan_iterations, "RNN",
-                              eval_mode=eval_mode)
+                              mesh=mesh, eval_mode=eval_mode)
 
     def validate(batch: Dict, ar_weights, area_w=None):
-        return _member_validate(stack, loss_fn, batch, ar_weights, area_w)
+        return _member_validate(stack, loss_fn, batch, ar_weights, area_w,
+                                mesh)
 
     return validate
 
 
 def make_cached_member_validation_fn(stack, indexer: ARIndexer,
                                      n_scan_iterations: int,
-                                     eval_mode: bool = False) -> Callable:
+                                     eval_mode: bool = False,
+                                     mesh: Optional[ProcessMesh] = None
+                                     ) -> Callable:
     loss_fn = make_ar_loss_fn(stack.model, indexer, n_scan_iterations, "RNN",
-                              eval_mode=eval_mode)
+                              mesh=mesh, eval_mode=eval_mode)
 
     def validate(data: Dict, widx, ar_weights, area_w=None):
         return _member_validate(stack, loss_fn,
                                 _gather_window_batch(data, widx), ar_weights,
-                                area_w)
+                                area_w, mesh)
 
     return validate
 

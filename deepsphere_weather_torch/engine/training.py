@@ -20,7 +20,11 @@ and validation steps of `engine/step.py` with:
   once and each step gathers its windows there
   (`make_cached_train_step`); otherwise the loader streams assembled
   batches to the device (`make_train_step`);
-- an optional node- and data-parallel `mesh` (`parallel.make_mesh`);
+- an optional node-, data- and member-parallel `mesh`
+  (`parallel.make_mesh`): a model whose geometry is whole trains on its
+  node shard (`models.shard_geometry`; the whole geometry is back when
+  the driver returns); every rank takes the same decisions, from the
+  global losses every rank holds; rank 0 writes the checkpoints;
 - BatchNorm models: every step folds its batch statistics into the
   running statistics (the model's buffers, `engine.step.fold_running_stats`),
   validation scores in eval mode with them, and checkpoints save them
@@ -31,7 +35,13 @@ and validation steps of `engine/step.py` with:
   `models.MemberStack` of that many members, every member advances in one
   step on shared batches (`make_member_train_step`), the scalar metrics
   are member means (early stopping and AR growth act on the mean) and the
-  per-member validation losses land in `ARTrainingInfo.per_member_loss`;
+  per-member validation losses land in `ARTrainingInfo.per_member_loss`.
+  On a mesh with a member axis each rank trains its members
+  (`parallel.member_range`, with their slices of the optimizer state);
+  the losses of every member are gathered to every rank, and the whole
+  stack and its optimizer state are gathered back for each checkpoint
+  (today's [M, ...] layout, so a run resumes across layouts) and when the
+  driver returns;
 - SWAG collection (`swag`, `swag_model`, `swag_freq`, `swa_start`): at a
   scoring interval with `update >= swa_start`, every `swag_freq`-th one
   collects the parameters into `swag_model` (`prob.SWAG`).
@@ -41,9 +51,8 @@ in place; a resumed run loads them first (`utils.Checkpointer`). Steps are
 queued without a host synchronization; the loss is read once per scoring
 interval.
 
-Not ported: the member axis of a mesh (ROADMAP Queue 1 item 6a; `n_members`
-with a mesh of more than one rank raises) and the training plots
-(`ARTrainingInfo.plots`, item 9).
+Not ported: the training plots (`ARTrainingInfo.plots`, ROADMAP Queue 1
+item 9).
 """
 
 from __future__ import annotations
@@ -61,8 +70,11 @@ import torch
 
 from ..data.ar import ARIndexer
 from ..data.loader import AutoregressiveDataLoader, AutoregressiveDataset
-from ..parallel.mesh import (TRAIN_BATCH_KEYS, put_device_dataset,
-                             shard_batch, shard_window_indices)
+from ..models.geometry import shard_geometry
+from ..parallel.collectives import gather_rows
+from ..parallel.mesh import (TRAIN_BATCH_KEYS, member_range, mesh_barrier,
+                             put_device_dataset, shard_batch,
+                             shard_window_indices)
 from ..utils.checkpoint import Checkpointer
 from .optim import Adam
 from .scheduler import ARScheduler, EarlyStopping
@@ -149,6 +161,89 @@ def _start_norm_state(model, initial: Optional[Dict], n_members):
         buf.copy_(given.to(buf.device))
 
 
+def _local_optimizer(optimizer, local):
+    """An optimizer of `optimizer`'s kind and settings over `local`'s
+    parameters (its state filled by `_MemberShard.to_local`)."""
+    if isinstance(optimizer, Adam):
+        opt = Adam(local.parameters(), lr=optimizer.param_groups[0]["lr"],
+                   gradient_clipping=optimizer.gradient_clipping,
+                   inject_lr=optimizer.inject_lr, member_axis=True,
+                   lr_schedule=optimizer.lr_schedule,
+                   eps=optimizer.defaults["eps"])
+        opt.updates = optimizer.updates
+        return opt
+    return type(optimizer)(local.parameters(), **optimizer.defaults)
+
+
+class _MemberShard:
+    """A member rank's part of a whole member stack `full` and its
+    optimizer `full_opt`: the stack of its members (`local`) and their
+    optimizer (`opt`), with the copies both ways. `to_full` gathers over
+    the member group (every rank calls it together)."""
+
+    def __init__(self, full, full_opt, mesh, n_members: int):
+        self.full, self.full_opt, self.mesh = full, full_opt, mesh
+        self.m0, self.m1 = member_range(n_members, mesh)
+        self.local = full.select(self.m0, self.m1)
+        self.opt = _local_optimizer(full_opt, self.local)
+        self.to_local()
+
+    def _pairs(self):
+        return zip(self.full.named_parameters(),
+                   self.local.named_parameters())
+
+    @torch.no_grad()
+    def to_local(self):
+        """The whole stack's and optimizer's members [m0, m1) into the
+        local ones."""
+        sl = slice(self.m0, self.m1)
+        for (_, pf), (_, pl) in self._pairs():
+            pl.copy_(pf[sl])
+            st = self.full_opt.state.get(pf)
+            if st:
+                self.opt.state[pl] = {
+                    "step": st["step"].clone(),
+                    "exp_avg": st["exp_avg"][sl].clone(),
+                    "exp_avg_sq": st["exp_avg_sq"][sl].clone()}
+        for (_, bf), (_, bl) in zip(self.full.named_buffers(),
+                                    self.local.named_buffers()):
+            bl.copy_(bf[sl])
+        for g in self.opt.param_groups:
+            g["lr"] = self.full_opt.param_groups[0]["lr"]
+
+    @torch.no_grad()
+    def to_full(self):
+        """Every rank's members gathered into the whole stack and its
+        optimizer: one gather of all of them, flattened per member."""
+        pairs = list(self._pairs())
+        stepped = all(self.opt.state.get(pl) for _, (_, pl) in pairs)
+        tensors = [pl for _, (_, pl) in pairs] + [
+            b for _, b in self.local.named_buffers()]
+        if stepped:
+            tensors += [self.opt.state[pl][k] for _, (_, pl) in pairs
+                        for k in ("exp_avg", "exp_avg_sq")]
+        m = self.m1 - self.m0
+        flat = gather_rows(torch.cat([t.reshape(m, -1).float()
+                                      for t in tensors], 1),
+                           self.mesh.member_group, 0)
+        parts = iter(flat.split([t[0].numel() for t in tensors], 1))
+        full = [pf for (_, pf), _ in pairs] + [
+            b for _, b in self.full.named_buffers()]
+        for t in full:
+            t.copy_(next(parts).reshape(t.shape))
+        if stepped:
+            for (_, pf), (_, pl) in pairs:
+                step = self.opt.state[pl]["step"].clone()
+                self.full_opt.state[pf] = {
+                    "step": step,
+                    "exp_avg": next(parts).reshape(pf.shape).clone(),
+                    "exp_avg_sq": next(parts).reshape(pf.shape).clone()}
+        for g in self.full_opt.param_groups:
+            g["lr"] = self.opt.param_groups[0]["lr"]
+        if hasattr(self.full_opt, "updates"):
+            self.full_opt.updates = self.opt.updates
+
+
 def _put_batch(batch: Dict, mesh, device) -> Dict:
     """The loader's transfer: the step's keys of a batch on the device
     (this rank's shard on a mesh); the host time arrays stay behind."""
@@ -228,24 +323,23 @@ def AutoregressiveTraining(
     to the model's device (a mesh's device on a mesh).
 
     With `n_members`, `model` is a `models.MemberStack` of that many
-    members. `initial_norm_state` ({buffer name: tensor}) starts a
+    members (on a member mesh too: the driver trains the rank's members
+    and gathers them back into `model` and `optimizer`).
+    `initial_norm_state` ({buffer name: tensor}) starts a
     BatchNorm model's running statistics; for a member stack a
-    single-model state is broadcast to every member."""
+    single-model state is broadcast to every member.
+
+    On a `mesh` every rank must start with the same parameters
+    (`weights.broadcast_params`) and call this together."""
     if n_members is not None and swag:
         raise ValueError("member-parallel training does not compose with "
                          "SWAG collection (collect per member separately)")
-    if n_members is not None and mesh is not None and \
-            mesh.n_data * mesh.n_node > 1:
-        # the member steps reduce nothing over a mesh's groups: each rank
-        # would train its members on its own shard alone
-        raise NotImplementedError(
-            "member-parallel training over a mesh of more than one rank is "
-            "not ported (ROADMAP Queue 1 item 6a, the mesh's member axis): "
-            "train the member stack on one device")
     if n_members is not None and getattr(model, "n_members",
                                          None) != n_members:
         raise TypeError(f"n_members={n_members} needs a models.MemberStack "
                         f"of {n_members} members as `model`")
+    if n_members is not None:
+        member_range(n_members, mesh)     # raises unless M divides
     if early_stopping_reset_on_growth not in ("counter", "full"):
         raise ValueError("early_stopping_reset_on_growth must be 'counter' "
                          "or 'full'")
@@ -264,6 +358,21 @@ def AutoregressiveTraining(
     has_bn = bool(getattr(model, "has_batch_norm", False))
     if has_bn:
         _start_norm_state(model, initial_norm_state, n_members)
+    # a member mesh trains this rank's members; `model` and `optimizer`
+    # stay the whole ones, for checkpoints and the caller
+    io_model, io_opt = model, optimizer
+    members = None
+    if n_members is not None and mesh is not None and mesh.n_member > 1:
+        members = _MemberShard(model, optimizer, mesh, n_members)
+        model, optimizer = members.local, members.opt
+    # a whole geometry trains on this rank's node shard
+    template = getattr(model, "model", model)
+    whole_geometry = None
+    if (mesh is not None and mesh.n_node > 1
+            and template.geometry.node_ranges is None):
+        whole_geometry = template.geometry
+        template.geometry = shard_geometry(whole_geometry, mesh)
+    writer = mesh is None or mesh.rank == 0
     if ar_scheduler is None:
         ar_scheduler = ARScheduler(method="Constant",
                                    initial_ar_absolute_weights=[1.0] *
@@ -332,10 +441,11 @@ def AutoregressiveTraining(
                      else make_member_train_step)(
                         model, indexer, optimizer, n_scan,
                         ar_training_strategy, remat=remat,
-                        with_norm_state=has_bn),
+                        with_norm_state=has_bn, mesh=mesh),
                     (make_cached_member_validation_fn if use_cache
                      else make_member_validation_fn)(
-                        model, indexer, n_scan, eval_mode=has_bn))
+                        model, indexer, n_scan, eval_mode=has_bn,
+                        mesh=mesh))
             else:
                 step_cache[n_iters] = (
                     (make_cached_train_step if use_cache
@@ -350,11 +460,25 @@ def AutoregressiveTraining(
         return step_cache[n_iters]
 
     def save_checkpoint():
-        ckpt.save_model(model)
+        # the whole stack, by rank 0; no rank reads one before it is written
+        if members is not None:
+            members.to_full()
+        if writer:
+            ckpt.save_model(io_model)
+            if has_bn:
+                ckpt.save_norm_state(io_model.norm_state())
+            ckpt.save_training_state(io_opt, io_model,
+                                     ar_scheduler.state_dict(),
+                                     early_stopping.state_dict())
+        mesh_barrier(mesh)
+
+    def load_checkpoint():
+        ckpt.load_model(io_model)
+        ckpt.load_training_state(io_opt, io_model)
         if has_bn:
-            ckpt.save_norm_state(model.norm_state())
-        ckpt.save_training_state(optimizer, model, ar_scheduler.state_dict(),
-                                 early_stopping.state_dict())
+            ckpt.load_norm_state(io_model.norm_state())
+        if members is not None:
+            members.to_local()
 
     update = 0
     stop = False
@@ -505,10 +629,7 @@ def AutoregressiveTraining(
                     if can_rescue:
                         rescues += 1
                         cur_lr *= 0.5
-                        ckpt.load_model(model)
-                        ckpt.load_training_state(optimizer, model)
-                        if has_bn:
-                            ckpt.load_norm_state(model.norm_state())
+                        load_checkpoint()
                         _set_opt_lr(optimizer, cur_lr)
                         early_stopping.reset()
                         kind = "exploding" if exploded else "non-finite"
@@ -579,7 +700,10 @@ def AutoregressiveTraining(
                         print("  -> early stopping", flush=True)
                     break
         if ckpt is not None and save_model_each_epoch:
-            ckpt.save_model(model, name=f"model_epoch_{epoch}.npz")
+            if members is not None:
+                members.to_full()
+            if writer:
+                ckpt.save_model(io_model, name=f"model_epoch_{epoch}.npz")
         # crash durability: a full checkpoint after every epoch, so that
         # --resume recovers an interrupted run
         if ckpt is not None:
@@ -587,5 +711,11 @@ def AutoregressiveTraining(
 
     if ckpt is not None:
         save_checkpoint()
-        info.save(Path(ckpt.exp_dir) / "training_info" / "ar_training_info.json")
-    return model, optimizer, info
+        if writer:
+            info.save(Path(ckpt.exp_dir) / "training_info"
+                      / "ar_training_info.json")
+    elif members is not None:
+        members.to_full()
+    if whole_geometry is not None:
+        template.geometry = whole_geometry
+    return io_model, io_opt, info

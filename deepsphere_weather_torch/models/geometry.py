@@ -7,8 +7,7 @@ block-sparse operator (the CUDA kernel on the card), stored in
 `operator_dtype`. The default threshold is the JAX package's: 2048 for a
 bf16 operator, 8192 otherwise. `conv_type='image'` (equiangular only)
 builds no operator: its `cheb_ops` are None per level. `shard_geometry`
-gives one node rank's part of a HEALPix geometry with hierarchical pools
-(node-parallel training).
+gives one node rank's part of any geometry (node-parallel training).
 """
 
 from __future__ import annotations
@@ -28,8 +27,11 @@ from ..ops.pool import (
     HealpixAvgUnpool,
     HealpixMaxPool,
     HealpixMaxUnpool,
+    ShardedPool,
+    ShardedUnpool,
     build_pool_unpool,
 )
+from ..parallel.collectives import NodeShard
 from ..parallel.mesh import ProcessMesh, node_range
 from ..sphere import (
     Sampling,
@@ -52,7 +54,8 @@ class ModelGeometry:
     row-sharded operators; its `n_nodes` are the local counts."""
 
     samplings: List[Sampling]
-    cheb_ops: List[Optional[ChebOperator]]    # None per level for 'image'
+    # None per level for 'image' (a node shard's: its NodeShard)
+    cheb_ops: List[Optional[ChebOperator]]
     pools: List                               # len depth-1
     unpools: List
     conv_type: str
@@ -151,41 +154,42 @@ def shard_geometry(geometry: ModelGeometry,
                    mesh: Optional[ProcessMesh]) -> ModelGeometry:
     """This rank's part of `geometry` on a node mesh: at every level the
     node range of its node shard and the operator's rows for it
-    (`ChebOperator.row_shard` over the mesh's node group). Nested HEALPix
-    ordering keeps the hierarchical pools inside a shard, so they are
-    unchanged. Without a mesh or with one node shard, `geometry` itself.
+    (`ChebOperator.row_shard` over the mesh's node group). Without a mesh
+    or with one node shard, `geometry` itself.
 
-    Raises NotImplementedError for any other geometry: a remap or
-    equiangular pool, or a non-HEALPix sampling, has windows and supports
-    that cross the node shards, which would need gathers around every
-    pool (ROADMAP Queue 1 item 7a); an image convolution has no operator
-    to shard.
+    Nested HEALPix ordering keeps the hierarchical pools inside a shard,
+    so they stay as they are. Every other pool and unpool (equiangular
+    windows, the remap pools) crosses the node ranges and becomes a
+    `ShardedPool` / `ShardedUnpool`, which gathers its input over the
+    node group; an image convolution's level holds its `NodeShard` in
+    place of an operator, and the ConvBlock gathers likewise.
 
     Raises ValueError when a level's nodes do not divide over the node
-    ranks (JAX's `device_put` refuses such an uneven layout too). Since
-    each level has the next one's nodes times the pool ratio, that also
-    makes every shard's nodes divide by the ratio."""
+    ranks (JAX's `device_put` refuses such an uneven layout too)."""
     if mesh is None or mesh.n_node == 1:
         return geometry
-    hierarchical = (HealpixMaxPool, HealpixAvgPool, HealpixMaxUnpool,
-                    HealpixAvgUnpool)
-    names = {s.name for s in geometry.samplings}
-    bad = [type(p).__name__ for p in geometry.pools + geometry.unpools
-           if not isinstance(p, hierarchical)]
-    if names != {"healpix"} or bad or geometry.conv_type != "graph":
-        raise NotImplementedError(
-            f"node-sharding a {'/'.join(sorted(names))} geometry with "
-            f"{sorted(set(bad)) or 'hierarchical HEALPix'} pools and "
-            f"conv_type {geometry.conv_type!r} is not ported: only nested "
-            "HEALPix with the hierarchical max/avg pools keeps every pool "
-            "inside a node shard (ROADMAP Queue 1 item 7a); train this "
-            "geometry on one node shard")
     for lvl, n_lvl in enumerate(geometry.n_nodes):
         if n_lvl % mesh.n_node:
             raise ValueError(f"level {lvl}: {n_lvl} nodes do not divide over "
                              f"{mesh.n_node} node ranks")
     ranges = [node_range(n_lvl, mesh) for n_lvl in geometry.n_nodes]
-    return dataclasses.replace(
-        geometry, node_ranges=ranges,
-        cheb_ops=[op.row_shard(v0, v1, mesh.node_group)
-                  for op, (v0, v1) in zip(geometry.cheb_ops, ranges)])
+    shards = [NodeShard(v0, v1, mesh.node_group) for v0, v1 in ranges]
+    local = (HealpixMaxPool, HealpixAvgPool, HealpixMaxUnpool,
+             HealpixAvgUnpool)
+    # a pool maps level l to l + 1; an unpool l + 1 to l (the downscaling
+    # network's unpool included: coarse level 1 to fine level 0); lists of
+    # local pools stay the geometry's own
+    pools, unpools = geometry.pools, geometry.unpools
+    if not all(isinstance(p, local) for p in pools):
+        pools = [p if isinstance(p, local)
+                 else ShardedPool(p, shards[lvl], shards[lvl + 1])
+                 for lvl, p in enumerate(pools)]
+    if not all(isinstance(u, local) for u in unpools):
+        unpools = [u if isinstance(u, local)
+                   else ShardedUnpool(u, shards[lvl + 1], shards[lvl])
+                   for lvl, u in enumerate(unpools)]
+    cheb_ops = [shard if op is None
+                else op.row_shard(shard.v0, shard.v1, mesh.node_group)
+                for op, shard in zip(geometry.cheb_ops, shards)]
+    return dataclasses.replace(geometry, node_ranges=ranges, pools=pools,
+                               unpools=unpools, cheb_ops=cheb_ops)

@@ -21,14 +21,22 @@ not `nn.BatchNorm1d`'s in-place one:
   its batch mean and unbiased variance there, and the caller folds them
   in (`engine.step.fold_running_stats`, `prob.bn.bn_update`), outside any
   gradient or `torch.func.vmap`.
+- On a node or data mesh the training-mode statistics are the global
+  batch's: inside `batch_stats_over(groups)` (set by `engine.step`
+  around each model call) the per-channel sum and then the centred sum
+  of squares are each summed over those process groups
+  (`parallel.all_reduce_sum`, whose backward sums the ranks' gradients),
+  with n the global count, as GSPMD computes the JAX statistics over the
+  sharded axes.
 - 'layer' / 'layernorm': stateless normalization over the channels.
 - False: none (every shipped configuration).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,11 +44,48 @@ from torch import nn
 
 from ..ops.cheb import ChebOperator, cheb_conv
 from ..ops.conv2d import equiangular_conv2d
+from ..parallel.collectives import NodeShard, all_reduce_sum
 
 __all__ = ["get_activation", "init_cheb_weight", "ConvBlock", "ResBlock",
-           "block_has_batch_norm"]
+           "block_has_batch_norm", "batch_stats_over"]
 
 NORM_EPS = 1e-5
+
+# (process group, ranks) pairs a training-mode BatchNorm sums its
+# statistics over; empty on one process (`batch_stats_over`)
+_STATS_GROUPS: Tuple = ()
+
+
+@contextlib.contextmanager
+def batch_stats_over(groups: Sequence):
+    """Within this context, training-mode BatchNorm statistics are those of
+    the global batch: summed over each (process group, number of ranks)
+    pair of `groups` (module docstring)."""
+    global _STATS_GROUPS
+    prev, _STATS_GROUPS = _STATS_GROUPS, tuple(groups)
+    try:
+        yield
+    finally:
+        _STATS_GROUPS = prev
+
+
+def _batch_stats(x32: torch.Tensor):
+    """(mean, biased variance, n) per channel over every leading axis of
+    x32 and, inside `batch_stats_over`, over the ranks of its groups: two
+    passes, each one all-reduce a group."""
+    dims = tuple(range(x32.dim() - 1))
+    n = x32.numel() // x32.shape[-1]
+    if not _STATS_GROUPS:
+        return x32.mean(dim=dims), x32.var(dim=dims, unbiased=False), n
+    s = x32.sum(dim=dims)
+    for group, size in _STATS_GROUPS:
+        s = all_reduce_sum(s, group)
+        n *= size
+    mean = s / n
+    c = (x32 - mean).square().sum(dim=dims)
+    for group, _ in _STATS_GROUPS:
+        c = all_reduce_sum(c, group)
+    return mean, c / n, n
 
 _RELU_FAMILY = {
     "relu", "celu", "selu", "prelu", "hardswish", "mish", "silu", "swish",
@@ -199,12 +244,9 @@ class ConvBlock(nn.Module):
             var = x32.var(dim=-1, unbiased=False, keepdim=True)
         elif train:
             # per channel over every leading (batch, node) axis, biased
-            dims = tuple(range(x32.dim() - 1))
-            mean = x32.mean(dim=dims)
-            var = x32.var(dim=dims, unbiased=False)
+            mean, var, n = _batch_stats(x32)
             if stats_out is not None:
                 # the running update takes the unbiased variance
-                n = x32.numel() // x32.shape[-1]
                 stats_out["mean"] = mean.detach()
                 stats_out["var"] = (var * (n / max(n - 1, 1))).detach()
         else:
@@ -220,6 +262,12 @@ class ConvBlock(nn.Module):
         if self.conv_type == "graph":
             x = cheb_conv(cheb_op if cheb_op is not None else self.cheb_op,
                           x, self.weight, self.bias)
+        elif isinstance(cheb_op, NodeShard):
+            # a node shard's image convolution: its windows cross the node
+            # ranges, so it runs on the gathered grid
+            x = cheb_op.local(equiangular_conv2d(
+                cheb_op.gather(x), self.weight, self.bias, self.nlat,
+                self.nlon, self.periodic_padding))
         else:
             x = equiangular_conv2d(x, self.weight, self.bias, self.nlat,
                                    self.nlon, self.periodic_padding)

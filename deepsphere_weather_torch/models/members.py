@@ -96,6 +96,14 @@ class MemberStack(nn.Module):
                    buffers=(stack_states(norm_states)
                             if norm_states else None))
 
+    def select(self, m0: int, m1: int) -> "MemberStack":
+        """A new stack of the members [m0, m1) of this one (copies), on
+        the same template: a member rank's part (`parallel.member_range`)."""
+        return MemberStack(
+            self.model,
+            params={k: v[m0:m1] for k, v in self.named_parameters()},
+            buffers={k: v[m0:m1] for k, v in self.named_buffers()})
+
     @property
     def has_batch_norm(self) -> bool:
         return bool(getattr(self.model, "has_batch_norm", False))

@@ -31,6 +31,9 @@ Port of `deepsphere_weather_tpu/ops/pallas_spmm.py`:
   group and runs the row-range kernel; so does its backward, on the
   transposed layout. This is what GSPMD derived from the JAX operator's
   `custom_partitioning` rule (an all-gather of x, then the row slice).
+  Gather and launch are one registered op, `spmm_rows`, whose vmap rule
+  is K5's over K2: the members of a member step fold into the columns of
+  one gather and one launch, as the JAX rule wraps the partitioned op.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from .._device import resolve_device
-from ..parallel.collectives import gather_rows
+from ..parallel.collectives import _groups, gather_rows, group_key
 
 __all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy", "super_nonzero_slots",
            "plain_nonzero_slots",
@@ -54,7 +57,7 @@ __all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy", "super_nonzero_slots",
            "bcsr_spmm", "bcsr_spmm_reference",
            "bcsr_spmm_rows", "bcsr_spmm_rows_reference",
            "BlockSparseOperator", "ShardedBlockSparseOperator",
-           "spmm", "launch_counts", "reset_launch_counts"]
+           "spmm", "spmm_rows", "launch_counts", "reset_launch_counts"]
 
 _BS = 128
 
@@ -779,28 +782,76 @@ def _run_rows(layout: _ShardLayout, x_full: torch.Tensor, v0: int,
     return y[v0 - r0:v1 - r0]
 
 
+# The row-sharded product as a registered op: the node gather of x and
+# the row-range launch (K2, or K3's row range) in one, so that its vmap
+# rule folds a mapped x into one gather and one launch for every member.
+@torch.library.custom_op(
+    "deepsphere_weather_torch::spmm_rows", mutates_args=(),
+    schema="(Tensor a, Tensor idx, Tensor x_local, Tensor nz, "
+           "bool super_layout, int group, int v0, int v1, int r0, "
+           "int full_rows) -> Tensor")
+def spmm_rows(a, idx, x_local, nz, super_layout, group, v0, v1, r0,
+              full_rows):
+    """Rows [v0, v1) of A @ x from this rank's rows of x: x gathered over
+    the registered node group `group` (`parallel.collectives.group_key`),
+    then `_run_rows` on the shard's layout."""
+    x_full = gather_rows(x_local, _groups[group], 0)
+    layout = ("super" if super_layout else "plain", a, idx, nz, r0,
+              full_rows)
+    return _run_rows(layout, x_full, v0, v1).contiguous()
+
+
+def _spmm_rows_vmap(info, in_dims, a, idx, x, nz, super_layout, group, v0,
+                    v1, r0, full_rows):
+    """K5 over K2: a mapped x_local [K, n_local, m] folds into the
+    columns, one gather and one row-range product on [n_local, K*m],
+    reshaped back; a batched operator array raises, as the full-range
+    rule does."""
+    a_d, idx_d, x_d, nz_d = in_dims[:4]
+    if a_d is not None or idx_d is not None or nz_d is not None:
+        raise NotImplementedError(
+            "vmap over BlockSparseOperator arrays themselves is not "
+            "supported (one shared operator per vmap is: the mapped "
+            "axis folds into the matvec columns)")
+    args = (super_layout, group, v0, v1, r0, full_rows)
+    if x_d is None:
+        return spmm_rows(a, idx, x, nz, *args), None
+    x = x.movedim(x_d, 0)
+    k, n, m = x.shape
+    y = spmm_rows(a, idx, x.movedim(0, 1).reshape(n, k * m).contiguous(), nz,
+                  *args)
+    return y.reshape(y.shape[0], k, m).movedim(1, 0), 0
+
+
+torch.library.register_vmap(spmm_rows, _spmm_rows_vmap)
+
+
 class _RowShardMatVec(torch.autograd.Function):
     """y_local = (A @ x)[v0:v1] from x_local = x[v0:v1]: gather x over the
-    node group, then the rank's row range. Backward: the gradient of the
-    global loss with respect to the rank's rows of x, (A^T @ g)[v0:v1],
-    from the gathered g and the rows [v0, v1) of the transposed layout (the
-    forward's own when A is symmetric), in the primal's dtype. Only
-    all-gathers, in both directions; the operator arrays get no gradient."""
+    node group, then the rank's row range (`spmm_rows`). Backward: the
+    gradient of the global loss with respect to the rank's rows of x,
+    (A^T @ g)[v0:v1], from the gathered g and the rows [v0, v1) of the
+    transposed layout (the forward's own when A is symmetric), in the
+    primal's dtype. Only all-gathers, in both directions; the operator
+    arrays get no gradient. In torch.func's form (`setup_context`,
+    `generate_vmap_rule`): vmap runs it through the op's rule, forward
+    and backward."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x_local, op):
-        ctx.op = op
-        ctx.x_dtype = x_local.dtype
-        return _run_rows(op.fwd, gather_rows(x_local, op.group, 0), op.v0,
-                         op.v1)
+    def forward(x_local, op):
+        return op.product(op.fwd, x_local)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.op, ctx.x_dtype = inputs[1], inputs[0].dtype
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         op = ctx.op
-        g_full = gather_rows(g.to(ctx.x_dtype).contiguous(), op.group, 0)
-        gx = _run_rows(op.bwd if op.bwd is not None else op.fwd, g_full,
-                       op.v0, op.v1)
+        gx = op.product(op.transpose_layout(), g.to(ctx.x_dtype).contiguous())
         return gx.to(ctx.x_dtype), None
 
 
@@ -820,6 +871,15 @@ class ShardedBlockSparseOperator:
 
     def transpose_layout(self) -> _ShardLayout:
         return self.fwd if self.bwd is None else self.bwd
+
+    def product(self, layout: _ShardLayout,
+                x_local: torch.Tensor) -> torch.Tensor:
+        """Rows [v0, v1) of `layout`'s product from this rank's rows of x
+        (`spmm_rows`: one gather, one row-range launch)."""
+        kind, a, idx, nz, r0, full_rows = layout
+        return spmm_rows(a, idx, x_local, nz, kind == "super",
+                         group_key(self.group), self.v0, self.v1, r0,
+                         full_rows)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """(L @ x)[v0:v1] from this rank's rows of x, with the padding and

@@ -21,7 +21,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from .._device import resolve_device
-from ..parallel.collectives import gather_rows
+from ..parallel.collectives import all_gather_op, group_key
 from .bcsr import BlockSparseOperator
 
 __all__ = ["ChebOperator", "cheb_conv"]
@@ -33,19 +33,28 @@ class _RowShardDense(torch.autograd.Function):
     rows of L (`a` [V_local, V] fp32, cast as the caller casts L).
     Backward: the rank's rows of L^T @ g, from the gathered g and `a_t`
     (the rank's rows of L^T), in h's dtype: the block-sparse shard's rule.
-    """
+    In torch.func's form: under vmap each gather is one for every member
+    (`all_gather_op`'s rule)."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, h, a, a_t, group, out_dtype):
-        ctx.a_t, ctx.group, ctx.h_dtype = a_t, group, h.dtype
-        h_full = gather_rows(h, group, h.dim() - 2)
+    def forward(h, a, a_t, group, out_dtype):
+        h_full = all_gather_op(h, group, h.dim() - 2)
         return (a @ h_full.float()).to(out_dtype)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, _, a_t, ctx.group, _ = inputs
+        ctx.h_dtype = h.dtype
+        ctx.save_for_backward(a_t)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        g_full = gather_rows(g, ctx.group, g.dim() - 2)
-        gh = (ctx.a_t @ g_full.float()).to(ctx.h_dtype)
+        (a_t,) = ctx.saved_tensors
+        g_full = all_gather_op(g.contiguous(), ctx.group, g.dim() - 2)
+        gh = (a_t @ g_full.float()).to(ctx.h_dtype)
         return gh, None, None, None, None
 
 
@@ -88,7 +97,8 @@ class ChebOperator:
         if self.group is None:
             return lambda h: (a @ h.float()).to(cdt)
         a_t = self.dense_t.to(cdt).float()
-        return lambda h: _RowShardDense.apply(h, a, a_t, self.group, cdt)
+        key = group_key(self.group)
+        return lambda h: _RowShardDense.apply(h, a, a_t, key, cdt)
 
     @classmethod
     def from_graph(cls, graph, mode: str, dtype=torch.float32, device="cuda"):
@@ -113,7 +123,8 @@ class ChebOperator:
         if self.group is None:
             return (self.dense.float() @ x.float()).to(x.dtype)
         return _RowShardDense.apply(x, self.dense.float(),
-                                    self.dense_t.float(), self.group, x.dtype)
+                                    self.dense_t.float(),
+                                    group_key(self.group), x.dtype)
 
 
 def cheb_conv(op: ChebOperator, x: torch.Tensor, weight: torch.Tensor,

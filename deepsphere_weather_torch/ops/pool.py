@@ -20,6 +20,12 @@ All ops take and return [batch, node, channel]; pools return
 (pooled, idx), idx None unless the unpool needs it. Index arithmetic
 uses comparisons and gathers only, so every op runs under
 `torch.func.vmap` and `torch.export`.
+
+On a node mesh (`models.shard_geometry`) a pool whose windows cross the
+node ranges runs as `ShardedPool` / `ShardedUnpool`: its input gathered
+over the node group (`parallel.NodeShard.gather`, a reduce-scatter
+backward), the op on the whole level, the rank's output rows kept. The
+argmax idx stays whole on every rank, for the unpool.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch.nn.functional as F
 from scipy import sparse as _sparse
 
 from .._device import resolve_device
+from ..parallel.collectives import NodeShard
 
 __all__ = [
     "sparse_to_ell",
@@ -43,7 +50,7 @@ __all__ = [
     "HealpixAvgPool", "HealpixAvgUnpool", "HealpixMaxPool", "HealpixMaxUnpool",
     "EquiangularAvgPool", "EquiangularAvgUnpool",
     "EquiangularMaxPool", "EquiangularMaxUnpool",
-    "build_pool_unpool",
+    "ShardedPool", "ShardedUnpool", "build_pool_unpool",
 ]
 
 
@@ -399,6 +406,36 @@ class EquiangularMaxUnpool:
         if pad_h or pad_w:
             g = F.pad(g, (0, 0, 0, pad_w, 0, pad_h))
         return g.reshape(B, -1, C)
+
+
+# ---------------------------------------------------------------------------
+# Node shards of pools whose windows cross the node ranges
+# ---------------------------------------------------------------------------
+
+class ShardedPool:
+    """One node rank's part of `pool`: its input `src` gathered, pooled
+    whole, the rows of `dst` kept (the argmax idx whole)."""
+
+    def __init__(self, pool, src: NodeShard, dst: NodeShard):
+        self.pool, self.src, self.dst = pool, src, dst
+
+    def __call__(self, x, w=None):
+        x = self.src.gather(x)
+        y, idx = self.pool(x) if w is None else self.pool(x, w=w)
+        return self.dst.local(y), idx
+
+
+class ShardedUnpool:
+    """One node rank's part of `unpool`: its input `src` gathered,
+    unpooled whole (with the whole idx), the rows of `dst` kept."""
+
+    def __init__(self, unpool, src: NodeShard, dst: NodeShard):
+        self.unpool, self.src, self.dst = unpool, src, dst
+
+    def __call__(self, x, idx=None, w=None):
+        x = self.src.gather(x)
+        y = self.unpool(x, idx) if w is None else self.unpool(x, idx, w=w)
+        return self.dst.local(y)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,13 @@
-"""Node- and data-parallel training over torch.distributed process groups."""
+"""Node-, data- and member-parallel training over torch.distributed process
+groups."""
 
 from .collectives import (  # noqa: F401
+    NodeShard,
     all_reduce_,
+    all_reduce_sum,
     broadcast_,
     collective_counts,
+    gather_nodes,
     gather_rows,
     reset_collective_counts,
 )
@@ -11,6 +15,8 @@ from .mesh import (  # noqa: F401
     ProcessMesh,
     batch_range,
     make_mesh,
+    member_range,
+    mesh_barrier,
     node_range,
     put_device_dataset,
     shard_batch,

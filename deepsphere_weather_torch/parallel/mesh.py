@@ -9,15 +9,21 @@ talks:
 - 'data': the batch is split over `n_data` ranks; gradients and losses
   are averaged over the data group (`engine/step.py`);
 - 'node': the sphere is split over `n_node` ranks into contiguous node
-  ranges. Nested HEALPix ordering keeps hierarchical pooling inside a
-  shard; each Laplacian product gathers its input over the node group
+  ranges. Each Laplacian product gathers its input over the node group
   (the row-sharded operators of `ops/`, set up by
-  `models.geometry.shard_geometry`).
+  `models.geometry.shard_geometry`); nested HEALPix ordering keeps the
+  hierarchical pools inside a shard, and every other pool gathers its
+  input over the node group;
+- 'member': a member stack of M members is split over `n_member` ranks,
+  M / n_member consecutive members each (`member_range`); nothing is
+  reduced over the member group, only the per-member losses are
+  gathered there (`engine/step.py`).
 
-Rank layout: rank = data_rank * n_node + node_rank, the JAX mesh's
-reshape (n_data, n_node, n_member). The 'member' axis is not ported yet
-(ROADMAP Queue 1 item 6a): member stacks run on one device
-(`models.MemberStack`). `put_device_dataset` and
+Rank layout: rank = (data_rank * n_node + node_rank) * n_member +
+member_rank, the JAX mesh's `devices.reshape(n_data, n_node, n_member)`.
+Each rank is in three groups: the node group (same data and member
+rank), the data group (same node and member rank) and the member group
+(same data and node rank). `put_device_dataset` and
 `shard_window_indices` serve the device-resident dataset of the training
 driver: the pre-scaled mirror moves onto the device once, and each step
 moves only a [B, W] index batch.
@@ -40,8 +46,8 @@ import torch.distributed as dist
 from .._device import resolve_device
 
 __all__ = ["ProcessMesh", "make_mesh", "training_mesh", "node_range",
-           "batch_range", "shard_batch", "put_device_dataset",
-           "shard_window_indices", "TRAIN_BATCH_KEYS"]
+           "batch_range", "member_range", "shard_batch", "put_device_dataset",
+           "shard_window_indices", "mesh_barrier", "TRAIN_BATCH_KEYS"]
 
 # batch keys the train and validation steps read; other keys pass through
 TRAIN_BATCH_KEYS = ("dynamic", "bc", "static")
@@ -49,24 +55,30 @@ TRAIN_BATCH_KEYS = ("dynamic", "bc", "static")
 
 @dataclasses.dataclass(frozen=True)
 class ProcessMesh:
-    """This rank's place in an n_data x n_node mesh, its process groups
-    and its device."""
+    """This rank's place in an n_data x n_node x n_member mesh, its
+    process groups and its device."""
 
     data_rank: int
     n_data: int
     node_rank: int
     n_node: int
-    data_group: object       # the ranks holding this rank's node range
-    node_group: object       # the ranks holding this rank's batch rows
+    data_group: object       # same node range and members, other batch rows
+    node_group: object       # same batch rows and members, other nodes
     device: torch.device
+    member_rank: int = 0
+    n_member: int = 1
+    member_group: object = None  # same batch rows and nodes, other members
 
     @property
     def rank(self) -> int:
-        return self.rank_of(self.data_rank, self.node_rank)
+        return self.rank_of(self.data_rank, self.node_rank, self.member_rank)
 
-    def rank_of(self, data_rank: int, node_rank: int) -> int:
-        """Global rank of the mesh position (data_rank, node_rank)."""
-        return data_rank * self.n_node + node_rank
+    def rank_of(self, data_rank: int, node_rank: int,
+                member_rank: int = 0) -> int:
+        """Global rank of the mesh position (data_rank, node_rank,
+        member_rank)."""
+        return ((data_rank * self.n_node + node_rank) * self.n_member
+                + member_rank)
 
 
 def _require_initialized() -> None:
@@ -79,18 +91,13 @@ def _require_initialized() -> None:
 def make_mesh(n_data: Optional[int] = None, n_member: int = 1,
               n_node: int = 1, world_size: Optional[int] = None,
               device="cuda") -> Optional[ProcessMesh]:
-    """An n_data x n_node mesh over the ranks of the default process
-    group; `world_size` defaults to its size. Every rank must call this
-    together (each process group is created on every rank).
+    """An n_data x n_node x n_member mesh over the ranks of the default
+    process group; `world_size` defaults to its size. Every rank must call
+    this together (each process group is created on every rank).
 
     `n_data=None` takes as many data shards as fit, leaving the rest idle
     with a warning. Returns this rank's `ProcessMesh`, or None on a rank
     the mesh leaves idle."""
-    if n_member > 1:
-        raise NotImplementedError(
-            "make_mesh: the 'member' axis is not ported yet (ROADMAP Queue 1 "
-            "item 6a, the mesh's member axis); member stacks train and roll "
-            "out on one device (models.MemberStack)")
     if world_size is None:
         _require_initialized()
         world_size = dist.get_world_size()
@@ -118,18 +125,30 @@ def make_mesh(n_data: Optional[int] = None, n_member: int = 1,
                          f"group's {dist.get_world_size()}")
     device = resolve_device(device)
     rank = dist.get_rank()
+
+    def at(d, j, m):
+        return (d * n_node + j) * n_member + m
+
     # every rank creates every group, in one order (torch.distributed
-    # requires it); each keeps its own two
-    node_groups = [dist.new_group([d * n_node + j for j in range(n_node)])
-                   for d in range(n_data)]
-    data_groups = [dist.new_group([d * n_node + j for d in range(n_data)])
-                   for j in range(n_node)]
-    if rank >= n_data * n_node:
+    # requires it); each keeps its own three (no member groups without a
+    # member axis: the meshes of one member stay as they were)
+    node_groups = {(d, m): dist.new_group([at(d, j, m) for j in range(n_node)])
+                   for d in range(n_data) for m in range(n_member)}
+    data_groups = {(j, m): dist.new_group([at(d, j, m) for d in range(n_data)])
+                   for j in range(n_node) for m in range(n_member)}
+    member_groups = ({(d, j): dist.new_group([at(d, j, m)
+                                              for m in range(n_member)])
+                      for d in range(n_data) for j in range(n_node)}
+                     if n_member > 1 else {})
+    if rank >= n_data * n_node * n_member:
         return None
-    d, j = divmod(rank, n_node)
+    dj, m = divmod(rank, n_member)
+    d, j = divmod(dj, n_node)
     return ProcessMesh(data_rank=d, n_data=n_data, node_rank=j, n_node=n_node,
-                       data_group=data_groups[j], node_group=node_groups[d],
-                       device=device)
+                       data_group=data_groups[j, m],
+                       node_group=node_groups[d, m], device=device,
+                       member_rank=m, n_member=n_member,
+                       member_group=member_groups.get((d, j)))
 
 
 def training_mesh(n_data_parallel: int = 1, n_node_parallel: int = 1,
@@ -170,6 +189,30 @@ def node_range(n_nodes: int, mesh: ProcessMesh) -> Tuple[int, int]:
 def batch_range(batch_size: int, mesh: ProcessMesh) -> Tuple[int, int]:
     """(b0, b1): the batch rows of this rank's data shard."""
     return _split(batch_size, mesh.n_data, mesh.data_rank, "batch rows")
+
+
+def member_range(n_members: int, mesh: Optional[ProcessMesh]
+                 ) -> Tuple[int, int]:
+    """(m0, m1): the members of a stack of `n_members` that this rank
+    holds; all of them without a mesh. M must divide over the member
+    ranks, as the JAX `NamedSharding(P("member"))` requires."""
+    if mesh is None:
+        return 0, n_members
+    return _split(n_members, mesh.n_member, mesh.member_rank, "members")
+
+
+def mesh_barrier(mesh: Optional[ProcessMesh]) -> None:
+    """Return once every rank of the mesh has called this: a small
+    all-reduce over the node, then the data, then the member group (each
+    rank then follows every rank's call through a chain of the three)."""
+    if mesh is None:
+        return
+    t = torch.zeros(1, device=mesh.device)
+    for n, group in ((mesh.n_node, mesh.node_group),
+                     (mesh.n_data, mesh.data_group),
+                     (mesh.n_member, mesh.member_group)):
+        if n > 1:
+            dist.all_reduce(t, group=group)
 
 
 def shard_batch(batch: Dict, mesh: Optional[ProcessMesh]) -> Dict:

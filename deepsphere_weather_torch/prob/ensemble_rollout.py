@@ -12,7 +12,11 @@ registered SpMM op's vmap rule): one kernel launch for all members.
 BatchNorm members normalize with their batch statistics, as the JAX
 rollout without a norm_state does.
 
-The member axis of a mesh is not ported: `mesh` other than None raises.
+On a mesh with a member axis (`parallel.make_mesh(n_member=...)`) each
+member rank rolls its members (`parallel.member_range`) on the whole
+batch and geometry, as the JAX package shards the rollout over 'member'
+alone, and every rank returns every member's outputs, gathered over the
+member group (the JAX global array).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ from torch import nn
 
 from ..data.ar import ARIndexer
 from ..engine.step import keep_first_feedback, make_rollout_block
+from ..parallel.collectives import gather_rows
+from ..parallel.mesh import member_range
 
 __all__ = ["make_ensemble_rollout", "ensemble_rollout_predictions"]
 
@@ -42,6 +48,14 @@ class _Rollout(nn.Module):
         return self.rollout(hist, wmask, bc_block, static)
 
 
+def _gather_members(t: torch.Tensor, mesh) -> torch.Tensor:
+    """Every member rank's [m, ...] part of `t`, in member order (a bool
+    mask crosses as bytes)."""
+    if t.dtype == torch.bool:
+        return gather_rows(t.to(torch.uint8), mesh.member_group, 0).bool()
+    return gather_rows(t, mesh.member_group, 0)
+
+
 def make_ensemble_rollout(model, indexer: ARIndexer, block_size: int,
                           mesh=None):
     """Build the member-stacked block rollout. Returns (fn, H) with
@@ -51,15 +65,13 @@ def make_ensemble_rollout(model, indexer: ARIndexer, block_size: int,
 
     member_params {name: [M, ...]}, hist [M, B, H, V, F]; `wmask` is the keep-first mask ([M, H] bool when
     `keep_first_feedback(indexer)`, else None), threaded like the history.
-    Run it under `torch.no_grad()` to predict."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the member axis of a mesh is not ported (ROADMAP Queue 1 item "
-            "6a): roll the members on one device")
+    Run it under `torch.no_grad()` to predict. With a `mesh`, every rank
+    passes every member's inputs and gets every member's outputs; it
+    rolls its own members (module docstring)."""
     rollout, H = make_rollout_block(model, indexer, block_size)
     wrapper = _Rollout(model, rollout)
 
-    def fn(member_params, hist, wmask, bc_block, static):
+    def run(member_params, hist, wmask, bc_block, static):
         params = {f"model.{k}": v for k, v in member_params.items()}
 
         def one(p, h, wm):
@@ -70,6 +82,16 @@ def make_ensemble_rollout(model, indexer: ARIndexer, block_size: int,
         out_dims = (0, None if wmask is None else 0, 0)
         return torch.func.vmap(one, in_dims=in_dims, out_dims=out_dims)(
             params, hist, wmask)
+
+    if mesh is None or mesh.n_member == 1:
+        return run, H
+
+    def fn(member_params, hist, wmask, bc_block, static):
+        sl = slice(*member_range(hist.shape[0], mesh))
+        out = run({k: v[sl] for k, v in member_params.items()}, hist[sl],
+                  None if wmask is None else wmask[sl], bc_block, static)
+        return tuple(None if t is None else _gather_members(t, mesh)
+                     for t in out)
 
     return fn, H
 
@@ -90,6 +112,8 @@ def ensemble_rollout_predictions(model, member_params, *,
     (`make_bc_reader`: `scaler_bc` as the training loader applied it,
     `bc_generator` beyond the BC store); outputs inverse-scaled to
     physical units when `scaler` is given (unless `inverse_scale=False`).
+    With a `mesh`, the member ranks roll their members and every rank
+    returns every member's predictions (`make_ensemble_rollout`).
     """
     from ..engine.prediction import make_bc_reader
 

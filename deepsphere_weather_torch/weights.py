@@ -125,17 +125,21 @@ def seeded_params(model: torch.nn.Module, seed: int) -> Dict:
 
 
 def broadcast_params(model: torch.nn.Module, mesh) -> None:
-    """In place: rank 0's parameters of `model` on every rank of `mesh`,
-    in one flat buffer: over each data group from its data rank 0, then
-    over each node group from its node rank 0 (which then holds rank
-    0's). Every rank of the mesh must call it."""
+    """In place: rank 0's parameters of `model` (a whole member stack, on
+    a member mesh) on every rank of `mesh`, in one flat buffer: over each
+    data group from its data rank 0, then over each node group from its
+    node rank 0, then over each member group from its member rank 0
+    (which then holds rank 0's). Every rank of the mesh must call it."""
     if mesh is None:
         return
     params = [p.detach() for p in model.parameters()]
     flat = torch.cat([p.reshape(-1) for p in params])
+    d, j, m = mesh.data_rank, mesh.node_rank, mesh.member_rank
     if mesh.n_data > 1:
-        broadcast_(flat, mesh.rank_of(0, mesh.node_rank), mesh.data_group)
+        broadcast_(flat, mesh.rank_of(0, j, m), mesh.data_group)
     if mesh.n_node > 1:
-        broadcast_(flat, mesh.rank_of(mesh.data_rank, 0), mesh.node_group)
+        broadcast_(flat, mesh.rank_of(d, 0, m), mesh.node_group)
+    if mesh.n_member > 1:
+        broadcast_(flat, mesh.rank_of(d, j, 0), mesh.member_group)
     for p, part in zip(params, flat.split([p.numel() for p in params])):
         p.copy_(part.view_as(p))

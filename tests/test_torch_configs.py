@@ -12,8 +12,10 @@
    family, with its pool method and graph type, level 0 block-sparse
    (voronoi with its transposed layout), and one forward finite and of
    the right shape.
-4. `shard_geometry` refuses geometries whose pools cross node shards and
-   keeps nested HEALPix with the hierarchical pools.
+4. `shard_geometry` shards geometries whose pools cross node shards (each
+   rank's node ranges, its pools gathering their input over the node
+   group and keeping its rows: the same rows as the whole pool's) and
+   keeps nested HEALPix with the hierarchical pools local.
 
 The grids400 models against JAX are `tests/test_torch_grids400.py`, whose
 stand-in grids and helpers this file shares."""
@@ -42,6 +44,8 @@ from deepsphere_weather_torch.models import (  # noqa: E402
     get_model,
     shard_geometry,
 )
+from deepsphere_weather_torch.ops.pool import ShardedPool, ShardedUnpool  # noqa: E402
+from deepsphere_weather_torch.parallel import NodeShard  # noqa: E402
 from deepsphere_weather_torch.parallel.mesh import ProcessMesh  # noqa: E402
 from deepsphere_weather_torch.sphere import (  # noqa: E402
     build_sampling,
@@ -210,10 +214,10 @@ def test_every_sampling_pool_and_graph_type_is_shipped():
     assert {g for _, _, g in seen} == {"knn", "voronoi", "mesh"}
 
 
-def _mesh():
-    """A 1 x 2 node mesh as rank 0 sees it; no collective runs here, so
-    its groups are placeholders."""
-    return ProcessMesh(data_rank=0, n_data=1, node_rank=0, n_node=2,
+def _mesh(node_rank=0):
+    """A 1 x 2 node mesh as rank `node_rank` sees it; no collective runs
+    here, so its groups are placeholders."""
+    return ProcessMesh(data_rank=0, n_data=1, node_rank=node_rank, n_node=2,
                        data_group=object(), node_group=object(),
                        device=torch.device("cpu"))
 
@@ -224,16 +228,45 @@ def _mesh():
                                             "image"),
     ("O24", "maxval", "graph"), ("Cubed_400km", "maxarea", "graph")])
 def test_shard_geometry_refuses_non_nested_geometry(sampling_dir, pool,
-                                                   conv_type):
+                                                   conv_type, monkeypatch):
+    # (named for what it checked before the remap and equiangular pools
+    # gathered over the node group: it now checks that they shard)
     name, kw = STAND_IN[sampling_dir]
     n = build_sampling(name, kw).n_nodes
     model = get_model("UNetSpherical", tensor_info(n), sampling=name,
                       sampling_kwargs=kw, knn=KNN, pool_method=pool,
                       conv_type=conv_type, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7a"):
-        shard_geometry(model.geometry, _mesh())
+    geom = model.geometry
     # one node shard (or none) needs no sharding and keeps the geometry
-    assert shard_geometry(model.geometry, None) is model.geometry
+    assert shard_geometry(geom, None) is geom
+    rng = np.random.default_rng(3)
+    xs = [torch.from_numpy(rng.standard_normal((2, v, 4)).astype(np.float32))
+          for v in geom.n_nodes]
+    # the gather of every rank's rows, here the whole input it was cut from
+    whole = {}
+    monkeypatch.setattr(NodeShard, "gather",
+                        lambda self, x: whole[(self.v0, self.v1)])
+    for r in range(2):
+        shard = shard_geometry(geom, _mesh(r))
+        assert shard.node_ranges == [(r * v // 2, (r + 1) * v // 2)
+                                     for v in geom.n_nodes]
+        assert shard.n_nodes == [v // 2 for v in geom.n_nodes]
+        for lvl, (p, u) in enumerate(zip(shard.pools, shard.unpools)):
+            assert isinstance(p, ShardedPool) and isinstance(u, ShardedUnpool)
+            (a0, a1), (b0, b1) = shard.node_ranges[lvl:lvl + 2]
+            fine, coarse = xs[lvl], xs[lvl + 1]
+            whole[(a0, a1)], whole[(b0, b1)] = fine, coarse
+            y, idx = p(fine[:, a0:a1])
+            want, want_idx = geom.pools[lvl](fine)
+            assert torch.equal(y, want[:, b0:b1])
+            assert (idx is None) == (want_idx is None)
+            assert torch.equal(u(coarse[:, b0:b1], want_idx),
+                               geom.unpools[lvl](coarse, want_idx)[:, a0:a1])
+        if conv_type == "image":
+            assert all(isinstance(op, NodeShard) for op in shard.cheb_ops)
+        else:
+            assert all(op.group is not None or op.bcsr.group is not None
+                       for op in shard.cheb_ops)
 
 
 @pytest.mark.parametrize("pool", ["max", "avg"])

@@ -29,7 +29,8 @@ and stacked (`models.MemberStack`; the JAX tree with a leading [M] axis):
 - the member validation functions (eval mode with BatchNorm) within 1e-5;
 - `AutoregressiveTraining(n_members=2)` on a toy store against JAX's:
   per-member validation losses and the member-mean losses within 2e-4;
-  its refusals (`n_members` with `swag`, a wrong `initial_norm_state`);
+  its refusals (`n_members` with `swag`, a wrong `initial_norm_state`,
+  a member mesh the members do not divide over);
 - `ensemble_rollout_predictions` within 1e-5, with boundary conditions and
   with keep-first feedback.
 """
@@ -89,7 +90,7 @@ from deepsphere_weather_torch.engine import (  # noqa: E402
 )
 from deepsphere_weather_torch.models import MemberStack, UNetSpherical  # noqa: E402
 from deepsphere_weather_torch.ops import bcsr as bcsr_mod  # noqa: E402
-from deepsphere_weather_torch.parallel import ProcessMesh  # noqa: E402
+from deepsphere_weather_torch.parallel import ProcessMesh, member_range  # noqa: E402
 from deepsphere_weather_torch.prob import ensemble_rollout_predictions  # noqa: E402
 from deepsphere_weather_torch.utils.checkpoint import optimizer_arrays  # noqa: E402
 from deepsphere_weather_torch.weights import (  # noqa: E402
@@ -503,13 +504,17 @@ def test_member_training_refusals(toy):
                                 stack.norm_state()}, **kw)
     with pytest.raises(TypeError, match="MemberStack"):
         AutoregressiveTraining(model, n_members=M, **kw)
-    # a data mesh of two ranks: no rank may train its members on its own
-    # shard alone (the groups are never reached: the refusal comes first)
-    mesh = ProcessMesh(data_rank=0, n_data=2, node_rank=0, n_node=1,
+    # a member mesh over which the members do not divide, as the JAX
+    # NamedSharding(P("member")) refuses it (before any collective); one
+    # they divide over is accepted (its place among the members)
+    mesh = ProcessMesh(data_rank=0, n_data=1, node_rank=0, n_node=1,
                        data_group=None, node_group=None,
-                       device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 6a"):
+                       device=torch.device("cpu"), member_rank=1,
+                       n_member=4, member_group=None)
+    with pytest.raises(ValueError, match="2 members do not divide over 4"):
         AutoregressiveTraining(stack, n_members=M, mesh=mesh, **kw)
+    assert member_range(8, mesh) == (2, 4)
+    assert member_range(M, None) == (0, M)
 
 
 @pytest.mark.parametrize("feedback", ["bc", "keep_first"])

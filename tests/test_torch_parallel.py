@@ -8,7 +8,8 @@
   ranks' rows of d/dx sum((Lx)^2) against 2 L^T (L x) (1e-5), for the knn
   L and a non-symmetric D L, super-row and plain layouts.
 - The mesh helpers' validation, as `tests/test_parallel.py` holds the JAX
-  ones, and `shard_geometry`'s refusal of an uneven level.
+  ones (the member axis counted), and `shard_geometry`'s refusal of an
+  uneven level.
 - One train step of HEALPix-8 UNetSpherical (level 0 block-sparse, AR2,
   RNN, Adam, batch 4) on 1 x 2, 2 x 1 and 2 x 2 meshes of spawned ranks
   against the JAX single-device `make_train_step` at the same weights and
@@ -260,7 +261,16 @@ def test_mesh_validation():
     with pytest.warns(UserWarning, match="idle"), \
             pytest.raises(RuntimeError, match="not initialized"):
         make_mesh(n_node=3, world_size=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6a"):
+    # the member axis counts in each message, and a member mesh that fits
+    # passes validation (to the process group it needs)
+    with pytest.raises(ValueError, match="exceeds"):
+        make_mesh(n_member=3, n_node=3, world_size=8, device="cpu")
+    with pytest.raises(ValueError, match="needs 16 ranks"):
+        make_mesh(n_data=2, n_node=2, n_member=4, world_size=8, device="cpu")
+    with pytest.warns(UserWarning, match="idle"), \
+            pytest.raises(RuntimeError, match="not initialized"):
+        make_mesh(n_member=3, world_size=8, device="cpu")
+    with pytest.raises(RuntimeError, match="not initialized"):
         make_mesh(n_member=2, world_size=8, device="cpu")
     assert training_mesh(1, 1, 1) is None
     with pytest.raises(RuntimeError, match="needs 4 ranks"):
