@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, the HEALPix-16 bf16 forecast service, the
-HEALPix-16 AR6 bf16 training step (and its HEALPix-64 AR2 form), the
+HEALPix-16 AR6 bf16 training step (and its HEALPix-64 AR2 form, and the
+shipped fp32 HEALPix-64 configuration at that traffic), the
 same step node- and data-parallel, with BatchNorm and for 2 members at
 once, the train -> predict -> verify CLI, serving from artifacts, SWAG
 fine-tuning with its ensemble, six shipped configurations over the
@@ -14,10 +15,11 @@ mesh, node-sharded grids), on the card and checks them, in phases
 printed one per line:
 
 1. card      name and power limit (nvidia-smi)
-2. build     both CUDA kernels (and the header they share), compiled side
-             by side with nvcc from this checkout (seconds; registers,
-             shared memory, spills); each holds a full-range and a
-             row-range entry; the registers and spills of both kernels'
+2. build     the three CUDA kernels (the two block-sparse ones share a
+             header; the ELL kernel stands alone), compiled side by side
+             with nvcc from this checkout (seconds; registers, shared
+             memory, spills); each holds a full-range and a row-range
+             entry; the registers and spills of the block kernels'
              tensor-core instances (bf16 x; none may spill) and the count
              of HGMMA instructions in their SASS (cuobjdump; none may have
              0)
@@ -40,7 +42,21 @@ printed one per line:
              the fp32-x regimes; at the bf16 bar with bf16 x, where the
              tensor cores sum in another order) and scipy's rows (bars as
              above): K2 in fp32 and bf16, K3 in fp32, bf16 and both
-             regimes of fp32 A against bf16 x
+             regimes of fp32 A against bf16 x;
+             the ELL kernel (`ell_spmm`, the fp32 route of every
+             block-sparse operator: fp32 x against fp32 A), at HEALPix-16
+             and -64 width 1024: the operator's matvec (one ELL launch)
+             against scipy (1e-5), the kernel against its plain version
+             (exactly: the same rounded products in the same order),
+             timed beside K1's and K3's fp32 (FMA) regime, cuSPARSE and
+             the bound of the function's own work (element nonzeros,
+             bytes of x, y and the layout), the dense-block bound of K1's
+             layout printed beside it; its backward (2 L^T (L x), 1e-5) on
+             the knn L and on the transposed layout of D L (K1 and K3
+             held on their own layouts too, the ELL taken away); its row
+             ranges for 2 and 4 shards equal to the full launch's rows and
+             the plain version, exactly, on both layouts; K5's fold of 2
+             members equal to one launch per member, exactly
 4. slice     UNetSpherical, HEALPix-16, knn-20, max pool, increment
              learning, bf16, 7 features x 3 lags -> 2, seeded weights in
              the JAX layout loaded through `weights.py`, exported
@@ -71,6 +87,23 @@ printed one per line:
              (recorded during a step), forward and backward, against its
              plain version and scipy (bf16 bar), covering every shape the
              step launched K1 at
+6b. train64f32 the shipped fp32 configuration
+             Healpix_100km/MaxPool-Graph_knn through `models.get_model` at
+             its own float32, full width and depth (49152 and 12288 nodes
+             block-sparse: every product the ELL kernel's; 3072 dense), 3
+             steps at train64's traffic (AR2, batch 8, RNN, area-weighted
+             MSE, Adam eps 1e-7 with the config's clipping): finite,
+             decreasing losses, exactly 54 forward and 52 backward ELL
+             launches a step and no other kernel; step time beside the
+             same step on K1's FMA path (the ELL taken away; in turns),
+             peak memory; a forecast call (no grad, batch 8: 18 ELL
+             launches); at each (level, width) shape of the step, per
+             launch: the ELL kernel
+             (exact vs its plain version, 1e-5 vs scipy forward and
+             backward), the FMA path (K1's wrapper on the operator's
+             super-row arrays), cuSPARSE and the bound; one batch-1 AR1
+             step card vs CPU (losses and every gradient at 1e-5, the CPU
+             taking the card's decisions)
 7. node16    the step of (2) on a 1 data x 2 node mesh: 2 spawned ranks
              share the card over `gloo` (NCCL refuses two ranks on one
              device), each holding half the sphere at every level; 3
@@ -79,7 +112,8 @@ printed one per line:
              per rank per step, 22 gathers per model call, parameters
              identical across ranks, step time (2 ranks sharing one H100:
              not a scaling number); then the fp32 batch-2 step (level 0
-             block-sparse fp32): every gradient against the
+             block-sparse fp32: the ELL kernel's row range): every
+             gradient against the
              single-process card step's, per key, at (1)'s bar
 8. mesh16    the same model on 2 data x 2 node (4 ranks), one step: loss
              within 3e-2 of (2)'s first, the launches of node16,
@@ -100,7 +134,11 @@ printed one per line:
              row); K2 and K3's row range on the node16 step's level-0
              shard; the layouts side by side: K1 and K3 (its plain layout
              built from the same Laplacian, held to its plain version and
-             scipy) at each (level, width) shape of the HEALPix-64 step
+             scipy) at each (level, width) shape of the HEALPix-64 step;
+             K2 at each (level, width) shape of the node64 step beside
+             its bound and cuSPARSE's CSR row slice (`node64_shapes` of
+             K2's row); the ELL kernel's row: its train64f32 shapes, its
+             parity readings and its row range
 
 11. protocol16 the port's train -> predict -> verify CLI
              (`cli.train_predict.main`) on the shipped flagship config
@@ -163,7 +201,9 @@ printed one per line:
              the single step's (phase train); one fp32 batch-2 member step
              against each member's single step on the card (1e-4: losses,
              gradients clipped by a bound between the members' norms, so
-             one member clips, and parameters)
+             one member clips, and parameters), the single steps taking
+             the member step's ReLU and max-pool decisions (each that
+             differs within 1e-6 of its kink or tie)
 15. swag16   (after serve16) `cli.finetune_swag.main` on protocol16's
              resumed experiment: 1 epoch, 3 members, a collection every 2nd
              scoring, AR20 on the toy test period; K1's launches by part
@@ -302,14 +342,20 @@ HBM_BYTES_PER_S = 3.35e12                    # H100 SXM data sheet
 PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}   # fp32 non-tensor; bf16 dense
 KERNEL, PLAIN_KERNEL = "bcsr_super_spmm", "bcsr_spmm"
 ROW_KERNEL, PLAIN_ROW_KERNEL = "bcsr_super_spmm_rows", "bcsr_spmm_rows"
+ELL_KERNEL, ELL_ROW_KERNEL = "ell_spmm", "ell_spmm_rows"
 SOURCES = {KERNEL: "deepsphere_weather_torch/kernels/bcsr_super_spmm.cu",
            PLAIN_KERNEL: "deepsphere_weather_torch/kernels/bcsr_spmm.cu",
-           ROW_KERNEL: "deepsphere_weather_torch/kernels/bcsr_super_spmm.cu"}
+           ROW_KERNEL: "deepsphere_weather_torch/kernels/bcsr_super_spmm.cu",
+           ELL_KERNEL: "deepsphere_weather_torch/kernels/ell_spmm.cu"}
 REPLACES = {KERNEL: "deepsphere_weather_tpu/ops/pallas_spmm.py:493",
             PLAIN_KERNEL: "deepsphere_weather_tpu/ops/pallas_spmm.py:340 "
                           "(_spmm_kernel_dma); :327 (_spmm_kernel, "
                           "round_a=False)",
-            ROW_KERNEL: "deepsphere_weather_tpu/ops/pallas_spmm.py:402"}
+            ROW_KERNEL: "deepsphere_weather_tpu/ops/pallas_spmm.py:402",
+            ELL_KERNEL: "deepsphere_weather_tpu/ops/pallas_spmm.py:493 "
+                        "(_spmm_kernel_super_sched), :402 "
+                        "(_spmm_kernel_super) and :340 (_spmm_kernel_dma), "
+                        "their fp32 regime"}
 # Block-sparse products per model call, from the channel plan
 # (models/unet.py) and cheb_conv's K - 1 = 2 products per convolution:
 # level 0 holds 5 convolutions (conv1 x2, uconv1 x2, uconv1_final), level
@@ -324,6 +370,11 @@ NO_GRAD_PRODUCTS = 2
 WIDTH_FEATURES = (21, 64, 128, 64, 2)
 TRAIN_AR, TRAIN_CHECK_BATCH, TRAIN_STEPS = 6, 2, 10
 HP64_AR, HP64_BATCH, HP64_STEPS = 2, 8, 3
+# train64f32: the shipped fp32 HEALPix-64 configuration at train64's
+# traffic; its card-vs-CPU step's AR depth and batch; the forecast
+# forwards timed
+F32_CONFIG = "Healpix_100km/MaxPool-Graph_knn"
+F32_CHECK_AR, F32_CHECK_BATCH, F32_FORWARDS = 1, 1, 5
 TIME_WINDOWS, TIME_STEPS = 4, 4
 LR, ADAM_EPS = 1e-3, 1e-7
 # node- and data-parallel phases: steps, the fp32 check's level-0 threshold
@@ -489,14 +540,14 @@ def phase_build():
     from deepsphere_weather_torch.kernels.build import _nvcc, load_kernels
 
     t0 = time.perf_counter()
-    for k in load_kernels([KERNEL, PLAIN_KERNEL]):
+    for k in load_kernels([KERNEL, PLAIN_KERNEL, ELL_KERNEL]):
         log("build", f"{k.name}: {'built' if k.built else 'loaded from cache'}"
                      f" ({k.path.name}), nvcc {k.nvcc_seconds:.1f} s")
         # one line per distinct report (each template instance repeats it)
         for line in dict.fromkeys(k.ptxas_log.splitlines()):
             if "registers" in line or "spill" in line:
                 log("build", f"{k.name} ptxas: " + line.strip())
-    log("build", f"both kernels in {time.perf_counter() - t0:.1f} s")
+    log("build", f"the three kernels in {time.perf_counter() - t0:.1f} s")
     # the bf16-x instances of both kernels must run on the tensor cores,
     # unspilled
     for name, body in ((KERNEL, "bcsr_super_spmm_tc"),
@@ -659,6 +710,59 @@ def _fmt(res):
                      for k, v in res.items() if k != "y" and v is not None)
 
 
+def _ell_bound(vals, cols, x, out_rows=None):
+    """(bytes ms, operations ms) of the function L @ x over L's element
+    nonzeros, whatever kernel computes it: the x rows the nonzeros read,
+    the output (`out_rows` rows, x's by default) and the ELL layout (vals
+    and cols, [rows, W]) each moved once over HBM; 2 operations per
+    element nonzero and column at the fp32 rate without tensor cores."""
+    n, m = x.shape
+    out_rows = n if out_rows is None else out_rows
+    nonzero = vals != 0
+    x_rows = int(cols[nonzero].unique().numel())
+    nbytes = (x_rows + out_rows) * m * 4 + vals.numel() * 8
+    ops = 2.0 * int(nonzero.sum()) * m
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS["fp32"]
+
+
+def measure_ell(ell, L, x, device, label, timed=True, plain_timed=True):
+    """The ELL kernel on `ell`'s forward layout (an `EllOperator`)
+    against its plain version on the same input: exactly (the same
+    rounded products in the same order; raises otherwise); timed, per
+    launch (`device_ms`) beside the bound of the function's own work
+    (`_ell_bound`), its plain version and cuSPARSE's fp32 CSR product."""
+    import torch
+
+    from deepsphere_weather_torch.ops import bcsr
+
+    vals, cols = ell.vals, ell.cols
+    n, m = x.shape
+    x_pad = torch.nn.functional.pad(x, (0, (-m) % 4)).contiguous()
+    y = bcsr.ell_spmm(vals, cols, x_pad)
+    ref = bcsr.ell_spmm_reference(vals, cols, x_pad)
+    err = float((y - ref).abs().max())
+    if err:
+        raise AssertionError(f"{label}: {ELL_KERNEL} vs plain version max "
+                             f"abs error {err:.3e} (must be 0)")
+    res = {"max_abs_err": err, "y": y[:, :m]}
+    if not timed:
+        return res
+    csr = _csr(L, device, torch.float32)
+    t_bytes, t_ops = _ell_bound(vals, cols, x_pad)
+    res.update({
+        "ms": device_ms(lambda: bcsr.ell_spmm(vals, cols, x_pad)),
+        "host_ms": host_ms(lambda: bcsr.ell_spmm(vals, cols, x_pad)),
+        "plain_ms": (device_ms(lambda: bcsr.ell_spmm_reference(
+            vals, cols, x_pad), n_iter=5) if plain_timed else None),
+        "library_ms": device_ms(lambda: torch.sparse.mm(csr, x)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes_ms": t_bytes, "ops_ms": t_ops,
+        "ell_width": int(vals.shape[1])})
+    res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Parity
 # ---------------------------------------------------------------------------
@@ -671,13 +775,20 @@ def _laplacian(subdiv):
 
 
 def phase_parity(device, subdivs, width):
-    """K1 and K3 forward against scipy and their plain versions."""
+    """K1 and K3 forward against scipy and their plain versions, each
+    kernel's own output; in fp32 also the route the operator takes
+    (`matvec`: the ELL kernel) against scipy, and the ELL kernel against
+    its plain version, timed beside K1's and K3's fp32 (FMA) regime,
+    cuSPARSE and the bound. Returns the ELL readings by shape."""
     import torch
 
-    from deepsphere_weather_torch.ops.bcsr import BlockSparseOperator
+    from deepsphere_weather_torch.ops.bcsr import (
+        BlockSparseOperator,
+        launch_counts,
+    )
 
     rng = np.random.default_rng(SEED)
-    errs = []
+    errs, ell_rows = [], {}
     for subdiv in subdivs:
         t0 = time.perf_counter()
         L = _laplacian(subdiv)
@@ -687,14 +798,14 @@ def phase_parity(device, subdivs, width):
                       f"reference {time.perf_counter() - t0:.1f} s")
         for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             x = torch.from_numpy(x_np).to(device, dt)
+            fma = {}
             for rps in (2, 0):
                 op = BlockSparseOperator.from_scipy(
                     L, dtype=dt, rows_per_super=rps, device=device)
                 kname = _layout(op)[0]
-                with torch.no_grad():
-                    y = op.matvec(x)
-                err = rel_err(y.float().cpu().numpy(), ref)
                 res = measure(op, L, x, device, f"HEALPix-{subdiv} {name}")
+                err = rel_err(res["y"].float().cpu().numpy(), ref)
+                fma[kname] = res
                 log("parity", f"{kname} HEALPix-{subdiv} {name} x[{L.shape[0]}"
                               f", {width}] A {tuple(_layout(op)[1].shape)}: "
                               f"rel err vs scipy {err:.3e} (bar "
@@ -705,8 +816,51 @@ def phase_parity(device, subdivs, width):
                         f"{err:.3e} breaks the {BARS[name]:g} bar")
                 errs.append(f"{kname} HEALPix-{subdiv} {name} {err:.3e} / "
                             f"{res['max_abs_err']:.3e}")
+            if dt != torch.float32:
+                continue
+            # the fp32 route: the operator's matvec launches the ELL kernel
+            before = dict(launch_counts)
+            with torch.no_grad():
+                y = op.matvec(x)
+            launched = {k: v - before[k] for k, v in launch_counts.items()
+                        if v != before[k]}
+            if launched != {ELL_KERNEL: 1}:
+                raise AssertionError(f"HEALPix-{subdiv} fp32 matvec launched "
+                                     f"{launched}, not one {ELL_KERNEL}")
+            err = rel_err(y.cpu().numpy(), ref)
+            label = (f"{ELL_KERNEL} HEALPix-{subdiv} fp32 x[{L.shape[0]}, "
+                     f"{width}]")
+            res = measure_ell(op.ell, L, x, device, label)
+            if not err < BARS["fp32"]:
+                raise AssertionError(f"{label}: vs scipy {err:.3e} breaks the "
+                                     f"{BARS['fp32']:g} bar")
+            k1, k3 = fma[KERNEL], fma[PLAIN_KERNEL]
+            res.update({"rel_err_scipy": err, "fma_ms": k1["ms"],
+                        "fma_plain_layout_ms": k3["ms"],
+                        "dense_block_bound_ms": k1["bound_ms"]})
+            ell_rows[f"x{L.shape[0]}_{width}"] = {
+                k: v for k, v in res.items() if k != "y"}
+            log("parity", f"{label} (ELL [{L.shape[0]}, {res['ell_width']}]):"
+                          f" rel err vs scipy {err:.3e} (bar "
+                          f"{BARS['fp32']:g}), vs plain version max abs "
+                          f"{res['max_abs_err']:.3e}; {res['ms']:.4f} ms per "
+                          f"launch (host enqueue {res['host_ms']:.4f} ms), "
+                          f"bound {res['bound_ms']:.4f} ms by "
+                          f"{res['bound_by']} (share "
+                          f"{res['share_of_bound']:.3f}), plain "
+                          f"{res['plain_ms']:.4f} ms, cuSPARSE "
+                          f"{res['library_ms']:.4f} ms, FMA regime "
+                          f"{KERNEL} {k1['ms']:.4f} ms / {PLAIN_KERNEL} "
+                          f"{k3['ms']:.4f} ms; cuSPARSE / ELL "
+                          f"{res['library_ms'] / res['ms']:.2f}, {KERNEL} / "
+                          f"ELL {k1['ms'] / res['ms']:.2f}; the dense-block "
+                          f"bound of {KERNEL}'s layout (its 128x128 blocks "
+                          f"multiplied whole) {k1['bound_ms']:.4f} ms")
+            errs.append(f"{ELL_KERNEL} HEALPix-{subdiv} fp32 {err:.3e} / "
+                        f"{res['max_abs_err']:.3e}")
     log("parity", "rel err vs scipy / max abs err vs plain version: "
                   + "; ".join(errs))
+    return ell_rows
 
 
 def phase_parity_regimes(device, subdivs, batch):
@@ -809,10 +963,14 @@ def split_check(L, device, subdiv):
 
 
 def phase_parity_backward(device, subdiv, width):
-    """d/dx sum((Lx)^2) through each layout's autograd.Function against
+    """d/dx sum((Lx)^2) through the operator's autograd.Function against
     2 L^T (L x): the knn L (symmetric: the backward reuses the forward
     arrays) and D L with a random positive diagonal D (through the
-    transposed layout)."""
+    transposed layout). fp32 x takes the ELL route; K1 and K3 are held on
+    their own layouts too, the operator's ELL taken away (their fp32 FMA
+    regime, which no model path reaches any more)."""
+    import copy
+
     import torch
     from scipy import sparse
 
@@ -832,26 +990,37 @@ def phase_parity_backward(device, subdiv, width):
         for rps in (2, 0):
             op = BlockSparseOperator.from_scipy(
                 mat, symmetric=sym, rows_per_super=rps, device=device)
-            kname = _layout(op)[0]
-            before = dict(launch_counts)
-            x = torch.from_numpy(x_np).to(device).requires_grad_()
-            y = op.matvec(x)
-            if y.grad_fn is None:
-                raise AssertionError(f"{kname}: L @ x has no grad_fn")
-            (y ** 2).sum().backward()
-            torch.cuda.synchronize()
-            n_launch = launch_counts[kname] - before[kname]
-            if n_launch != 2:
-                raise AssertionError(f"{kname} {label}: {n_launch} launches "
-                                     "for one forward and one backward")
-            err = rel_err(x.grad.cpu().numpy(), want)
-            log("parity", f"{kname} backward HEALPix-{subdiv} {label} "
-                          f"({'same arrays' if sym else 'transposed ' + op.transpose_layout()[0] + ' layout'}"
-                          f"), fp32 x[{L.shape[0]}, {width}]: d/dx sum((Lx)^2)"
-                          f" vs 2 L^T (L x) {err:.3e} (bar {GRAD_BAR:g})")
-            if not err < GRAD_BAR:
-                raise AssertionError(f"{kname} backward {label}: {err:.3e} "
-                                     f"breaks the {GRAD_BAR:g} bar")
+            block = copy.copy(op)
+            block.ell = None
+            routes = [(_layout(op)[0], block)]
+            if rps:
+                routes.insert(0, (ELL_KERNEL, op))
+            for kname, route in routes:
+                before = dict(launch_counts)
+                x = torch.from_numpy(x_np).to(device).requires_grad_()
+                y = route.matvec(x)
+                if y.grad_fn is None:
+                    raise AssertionError(f"{kname}: L @ x has no grad_fn")
+                (y ** 2).sum().backward()
+                torch.cuda.synchronize()
+                launched = {k: v - before[k] for k, v in launch_counts.items()
+                            if v != before[k]}
+                if launched != {kname: 2}:
+                    raise AssertionError(f"{kname} {label}: launched "
+                                         f"{launched} for one forward and one "
+                                         "backward")
+                layout = (op.ell if kname == ELL_KERNEL
+                          else op).transpose_layout()[0]
+                err = rel_err(x.grad.cpu().numpy(), want)
+                log("parity", f"{kname} backward HEALPix-{subdiv} {label} "
+                              f"({'same arrays' if sym else 'transposed ' + layout + ' layout'}"
+                              f"), fp32 x[{L.shape[0]}, {width}]: d/dx "
+                              f"sum((Lx)^2) vs 2 L^T (L x) {err:.3e} (bar "
+                              f"{GRAD_BAR:g})")
+                if not err < GRAD_BAR:
+                    raise AssertionError(f"{kname} backward {label}: "
+                                         f"{err:.3e} breaks the {GRAD_BAR:g} "
+                                         "bar")
 
 
 def phase_parity_rows(device, subdivs, width):
@@ -859,7 +1028,9 @@ def phase_parity_rows(device, subdivs, width):
     against bf16 x in both regimes): each node shard's row-range launch,
     for 2 and 4 shards, against the rows of the full launch (exactly), its
     plain version (exactly in the fp32-x regimes, else at the bf16 bar)
-    and scipy's rows (the bars)."""
+    and scipy's rows (the bars); then the ELL kernel's row ranges and K5's
+    fold over it (`parity_ell_rows`). Returns the ELL row range's times at
+    the last of `subdivs`."""
     import torch
     import torch.nn.functional as F
 
@@ -939,6 +1110,93 @@ def phase_parity_rows(device, subdivs, width):
                           f"{worst['plain']:.3e}, max abs error vs the full "
                           f"launch's rows {worst['full']:.3e}; rel err vs "
                           f"scipy's rows {worst['scipy']:.3e} (bar {bar:g})")
+        ell_rows = parity_ell_rows(device, L, x_np, subdiv, rng)
+    return ell_rows
+
+
+def parity_ell_rows(device, L, x_np, subdiv, rng):
+    """The ELL kernel's row ranges, 2 and 4 node shards, against the full
+    launch's rows and the plain version (exactly) and scipy's rows (fp32
+    bar), on the knn L and on the transposed layout of D L (D a random
+    positive diagonal); K5's fold: 2 members' x in one launch's columns
+    (the op's vmap rule, and a row range of the folded columns) against
+    one launch per member, exactly; and rank 0's row range of 2 timed
+    beside its bound, plain version and cuSPARSE's CSR row slice."""
+    import torch
+    from scipy import sparse
+
+    from deepsphere_weather_torch.ops import EllOperator, bcsr
+
+    n, width = x_np.shape
+    x = torch.from_numpy(x_np).to(device)
+    D = sparse.diags(rng.uniform(0.5, 2.0, n).astype(np.float32))
+    for label, mat, sym in (("knn L", L, True),
+                            ("D L, transposed layout", (D @ L).tocsr(),
+                             False)):
+        ell = EllOperator.from_scipy(mat, symmetric=sym, device=device)
+        vals, cols = (ell.vals, ell.cols) if sym else (ell.vals_t, ell.cols_t)
+        ref = (mat if sym else mat.T.tocsr()) @ x_np
+        full = bcsr.ell_spmm(vals, cols, x)
+        worst = 0.0
+        for n_node, r in ((2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (4, 3)):
+            v0, v1 = r * n // n_node, (r + 1) * n // n_node
+            y = bcsr.ell_spmm_rows(vals, cols, x, v0, v1)
+            e_plain = float((y - bcsr.ell_spmm_rows_reference(
+                vals, cols, x, v0, v1)).abs().max())
+            e_full = float((y - full[v0:v1]).abs().max())
+            e_scipy = rel_err(y.cpu().numpy(), ref[v0:v1])
+            if e_plain or e_full or not e_scipy < BARS["fp32"]:
+                raise AssertionError(
+                    f"{ELL_ROW_KERNEL} HEALPix-{subdiv} {label} rows [{v0}, "
+                    f"{v1}): vs plain version {e_plain:.3e}, vs full launch "
+                    f"{e_full:.3e} (both must be 0), vs scipy {e_scipy:.3e}")
+            worst = max(worst, e_scipy)
+        log("parity", f"{ELL_ROW_KERNEL} HEALPix-{subdiv} {label}, fp32 "
+                      f"x[{n}, {width}], 2 and 4 node shards: equal to the "
+                      f"full launch's rows and to the plain version (max abs "
+                      f"error 0); rel err vs scipy's rows {worst:.3e} (bar "
+                      f"{BARS['fp32']:g})")
+    # K5: 2 members folded into the columns of one launch
+    xm = torch.from_numpy(rng.standard_normal((2, n, width // 2)).astype(
+        np.float32)).to(device)
+    before = bcsr.launch_counts[ELL_KERNEL]
+    folded = torch.func.vmap(lambda xi: bcsr.spmm_ell(ell.vals, ell.cols,
+                                                      xi))(xm)
+    n_launch = bcsr.launch_counts[ELL_KERNEL] - before
+    per = torch.stack([bcsr.ell_spmm(ell.vals, ell.cols, xi) for xi in xm])
+    rows = bcsr.ell_spmm_rows(
+        ell.vals, ell.cols, xm.movedim(0, 1).reshape(n, width).contiguous(),
+        0, n // 2).reshape(n // 2, 2, width // 2).movedim(1, 0)
+    if n_launch != 1 or not torch.equal(folded, per) or \
+            not torch.equal(rows, per[:, :n // 2]):
+        raise AssertionError(f"K5 over {ELL_KERNEL} HEALPix-{subdiv}: "
+                             f"{n_launch} launches for 2 members; folded "
+                             "product or row range differs from the "
+                             "per-member launches")
+    log("parity", f"K5 over {ELL_KERNEL} HEALPix-{subdiv}: 2 members x[{n}, "
+                  f"{width // 2}] folded into one launch (the op's vmap "
+                  f"rule) and into one row range [0, {n // 2}): equal to "
+                  f"one launch per member (max abs error 0)")
+    # rank 0's row range of 2, timed
+    v1 = n // 2
+    vals, cols = ell.vals[:v1].contiguous(), ell.cols[:v1].contiguous()
+    csr = _csr(L[:v1], device, torch.float32)
+    t_bytes, t_ops = _ell_bound(vals, cols, x, out_rows=v1)
+    res = {"ms": device_ms(lambda: bcsr.ell_spmm_rows(vals, cols, x, 0, v1)),
+           "host_ms": host_ms(lambda: bcsr.ell_spmm_rows(vals, cols, x, 0,
+                                                         v1)),
+           "plain_ms": device_ms(lambda: bcsr.ell_spmm_rows_reference(
+               vals, cols, x, 0, v1), n_iter=5),
+           "library_ms": device_ms(lambda: torch.sparse.mm(csr, x)),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "shape": f"rows [0, {v1}) of x[{n}, {width}]"}
+    log("times", f"{ELL_ROW_KERNEL} HEALPix-{subdiv} fp32 {res['shape']}: "
+                 f"{res['ms']:.4f} ms (host enqueue {res['host_ms']:.4f} ms, "
+                 f"bound {res['bound_ms']:.4f} ms by {res['bound_by']}, plain "
+                 f"{res['plain_ms']:.4f} ms, cuSPARSE row slice "
+                 f"{res['library_ms']:.4f} ms)")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1562,6 +1820,195 @@ def time_step_products(products, subdiv, device, card_line):
     return rows[KERNEL], rows[PLAIN_KERNEL]
 
 
+def phase_train64f32(device, card_line):
+    """train64f32: the shipped fp32 HEALPix-64 configuration (F32_CONFIG)
+    through `models.get_model`, at its own float32, full width and depth:
+    levels 0 and 1 block-sparse, whose every product is the ELL kernel's
+    (fp32 x), level 2 dense. 3 steps at train64's traffic (AR2, batch 8,
+    RNN, area-weighted MSE, Adam eps 1e-7 with the config's clipping):
+    exactly 18 + 16 ELL launches a model call and nothing else, peak
+    memory, the step time beside the same step on K1's FMA path (the ELL
+    taken away) in turns; a forecast call (no grad) at batch 8; each (level,
+    width) shape of the step (`ell_step_shapes`); one batch-1 AR1 step
+    card vs CPU at GRAD_BAR."""
+    import torch
+
+    from deepsphere_weather_torch.ops.bcsr import launch_counts
+
+    t0 = time.perf_counter()
+    cfg = _grids_config(F32_CONFIG)
+    precision = cfg["training_settings"]["numeric_precision"]
+    model = grids_model(device, cfg, precision).train()
+    geom = model.geometry
+    kinds = ["dense" if o.dense is not None else
+             "ell" if o.bcsr is not None and o.bcsr.ell is not None else "?"
+             for o in geom.cheb_ops]
+    if precision != "float32" or kinds != ["ell", "ell", "dense"]:
+        raise AssertionError(f"{F32_CONFIG}: {precision}, levels {kinds}")
+    params = train_params(model, SEED + 40)
+    model.load_state_dict(params)
+    log("train64f32", f"{F32_CONFIG}: UNetSpherical levels {geom.n_nodes} "
+                      f"({', '.join(kinds)}), {precision}, built in "
+                      f"{time.perf_counter() - t0:.1f} s")
+    per_forward = sum(PRODUCTS_PER_LEVEL[:2])
+    label = f"{F32_CONFIG} fp32 AR{HP64_AR} batch {HP64_BATCH}"
+    torch.cuda.reset_peak_memory_stats()
+    res = run_train(model, HP64_AR, HP64_BATCH, HP64_STEPS, label,
+                    clip=cfg["training_settings"]["gradient_clipping"],
+                    phase="train64f32")
+    launches = check_launches(res, ELL_KERNEL, per_forward, HP64_AR + 1,
+                              label, phase="train64f32")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the same step on the FMA path, the operators' ELL taken away (K1's
+    # fp32 regime, the route before the ELL kernel), timed in turns with
+    # the ELL step
+    sparse = [o.bcsr for o in geom.cheb_ops if o.bcsr is not None]
+    ells = [o.ell for o in sparse]
+
+    def fma_step():
+        for o in sparse:
+            o.ell = None
+        try:
+            res["step"]()
+        finally:
+            for o, e in zip(sparse, ells):
+                o.ell = e
+
+    before = dict(launch_counts)
+    fma_step()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in launch_counts.items()
+                if v != before[k]}
+    want = 2 * per_forward * (HP64_AR + 1) - NO_GRAD_PRODUCTS
+    if launched != {KERNEL: want}:
+        raise AssertionError(f"train64f32 FMA-path step launched {launched}, "
+                             f"not {want} {KERNEL}")
+    fma_label = f"{label}, FMA path ({KERNEL})"
+    times = time_steps({label: res["step"], fma_label: fma_step},
+                       HP64_BATCH, card_line)
+    ms, fma_ms = times[label], times[fma_label]
+
+    # a forecast call: one model call without gradients, batch 8
+    n = model.input_n_node
+    x = torch.from_numpy(np.random.default_rng(SEED + 41).standard_normal(
+        (HP64_BATCH, len(INPUT_K), n, F_STATIC + F_BC + F_DYN)).astype(
+            np.float32)).to(device)
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        before = dict(launch_counts)
+        t = time.perf_counter()
+        for _ in range(F32_FORWARDS):
+            y = model(x)
+        torch.cuda.synchronize()
+        fc_ms = 1e3 * (time.perf_counter() - t) / F32_FORWARDS
+    launched = {k: v - before[k] for k, v in launch_counts.items()
+                if v != before[k]}
+    if launched != {ELL_KERNEL: per_forward * F32_FORWARDS} or \
+            y.shape != (HP64_BATCH, 1, n, F_DYN) or \
+            not torch.isfinite(y).all():
+        raise AssertionError(f"train64f32 forecast: {tuple(y.shape)}, "
+                             f"launched {launched}")
+    log("train64f32", f"step {ms:.2f} ms (batch {HP64_BATCH}, "
+                      f"{HP64_BATCH * 1e3 / ms:.2f} samples/s; on the FMA "
+                      f"path {fma_ms:.2f} ms, {fma_ms / ms:.2f}x), peak "
+                      f"device memory {peak:.2f} GiB; forecast call (no "
+                      f"grad, batch "
+                      f"{HP64_BATCH}) {fc_ms:.2f} ms, {per_forward} "
+                      f"{ELL_KERNEL} launches each ({card_line})")
+    shapes = ell_step_shapes(model, res["step"], _grid_laplacian(cfg, geom),
+                             card_line)
+    cpu = grids_card_vs_cpu(device, cfg, params, F32_CONFIG, ar=F32_CHECK_AR,
+                            batch=F32_CHECK_BATCH, dense_threshold=None,
+                            phase="train64f32")
+    seconds = time.perf_counter() - t0
+    log("train64f32", f"phase {seconds:.1f} s")
+    return {"launches": launches,
+            "forecast": (per_forward * F32_FORWARDS, 0), "ms": ms,
+            "fma_step_ms": fma_ms,
+            "peak_gib": peak, "forecast_ms": fc_ms, "shapes": shapes,
+            "card_vs_cpu": cpu, "seconds": seconds}
+
+
+def ell_step_shapes(model, step, laplacian, card_line):
+    """Each (level, width) shape one train step launches the ELL kernel
+    at (recorded by wrapping `ell_spmm`), per launch: the ELL kernel
+    (against its plain version exactly, against scipy and, backward
+    through the operator, against scipy's L^T g at the fp32 bar), the FMA
+    path (the K1 wrapper on the same operator's super-row arrays, x padded
+    as its matvec pads it), cuSPARSE's fp32 CSR product and the bound of
+    the function's work (`_ell_bound`). Returns one entry per shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepsphere_weather_torch.ops import bcsr
+
+    launched, kernel = set(), bcsr.ell_spmm
+
+    def record(vals, cols, x):
+        launched.add((vals.data_ptr(), x.shape[1]))
+        return kernel(vals, cols, x)
+
+    bcsr.ell_spmm = record
+    try:
+        step()
+    finally:
+        bcsr.ell_spmm = kernel
+    ops = [c.bcsr for c in model.geometry.cheb_ops]
+    level_of = {o.ell.vals.data_ptr(): lvl for lvl, o in enumerate(ops)
+                if o is not None}
+    device = next(model.parameters()).device
+    rng = np.random.default_rng(SEED + 42)
+    rows = []
+    for level, width in sorted({(level_of[p], w) for p, w in launched}):
+        op, L = ops[level], laplacian(level)
+        n = L.shape[0]
+        x = torch.from_numpy(rng.standard_normal((n, width)).astype(
+            np.float32)).to(device)
+        g = torch.from_numpy(rng.standard_normal((n, width)).astype(
+            np.float32)).to(device)
+        label = f"{ELL_KERNEL} HEALPix level {level} x[{n}, {width}]"
+        r = measure_ell(op.ell, L, x, device, label)
+        e_fwd = rel_err(r["y"].cpu().numpy(), L @ x.cpu().numpy())
+        xg = x.clone().requires_grad_()
+        op.matvec(xg).backward(g)
+        e_bwd = rel_err(xg.grad.cpu().numpy(), L.T @ g.cpu().numpy())
+        _, a, idx, nz = op.forward_layout()
+        x_pad = F.pad(x, (0, (-width) % 128, 0, op.rows - n))
+        e_fma = rel_err(bcsr.bcsr_super_spmm(a, idx, x_pad, nz)[:n, :width]
+                        .cpu().numpy(), r["y"].cpu().numpy())
+        fma_ms = device_ms(lambda: bcsr.bcsr_super_spmm(a, idx, x_pad, nz))
+        for e, what in ((e_fwd, "forward vs scipy"),
+                        (e_bwd, "backward vs scipy L^T g"),
+                        (e_fma, f"{KERNEL} (FMA) vs {ELL_KERNEL}")):
+            if not e < BARS["fp32"]:
+                raise AssertionError(f"{label}: {what} {e:.3e} breaks the "
+                                     f"{BARS['fp32']:g} bar")
+        rows.append({"level": level, "width": width, "ms": r["ms"],
+                     "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
+                     "library_ms": r["library_ms"], "fma_ms": fma_ms,
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
+                     "max_abs_err": r["max_abs_err"]})
+        log("train64f32", f"{label}: {r['ms']:.4f} ms per launch (bound "
+                          f"{r['bound_ms']:.4f} ms by {r['bound_by']}, share "
+                          f"{r['share_of_bound']:.3f}; cuSPARSE "
+                          f"{r['library_ms']:.4f} ms; FMA path {KERNEL} "
+                          f"{fma_ms:.4f} ms; plain {r['plain_ms']:.4f} ms); "
+                          f"vs plain version max abs {r['max_abs_err']:.3e}, "
+                          f"vs scipy {e_fwd:.3e}, backward vs scipy "
+                          f"{e_bwd:.3e}, FMA path vs ELL {e_fma:.3e} (bar "
+                          f"{BARS['fp32']:g}) ({card_line})")
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "library_ms",
+                                                   "fma_ms", "bound_ms")}
+    log("train64f32", f"over the step's {len(rows)} shapes, one launch each: "
+                      f"{ELL_KERNEL} {total['ms']:.4f} ms, cuSPARSE "
+                      f"{total['library_ms']:.4f} ms, FMA path "
+                      f"{total['fma_ms']:.4f} ms, bound "
+                      f"{total['bound_ms']:.4f} ms ({card_line})")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # Node- and data-parallel training (spawned ranks sharing the card)
 # ---------------------------------------------------------------------------
@@ -1680,10 +2127,11 @@ def rank_train(rank, device, subdiv, n_data, n_node, ar_iters, batch,
 def rank_grads(rank, device, subdiv, n_data, n_node, batch,
                batch_norm=False):
     """The first fp32 step of one rank on an n_data x n_node mesh (level 0
-    block-sparse fp32, K2 on a node mesh), from `phase_train_check`'s
-    weights and batch (with BatchNorm: statistics over the mesh): the
-    global per-iteration losses make_train_step returns and the
-    gradients, reduced over the mesh, that Adam steps on."""
+    block-sparse fp32: the ELL kernel's row range on a node mesh), from
+    `phase_train_check`'s weights and batch (with BatchNorm: statistics
+    over the mesh): the global per-iteration losses make_train_step
+    returns and the gradients, reduced over the mesh, that Adam steps
+    on."""
     import torch
 
     from deepsphere_weather_torch.engine import make_train_step
@@ -1799,7 +2247,7 @@ def check_sharded_products(model, step, laplacian, name):
         lines.append(f"{label} rows [{v0}, {v1}): " + ", ".join(
             f"{k} {e:.3e}" for k, e in errs.items()))
     return {"lines": lines, "worst": worst, "n_products": len(products),
-            "n_shapes": len(launched)}
+            "n_shapes": len(launched), "shapes": products}
 
 
 def _log_products(phase, mesh, p):
@@ -1864,10 +2312,10 @@ def _check_grad_ranks(phase, ranks, grad_ref, mesh_label):
             raise AssertionError(f"{phase} fp32 rank {r['mesh']}: "
                                  f"per-iteration losses {e_iter:.3e}")
         log(phase, f"fp32 batch {TRAIN_CHECK_BATCH} step (level 0 "
-                   f"block-sparse fp32, K2) on {mesh_label}, rank "
-                   f"{r['mesh']}, vs one process on the card: per-iteration "
-                   f"losses {e_iter:.3e}, reduced gradients worst "
-                   f"{e_grad:.3e} ({key}); tol {SLICE_TOL} per key")
+                   f"block-sparse fp32, {ELL_ROW_KERNEL}) on {mesh_label}, "
+                   f"rank {r['mesh']}, vs one process on the card: "
+                   f"per-iteration losses {e_iter:.3e}, reduced gradients "
+                   f"worst {e_grad:.3e} ({key}); tol {SLICE_TOL} per key")
 
 
 def phase_node(device, card_line, train_ref, train64_ref):
@@ -1910,7 +2358,7 @@ def phase_node(device, card_line, train_ref, train64_ref):
                   f"({card_line})")
     return {"launches": k2, "ms16": ms16, "ms64": ms64,
             "peak64_gib": max(r["peak_gib"] for r in node64),
-            "grad_ref": grad_ref}
+            "grad_ref": grad_ref, "shapes64": node64[0]["products"]["shapes"]}
 
 
 def phase_mesh(device, card_line, train_ref, grad_ref):
@@ -2597,6 +3045,40 @@ def k2_new_shapes(device, voronoi, batch):
         ROW_KERNEL, *fns, vop.row_shard(0, vn // 2, group=None).bwd,
         vL.T.tocsr()[:vn // 2], vn, widths, device,
         f"{GRIDSNODE[0]} level 0 transposed", rng)
+    return out
+
+
+def k2_node64_shapes(device, shapes, card_line):
+    """K2 at each (level, width) shape of the node64 step (rank 0's rows
+    [0, n/2) of the level's bf16 operator against the full x), beside its
+    bound, plain version and cuSPARSE's CSR row slice
+    (`shard_rows_times`). One entry per shape."""
+    import torch
+
+    from deepsphere_weather_torch.ops import BlockSparseOperator, bcsr
+
+    fns = (bcsr.bcsr_super_spmm_rows, bcsr.bcsr_super_spmm_rows_reference)
+    rng = np.random.default_rng(SEED + 78)
+    out, ops = [], {}
+    for level, width in shapes:
+        L = _laplacian(BIG_SUBDIV >> level)
+        n = L.shape[0]
+        if level not in ops:
+            ops[level] = BlockSparseOperator.from_scipy(
+                L, dtype=torch.bfloat16, device=device).row_shard(
+                    0, n // 2, group=None)
+        r = shard_rows_times(ROW_KERNEL, *fns, ops[level].fwd, L[:n // 2], n,
+                             [width], device,
+                             f"HEALPix-{BIG_SUBDIV} level {level} node64 "
+                             f"rows [0, {n // 2})", rng)
+        out.append({"level": level, "width": width, **{
+            k: r[k] for k in ("ms", "host_ms", "plain_ms", "library_ms",
+                              "bound_ms", "bound_by", "max_abs_err")}})
+    log("times", f"{ROW_KERNEL} over the node64 step's {len(out)} shapes, "
+                 f"one launch each: {sum(r['ms'] for r in out):.4f} ms, "
+                 f"cuSPARSE row slices {sum(r['library_ms'] for r in out):.4f}"
+                 f" ms, bound {sum(r['bound_ms'] for r in out):.4f} ms "
+                 f"({card_line})")
     return out
 
 
@@ -3389,6 +3871,40 @@ def kernel_row_rows(device, subdiv, batch, launches):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
+def kernel_row_ell(parity, rows_range, f32):
+    """The ELL kernel's row: per-launch averages over the train64f32
+    step's shapes (`ell_step_shapes`), its launches there and in the
+    forecast call, the parity phase's width-1024 readings beside K1's and
+    K3's FMA regime, and its row range (`parity_ell_rows`)."""
+    shapes = f32["shapes"]
+
+    def mean(k):
+        return sum(r[k] for r in shapes) / len(shapes)
+
+    paths = {"train64f32": list(f32["launches"]),
+             "train64f32_forecast": list(f32["forecast"])}
+    fwd = sum(f for f, _ in paths.values())
+    bwd = sum(b for _, b in paths.values())
+    bytes_ms, ops_ms = mean("bytes_ms"), mean("ops_ms")
+    return {"name": ELL_KERNEL, "route": "cuda",
+            "source": SOURCES[ELL_KERNEL], "replaces": REPLACES[ELL_KERNEL],
+            "launches": fwd + bwd, "launches_forward": fwd,
+            "launches_backward": bwd, "launches_by_path": paths,
+            "max_abs_err": max([r["max_abs_err"] for r in shapes]
+                               + [r["max_abs_err"] for r in parity.values()]),
+            "ms": mean("ms"), "host_ms": mean("host_ms"),
+            "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": mean("library_ms"), "fma_ms": mean("fma_ms"),
+            "train64f32_shapes": shapes, **parity,
+            "rows_range": rows_range,
+            "train64f32_step_ms": f32["ms"],
+            "train64f32_fma_path_step_ms": f32["fma_step_ms"],
+            "train64f32_peak_gib": f32["peak_gib"],
+            "train64f32_forecast_ms": f32["forecast_ms"],
+            "train64f32_card_vs_cpu": f32["card_vs_cpu"]}
+
+
 def _profile(fn, n, label):
     """Device time by kernel over n calls of fn (torch.profiler), and the
     device's busy share of the window's host time."""
@@ -3484,20 +4000,27 @@ def _want_step_launches(per_step, label, phase):
     return want[0] * len(per_step), want[1] * len(per_step)
 
 
-def _fp32_step(device, params, seed_batch, members=None, clip=None):
+def _fp32_step(device, params, seed_batch, members=None, clip=None,
+               pinned=None):
     """One fp32 batch-2 step of the flagship (level 0 block-sparse) with
     its gradients kept: losses, gradients (clipped when `clip`) and the
-    parameters after it. `members` (a list of state dicts) runs the
-    member step over their stack instead."""
+    parameters after it, its ReLU and max-pool decisions (`steer`; taken
+    from `pinned` when given) and how far those that differed from its own
+    sat from their kink or tie. `members` (a list of state dicts) runs the
+    member step over their stack instead, its decisions stacked over the
+    members."""
     from deepsphere_weather_torch.engine import (
         Adam,
         make_member_train_step,
         make_train_step,
     )
     from deepsphere_weather_torch.models import MemberStack
+    from torch_steer import steer
 
     model = build_flagship(device, SLICE_SUBDIV, params, precision="float32",
                            dense_threshold=FP32_DENSE_THRESHOLD).train()
+    decisions, gaps = steer(model, pinned,
+                            None if members is None else len(members))
     indexer, area_w, w = train_setup(model, TRAIN_AR)
     data = train_batch(indexer, model.input_n_node, TRAIN_CHECK_BATCH,
                        device, seed_batch)
@@ -3511,7 +4034,8 @@ def _fp32_step(device, params, seed_batch, members=None, clip=None):
             "grads": {k: p.grad.detach().cpu().double()
                       for k, p in owner.named_parameters()},
             "params": {k: p.detach().cpu().double()
-                       for k, p in owner.named_parameters()}}
+                       for k, p in owner.named_parameters()},
+            "decisions": decisions, "gaps": gaps}
 
 
 def phase_bn16(device, card_line):
@@ -3683,7 +4207,9 @@ def phase_ens16(device, card_line, single_ms, profile=False):
     launches per step for both members, at twice the single step's widths
     (but the first convolution's 2 products on the shared batch); then one
     fp32 batch-2 member step against each member's single step on the
-    card (1e-4), with a clip between the members' gradient norms. With
+    card (1e-4), with a clip between the members' gradient norms, the
+    single steps taking the member step's ReLU and max-pool decisions
+    (each that differs within KINK_TOL of its kink or tie). With
     `profile`, the device time of 2 member steps and of 2 single steps on
     the same batch (`_profile`)."""
     import torch
@@ -3762,8 +4288,16 @@ def phase_ens16(device, card_line, single_ms, profile=False):
     clip = float(np.sqrt(norms[0] * norms[1]))
     mem = _fp32_step(device, None, SEED + 35, members=fp32, clip=clip)
     worst = {"losses": (0.0, ""), "grads": (0.0, ""), "params": (0.0, "")}
+    gaps = []
     for m, p in enumerate(fp32):
-        one = _fp32_step(device, p, SEED + 35, clip=clip)
+        # each member's single step takes the member step's ReLU and
+        # max-pool decisions: the two round the dense products apart
+        # (batched GEMMs), and one decision that flips with that rounding
+        # moves a weight's gradient by that one term, far above the
+        # rounding
+        one = _fp32_step(device, p, SEED + 35, clip=clip,
+                         pinned=[d[m] for d in mem["decisions"]])
+        gaps += one["gaps"]
         worst["losses"] = max(worst["losses"], (rel_err(
             mem["per_iter"][m].numpy(), one["per_iter"].numpy()),
             f"member {m}"))
@@ -3781,13 +4315,18 @@ def phase_ens16(device, card_line, single_ms, profile=False):
                  f"member's single step: gradient norms "
                  f"{np.round(norms, 4).tolist()}, clip {clip:.4f} (member "
                  f"{int(np.argmax(norms))} clips), Adam eps "
-                 f"{ENS_CHECK_EPS:g}, worst: "
+                 f"{ENS_CHECK_EPS:g}; the single steps on the member "
+                 f"step's decisions ({len(gaps)} differed from their own, "
+                 f"up to {max(gaps, default=0.0):.2e} from their kink or "
+                 f"tie, bar {KINK_TOL:g}), worst: "
                  + ", ".join(f"{k} {e:.3e} ({key})"
                              for k, (e, key) in worst.items())
                  + f" (bar {ENS_TOL}); phase "
                  f"{time.perf_counter() - t_phase:.1f} s")
-    if not all(e <= ENS_TOL for e, _ in worst.values()):
-        raise AssertionError(f"ens16 member vs single {worst}")
+    if not all(e <= ENS_TOL for e, _ in worst.values()) or \
+            max(gaps, default=0.0) > KINK_TOL:
+        raise AssertionError(f"ens16 member vs single {worst}, decision "
+                             f"gaps {gaps}")
     return {"launches": {"ens16_train": (f_ens, b_ens)}, "ms": ms,
             "widths": widths, "single_widths": single_widths}
 
@@ -3979,10 +4518,13 @@ class _Transposed:
         return self.op.transpose_layout()
 
 
-def grids_card_vs_cpu(device, cfg, params, label):
-    """The fp32 batch-2 AR2 loss and gradients of the config's model
-    (level 0 block-sparse) on the card and on the CPU plain path, the CPU
-    taking the card's ReLU and argmax-pool decisions (`steer`): per
+def grids_card_vs_cpu(device, cfg, params, label, ar=GRIDS_CHECK_AR,
+                      batch=TRAIN_CHECK_BATCH,
+                      dense_threshold=FP32_DENSE_THRESHOLD, phase="grids400"):
+    """The fp32 loss and gradients (batch `batch`, AR`ar`) of the config's
+    model (level 0 block-sparse at `dense_threshold`) on the card and on
+    the CPU plain path, the CPU taking the card's ReLU and argmax-pool
+    decisions (`steer`): per
     parameter key at GRAD_BAR, learned logits included, one-element
     gradients against the sum of their terms' magnitudes; every decision
     that differed within KINK_TOL of its kink or tie."""
@@ -3995,18 +4537,17 @@ def grids_card_vs_cpu(device, cfg, params, label):
     runs, decisions = [], None
     for dev in (device, torch.device("cpu")):
         m = grids_model(dev, cfg, "float32",
-                        dense_threshold=FP32_DENSE_THRESHOLD).train()
+                        dense_threshold=dense_threshold).train()
         if m.geometry.cheb_ops[0].bcsr is None:
             raise AssertionError(f"{label}: fp32 level 0 must be "
                                  "block-sparse")
         m.load_state_dict(params)
         decisions, gaps = steer(m, None if dev == device else decisions)
         sums = term_sums(m)
-        indexer, area_w, w = train_setup(m, GRIDS_CHECK_AR)
-        data = train_batch(indexer, m.input_n_node, TRAIN_CHECK_BATCH, dev,
-                           SEED + 31)
-        total, per_iter = make_ar_loss_fn(m, indexer, GRIDS_CHECK_AR + 1)(
-            data, w, area_w)
+        indexer, area_w, w = train_setup(m, ar)
+        data = train_batch(indexer, m.input_n_node, batch, dev, SEED + 31)
+        total, per_iter = make_ar_loss_fn(m, indexer, ar + 1)(data, w,
+                                                              area_w)
         total.backward()
         runs.append((per_iter.detach().cpu().numpy(), grads_of(m), sums,
                      gaps))
@@ -4014,18 +4555,18 @@ def grids_card_vs_cpu(device, cfg, params, label):
     e_loss = rel_err(pi, pi_c)
     e_grad, worst = grads_close(g, g_c, sums, GRAD_BAR, f"{label} card vs CPU")
     logits = sorted(k for k in g if k.startswith(("pool", "unpool")))
-    log("grids400", f"{label}: fp32 batch {TRAIN_CHECK_BATCH} AR"
-                    f"{GRIDS_CHECK_AR} loss and gradients (level 0 "
-                    f"block-sparse fp32), card vs CPU with the card's "
-                    f"decisions ({len(gaps)} differed, up to "
-                    f"{max(gaps, default=0.0):.2e} from their kink or tie, "
-                    f"bar {KINK_TOL:g}): per-iteration losses {e_loss:.3e}, "
-                    f"{len(g)} gradients worst {e_grad:.3e} ({worst})"
-                    f"{', learned logits ' + str(logits) if logits else ''}; "
-                    f"bar {GRAD_BAR:g}")
+    log(phase, f"{label}: fp32 batch {batch} AR{ar} loss and gradients "
+               f"(level 0 block-sparse fp32), card vs CPU with the card's "
+               f"decisions ({len(gaps)} differed, up to "
+               f"{max(gaps, default=0.0):.2e} from their kink or tie, bar "
+               f"{KINK_TOL:g}): per-iteration losses {e_loss:.3e}, {len(g)} "
+               f"gradients worst {e_grad:.3e} ({worst})"
+               f"{', learned logits ' + str(logits) if logits else ''}; "
+               f"bar {GRAD_BAR:g}")
     if not (e_loss <= GRAD_BAR and max(gaps, default=0.0) <= KINK_TOL):
         raise AssertionError(f"{label} card vs CPU: losses {e_loss:.3e}, "
                              f"decision gaps {gaps}")
+    return {"losses": e_loss, "gradients": e_grad, "worst_key": worst}
 
 
 def grids_config(device, name, index, card_line):
@@ -4448,16 +4989,19 @@ def main() -> int:
     card_line = card()
     log("card", card_line)
     phase_build()
-    phase_parity(device, (SLICE_SUBDIV, BIG_SUBDIV), MATVEC_WIDTH)
+    ell_parity = phase_parity(device, (SLICE_SUBDIV, BIG_SUBDIV),
+                              MATVEC_WIDTH)
     k3_err, k4 = phase_parity_regimes(device, (SLICE_SUBDIV, BIG_SUBDIV),
                                       BATCH)
     phase_parity_backward(device, SLICE_SUBDIV, MATVEC_WIDTH)
     phase_parity_backward(device, BIG_SUBDIV, MATVEC_WIDTH)
-    phase_parity_rows(device, (SLICE_SUBDIV, BIG_SUBDIV), MATVEC_WIDTH)
+    ell_rows = phase_parity_rows(device, (SLICE_SUBDIV, BIG_SUBDIV),
+                                 MATVEC_WIDTH)
     fig = phase_slice(device, SLICE_SUBDIV, BATCH, N_STEPS)
     phase_train_check(device, SLICE_SUBDIV, TRAIN_CHECK_BATCH)
     tr = phase_train(device, SLICE_SUBDIV, card_line)
     tr64 = phase_train64(device, BIG_SUBDIV, card_line)
+    f32 = phase_train64f32(device, card_line)
     node = phase_node(device, card_line, tr["per_iter"], tr64["per_iter"])
     node["launches"]["mesh16"] = phase_mesh(device, card_line,
                                             tr["per_iter"], node["grad_ref"])
@@ -4483,6 +5027,7 @@ def main() -> int:
         kernel_row(PLAIN_KERNEL, op3, device, SLICE_SUBDIV, BATCH,
                    {"train16_plain": tr["launches"][PLAIN_KERNEL]}),
         kernel_row_rows(device, SLICE_SUBDIV, BATCH, node["launches"]),
+        kernel_row_ell(ell_parity, ell_rows, f32),
     ]
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], k3_err)
     # K4's function: K3's kernel with round_a=False (fp32 A, bf16 x)
@@ -4496,6 +5041,9 @@ def main() -> int:
                                       card_line)
     rows[0]["train64_shapes"] = k1_64
     rows[1]["train64_shapes"] = k3_64
+    # K2 at the node64 step's shapes beside cuSPARSE's CSR row slice
+    rows[2]["node64_shapes"] = k2_node64_shapes(device, node["shapes64"],
+                                                card_line)
     log("times", f"slice: {fig['step_ms']:.2f} ms per forecast step (batch "
                  f"{BATCH}, host clock, {N_STEPS} steps), {fig['submit_ms']:.1f} "
                  f"ms for {N_SUBMIT} concurrent submits, forward "

@@ -3,6 +3,7 @@ convolution, pooling."""
 
 from .bcsr import (  # noqa: F401
     BlockSparseOperator,
+    EllOperator,
     ShardedBlockSparseOperator,
     bcsr_from_scipy,
     bcsr_spmm,
@@ -14,6 +15,10 @@ from .bcsr import (  # noqa: F401
     bcsr_super_spmm_reference,
     bcsr_super_spmm_rows,
     bcsr_super_spmm_rows_reference,
+    ell_spmm,
+    ell_spmm_reference,
+    ell_spmm_rows,
+    ell_spmm_rows_reference,
     launch_counts,
     plain_nonzero_slots,
     reset_launch_counts,

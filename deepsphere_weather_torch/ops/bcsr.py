@@ -22,18 +22,30 @@ Port of `deepsphere_weather_tpu/ops/pallas_spmm.py`:
   range of super-rows (row blocks) against the full x, the row-sharded
   lowering of `_partitioned_spmm` (K2 for the super-row layout, K3's row
   slice for the plain one); plain versions `*_rows_reference`.
+- `ell_spmm`, `ell_spmm_rows`: the fp32 product over the operator's
+  nonzeros held row by row (ELL: `sphere.graph.laplacian_to_ell`), whole
+  or a range of rows against the full x: the CUDA kernel
+  `kernels/ell_spmm.cu` on a CUDA tensor (or raise), the plain versions
+  `ell_spmm_reference`, `ell_spmm_rows_reference` on a CPU tensor. It is
+  the fp32 regime of K1, K2 and K3: a 128x128 block of a knn Laplacian is
+  about 2% filled, and the block kernels' fp32 body multiplied all of it.
+- `EllOperator`: the ELL operator (JAX's `ell_matvec`, the ELL mode of
+  `ChebOperator`), with the gradient of `BlockSparseOperator`.
 - `BlockSparseOperator`: the operator a Chebyshev convolution calls,
   with the JAX operator's padding and dtype rules in `matvec` and its
   custom VJP as a `torch.autograd.Function` (the backward computes
-  A^T @ g with the same kernels).
+  A^T @ g with the same kernels). An fp32 operator also holds its
+  `EllOperator`, which takes every fp32 x; bf16 x stays on the block
+  layouts.
 - `ShardedBlockSparseOperator` (`BlockSparseOperator.row_shard`): one
   node rank's rows of the operator. Its product gathers x over the node
   group and runs the row-range kernel; so does its backward, on the
   transposed layout. This is what GSPMD derived from the JAX operator's
   `custom_partitioning` rule (an all-gather of x, then the row slice).
-  Gather and launch are one registered op, `spmm_rows`, whose vmap rule
-  is K5's over K2: the members of a member step fold into the columns of
-  one gather and one launch, as the JAX rule wraps the partitioned op.
+  Gather and launch are one registered op, `spmm_rows` (`spmm_rows_ell`
+  for the ELL rows), whose vmap rule is K5's over K2: the members of a
+  member step fold into the columns of one gather and one launch, as the
+  JAX rule wraps the partitioned op.
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ from torch.autograd.function import once_differentiable
 
 from .._device import resolve_device
 from ..parallel.collectives import _groups, gather_rows, group_key
+from ..sphere.graph import laplacian_to_ell
 
 __all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy", "super_nonzero_slots",
            "plain_nonzero_slots",
@@ -56,8 +69,11 @@ __all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy", "super_nonzero_slots",
            "bcsr_super_spmm_rows", "bcsr_super_spmm_rows_reference",
            "bcsr_spmm", "bcsr_spmm_reference",
            "bcsr_spmm_rows", "bcsr_spmm_rows_reference",
-           "BlockSparseOperator", "ShardedBlockSparseOperator",
-           "spmm", "spmm_rows", "launch_counts", "reset_launch_counts"]
+           "ell_spmm", "ell_spmm_reference", "ell_spmm_rows",
+           "ell_spmm_rows_reference",
+           "BlockSparseOperator", "ShardedBlockSparseOperator", "EllOperator",
+           "spmm", "spmm_rows", "spmm_ell", "spmm_rows_ell",
+           "launch_counts", "reset_launch_counts"]
 
 _BS = 128
 
@@ -66,7 +82,8 @@ _BS = 128
 # row-range launch counts under its own key.
 launch_counts: Dict[str, int] = {"bcsr_super_spmm": 0, "bcsr_spmm": 0,
                                  "bcsr_super_spmm_rows": 0,
-                                 "bcsr_spmm_rows": 0}
+                                 "bcsr_spmm_rows": 0, "ell_spmm": 0,
+                                 "ell_spmm_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -530,6 +547,128 @@ def bcsr_spmm_rows(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
                    (rb_begin, rb_end, max_nb, x.shape[0], x.shape[1]))
 
 
+def _check_ell(vals, cols, x):
+    if vals.dim() != 2 or cols.dim() != 2 or x.dim() != 2:
+        raise ValueError("expected vals [n, W], cols [n, W], x [rows, M]")
+    if vals.shape != cols.shape:
+        raise ValueError(f"inconsistent ELL layout: vals {tuple(vals.shape)}, "
+                         f"cols {tuple(cols.shape)}")
+    if vals.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError("the ELL product is fp32: vals and x must be float32")
+    if cols.dtype != torch.int32:
+        raise TypeError("the ELL column table must be int32")
+    if not (vals.device == cols.device == x.device):
+        raise ValueError("vals, cols and x must be on one device")
+
+
+def _check_ell_rows(r0, r1, n):
+    if not 0 <= r0 < r1 <= n:
+        raise ValueError(f"row range [{r0}, {r1}) is not a non-empty range "
+                         f"within the layout's {n}")
+
+
+def ell_spmm_reference(vals: torch.Tensor, cols: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the ELL kernel, in its order:
+    out[r, m] = sum_j vals[r, j] * x[cols[r, j], m], each product rounded to
+    fp32 and added to the row's sum for j = 0, 1, ... (as the kernel does,
+    so the two agree bit for bit). Output [n, M] fp32."""
+    _check_ell(vals, cols, x)
+    return _ell_product(vals, cols, x)
+
+
+def _ell_product(vals, cols, x):
+    out = x.new_zeros((vals.shape[0], x.shape[1]))
+    for j in range(vals.shape[1]):
+        out = out + vals[:, j, None] * x[cols[:, j].long()]
+    return out
+
+
+def ell_spmm_rows_reference(vals: torch.Tensor, cols: torch.Tensor,
+                            x: torch.Tensor, r0: int, r1: int) -> torch.Tensor:
+    """Plain PyTorch version of the ELL row-range kernel: the rows
+    [r0, r1) of `ell_spmm_reference`, gathering from the full x."""
+    _check_ell(vals, cols, x)
+    _check_ell_rows(r0, r1, vals.shape[0])
+    return _ell_product(vals[r0:r1], cols[r0:r1], x)
+
+
+@functools.lru_cache(maxsize=None)
+def _ell_kernel():
+    from ..kernels.build import load_kernel
+
+    k = load_kernel("ell_spmm")
+    head = [_P, _P, _P, _P]                  # vals, cols, x, out
+    for entry, argtypes in {
+            "ell_spmm": head + [_I64, _I, _I64, _P],
+            "ell_spmm_rows": head + [_I64, _I64, _I, _I64, _P]}.items():
+        fn = getattr(k.lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    k.lib.ell_spmm_error_string.argtypes = [ctypes.c_int]
+    k.lib.ell_spmm_error_string.restype = ctypes.c_char_p
+    return k
+
+
+def _ell_launch(entry, vals, cols, x, out, sizes):
+    """Launch `entry` of the ELL kernel on x's device and current stream:
+    (vals, cols, x, out, *sizes, W, M, stream). Raise if the launch failed,
+    else count it. A 16-byte misaligned x (a view) is copied first: the
+    kernel reads x in float4s."""
+    M = x.shape[1]
+    if M % 4 or M == 0:
+        raise ValueError(f"x width {M} is not a positive multiple of 4; "
+                         "matvec pads it")
+    if not (vals.is_contiguous() and cols.is_contiguous()):
+        raise ValueError("the ELL vals and cols must be contiguous")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        x = x.clone(memory_format=torch.contiguous_format)
+    k = _ell_kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(k.lib, entry)(
+            vals.data_ptr(), cols.data_ptr(), x.data_ptr(), out.data_ptr(),
+            *sizes, vals.shape[1], M, stream)
+    if err:
+        raise RuntimeError(f"{entry} launch failed: "
+                           + k.lib.ell_spmm_error_string(err).decode())
+    launch_counts[entry] += 1
+    return out
+
+
+def ell_spmm(vals: torch.Tensor, cols: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """y = L @ x for L in ELL (vals [n, W] fp32, cols [n, W] int32), fp32
+    x [rows, M] with M a multiple of 4 and every column index below rows:
+    y [n, M] fp32.
+
+    CUDA tensors run the hand-written kernel `kernels/ell_spmm.cu` (a
+    failed build or launch raises); CPU tensors run `ell_spmm_reference`."""
+    _check_ell(vals, cols, x)
+    if not x.is_cuda:
+        return ell_spmm_reference(vals, cols, x)
+    out = torch.empty((vals.shape[0], x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    return _ell_launch("ell_spmm", vals, cols, x, out, (vals.shape[0],))
+
+
+def ell_spmm_rows(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                  r0: int, r1: int) -> torch.Tensor:
+    """The rows [r0, r1) of `ell_spmm` against the full x: [r1 - r0, M],
+    bit for bit the full product's rows (K2's and K3's row range in
+    fp32).
+
+    CUDA tensors run the kernel's row-range entry (counted as
+    `ell_spmm_rows`); CPU tensors run `ell_spmm_rows_reference`."""
+    _check_ell(vals, cols, x)
+    _check_ell_rows(r0, r1, vals.shape[0])
+    if not x.is_cuda:
+        return ell_spmm_rows_reference(vals, cols, x, r0, r1)
+    out = torch.empty((r1 - r0, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    return _ell_launch("ell_spmm_rows", vals, cols, x, out, (r0, r1))
+
+
 def _fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     """Zero-pad or truncate axis 0 to exactly `rows` (a super layout and a
     plain one differ in their padding rows only, which no block reads)."""
@@ -540,12 +679,15 @@ def _fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, rows - x.shape[0]))
 
 
-# A layout: ("super", svals, ucols, nz) or ("plain", vals, cols, nz)
-_Layout = Tuple[str, torch.Tensor, torch.Tensor, torch.Tensor]
+# A layout: ("super", svals, ucols, nz), ("plain", vals, cols, nz) or
+# ("ell", vals, cols, None)
+_Layout = Tuple[str, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
 
 
 def _layout_rows(layout) -> int:
     kind, a = layout[:2]
+    if kind == "ell":
+        return a.shape[0]
     return (a.shape[0] * a.shape[1] * a.shape[2] if kind == "super"
             else a.shape[0] * a.shape[2])
 
@@ -575,26 +717,50 @@ def _(a, idx, x, nz, super_layout):
     return x.new_empty((rows, x.shape[1]), dtype=_x_regime(x))
 
 
-def _spmm_vmap(info, in_dims, a, idx, x, nz, super_layout):
-    """K5 (`custom_vmap` of `_partitioned_spmm`): a mapped x [K, n, m]
-    folds into the columns, one product on [n, K*m], reshaped back. The
-    product is linear per column, so this is exact."""
-    a_d, idx_d, x_d, nz_d, _ = in_dims
-    if a_d is not None or idx_d is not None or nz_d is not None:
-        raise NotImplementedError(
-            "vmap over BlockSparseOperator arrays themselves is not "
-            "supported (one shared operator per vmap is: the mapped "
-            "axis folds into the matvec columns)")
-    if x_d is None:
-        return spmm(a, idx, x, nz, super_layout), None
-    x = x.movedim(x_d, 0)
-    k, n, m = x.shape
-    y = spmm(a, idx, x.movedim(0, 1).reshape(n, k * m).contiguous(), nz,
-             super_layout)
-    return y.reshape(y.shape[0], k, m).movedim(1, 0), 0
+def _fold_vmap(op, x_arg: int):
+    """K5 (`custom_vmap` of `_partitioned_spmm`) for the product op `op`,
+    whose argument `x_arg` is x [n, m]: a mapped x [K, n, m] folds into
+    the columns, one product on [n, K*m], reshaped back. The product is
+    linear per column, so this is exact. A mapped operator array raises."""
+
+    def rule(info, in_dims, *args):
+        if any(d is not None for i, d in enumerate(in_dims) if i != x_arg):
+            raise NotImplementedError(
+                "vmap over BlockSparseOperator arrays themselves is not "
+                "supported (one shared operator per vmap is: the mapped "
+                "axis folds into the matvec columns)")
+        x_d = in_dims[x_arg]
+        if x_d is None:
+            return op(*args), None
+        x = args[x_arg].movedim(x_d, 0)
+        k, n, m = x.shape
+        args = list(args)
+        args[x_arg] = x.movedim(0, 1).reshape(n, k * m).contiguous()
+        y = op(*args)
+        return y.reshape(y.shape[0], k, m).movedim(1, 0), 0
+
+    return rule
 
 
-torch.library.register_vmap(spmm, _spmm_vmap)
+torch.library.register_vmap(spmm, _fold_vmap(spmm, 2))
+
+
+# The ELL product as a registered op, as `spmm` is for the block layouts.
+@torch.library.custom_op(
+    "deepsphere_weather_torch::spmm_ell", mutates_args=(),
+    schema="(Tensor vals, Tensor cols, Tensor x) -> Tensor")
+def spmm_ell(vals, cols, x):
+    """L @ x on an ELL layout: the module's wrapper `ell_spmm`, looked up
+    by name at each call."""
+    return ell_spmm(vals, cols, x)
+
+
+@spmm_ell.register_fake
+def _(vals, cols, x):
+    return x.new_empty((vals.shape[0], x.shape[1]), dtype=torch.float32)
+
+
+torch.library.register_vmap(spmm_ell, _fold_vmap(spmm_ell, 2))
 
 
 def _run_mv(layout: _Layout, x_pad: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -602,6 +768,8 @@ def _run_mv(layout: _Layout, x_pad: torch.Tensor, n_out: int) -> torch.Tensor:
     output to n_out."""
     kind, a, idx, nz = layout
     x_fit = _fit_rows(x_pad, _layout_rows(layout))
+    if kind == "ell":
+        return _fit_rows(spmm_ell(a, idx, x_fit), n_out)
     return _fit_rows(spmm(a, idx, x_fit, nz, kind == "super"), n_out)
 
 
@@ -634,6 +802,18 @@ class _MatVec(torch.autograd.Function):
         return (gx.to(ctx.x_dtype),) + (None,) * 8
 
 
+def _ell_x(x: torch.Tensor):
+    """x as the ELL product takes it: fp32, its columns zero-padded to a
+    multiple of 4, contiguous; and the dtype of the result (bf16 for bf16
+    x, else fp32)."""
+    out_dtype = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    m = x.shape[1]
+    x = x.float()
+    if m % 4:
+        x = F.pad(x, (0, 4 - m % 4))
+    return x.contiguous(), out_dtype
+
+
 class BlockSparseOperator:
     """Block-sparse Laplacian; `matvec(x)`: [V, M] -> [V, M], with a
     gradient in x.
@@ -645,14 +825,18 @@ class BlockSparseOperator:
     (`svals_t`, `ucols_t`) if built, else plain (`vals_t`, `cols_t`). Each
     layout gets its list of nonzero slots (`nz`, `nz_t`:
     `super_nonzero_slots` or `plain_nonzero_slots`), built here once, on
-    its device."""
+    its device. `ell`, an `EllOperator` of the same matrix (fp32 operators
+    from `from_scipy`), takes every x that is not bf16: the product over
+    the nonzeros, forward and backward."""
 
     def __init__(self, n: int, svals=None, ucols=None, vals=None, cols=None,
-                 svals_t=None, ucols_t=None, vals_t=None, cols_t=None):
+                 svals_t=None, ucols_t=None, vals_t=None, cols_t=None,
+                 ell: Optional["EllOperator"] = None):
         if svals is None and vals is None:
             raise ValueError("a forward layout (svals/ucols or vals/cols) "
                              "is required")
         self.n = int(n)
+        self.ell = ell
         self.svals, self.ucols = svals, ucols
         self.vals, self.cols = vals, cols
         self.svals_t, self.ucols_t = svals_t, ucols_t
@@ -670,7 +854,9 @@ class BlockSparseOperator:
         their bytes; bf16 activations round A to bf16 anyway).
         `rows_per_super` > 1 builds the super-row layout (the K1 kernel);
         0, None or 1 the plain padded BCSR (the K3 kernel). A
-        non-symmetric `mat` also gets the same layout of its transpose."""
+        non-symmetric `mat` also gets the same layout of its transpose.
+        An fp32 operator also holds the `EllOperator` of `mat`, which
+        computes its products with fp32 x."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError("dtype must be torch.float32 or torch.bfloat16")
         device = resolve_device(device)
@@ -689,10 +875,13 @@ class BlockSparseOperator:
 
         a, idx = layout(mat)
         a_t, idx_t = (None, None) if symmetric else layout(mat.T.tocsr())
+        ell = (EllOperator.from_scipy(mat, symmetric=symmetric, device=device)
+               if dtype == torch.float32 else None)
         if rows_per_super and rows_per_super > 1:
             return cls(mat.shape[0], svals=a, ucols=idx, svals_t=a_t,
-                       ucols_t=idx_t)
-        return cls(mat.shape[0], vals=a, cols=idx, vals_t=a_t, cols_t=idx_t)
+                       ucols_t=idx_t, ell=ell)
+        return cls(mat.shape[0], vals=a, cols=idx, vals_t=a_t, cols_t=idx_t,
+                   ell=ell)
 
     @property
     def symmetric(self) -> bool:
@@ -719,9 +908,12 @@ class BlockSparseOperator:
         return _layout_rows(self.forward_layout())
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """L @ x. Pads rows to the layout's row count and columns to a
-        multiple of 128, then truncates. bf16 x gives a bf16 result, any
-        other x is computed and returned in fp32 (fp32 accumulation)."""
+        """L @ x. A block layout's product pads rows to the layout's row
+        count and columns to a multiple of 128, then truncates. bf16 x
+        gives a bf16 result, any other x is computed and returned in fp32
+        (fp32 accumulation): on `ell` when the operator has one."""
+        if x.dtype != torch.bfloat16 and self.ell is not None:
+            return self.ell.matvec(x)
         n, m = x.shape
         m_pad = ((m + 127) // 128) * 128
         if x.dtype != torch.bfloat16:
@@ -744,14 +936,102 @@ class BlockSparseOperator:
         fwd = _shard_layout(self.forward_layout(), v0, v1)
         bwd = None if self.symmetric else _shard_layout(
             self.transpose_layout(), v0, v1)
-        return ShardedBlockSparseOperator(self.n, v0, v1, group, fwd, bwd)
+        ell = None if self.ell is None else self.ell.row_shard(v0, v1, group)
+        return ShardedBlockSparseOperator(self.n, v0, v1, group, fwd, bwd,
+                                          ell=ell)
+
+
+class EllOperator:
+    """L in ELL (`sphere.graph.laplacian_to_ell`: vals [n, W] fp32, cols
+    [n, W] int32, every column index below n); `matvec(x)`: [n, M] ->
+    [n, M], with a gradient in x. The product runs `ell_spmm` (the
+    registered op `spmm_ell`), forward and, through `_MatVec`, backward on
+    the transposed layout (`vals_t`, `cols_t`: the forward's own when L is
+    symmetric). It is computed in fp32; bf16 x gives a bf16 result."""
+
+    def __init__(self, n: int, vals: torch.Tensor, cols: torch.Tensor,
+                 vals_t: Optional[torch.Tensor] = None,
+                 cols_t: Optional[torch.Tensor] = None):
+        for v, c in ((vals, cols), (vals_t, cols_t)):
+            if (v is None) != (c is None):
+                raise ValueError("an ELL layout needs both vals and cols")
+            if v is not None and (v.dim() != 2 or v.shape != c.shape
+                                  or v.shape[0] != n):
+                raise ValueError(f"ELL layout of {n} rows expected, got vals "
+                                 f"{tuple(v.shape)}, cols {tuple(c.shape)}")
+        self.n = int(n)
+        self.vals, self.cols = vals, cols
+        self.vals_t, self.cols_t = vals_t, cols_t
+
+    @classmethod
+    def from_scipy(cls, mat, symmetric: bool = True, dtype=torch.float32,
+                   device="cuda"):
+        """The ELL layouts of `mat` (and of its transpose unless
+        `symmetric`). `dtype` is the precision of the values (bf16 rounds
+        them); they are kept in fp32, the kernel's type."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError("dtype must be torch.float32 or torch.bfloat16")
+        device = resolve_device(device)
+
+        def layout(m):
+            cols, vals = laplacian_to_ell(m)
+            return (torch.from_numpy(vals).to(device).to(dtype).float()
+                    .contiguous(), torch.from_numpy(cols).to(device))
+
+        vals, cols = layout(mat)
+        vals_t, cols_t = (None, None) if symmetric else layout(mat.T.tocsr())
+        return cls(mat.shape[0], vals, cols, vals_t, cols_t)
+
+    @property
+    def symmetric(self) -> bool:
+        return self.vals_t is None
+
+    def forward_layout(self) -> _Layout:
+        return ("ell", self.vals, self.cols, None)
+
+    def transpose_layout(self) -> _Layout:
+        if self.symmetric:
+            return self.forward_layout()
+        return ("ell", self.vals_t, self.cols_t, None)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """L @ x: x in fp32 with its columns padded to a multiple of 4,
+        the result truncated and in fp32 (bf16 for bf16 x)."""
+        n, m = x.shape
+        x_pad, out_dtype = _ell_x(x)
+        if not torch.is_grad_enabled():
+            y = _run_mv(self.forward_layout(), x_pad, n)
+        else:
+            y = _MatVec.apply(x_pad, *self.forward_layout(),
+                              *self.transpose_layout())
+        return y[:, :m].to(out_dtype)
+
+    def row_shard(self, v0: int, v1: int,
+                  group) -> "ShardedBlockSparseOperator":
+        """The rows [v0, v1) of this operator for one rank of the node
+        process group `group`, as `BlockSparseOperator.row_shard`: the
+        rows [v0, v1) of the forward layout and, when L is not
+        symmetric, of the transposed one."""
+        if not 0 <= v0 < v1 <= self.n:
+            raise ValueError(f"node range [{v0}, {v1}) is not within the "
+                             f"operator's {self.n} rows")
+
+        def rows(layout):
+            _, vals, cols, _ = layout
+            return ("ell", vals[v0:v1].contiguous(),
+                    cols[v0:v1].contiguous(), None, v0, self.n)
+
+        return ShardedBlockSparseOperator(
+            self.n, v0, v1, group, rows(self.forward_layout()),
+            None if self.symmetric else rows(self.transpose_layout()))
 
 
 # One rank's slice of a layout: (kind, A blocks, block-column table, slot
 # list, first row of the slice in the full product, rows of the full
-# layout)
-_ShardLayout = Tuple[str, torch.Tensor, torch.Tensor, torch.Tensor, int,
-                     int]
+# layout); an ELL slice is ("ell", vals, cols, None, v0, n), its rows
+# [v0, v1) exactly
+_ShardLayout = Tuple[str, torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+                     int, int]
 
 
 def _shard_layout(layout: _Layout, v0: int, v1: int) -> _ShardLayout:
@@ -801,29 +1081,29 @@ def spmm_rows(a, idx, x_local, nz, super_layout, group, v0, v1, r0,
     return _run_rows(layout, x_full, v0, v1).contiguous()
 
 
-def _spmm_rows_vmap(info, in_dims, a, idx, x, nz, super_layout, group, v0,
-                    v1, r0, full_rows):
-    """K5 over K2: a mapped x_local [K, n_local, m] folds into the
-    columns, one gather and one row-range product on [n_local, K*m],
-    reshaped back; a batched operator array raises, as the full-range
-    rule does."""
-    a_d, idx_d, x_d, nz_d = in_dims[:4]
-    if a_d is not None or idx_d is not None or nz_d is not None:
-        raise NotImplementedError(
-            "vmap over BlockSparseOperator arrays themselves is not "
-            "supported (one shared operator per vmap is: the mapped "
-            "axis folds into the matvec columns)")
-    args = (super_layout, group, v0, v1, r0, full_rows)
-    if x_d is None:
-        return spmm_rows(a, idx, x, nz, *args), None
-    x = x.movedim(x_d, 0)
-    k, n, m = x.shape
-    y = spmm_rows(a, idx, x.movedim(0, 1).reshape(n, k * m).contiguous(), nz,
-                  *args)
-    return y.reshape(y.shape[0], k, m).movedim(1, 0), 0
+torch.library.register_vmap(spmm_rows, _fold_vmap(spmm_rows, 2))
 
 
-torch.library.register_vmap(spmm_rows, _spmm_rows_vmap)
+# The ELL rows of a row shard as a registered op, as `spmm_rows` is for
+# the block layouts: the node gather and the row-range launch in one.
+@torch.library.custom_op(
+    "deepsphere_weather_torch::spmm_rows_ell", mutates_args=(),
+    schema="(Tensor vals, Tensor cols, Tensor x_local, int group, int v0, "
+           "int v1) -> Tensor")
+def spmm_rows_ell(vals, cols, x_local, group, v0, v1):
+    """Rows [v0, v1) of L @ x from this rank's rows of x, `vals` and
+    `cols` those rows of the ELL layout: x gathered over the registered
+    node group `group`, then one `ell_spmm_rows` launch."""
+    x_full = gather_rows(x_local, _groups[group], 0)
+    return ell_spmm_rows(vals, cols, x_full, 0, v1 - v0)
+
+
+@spmm_rows_ell.register_fake
+def _(vals, cols, x_local, group, v0, v1):
+    return x_local.new_empty((v1 - v0, x_local.shape[1]), dtype=torch.float32)
+
+
+torch.library.register_vmap(spmm_rows_ell, _fold_vmap(spmm_rows_ell, 2))
 
 
 class _RowShardMatVec(torch.autograd.Function):
@@ -859,12 +1139,15 @@ class ShardedBlockSparseOperator:
     """One node rank's rows [v0, v1) of a `BlockSparseOperator` of n rows;
     `matvec(x_local)`: [v1 - v0, M] -> [v1 - v0, M], with a gradient in
     x_local. The ranks of `group` must call `matvec` together, in the same
-    order (each product is an all-gather), and their backwards likewise."""
+    order (each product is an all-gather), and their backwards likewise.
+    `ell`, the shard of the operator's `EllOperator`, takes every x that
+    is not bf16."""
 
     def __init__(self, n: int, v0: int, v1: int, group, fwd: _ShardLayout,
-                 bwd: Optional[_ShardLayout] = None):
+                 bwd: Optional[_ShardLayout] = None,
+                 ell: Optional["ShardedBlockSparseOperator"] = None):
         self.n, self.v0, self.v1, self.group = int(n), int(v0), int(v1), group
-        self.fwd, self.bwd = fwd, bwd
+        self.fwd, self.bwd, self.ell = fwd, bwd, ell
 
     def forward_layout(self) -> _ShardLayout:
         return self.fwd
@@ -875,19 +1158,29 @@ class ShardedBlockSparseOperator:
     def product(self, layout: _ShardLayout,
                 x_local: torch.Tensor) -> torch.Tensor:
         """Rows [v0, v1) of `layout`'s product from this rank's rows of x
-        (`spmm_rows`: one gather, one row-range launch)."""
+        (`spmm_rows` or `spmm_rows_ell`: one gather, one row-range
+        launch)."""
         kind, a, idx, nz, r0, full_rows = layout
+        if kind == "ell":
+            return spmm_rows_ell(a, idx, x_local, group_key(self.group),
+                                 self.v0, self.v1)
         return spmm_rows(a, idx, x_local, nz, kind == "super",
                          group_key(self.group), self.v0, self.v1, r0,
                          full_rows)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """(L @ x)[v0:v1] from this rank's rows of x, with the padding and
-        dtype rules of `BlockSparseOperator.matvec`."""
+        dtype rules of `BlockSparseOperator.matvec` (of
+        `EllOperator.matvec` on an ELL shard)."""
         n, m = x.shape
         if n != self.v1 - self.v0:
             raise ValueError(f"x must hold this rank's {self.v1 - self.v0} "
                              f"rows, got {n}")
+        if x.dtype != torch.bfloat16 and self.ell is not None:
+            return self.ell.matvec(x)
+        if self.fwd[0] == "ell":
+            x_pad, out_dtype = _ell_x(x)
+            return _RowShardMatVec.apply(x_pad, self)[:, :m].to(out_dtype)
         m_pad = ((m + 127) // 128) * 128
         if x.dtype != torch.bfloat16:
             x = x.float()

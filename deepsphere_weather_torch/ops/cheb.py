@@ -6,11 +6,13 @@ values are cast to the compute dtype (bf16 parity depends on them). Every
 contraction the JAX code runs with `preferred_element_type=float32` runs
 here on fp32-widened operands and is cast back to the compute dtype.
 
-Operators: a dense [V, V] Laplacian, or the block-sparse
-`BlockSparseOperator` (its CUDA kernel on the card). The ELL gather
-operator is not ported yet. `ChebOperator.row_shard` gives one node
-rank's rows of either (node-parallel training): every product then
-gathers its input over the node group first.
+Operators: a dense [V, V] Laplacian, the block-sparse
+`BlockSparseOperator` (its CUDA kernels on the card), or the ELL
+`EllOperator` (JAX's `ell_matvec`; on the card the ELL kernel, which also
+runs every fp32 product of a block-sparse operator).
+`ChebOperator.row_shard` gives one node rank's rows of any of them
+(node-parallel training): every product then gathers its input over the
+node group first.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from torch.autograd.function import once_differentiable
 
 from .._device import resolve_device
 from ..parallel.collectives import all_gather_op, group_key
-from .bcsr import BlockSparseOperator
+from .bcsr import BlockSparseOperator, EllOperator
 
 __all__ = ["ChebOperator", "cheb_conv"]
 
@@ -59,23 +61,26 @@ class _RowShardDense(torch.autograd.Function):
 
 
 class ChebOperator:
-    """Prepared Laplacian of one graph level: dense [V, V] or block-sparse.
+    """Prepared Laplacian of one graph level: dense [V, V], block-sparse or
+    ELL.
 
     `matvec(X)` computes L @ X for X [V, M]. A row shard (`row_shard`)
     holds one node rank's rows: `dense` [V_local, V] with `dense_t` the
-    same rows of L^T, or a `ShardedBlockSparseOperator`; its products take
-    and give the rank's rows."""
+    same rows of L^T, or a `ShardedBlockSparseOperator` (as `bcsr` or
+    `ell`); its products take and give the rank's rows."""
 
     def __init__(self, dense: Optional[torch.Tensor] = None,
                  bcsr: Optional[BlockSparseOperator] = None,
-                 dense_t: Optional[torch.Tensor] = None, group=None):
-        if (dense is None) == (bcsr is None):
-            raise ValueError("provide exactly one of dense / bcsr")
+                 dense_t: Optional[torch.Tensor] = None, group=None,
+                 ell: Optional[EllOperator] = None):
+        if sum(o is not None for o in (dense, bcsr, ell)) != 1:
+            raise ValueError("provide exactly one of dense / bcsr / ell")
         if (dense_t is None) != (group is None):
             raise ValueError("a dense row shard needs both dense_t and a "
                              "group")
         self.dense = dense
         self.bcsr = bcsr
+        self.ell = ell
         self.dense_t = dense_t
         self.group = group
 
@@ -85,6 +90,8 @@ class ChebOperator:
         order)."""
         if self.bcsr is not None:
             return ChebOperator(bcsr=self.bcsr.row_shard(v0, v1, group))
+        if self.ell is not None:
+            return ChebOperator(ell=self.ell.row_shard(v0, v1, group))
         return ChebOperator(dense=self.dense[v0:v1].contiguous(),
                             dense_t=self.dense.T[v0:v1].contiguous(),
                             group=group)
@@ -103,8 +110,9 @@ class ChebOperator:
     @classmethod
     def from_graph(cls, graph, mode: str, dtype=torch.float32, device="cuda"):
         """mode 'dense' keeps the [V, V] Laplacian; 'bcsr' stores it
-        block-sparse in `dtype`. Which levels take which is
-        `build_model_geometry`'s rule."""
+        block-sparse in `dtype`; 'ell' holds its ELL arrays (those of
+        `graph.laplacian_ell()`), the values rounded to `dtype`. Which
+        levels take which is `build_model_geometry`'s rule."""
         device = resolve_device(device)
         if mode == "dense":
             return cls(dense=torch.as_tensor(graph.laplacian_dense(),
@@ -113,13 +121,19 @@ class ChebOperator:
             return cls(bcsr=BlockSparseOperator.from_scipy(
                 graph.L, symmetric=graph.is_symmetric, dtype=dtype,
                 device=device))
+        if mode == "ell":
+            return cls(ell=EllOperator.from_scipy(
+                graph.L, symmetric=graph.is_symmetric, dtype=dtype,
+                device=device))
         raise ValueError(f"unknown ChebOperator mode {mode!r}; expected "
-                         "'dense' or 'bcsr' (ELL is not ported yet)")
+                         "'dense', 'bcsr' or 'ell'")
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """L @ x for x of shape [V, M] (a row shard: its rows of both)."""
-        if self.dense is None:
+        if self.bcsr is not None:
             return self.bcsr.matvec(x)
+        if self.ell is not None:
+            return self.ell.matvec(x)
         if self.group is None:
             return (self.dense.float() @ x.float()).to(x.dtype)
         return _RowShardDense.apply(x, self.dense.float(),

@@ -17,6 +17,7 @@ from .graph import (  # noqa: F401
     scale_operator,
     prepare_laplacian,
     compute_cotan_laplacian,
+    laplacian_to_ell,
 )
 from .remap import (  # noqa: F401
     cell_areas,

@@ -1,13 +1,14 @@
 """Spherical graphs and Laplacians (numpy/scipy, build time).
 
-The port's own copy of `deepsphere_weather_tpu/sphere/graph.py`, without the
-ELL export: gaussian-kernel knn adjacency and its symmetric normalized
-Laplacian ('knn'), the cotangent Laplacian of the spherical Delaunay
+The port's own copy of `deepsphere_weather_tpu/sphere/graph.py`:
+gaussian-kernel knn adjacency and its symmetric normalized Laplacian
+('knn'), the cotangent Laplacian of the spherical Delaunay
 triangulation, mass-lumped M^-1 L ('voronoi', not symmetric) or
 M^-1/2 L M^-1/2 ('mesh', symmetric), the largest eigenvalue with a fixed
-ARPACK start vector, and the rescale to [-1, 1]. The arithmetic is the
-same line for line, so the prepared Laplacian equals the JAX package's to
-fp32 round-off.
+ARPACK start vector, the rescale to [-1, 1], and the fixed-width ELL
+arrays of a Laplacian (`laplacian_to_ell`, which the ELL operators of
+`ops/bcsr.py` hold). The arithmetic is the same line for line, so the
+prepared Laplacian equals the JAX package's to fp32 round-off.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from .samplings import Sampling, build_sampling
 
 __all__ = ["SphereGraph", "knn_adjacency", "normalized_laplacian",
            "estimate_lmax", "scale_operator", "prepare_laplacian",
-           "triangulate", "compute_cotan_laplacian", "build_graph"]
+           "triangulate", "compute_cotan_laplacian", "laplacian_to_ell",
+           "build_graph"]
 
 
 @dataclasses.dataclass
@@ -47,6 +49,9 @@ class SphereGraph:
 
     def laplacian_dense(self, dtype=np.float32) -> np.ndarray:
         return np.asarray(self.L.todense(), dtype=dtype)
+
+    def laplacian_ell(self, dtype=np.float32):
+        return laplacian_to_ell(self.L, dtype=dtype)
 
 
 def knn_adjacency(coords: np.ndarray, k: int) -> sparse.csr_matrix:
@@ -167,6 +172,23 @@ def compute_cotan_laplacian(coords: np.ndarray, return_mass: bool = False):
         return L, sparse.diags(mass)
     Minv = sparse.diags(1.0 / mass)
     return Minv @ L
+
+
+def laplacian_to_ell(L: sparse.spmatrix, dtype=np.float32):
+    """Fixed-width ELL (cols [n, W] int32, vals [n, W]) of a sparse matrix:
+    row i's nonzeros in its CSR order, padded to the largest row degree W
+    with column 0 and value 0."""
+    csr = L.tocsr()
+    n = csr.shape[0]
+    deg = np.diff(csr.indptr)
+    width = int(deg.max())
+    cols = np.zeros((n, width), dtype=np.int32)
+    vals = np.zeros((n, width), dtype=dtype)
+    rows = np.repeat(np.arange(n), deg)
+    offs = np.arange(csr.nnz) - np.repeat(csr.indptr[:-1], deg)
+    cols[rows, offs] = csr.indices
+    vals[rows, offs] = csr.data
+    return cols, vals
 
 
 def build_graph(name: str, sampling_kwargs: Dict, k: int = 20,

@@ -207,6 +207,8 @@ def test_gradient_comes_from_the_autograd_function(graph, monkeypatch):
                         opaque(bcsr_mod.bcsr_super_spmm_reference))
     monkeypatch.setattr(bcsr_mod, "bcsr_spmm_reference",
                         opaque(bcsr_mod.bcsr_spmm_reference))
+    monkeypatch.setattr(bcsr_mod, "ell_spmm_reference",
+                        opaque(bcsr_mod.ell_spmm_reference))
     x = np.random.default_rng(6).standard_normal(
         (graph.n_nodes, 24)).astype(np.float32)
     for rows_per_super in (2, 0):

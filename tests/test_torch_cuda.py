@@ -9,7 +9,10 @@ fp32 A into bf16 hi + lo told apart from K3's rounding on a product that
 cancels (`tests/torch_split_probe.py`: under 2^-14 and above it), one
 training step against the CPU plain path, K5 (the op's vmap rule: one
 launch per vmapped product, forward and backward) and exported artifacts
-(single and 2-member) saved, loaded and run on the card.
+(single and 2-member) saved, loaded and run on the card; the fp32 ELL
+product (`ell_spmm`, every fp32 operator's route) equal to its plain
+version bit for bit, its row ranges to the full launch's rows, its
+backward 2 L^T (L x).
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without
 one. This file imports neither JAX nor the JAX package, so it also runs on
@@ -49,6 +52,11 @@ from deepsphere_weather_torch.ops import (  # noqa: E402
     bcsr_super_spmm_reference,
     bcsr_super_spmm_rows,
     bcsr_super_spmm_rows_reference,
+    EllOperator,
+    ell_spmm,
+    ell_spmm_reference,
+    ell_spmm_rows,
+    ell_spmm_rows_reference,
     launch_counts,
     plain_nonzero_slots,
 )
@@ -352,6 +360,7 @@ def test_backward_is_2_lt_l_x(cuda, symmetric, rows_per_super, kernel):
     op = BlockSparseOperator.from_scipy(mat, symmetric=symmetric,
                                         rows_per_super=rows_per_super,
                                         device=cuda)
+    op.ell = None      # fp32 x on the block layout (its own route: ELL)
     x_np = np.random.default_rng(2).standard_normal(
         (g.n_nodes, 200)).astype(np.float32)
     x = torch.from_numpy(x_np).to(cuda).requires_grad_()
@@ -365,6 +374,88 @@ def test_backward_is_2_lt_l_x(cuda, symmetric, rows_per_super, kernel):
     m64 = mat.astype(np.float64)
     want = 2.0 * (m64.T @ (m64 @ x_np.astype(np.float64)))
     assert rel_err(x.grad, torch.from_numpy(want)) <= 1e-5
+
+
+def _knn(subdiv):
+    return cached_graph_laplacian("healpix", {"subdivisions": subdiv,
+                                              "nest": True}, 20, "knn")[1]
+
+
+# the ELL kernel adds the same rounded products in the same order as its
+# plain version: the two agree bit for bit, at any width that is a
+# multiple of 4
+@pytest.mark.parametrize("subdiv", [8, 16])
+@pytest.mark.parametrize("M", [4, 60, 1024])
+def test_ell_kernel_matches_plain_version(cuda, subdiv, M):
+    L = _knn(subdiv)
+    op = EllOperator.from_scipy(L, device=cuda)
+    x_np = np.random.default_rng(subdiv + M).standard_normal(
+        (L.shape[0], M)).astype(np.float32)
+    x = torch.from_numpy(x_np).to(cuda)
+    before = dict(launch_counts)
+    y = ell_spmm(op.vals, op.cols, x)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in launch_counts.items()
+            if v != before[k]} == {"ell_spmm": 1}
+    assert torch.equal(y, ell_spmm_reference(op.vals, op.cols, x))
+    assert rel_err(y, torch.from_numpy(L @ x_np)) <= TOL["fp32"]
+    # a view 4 bytes into its storage is copied to an aligned one first
+    base = torch.zeros(x.numel() + 1, device=cuda)
+    base[1:] = x.reshape(-1)
+    assert torch.equal(ell_spmm(op.vals, op.cols, base[1:].view_as(x)), y)
+
+
+@pytest.mark.parametrize("subdiv", [16, 64])
+@pytest.mark.parametrize("n_node", [2, 4])
+@pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "nonsym"])
+def test_ell_row_range_equals_full_launch_rows(cuda, subdiv, n_node,
+                                               symmetric):
+    L = _knn(subdiv)
+    mat = L if symmetric else _nonsymmetric(L)
+    op = EllOperator.from_scipy(mat, symmetric=symmetric, device=cuda)
+    vals, cols = ((op.vals, op.cols) if symmetric
+                  else (op.vals_t, op.cols_t))
+    n = L.shape[0]
+    x = torch.from_numpy(np.random.default_rng(n_node).standard_normal(
+        (n, 256)).astype(np.float32)).to(cuda)
+    full = ell_spmm(vals, cols, x)
+    for r in range(n_node):
+        v0, v1 = r * n // n_node, (r + 1) * n // n_node
+        before = launch_counts["ell_spmm_rows"]
+        y = ell_spmm_rows(vals, cols, x, v0, v1)
+        torch.cuda.synchronize()
+        assert launch_counts["ell_spmm_rows"] == before + 1
+        assert torch.equal(y, full[v0:v1])
+        assert torch.equal(y, ell_spmm_rows_reference(vals, cols, x, v0, v1))
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "nonsym"])
+def test_ell_backward_is_2_lt_l_x(cuda, symmetric):
+    # an fp32 operator's route: the ELL kernel forward and, on the
+    # transposed layout when A is not symmetric, backward; a 2-member
+    # vmap of its gradient is one launch each way
+    g = build_graph("healpix", {"subdivisions": 8, "nest": True}, k=8)
+    mat = g.L if symmetric else _nonsymmetric(g.L)
+    op = BlockSparseOperator.from_scipy(mat, symmetric=symmetric, device=cuda)
+    x_np = np.random.default_rng(2).standard_normal(
+        (2, g.n_nodes, 200)).astype(np.float32)
+    x = torch.from_numpy(x_np[0]).to(cuda).requires_grad_()
+    before = dict(launch_counts)
+    (op.matvec(x) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in launch_counts.items()
+            if v != before[k]} == {"ell_spmm": 2}
+    m64 = mat.astype(np.float64)
+    want = np.stack([2.0 * (m64.T @ (m64 @ xi.astype(np.float64)))
+                     for xi in x_np])
+    assert rel_err(x.grad, torch.from_numpy(want[0])) <= 1e-5
+    before = launch_counts["ell_spmm"]
+    grad = torch.func.vmap(torch.func.grad(
+        lambda xi: (op.matvec(xi) ** 2).sum()))(torch.from_numpy(x_np).to(
+            cuda))
+    torch.cuda.synchronize()
+    assert launch_counts["ell_spmm"] == before + 2
+    assert rel_err(grad, torch.from_numpy(want)) <= 1e-5
 
 
 def _grads(model):
@@ -424,9 +515,10 @@ def test_train_step_matches_cpu(cuda, dt):
                      "launches": {k: launch_counts[k] - before[k]
                                   for k in before}})
     card, ref = runs
-    assert card["launches"] == {"bcsr_super_spmm": 3 * 10 + 3 * 10 - 2,
-                                "bcsr_spmm": 0, "bcsr_super_spmm_rows": 0,
-                                "bcsr_spmm_rows": 0}
+    # fp32 runs the ELL kernel, bf16 K1
+    kernel = "ell_spmm" if dt == "fp32" else "bcsr_super_spmm"
+    assert card["launches"] == {k: 3 * 10 + 3 * 10 - 2 if k == kernel else 0
+                                for k in launch_counts}
     assert not any(ref["launches"].values())
     tol = TRAIN_TOL[dt]
     assert abs(card["total"] - ref["total"]) <= tol * abs(ref["total"])
@@ -483,6 +575,7 @@ def test_vmapped_matvec_is_one_launch(cuda, layout, kernel):
 
     op32 = BlockSparseOperator.from_scipy(g.L, rows_per_super=rps,
                                           device=cuda)
+    op32.ell = None    # fp32 x on the block layout (its own route: ELL)
     x32 = torch.from_numpy(x_np).to(cuda)
     before = dict(launch_counts)
     grad = torch.func.vmap(torch.func.grad(
@@ -621,6 +714,7 @@ def test_batchnorm_step_matches_cpu(cuda, dt):
         sums = term_sums(model)
         area_w = AreaWeights(model.geometry.samplings[0], device=dev)
         before = dict(launch_counts)
+        kernel = "ell_spmm" if prec == "fp32" else "bcsr_super_spmm"
         total, (per_iter, stats) = make_ar_loss_fn(
             model, indexer, 3, collect_stats=True)(
             _hp8_batch(dev, indexer), np.ones(3, np.float32), area_w)
@@ -631,8 +725,7 @@ def test_batchnorm_step_matches_cpu(cuda, dt):
                      "grads": _grads(model), "sums": sums,
                      "stats": {k: v.cpu() for k, v in
                                model.norm_state().items()},
-                     "launches": launch_counts["bcsr_super_spmm"]
-                     - before["bcsr_super_spmm"]})
+                     "launches": launch_counts[kernel] - before[kernel]})
     card, ref = runs[:2]
     # every gradient's scale is the CPU's fp32 step's
     truth = runs[2] if dt == "bf16" else ref

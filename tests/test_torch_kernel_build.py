@@ -11,7 +11,7 @@ pytest.importorskip("torch")
 
 from deepsphere_weather_torch.kernels import build  # noqa: E402
 
-NAMES = ("bcsr_spmm", "bcsr_super_spmm")
+NAMES = ("bcsr_spmm", "bcsr_super_spmm", "ell_spmm")
 
 
 @pytest.fixture
@@ -53,3 +53,17 @@ def test_library_path_follows_its_own_source_only(src):
     after = _paths()
     assert after["bcsr_spmm"] != before["bcsr_spmm"]
     assert after["bcsr_super_spmm"] == before["bcsr_super_spmm"]
+    assert after["ell_spmm"] == before["ell_spmm"]
+
+
+def test_ell_library_path_follows_its_source(src):
+    # the ELL kernel is a source of its own, built at first use like the
+    # other two: its edit rebuilds it alone
+    before = _paths()
+    cu = src / "ell_spmm.cu"
+    assert cu.exists()
+    cu.write_text(cu.read_text() + "\n// edited\n")
+    after = _paths()
+    assert after["ell_spmm"] != before["ell_spmm"]
+    assert all(after[name] == before[name] for name in NAMES
+               if name != "ell_spmm")

@@ -235,14 +235,16 @@ def grad_norm(model, indexer, batch, w, area_w):
 
 @pytest.fixture
 def widths(monkeypatch):
-    """The widths of the plain-version products run, in order."""
+    """The widths of the plain-version products run, in order (the fp32
+    model's are the ELL product's)."""
     out = []
-    fn = bcsr_mod.bcsr_super_spmm_reference
+    for name in ("bcsr_super_spmm_reference", "ell_spmm_reference"):
+        fn = getattr(bcsr_mod, name)
 
-    def record(a, idx, x, nz=None, *rest):
-        out.append(x.shape[1])
-        return fn(a, idx, x, nz, *rest)
-    monkeypatch.setattr(bcsr_mod, "bcsr_super_spmm_reference", record)
+        def record(a, idx, x, *rest, fn=fn, **kw):
+            out.append(x.shape[1])
+            return fn(a, idx, x, *rest, **kw)
+        monkeypatch.setattr(bcsr_mod, name, record)
     return out
 
 

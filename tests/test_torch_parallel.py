@@ -165,6 +165,7 @@ def test_row_shard_layouts_match_jax_rows(graph, dt, rows_per_super, n_node):
     op = BlockSparseOperator.from_scipy(graph.L, dtype=DT[dt],
                                         rows_per_super=rows_per_super,
                                         device="cpu")
+    op.ell = None      # fp32 x on the block layout (its own route: ELL)
     jop = JBlockSparseOperator.from_scipy(graph.L, m_tile=128, interpret=True,
                                           dtype=JAX_DT[dt])
     rng = np.random.default_rng(2)

@@ -210,6 +210,16 @@ def test_import_checks_cover_every_sampling_module():
         assert f"deepsphere_weather_torch/{m}" in mods
 
 
+def test_import_checks_cover_the_ell_route():
+    """The ELL product's modules (its wrapper and operator, the ELL mode
+    of `ChebOperator`, `laplacian_to_ell`, `kernels/build.py`) are among
+    those the checks read and import."""
+    mods = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for m in ("ops/bcsr.py", "ops/cheb.py", "sphere/graph.py",
+              "kernels/build.py"):
+        assert f"deepsphere_weather_torch/{m}" in mods
+
+
 def test_port_imports_no_jax_in_fresh_process():
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)

@@ -56,9 +56,14 @@ def mats():
 
 
 def _op(mats, sym, layout, dt="fp32"):
-    return BlockSparseOperator.from_scipy(
+    """The operator on the block layout `layout` alone: an fp32 one's ELL
+    (its route for fp32 x) is taken away, so that every case runs the
+    block layout's rule (the ELL route's is held in test_torch_ell.py)."""
+    op = BlockSparseOperator.from_scipy(
         mats[sym], symmetric=sym == "sym", dtype=TORCH_DT[dt],
         rows_per_super=LAYOUTS[layout], device="cpu")
+    op.ell = None
+    return op
 
 
 def _x(n, dt="fp32", seed=1):

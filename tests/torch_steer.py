@@ -12,17 +12,33 @@ the gradient below the pool even where the argmax agrees. The pools that
 decide are the argmax pools: HEALPix and equiangular max (a window of
 the grid) and the remap 'maxval' pool (the weighted values over a
 destination's support), each with a `candidates` method that its own
-call reduces. Used by the card tests and by chip_smoke.py (a
-helper module, not a test)."""
+call reduces. A member step (`members`: the model's forward under
+`torch.func.vmap` over that many members) records its decisions, each
+stacked over the members (the member axis first), so that each member's
+own run can take them; it takes none itself. Used by the card tests
+and by chip_smoke.py (a helper module, not a test)."""
 
 import dataclasses
 
 import torch
+from torch._C import _functorch
 
 from deepsphere_weather_torch.models import ConvBlock
 
 
-def steer(model, pinned=None):
+def _plain(t):
+    """`t` without torch.func's wrappers (vmap's mapped axis moved first):
+    a decision taken under a member step, for all members at once."""
+    while _functorch.is_functorch_wrapped_tensor(t):
+        if _functorch.is_batchedtensor(t):
+            t = _functorch.get_unwrapped(t).movedim(
+                _functorch.maybe_get_bdim(t), 0)
+        else:
+            t = _functorch.get_unwrapped(t)
+    return t
+
+
+def steer(model, pinned=None, members=None):
     """Route the model's ReLUs and argmax pools through a recorder of their
     decisions (ReLU: x > 0, [B, V, C]; pool: the maximal elements of each
     output's candidates, [B, D, W, C]), in call order. With `pinned`, another
@@ -31,9 +47,20 @@ def steer(model, pinned=None):
     gradient over the pinned tie; on an input without a gradient only its
     argmax is compared. Where they differ from this run's own, `gaps` gets
     how far this run's input sat from the kink (|x|) or from the window's
-    max, over the call's largest |x|. Returns (decisions, gaps), filled
-    as the model runs."""
+    max, over the call's largest |x|. With `members`, the model runs a
+    member step of that many members and each decision is recorded stacked
+    over them (raises if one is not). Returns (decisions, gaps), filled as
+    the model runs."""
     decisions, gaps = [], []
+
+    def record(mask):
+        plain = _plain(mask)
+        if members is not None and (plain is mask
+                                    or plain.shape[0] != members):
+            raise ValueError(f"a decision of the member step is not "
+                             f"stacked over its {members} members")
+        decisions.append(plain.cpu())
+
     taken = None if pinned is None else iter(pinned)
 
     def relu(x):
@@ -45,7 +72,7 @@ def steer(model, pinned=None):
                 gaps.append(float(xd[want != mask].abs().max()
                                   / xd.abs().max()))
             mask = want
-        decisions.append(mask.cpu())
+        record(mask)
         return torch.where(mask, x, torch.zeros_like(x))
 
     def steered(pool):
@@ -76,7 +103,7 @@ def steer(model, pinned=None):
                     # forward: val; gradient: evenly over the pinned tie
                     y = val + torch.where(want, g - gd, 0).sum(2) / want.sum(2)
                     ties = want
-            decisions.append(ties.cpu())
+            record(ties)
             return y, idx
         return call
 
