@@ -15,14 +15,15 @@ mesh, node-sharded grids), on the card and checks them, in phases
 printed one per line:
 
 1. card      name and power limit (nvidia-smi)
-2. build     the three CUDA kernels (the two block-sparse ones share a
-             header; the ELL kernel stands alone), compiled side by side
+2. build     the three CUDA kernels (all three include one header; the
+             ELL kernel takes its mbarrier helpers), compiled side by side
              with nvcc from this checkout (seconds; registers, shared
              memory, spills); each holds a full-range and a row-range
              entry; the registers and spills of the block kernels'
              tensor-core instances (bf16 x; none may spill) and the count
              of HGMMA instructions in their SASS (cuobjdump; none may have
-             0)
+             0); the registers and spills of the ELL kernel's three
+             column-tile instances (none may spill)
 3. parity    the super-row SpMM kernel (K1) and the plain-BCSR one (K3) at
              HEALPix-16 and HEALPix-64 level 0, fp32 and bf16, width 1024,
              against scipy `L @ x` (bars: fp32 < 1e-5, bf16 < 2e-2, max abs
@@ -44,7 +45,10 @@ printed one per line:
              above): K2 in fp32 and bf16, K3 in fp32, bf16 and both
              regimes of fp32 A against bf16 x;
              the ELL kernel (`ell_spmm`, the fp32 route of every
-             block-sparse operator: fp32 x against fp32 A), at HEALPix-16
+             block-sparse operator: fp32 x against fp32 A, read through
+             the layout's union tables; each reading names its blocks,
+             largest union and the card's plan: column tile, shared
+             memory, CTAs an SM), at HEALPix-16
              and -64 width 1024: the operator's matvec (one ELL launch)
              against scipy (1e-5), the kernel against its plain version
              (exactly: the same rounded products in the same order),
@@ -303,7 +307,8 @@ script exits non-zero. The lines before the last are the kernel table as
 JSON and the card; the last line is {"ok": true, "device": {...}}. Without
 CUDA it exits non-zero at once.
 `--profile` adds the device time by kernel of three forwards, of two
-train steps with each level-0 kernel (K1, K3), of two HEALPix-64 steps,
+train steps with each level-0 kernel (K1, K3), of two HEALPix-64 steps
+and two train64f32 steps (the ELL kernel's share among them),
 and of two ens16 member steps beside two single steps on their batch.
 """
 
@@ -553,12 +558,11 @@ def phase_build():
     for name, body in ((KERNEL, "bcsr_super_spmm_tc"),
                        (PLAIN_KERNEL, "bcsr_spmm_tc")):
         check_tc_instances(load_kernels([name])[0], body, _nvcc())
+    check_ell_instances(load_kernels([ELL_KERNEL])[0])
 
 
-def check_tc_instances(k, body, nvcc):
-    """The registers and spills (ptxas) and the HGMMA count (cuobjdump
-    -sass) of library k's instances of the tensor-core kernel `body`:
-    raises if one spills or has no HGMMA instruction."""
+def _ptxas_instances(k):
+    """{instance: (registers, spill bytes)} from library k's ptxas log."""
     regs, spills, fn = {}, {}, None
     for line in k.ptxas_log.splitlines():
         if "Compiling entry function" in line:
@@ -569,7 +573,33 @@ def check_tc_instances(k, body, nvcc):
             spills[fn] = int(m[1]) + int(m[2])
         elif fn and "Used" in line and "registers" in line:
             regs[fn] = int(line.split("Used")[1].split()[0])
-        elif "wgmma" in line:     # e.g. ptxas serialising the wgmma
+    return {f: (r, spills.get(f, 0)) for f, r in regs.items()}
+
+
+def check_ell_instances(k):
+    """The registers and spills of the ELL kernel's column-tile instances
+    (ptxas, when built in this run): raises if one spills."""
+    if not k.built:
+        return
+    got = {f: v for f, v in _ptxas_instances(k).items()
+           if "ell_spmm_kernel" in f}
+    log("build", f"{k.name} instances (column tiles 16, 32, 64): registers "
+                 f"{[r for r, _ in got.values()]}, spill bytes "
+                 f"{[b for _, b in got.values()]}")
+    if len(got) != 3 or any(b for _, b in got.values()):
+        raise AssertionError(f"{k.name}: instances {got} (3, none spilled "
+                             "wanted)")
+
+
+def check_tc_instances(k, body, nvcc):
+    """The registers and spills (ptxas) and the HGMMA count (cuobjdump
+    -sass) of library k's instances of the tensor-core kernel `body`:
+    raises if one spills or has no HGMMA instruction."""
+    inst = _ptxas_instances(k)
+    regs = {f: r for f, (r, _) in inst.items()}
+    spills = {f: b for f, (_, b) in inst.items()}
+    for line in k.ptxas_log.splitlines():
+        if "wgmma" in line:     # e.g. ptxas serialising the wgmma
             log("build", f"{k.name} ptxas: " + line.strip())
     tc_fns = [f for f in regs if body in f]
     if k.built:
@@ -730,15 +760,16 @@ def measure_ell(ell, L, x, device, label, timed=True, plain_timed=True):
     against its plain version on the same input: exactly (the same
     rounded products in the same order; raises otherwise); timed, per
     launch (`device_ms`) beside the bound of the function's own work
-    (`_ell_bound`), its plain version and cuSPARSE's fp32 CSR product."""
+    (`_ell_bound`), its plain version and cuSPARSE's fp32 CSR product,
+    with the union tables' shape and the launch's plan (`ell_plan`)."""
     import torch
 
     from deepsphere_weather_torch.ops import bcsr
 
-    vals, cols = ell.vals, ell.cols
+    vals, cols, tables = ell.vals, ell.cols, ell.tables
     n, m = x.shape
     x_pad = torch.nn.functional.pad(x, (0, (-m) % 4)).contiguous()
-    y = bcsr.ell_spmm(vals, cols, x_pad)
+    y = bcsr.ell_spmm(vals, cols, x_pad, tables)
     ref = bcsr.ell_spmm_reference(vals, cols, x_pad)
     err = float((y - ref).abs().max())
     if err:
@@ -750,15 +781,19 @@ def measure_ell(ell, L, x, device, label, timed=True, plain_timed=True):
     csr = _csr(L, device, torch.float32)
     t_bytes, t_ops = _ell_bound(vals, cols, x_pad)
     res.update({
-        "ms": device_ms(lambda: bcsr.ell_spmm(vals, cols, x_pad)),
-        "host_ms": host_ms(lambda: bcsr.ell_spmm(vals, cols, x_pad)),
+        "ms": device_ms(lambda: bcsr.ell_spmm(vals, cols, x_pad, tables)),
+        "host_ms": host_ms(lambda: bcsr.ell_spmm(vals, cols, x_pad, tables)),
         "plain_ms": (device_ms(lambda: bcsr.ell_spmm_reference(
             vals, cols, x_pad), n_iter=5) if plain_timed else None),
         "library_ms": device_ms(lambda: torch.sparse.mm(csr, x)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes_ms": t_bytes, "ops_ms": t_ops,
-        "ell_width": int(vals.shape[1])})
+        "ell_width": int(vals.shape[1]),
+        # how the launch ran: the union tables' blocks and the card's plan
+        "blocks": int(tables.blocks.shape[1] - 1), "union_max": tables.umax,
+        "block_rows_max": tables.rmax,
+        **bcsr.ell_plan(tables, vals.shape[1], x_pad.shape[1])})
     res["share_of_bound"] = res["bound_ms"] / res["ms"]
     return res
 
@@ -1134,13 +1169,14 @@ def parity_ell_rows(device, L, x_np, subdiv, rng):
                             ("D L, transposed layout", (D @ L).tocsr(),
                              False)):
         ell = EllOperator.from_scipy(mat, symmetric=sym, device=device)
-        vals, cols = (ell.vals, ell.cols) if sym else (ell.vals_t, ell.cols_t)
+        _, vals, cols, tables = (ell.forward_layout() if sym
+                                 else ell.transpose_layout())
         ref = (mat if sym else mat.T.tocsr()) @ x_np
-        full = bcsr.ell_spmm(vals, cols, x)
+        full = bcsr.ell_spmm(vals, cols, x, tables)
         worst = 0.0
         for n_node, r in ((2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (4, 3)):
             v0, v1 = r * n // n_node, (r + 1) * n // n_node
-            y = bcsr.ell_spmm_rows(vals, cols, x, v0, v1)
+            y = bcsr.ell_spmm_rows(vals, cols, x, v0, v1, tables)
             e_plain = float((y - bcsr.ell_spmm_rows_reference(
                 vals, cols, x, v0, v1)).abs().max())
             e_full = float((y - full[v0:v1]).abs().max())
@@ -1160,13 +1196,15 @@ def parity_ell_rows(device, L, x_np, subdiv, rng):
     xm = torch.from_numpy(rng.standard_normal((2, n, width // 2)).astype(
         np.float32)).to(device)
     before = bcsr.launch_counts[ELL_KERNEL]
-    folded = torch.func.vmap(lambda xi: bcsr.spmm_ell(ell.vals, ell.cols,
-                                                      xi))(xm)
+    loc, blocks, urows, umax, rmax = ell.tables
+    folded = torch.func.vmap(lambda xi: bcsr.spmm_ell(
+        ell.vals, ell.cols, loc, blocks, urows, xi, umax, rmax))(xm)
     n_launch = bcsr.launch_counts[ELL_KERNEL] - before
-    per = torch.stack([bcsr.ell_spmm(ell.vals, ell.cols, xi) for xi in xm])
+    per = torch.stack([bcsr.ell_spmm(ell.vals, ell.cols, xi, ell.tables)
+                       for xi in xm])
     rows = bcsr.ell_spmm_rows(
         ell.vals, ell.cols, xm.movedim(0, 1).reshape(n, width).contiguous(),
-        0, n // 2).reshape(n // 2, 2, width // 2).movedim(1, 0)
+        0, n // 2, ell.tables).reshape(n // 2, 2, width // 2).movedim(1, 0)
     if n_launch != 1 or not torch.equal(folded, per) or \
             not torch.equal(rows, per[:, :n // 2]):
         raise AssertionError(f"K5 over {ELL_KERNEL} HEALPix-{subdiv}: "
@@ -1177,14 +1215,15 @@ def parity_ell_rows(device, L, x_np, subdiv, rng):
                   f"{width // 2}] folded into one launch (the op's vmap "
                   f"rule) and into one row range [0, {n // 2}): equal to "
                   f"one launch per member (max abs error 0)")
-    # rank 0's row range of 2, timed
+    # rank 0's row range of 2 (its shard's rows and union tables), timed
     v1 = n // 2
-    vals, cols = ell.vals[:v1].contiguous(), ell.cols[:v1].contiguous()
+    _, vals, cols, tables, _, _ = ell.row_shard(0, v1, None).forward_layout()
     csr = _csr(L[:v1], device, torch.float32)
     t_bytes, t_ops = _ell_bound(vals, cols, x, out_rows=v1)
-    res = {"ms": device_ms(lambda: bcsr.ell_spmm_rows(vals, cols, x, 0, v1)),
+    res = {"ms": device_ms(lambda: bcsr.ell_spmm_rows(vals, cols, x, 0, v1,
+                                                      tables)),
            "host_ms": host_ms(lambda: bcsr.ell_spmm_rows(vals, cols, x, 0,
-                                                         v1)),
+                                                         v1, tables)),
            "plain_ms": device_ms(lambda: bcsr.ell_spmm_rows_reference(
                vals, cols, x, 0, v1), n_iter=5),
            "library_ms": device_ms(lambda: torch.sparse.mm(csr, x)),
@@ -1923,7 +1962,7 @@ def phase_train64f32(device, card_line):
                             phase="train64f32")
     seconds = time.perf_counter() - t0
     log("train64f32", f"phase {seconds:.1f} s")
-    return {"launches": launches,
+    return {"launches": launches, "step": res["step"],
             "forecast": (per_forward * F32_FORWARDS, 0), "ms": ms,
             "fma_step_ms": fma_ms,
             "peak_gib": peak, "forecast_ms": fc_ms, "shapes": shapes,
@@ -1945,9 +1984,9 @@ def ell_step_shapes(model, step, laplacian, card_line):
 
     launched, kernel = set(), bcsr.ell_spmm
 
-    def record(vals, cols, x):
+    def record(vals, cols, x, tables=None):
         launched.add((vals.data_ptr(), x.shape[1]))
-        return kernel(vals, cols, x)
+        return kernel(vals, cols, x, tables)
 
     bcsr.ell_spmm = record
     try:
@@ -1989,7 +2028,9 @@ def ell_step_shapes(model, step, laplacian, card_line):
                      "library_ms": r["library_ms"], "fma_ms": fma_ms,
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
-                     "max_abs_err": r["max_abs_err"]})
+                     "max_abs_err": r["max_abs_err"],
+                     "col_tile": r["col_tile"],
+                     "ctas_per_sm": r["ctas_per_sm"]})
         log("train64f32", f"{label}: {r['ms']:.4f} ms per launch (bound "
                           f"{r['bound_ms']:.4f} ms by {r['bound_by']}, share "
                           f"{r['share_of_bound']:.3f}; cuSPARSE "
@@ -3931,7 +3972,7 @@ def _profile(fn, n, label):
     for ms, count, key in rows[:15]:
         log("profile", f"{100 * ms / busy:5.1f}%  {ms / n:8.4f} ms/call  "
                        f"{count // n:4d}/call  {key[:90]}")
-    for name in (KERNEL, PLAIN_KERNEL):
+    for name in (KERNEL, PLAIN_KERNEL, ELL_KERNEL):
         mine = [r for r in rows if name + "_" in r[2]]
         if mine:
             t = sum(r[0] for r in mine)
@@ -3940,8 +3981,8 @@ def _profile(fn, n, label):
                            f"{100 * t / busy:.1f}% of device time")
 
 
-def phase_profile(model, device, batch, train_steps, step64, n_fwd=3,
-                  n_steps=2):
+def phase_profile(model, device, batch, train_steps, step64, step64f32,
+                  n_fwd=3, n_steps=2):
     import torch
 
     rng = np.random.default_rng(SEED + 3)
@@ -3960,6 +4001,9 @@ def phase_profile(model, device, batch, train_steps, step64, n_fwd=3,
     _profile(step64, n_steps, f"{n_steps} HEALPix-{BIG_SUBDIV} AR{HP64_AR} "
                               f"train steps, batch {HP64_BATCH}, K1 at every "
                               "level")
+    _profile(step64f32, n_steps, f"{n_steps} train64f32 steps ({F32_CONFIG}, "
+                                 f"fp32, AR{HP64_AR}, batch {HP64_BATCH}), "
+                                 "the ELL kernel at levels 0-1")
 
 
 # ---------------------------------------------------------------------------
@@ -4974,8 +5018,8 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel for 3 forwards, "
                          "2 train steps with each level-0 kernel, 2 "
-                         "HEALPix-64 train steps and 2 ens16 member steps "
-                         "beside 2 single steps")
+                         "HEALPix-64 train steps, 2 train64f32 steps and 2 "
+                         "ens16 member steps beside 2 single steps")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5065,7 +5109,8 @@ def main() -> int:
                  f"{node['ms64']:.2f} ms per step, {node['peak64_gib']:.2f} "
                  f"GiB peak per rank ({card_line})")
     if args.profile:
-        phase_profile(tr["model"], device, BATCH, tr["steps"], tr64["step"])
+        phase_profile(tr["model"], device, BATCH, tr["steps"], tr64["step"],
+                      f32["step"])
     proto = phase_protocol(device, card_line, tr["ms"]["train16"])
     try:
         serve16 = phase_serve16(device, card_line, proto)

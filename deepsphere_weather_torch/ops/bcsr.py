@@ -52,7 +52,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,7 +70,7 @@ __all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy", "super_nonzero_slots",
            "bcsr_spmm", "bcsr_spmm_reference",
            "bcsr_spmm_rows", "bcsr_spmm_rows_reference",
            "ell_spmm", "ell_spmm_reference", "ell_spmm_rows",
-           "ell_spmm_rows_reference",
+           "ell_spmm_rows_reference", "EllTables", "ell_tables", "ell_plan",
            "BlockSparseOperator", "ShardedBlockSparseOperator", "EllOperator",
            "spmm", "spmm_rows", "spmm_ell", "spmm_rows_ell",
            "launch_counts", "reset_launch_counts"]
@@ -547,6 +547,65 @@ def bcsr_spmm_rows(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
                    (rb_begin, rb_end, max_nb, x.shape[0], x.shape[1]))
 
 
+# The union tables' row blocks (`ell_tables`): this many consecutive rows,
+# halved while a block's union names more than ELL_UNION_CAP rows of x
+# (the kernel's stages are sized by the largest union). An H100 sweep of
+# the kernel's shapes put 32 rows first (PERF.md): three CTAs an SM; at
+# knn-20 nested HEALPix their unions hold at most 109 rows.
+ELL_BLOCK_ROWS, ELL_UNION_CAP = 32, 112
+
+
+class EllTables(NamedTuple):
+    """How the ELL kernel reads a layout (`ell_tables`): its rows cut into
+    blocks of consecutive rows; block b holds the rows [blocks[0, b],
+    blocks[0, b + 1]) and stages the x rows urows[blocks[1, b]:
+    blocks[1, b + 1]], the sorted union of the columns they name;
+    loc[r, j] (int16) is slot (r, j)'s index into its block's union.
+    umax: the largest union; rmax: the most rows of a block."""
+
+    loc: torch.Tensor
+    blocks: torch.Tensor
+    urows: torch.Tensor
+    umax: int
+    rmax: int
+
+
+def ell_tables(cols: torch.Tensor) -> EllTables:
+    """The union tables of the ELL layout whose column table is `cols`
+    [n, W] (built on the host, once per layout; on cols' device): blocks
+    of ELL_BLOCK_ROWS rows, halved while a union names more than
+    ELL_UNION_CAP rows. Padding slots name column 0, so row 0 is in the
+    union of every block that has one."""
+    c = cols.cpu().numpy()
+    n, width = c.shape
+    firsts, unions = [], []
+    loc = np.empty((n, width), np.int16)
+
+    def add(b0, b1):
+        u, inv = np.unique(c[b0:b1].ravel(), return_inverse=True)
+        if len(u) > ELL_UNION_CAP and b1 - b0 > 1:
+            mid = (b0 + b1) // 2
+            add(b0, mid)
+            add(mid, b1)
+            return
+        firsts.append(b0)
+        unions.append(u.astype(np.int32))
+        loc[b0:b1] = inv.reshape(b1 - b0, width)
+
+    for b0 in range(0, n, ELL_BLOCK_ROWS):
+        add(b0, min(n, b0 + ELL_BLOCK_ROWS))
+    sizes = [len(u) for u in unions]
+    umax = max(sizes, default=0)
+    rmax = max(np.diff(firsts + [n]), default=0)
+    blocks = np.stack([np.array(firsts + [n]),
+                       np.concatenate([[0], np.cumsum(sizes)])])
+    return EllTables(torch.from_numpy(loc).to(cols.device),
+                     torch.from_numpy(blocks.astype(np.int32)).to(cols.device),
+                     torch.from_numpy(np.concatenate(unions or [
+                         np.zeros(0, np.int32)])).to(cols.device),
+                     int(umax), int(rmax))
+
+
 def _check_ell(vals, cols, x):
     if vals.dim() != 2 or cols.dim() != 2 or x.dim() != 2:
         raise ValueError("expected vals [n, W], cols [n, W], x [rows, M]")
@@ -598,37 +657,65 @@ def _ell_kernel():
     from ..kernels.build import load_kernel
 
     k = load_kernel("ell_spmm")
-    head = [_P, _P, _P, _P]                  # vals, cols, x, out
+    head = [_P] * 6                  # vals, loc, blocks, urows, x, out
+    tail = [_I, _I, _I64, _I, _I, _P]    # nb, W, M, umax, rmax, stream
     for entry, argtypes in {
-            "ell_spmm": head + [_I64, _I, _I64, _P],
-            "ell_spmm_rows": head + [_I64, _I64, _I, _I64, _P]}.items():
+            "ell_spmm": head + [_I64] + tail,
+            "ell_spmm_rows": head + [_I64, _I64, _I64] + tail}.items():
         fn = getattr(k.lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    k.lib.ell_spmm_plan.argtypes = [_I64, _I, _I, _I, _P]
+    k.lib.ell_spmm_plan.restype = ctypes.c_int
     k.lib.ell_spmm_error_string.argtypes = [ctypes.c_int]
     k.lib.ell_spmm_error_string.restype = ctypes.c_char_p
     return k
 
 
-def _ell_launch(entry, vals, cols, x, out, sizes):
+def ell_plan(tables: EllTables, width: int, M: int) -> Dict[str, int]:
+    """How the ELL kernel runs at x width M over `tables` of a layout of
+    width W = `width`, as the card's runtime answers it: the column tile,
+    the shared memory of a CTA and the CTAs an SM holds (builds the
+    kernel; needs CUDA)."""
+    k = _ell_kernel()
+    out = (ctypes.c_int * 3)()
+    err = k.lib.ell_spmm_plan(M, tables.umax, tables.rmax, width, out)
+    if err:
+        raise RuntimeError("ell_spmm_plan failed: "
+                           + k.lib.ell_spmm_error_string(err).decode())
+    return dict(zip(("col_tile", "smem_bytes", "ctas_per_sm"), out))
+
+
+def _ell_launch(entry, vals, tables, x, out, sizes):
     """Launch `entry` of the ELL kernel on x's device and current stream:
-    (vals, cols, x, out, *sizes, W, M, stream). Raise if the launch failed,
-    else count it. A 16-byte misaligned x (a view) is copied first: the
-    kernel reads x in float4s."""
+    (vals, loc, blocks, urows, x, out, n, *sizes, nb, W, M, umax, rmax,
+    stream). Raise if the launch failed, else count it. A 16-byte
+    misaligned x (a view) is copied first: the kernel copies x in 16-byte
+    units."""
     M = x.shape[1]
     if M % 4 or M == 0:
         raise ValueError(f"x width {M} is not a positive multiple of 4; "
                          "matvec pads it")
-    if not (vals.is_contiguous() and cols.is_contiguous()):
-        raise ValueError("the ELL vals and cols must be contiguous")
+    if tables is None:
+        raise ValueError("the ELL kernel reads the layout through its union "
+                         "tables (`ell_tables(cols)`)")
+    loc, blocks, urows, umax, rmax = tables
+    if loc.shape != vals.shape or blocks.dim() != 2 or blocks.shape[0] != 2:
+        raise ValueError("the union tables are not those of this layout")
+    if not all(t.is_contiguous() and t.device == x.device
+               for t in (vals, loc, blocks, urows)):
+        raise ValueError("the ELL vals and tables must be contiguous and on "
+                         "x's device")
     if not x.is_contiguous() or x.data_ptr() % 16:
         x = x.clone(memory_format=torch.contiguous_format)
     k = _ell_kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(k.lib, entry)(
-            vals.data_ptr(), cols.data_ptr(), x.data_ptr(), out.data_ptr(),
-            *sizes, vals.shape[1], M, stream)
+            vals.data_ptr(), loc.data_ptr(), blocks.data_ptr(),
+            urows.data_ptr(), x.data_ptr(), out.data_ptr(), vals.shape[0],
+            *sizes, blocks.shape[1] - 1, vals.shape[1], M, umax, rmax,
+            stream)
     if err:
         raise RuntimeError(f"{entry} launch failed: "
                            + k.lib.ell_spmm_error_string(err).decode())
@@ -636,37 +723,41 @@ def _ell_launch(entry, vals, cols, x, out, sizes):
     return out
 
 
-def ell_spmm(vals: torch.Tensor, cols: torch.Tensor,
-             x: torch.Tensor) -> torch.Tensor:
+def ell_spmm(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+             tables: Optional[EllTables] = None) -> torch.Tensor:
     """y = L @ x for L in ELL (vals [n, W] fp32, cols [n, W] int32), fp32
     x [rows, M] with M a multiple of 4 and every column index below rows:
     y [n, M] fp32.
 
-    CUDA tensors run the hand-written kernel `kernels/ell_spmm.cu` (a
-    failed build or launch raises); CPU tensors run `ell_spmm_reference`."""
+    CUDA tensors run the hand-written kernel `kernels/ell_spmm.cu`, which
+    reads the layout through `tables` (`ell_tables(cols)`; without them,
+    or on a failed build or launch, it raises); CPU tensors run
+    `ell_spmm_reference`."""
     _check_ell(vals, cols, x)
     if not x.is_cuda:
         return ell_spmm_reference(vals, cols, x)
     out = torch.empty((vals.shape[0], x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    return _ell_launch("ell_spmm", vals, cols, x, out, (vals.shape[0],))
+    return _ell_launch("ell_spmm", vals, tables, x, out, ())
 
 
 def ell_spmm_rows(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
-                  r0: int, r1: int) -> torch.Tensor:
+                  r0: int, r1: int,
+                  tables: Optional[EllTables] = None) -> torch.Tensor:
     """The rows [r0, r1) of `ell_spmm` against the full x: [r1 - r0, M],
     bit for bit the full product's rows (K2's and K3's row range in
     fp32).
 
     CUDA tensors run the kernel's row-range entry (counted as
-    `ell_spmm_rows`); CPU tensors run `ell_spmm_rows_reference`."""
+    `ell_spmm_rows`) over the layout's `tables`; CPU tensors run
+    `ell_spmm_rows_reference`."""
     _check_ell(vals, cols, x)
     _check_ell_rows(r0, r1, vals.shape[0])
     if not x.is_cuda:
         return ell_spmm_rows_reference(vals, cols, x, r0, r1)
     out = torch.empty((r1 - r0, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    return _ell_launch("ell_spmm_rows", vals, cols, x, out, (r0, r1))
+    return _ell_launch("ell_spmm_rows", vals, tables, x, out, (r0, r1))
 
 
 def _fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -680,8 +771,8 @@ def _fit_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 # A layout: ("super", svals, ucols, nz), ("plain", vals, cols, nz) or
-# ("ell", vals, cols, None)
-_Layout = Tuple[str, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]
+# ("ell", vals, cols, tables), tables its `EllTables`
+_Layout = Tuple[str, torch.Tensor, torch.Tensor, object]
 
 
 def _layout_rows(layout) -> int:
@@ -745,22 +836,24 @@ def _fold_vmap(op, x_arg: int):
 torch.library.register_vmap(spmm, _fold_vmap(spmm, 2))
 
 
-# The ELL product as a registered op, as `spmm` is for the block layouts.
+# The ELL product as a registered op, as `spmm` is for the block layouts;
+# the layout's union tables (`EllTables`) enter as their tensors and ints.
 @torch.library.custom_op(
     "deepsphere_weather_torch::spmm_ell", mutates_args=(),
-    schema="(Tensor vals, Tensor cols, Tensor x) -> Tensor")
-def spmm_ell(vals, cols, x):
+    schema="(Tensor vals, Tensor cols, Tensor loc, Tensor blocks, "
+           "Tensor urows, Tensor x, int umax, int rmax) -> Tensor")
+def spmm_ell(vals, cols, loc, blocks, urows, x, umax, rmax):
     """L @ x on an ELL layout: the module's wrapper `ell_spmm`, looked up
     by name at each call."""
-    return ell_spmm(vals, cols, x)
+    return ell_spmm(vals, cols, x, EllTables(loc, blocks, urows, umax, rmax))
 
 
 @spmm_ell.register_fake
-def _(vals, cols, x):
+def _(vals, cols, loc, blocks, urows, x, umax, rmax):
     return x.new_empty((vals.shape[0], x.shape[1]), dtype=torch.float32)
 
 
-torch.library.register_vmap(spmm_ell, _fold_vmap(spmm_ell, 2))
+torch.library.register_vmap(spmm_ell, _fold_vmap(spmm_ell, 5))
 
 
 def _run_mv(layout: _Layout, x_pad: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -769,7 +862,9 @@ def _run_mv(layout: _Layout, x_pad: torch.Tensor, n_out: int) -> torch.Tensor:
     kind, a, idx, nz = layout
     x_fit = _fit_rows(x_pad, _layout_rows(layout))
     if kind == "ell":
-        return _fit_rows(spmm_ell(a, idx, x_fit), n_out)
+        loc, blocks, urows, umax, rmax = nz
+        return _fit_rows(spmm_ell(a, idx, loc, blocks, urows, x_fit, umax,
+                                  rmax), n_out)
     return _fit_rows(spmm(a, idx, x_fit, nz, kind == "super"), n_out)
 
 
@@ -791,12 +886,17 @@ class _MatVec(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         x_pad, _, _, _, _, kind_t, a_t, idx_t, nz_t = inputs
         ctx.kind_t, ctx.x_dtype = kind_t, x_pad.dtype
-        ctx.save_for_backward(a_t, idx_t, nz_t)
+        # an ELL layout's tables: their tensors saved, their ints kept
+        ctx.tables_ints = nz_t[3:] if kind_t == "ell" else None
+        ctx.save_for_backward(a_t, idx_t, *(nz_t[:3] if kind_t == "ell"
+                                            else (nz_t,)))
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        a_t, idx_t, nz_t = ctx.saved_tensors
+        a_t, idx_t, *nz_t = ctx.saved_tensors
+        nz_t = (EllTables(*nz_t, *ctx.tables_ints) if ctx.kind_t == "ell"
+                else nz_t[0])
         g = g.to(ctx.x_dtype).contiguous()
         gx = _run_mv((ctx.kind_t, a_t, idx_t, nz_t), g, g.shape[0])
         return (gx.to(ctx.x_dtype),) + (None,) * 8
@@ -947,7 +1047,9 @@ class EllOperator:
     [n, M], with a gradient in x. The product runs `ell_spmm` (the
     registered op `spmm_ell`), forward and, through `_MatVec`, backward on
     the transposed layout (`vals_t`, `cols_t`: the forward's own when L is
-    symmetric). It is computed in fp32; bf16 x gives a bf16 result."""
+    symmetric). Each layout's union tables (`tables`, `tables_t`:
+    `ell_tables`), which the kernel reads it through, are built here once.
+    It is computed in fp32; bf16 x gives a bf16 result."""
 
     def __init__(self, n: int, vals: torch.Tensor, cols: torch.Tensor,
                  vals_t: Optional[torch.Tensor] = None,
@@ -962,6 +1064,8 @@ class EllOperator:
         self.n = int(n)
         self.vals, self.cols = vals, cols
         self.vals_t, self.cols_t = vals_t, cols_t
+        self.tables = ell_tables(cols)
+        self.tables_t = None if cols_t is None else ell_tables(cols_t)
 
     @classmethod
     def from_scipy(cls, mat, symmetric: bool = True, dtype=torch.float32,
@@ -987,12 +1091,12 @@ class EllOperator:
         return self.vals_t is None
 
     def forward_layout(self) -> _Layout:
-        return ("ell", self.vals, self.cols, None)
+        return ("ell", self.vals, self.cols, self.tables)
 
     def transpose_layout(self) -> _Layout:
         if self.symmetric:
             return self.forward_layout()
-        return ("ell", self.vals_t, self.cols_t, None)
+        return ("ell", self.vals_t, self.cols_t, self.tables_t)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """L @ x: x in fp32 with its columns padded to a multiple of 4,
@@ -1011,15 +1115,17 @@ class EllOperator:
         """The rows [v0, v1) of this operator for one rank of the node
         process group `group`, as `BlockSparseOperator.row_shard`: the
         rows [v0, v1) of the forward layout and, when L is not
-        symmetric, of the transposed one."""
+        symmetric, of the transposed one, each with the union tables of
+        those rows against the full x."""
         if not 0 <= v0 < v1 <= self.n:
             raise ValueError(f"node range [{v0}, {v1}) is not within the "
                              f"operator's {self.n} rows")
 
         def rows(layout):
             _, vals, cols, _ = layout
-            return ("ell", vals[v0:v1].contiguous(),
-                    cols[v0:v1].contiguous(), None, v0, self.n)
+            cols = cols[v0:v1].contiguous()
+            return ("ell", vals[v0:v1].contiguous(), cols, ell_tables(cols),
+                    v0, self.n)
 
         return ShardedBlockSparseOperator(
             self.n, v0, v1, group, rows(self.forward_layout()),
@@ -1028,8 +1134,8 @@ class EllOperator:
 
 # One rank's slice of a layout: (kind, A blocks, block-column table, slot
 # list, first row of the slice in the full product, rows of the full
-# layout); an ELL slice is ("ell", vals, cols, None, v0, n), its rows
-# [v0, v1) exactly
+# layout); an ELL slice is ("ell", vals, cols, tables, v0, n), its rows
+# [v0, v1) exactly and their union tables
 _ShardLayout = Tuple[str, torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                      int, int]
 
@@ -1088,22 +1194,26 @@ torch.library.register_vmap(spmm_rows, _fold_vmap(spmm_rows, 2))
 # the block layouts: the node gather and the row-range launch in one.
 @torch.library.custom_op(
     "deepsphere_weather_torch::spmm_rows_ell", mutates_args=(),
-    schema="(Tensor vals, Tensor cols, Tensor x_local, int group, int v0, "
-           "int v1) -> Tensor")
-def spmm_rows_ell(vals, cols, x_local, group, v0, v1):
+    schema="(Tensor vals, Tensor cols, Tensor loc, Tensor blocks, "
+           "Tensor urows, Tensor x_local, int umax, int rmax, int group, "
+           "int v0, int v1) -> Tensor")
+def spmm_rows_ell(vals, cols, loc, blocks, urows, x_local, umax, rmax, group,
+                  v0, v1):
     """Rows [v0, v1) of L @ x from this rank's rows of x, `vals` and
-    `cols` those rows of the ELL layout: x gathered over the registered
-    node group `group`, then one `ell_spmm_rows` launch."""
+    `cols` those rows of the ELL layout and (loc, blocks, urows, umax,
+    rmax) their union tables: x gathered over the registered node group
+    `group`, then one `ell_spmm_rows` launch."""
     x_full = gather_rows(x_local, _groups[group], 0)
-    return ell_spmm_rows(vals, cols, x_full, 0, v1 - v0)
+    return ell_spmm_rows(vals, cols, x_full, 0, v1 - v0,
+                         EllTables(loc, blocks, urows, umax, rmax))
 
 
 @spmm_rows_ell.register_fake
-def _(vals, cols, x_local, group, v0, v1):
+def _(vals, cols, loc, blocks, urows, x_local, umax, rmax, group, v0, v1):
     return x_local.new_empty((v1 - v0, x_local.shape[1]), dtype=torch.float32)
 
 
-torch.library.register_vmap(spmm_rows_ell, _fold_vmap(spmm_rows_ell, 2))
+torch.library.register_vmap(spmm_rows_ell, _fold_vmap(spmm_rows_ell, 5))
 
 
 class _RowShardMatVec(torch.autograd.Function):
@@ -1162,8 +1272,10 @@ class ShardedBlockSparseOperator:
         launch)."""
         kind, a, idx, nz, r0, full_rows = layout
         if kind == "ell":
-            return spmm_rows_ell(a, idx, x_local, group_key(self.group),
-                                 self.v0, self.v1)
+            loc, blocks, urows, umax, rmax = nz
+            return spmm_rows_ell(a, idx, loc, blocks, urows, x_local, umax,
+                                 rmax, group_key(self.group), self.v0,
+                                 self.v1)
         return spmm_rows(a, idx, x_local, nz, kind == "super",
                          group_key(self.group), self.v0, self.v1, r0,
                          full_rows)

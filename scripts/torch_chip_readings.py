@@ -6,6 +6,7 @@ chip_smoke.py:
 
     python3 scripts/torch_chip_readings.py gaps
     python3 scripts/torch_chip_readings.py ab TAG
+    python3 scripts/torch_chip_readings.py ell TAG
 
 gaps  The slice phase's card-vs-CPU forward check (HEALPix-16 bf16 flagship,
       batch 16, the CPU taking the card's ReLU and max-pool decisions) at
@@ -21,6 +22,18 @@ ab    The HEALPix-16 AR6 batch-16 bf16 train step (3 steps, then
       served model's forward (CUDA events over 20 forwards) of the tree it
       runs from: one line `AB {json}` tagged TAG. Run it on two trees in
       turns (A, B, B, A) in one call to compare them on one card.
+ell   The ELL kernel's readings of the tree it runs from, through that
+      tree's chip_smoke.py (so a parent tree reads its own kernel): per
+      launch at x[3072, 1024] and x[49152, 1024] (`measure_ell`: against
+      its plain version exactly, beside its bound, plain version and
+      cuSPARSE), its row ranges at HEALPix-64 (`parity_ell_rows`: checked,
+      rank 0's of 2 timed), and the train64f32 step (the shipped fp32
+      HEALPix-64 config, AR2 batch 8): 3 steps, their ELL launches, the
+      step time (`time_steps`), each (level, width) shape it launches
+      (`ell_step_shapes`) and device time by kernel over 2 steps
+      (torch.profiler: busy share of the host time, the ELL kernel's
+      share, the top rows). One line `ELL {json}` tagged TAG. Run it from
+      a parent archive's root and this one's in turns (A, B, B, A).
 """
 
 import json
@@ -103,6 +116,74 @@ def ab(device, tag):
                               "card": card}), flush=True)
 
 
+def profile_steps(step, n=2):
+    """Device time by kernel over n calls of step (torch.profiler): the
+    busy share of the window's host time, the ELL kernel's share of the
+    busy time and the top 12 rows."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    ell = sum(r[0] for r in rows if "ell_spmm" in r[2])
+    return {"steps": n, "busy_ms_per_step": busy / n,
+            "host_ms_per_step": wall / n, "busy_share": busy / wall,
+            "ell_ms_per_step": ell / n, "ell_share_of_busy": ell / busy,
+            "top": [{"share": ms / busy, "ms_per_step": ms / n,
+                     "calls_per_step": count // n, "kernel": key[:100]}
+                    for ms, count, key in rows[:12]]}
+
+
+def ell(device, tag):
+    from deepsphere_weather_torch.ops import EllOperator
+
+    card = c.card()
+    rng = np.random.default_rng(c.SEED)
+    out = {"tree": tag, "card": card}
+    for subdiv in (c.SLICE_SUBDIV, c.BIG_SUBDIV):
+        L = c._laplacian(subdiv)
+        x = torch.from_numpy(rng.standard_normal(
+            (L.shape[0], c.MATVEC_WIDTH)).astype(np.float32)).to(device)
+        r = c.measure_ell(EllOperator.from_scipy(L, device=device), L, x,
+                          device, f"x[{L.shape[0]}, {c.MATVEC_WIDTH}]")
+        out[f"x{L.shape[0]}_{c.MATVEC_WIDTH}"] = {
+            k: v for k, v in r.items() if k != "y"}
+    x_np = rng.standard_normal((L.shape[0], c.MATVEC_WIDTH)).astype(
+        np.float32)
+    out["rows"] = c.parity_ell_rows(device, L, x_np, c.BIG_SUBDIV, rng)
+    cfg = c._grids_config(c.F32_CONFIG)
+    model = c.grids_model(device, cfg, "float32").train()
+    model.load_state_dict(c.train_params(model, c.SEED + 40))
+    label = f"train64f32 {tag}"
+    res = c.run_train(model, c.HP64_AR, c.HP64_BATCH, c.HP64_STEPS, label,
+                      clip=cfg["training_settings"]["gradient_clipping"],
+                      phase="ell")
+    out["launches"] = c.check_launches(res, c.ELL_KERNEL,
+                                       sum(c.PRODUCTS_PER_LEVEL[:2]),
+                                       c.HP64_AR + 1, label, phase="ell")
+    out["losses"] = [float(v) for v in res["losses"]]
+    out["step_ms"] = c.time_steps({label: res["step"]}, c.HP64_BATCH,
+                                  card)[label]
+    out["shapes"] = c.ell_step_shapes(model, res["step"],
+                                      c._grid_laplacian(cfg, model.geometry),
+                                      card)
+    out["profile"] = profile_steps(res["step"])
+    print("ELL " + json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("torch_chip_readings: needs an NVIDIA GPU")
@@ -113,5 +194,7 @@ if __name__ == "__main__":
     c.phase_build()
     if sys.argv[1] == "gaps":
         gaps(dev)
+    elif sys.argv[1] == "ell":
+        ell(dev, sys.argv[2])
     else:
         ab(dev, sys.argv[2])

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -123,17 +124,13 @@ def rel(got, want):
 
 @pytest.fixture(autouse=True, scope="module")
 def port_setup():
-    """One intra-op thread (the suite's workers share the cores), and the
-    port's `get_model` building level 0 block-sparse, for every driver of
-    this module."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """The port's `get_model` building level 0 block-sparse, for every
+    CLI run of this module."""
     get_model = models_mod.get_model
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(models_mod, "get_model", lambda *a, **k: get_model(
             *a, dense_threshold=DENSE_THRESHOLD, **k))
         yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -15,6 +15,7 @@ import pytest
 from scipy import sparse
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 

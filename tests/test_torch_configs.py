@@ -70,6 +70,7 @@ from test_torch_grids400 import (  # noqa: E402
     tensor_info,
 )
 from torch_grad_terms import term_sums  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = sorted((REPO / "configs").rglob("*.json"))

@@ -65,6 +65,7 @@ from deepsphere_weather_torch.weights import params_from_jax, seeded_params  # n
 from torch_grad_terms import cancelling_norm_biases, term_sums  # noqa: E402
 from torch_split_probe import SPLIT_BAR, split_probe  # noqa: E402
 from torch_steer import steer  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.cuda
 
@@ -393,7 +394,7 @@ def test_ell_kernel_matches_plain_version(cuda, subdiv, M):
         (L.shape[0], M)).astype(np.float32)
     x = torch.from_numpy(x_np).to(cuda)
     before = dict(launch_counts)
-    y = ell_spmm(op.vals, op.cols, x)
+    y = ell_spmm(op.vals, op.cols, x, op.tables)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in launch_counts.items()
             if v != before[k]} == {"ell_spmm": 1}
@@ -402,7 +403,11 @@ def test_ell_kernel_matches_plain_version(cuda, subdiv, M):
     # a view 4 bytes into its storage is copied to an aligned one first
     base = torch.zeros(x.numel() + 1, device=cuda)
     base[1:] = x.reshape(-1)
-    assert torch.equal(ell_spmm(op.vals, op.cols, base[1:].view_as(x)), y)
+    assert torch.equal(ell_spmm(op.vals, op.cols, base[1:].view_as(x),
+                                op.tables), y)
+    # the kernel reads the layout through its union tables: none, none run
+    with pytest.raises(ValueError, match="union tables"):
+        ell_spmm(op.vals, op.cols, x)
 
 
 @pytest.mark.parametrize("subdiv", [16, 64])
@@ -413,20 +418,25 @@ def test_ell_row_range_equals_full_launch_rows(cuda, subdiv, n_node,
     L = _knn(subdiv)
     mat = L if symmetric else _nonsymmetric(L)
     op = EllOperator.from_scipy(mat, symmetric=symmetric, device=cuda)
-    vals, cols = ((op.vals, op.cols) if symmetric
-                  else (op.vals_t, op.cols_t))
+    _, vals, cols, tables = (op.forward_layout() if symmetric
+                             else op.transpose_layout())
     n = L.shape[0]
     x = torch.from_numpy(np.random.default_rng(n_node).standard_normal(
         (n, 256)).astype(np.float32)).to(cuda)
-    full = ell_spmm(vals, cols, x)
+    full = ell_spmm(vals, cols, x, tables)
     for r in range(n_node):
         v0, v1 = r * n // n_node, (r + 1) * n // n_node
         before = launch_counts["ell_spmm_rows"]
-        y = ell_spmm_rows(vals, cols, x, v0, v1)
+        y = ell_spmm_rows(vals, cols, x, v0, v1, tables)
         torch.cuda.synchronize()
         assert launch_counts["ell_spmm_rows"] == before + 1
         assert torch.equal(y, full[v0:v1])
         assert torch.equal(y, ell_spmm_rows_reference(vals, cols, x, v0, v1))
+        # a row shard's own rows and union tables, against the full x
+        _, s_vals, s_cols, s_tables, _, _ = op.row_shard(
+            v0, v1, None).transpose_layout()
+        assert torch.equal(ell_spmm_rows(s_vals, s_cols, x, 0, v1 - v0,
+                                         s_tables), y)
 
 
 @pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "nonsym"])

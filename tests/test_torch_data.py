@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from deepsphere_weather_tpu.data import (  # noqa: E402
     AutoregressiveDataLoader as JLoader,
@@ -74,17 +75,6 @@ STATIC = "Data/static.zarr"
 COMPRESSORS = [None, "zlib", pytest.param(
     "blosc:lz4", marks=pytest.mark.skipif(not bloscio.available(),
                                           reason="libblosc not installed"))]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the port's CPU work in this module: the
-    suite's workers share the cores, and OpenMP teams oversubscribed
-    across them slowed these small-shape runs many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,11 @@ symmetric) and the same numpy inputs go to both packages:
   voronoi one through the transposed layout);
 - a row range equals the full product's rows, and the vmapped member
   product the per-member loop, exactly;
+- the union tables the kernel reads a layout through (`ell_tables`, of
+  the whole layout, of the transposed one and of a row shard) map every
+  slot back to its column, padding slots to row 0, and a product through
+  them (the union's x rows gathered, then the local index) equals the
+  plain version bit for bit and JAX's `ell_matvec` within 1e-5;
 - `cheb_conv` on `ChebOperator(mode='ell')` matches the JAX ELL operator
   within 1e-5, forward and gradients;
 - an fp32 UNetSpherical with block-sparse levels 0 and 1 matches the JAX
@@ -28,6 +33,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -50,11 +56,13 @@ from deepsphere_weather_torch.ops import (  # noqa: E402
     BlockSparseOperator,
     ChebOperator,
     EllOperator,
+    EllTables,
     cheb_conv,
     ell_spmm,
     ell_spmm_reference,
     ell_spmm_rows,
     ell_spmm_rows_reference,
+    ell_tables,
     launch_counts,
 )
 from deepsphere_weather_torch.ops import bcsr as bcsr_mod  # noqa: E402
@@ -145,12 +153,143 @@ def test_row_ranges_equal_full_rows(graph):
     # a row shard of the operator holds exactly those rows of both layouts
     shard = op.row_shard(n // 4, n // 2, group=None)
     kind, vals, cols, nz, r0, rows = shard.forward_layout()
-    assert (kind, nz, r0, rows) == ("ell", None, n // 4, n)
+    assert (kind, r0, rows) == ("ell", n // 4, n)
+    assert isinstance(nz, EllTables) and nz.loc.shape == vals.shape
     assert torch.equal(vals, op.vals[n // 4:n // 2])
     assert torch.equal(cols, op.cols[n // 4:n // 2])
     _, vals_t, _, _, _, _ = shard.transpose_layout()
     assert torch.equal(vals_t, (op.vals if graph.is_symmetric
                                 else op.vals_t)[n // 4:n // 2])
+
+
+def _layouts(op):
+    """(label, vals, cols, tables) of each ELL layout of `op`: forward,
+    transposed when L is not symmetric."""
+    out = [("forward", op.vals, op.cols, op.tables)]
+    if not op.symmetric:
+        out.append(("transposed", op.vals_t, op.cols_t, op.tables_t))
+    return out
+
+
+def _blocks(tables):
+    """(first row, end row, union) of each block of `tables`."""
+    firsts, offs = tables.blocks.numpy()
+    urows = tables.urows.numpy()
+    return [(int(firsts[b]), int(firsts[b + 1]), urows[offs[b]:offs[b + 1]])
+            for b in range(len(firsts) - 1)]
+
+
+def _check_tables(vals, cols, tables, n_x):
+    """The union tables of (vals, cols): blocks of consecutive rows that
+    cover the layout, each union sorted, distinct, within x's n_x rows
+    and holding exactly the columns its rows name; every slot's local
+    index maps back to its column, so a padding slot (value 0, column 0)
+    to row 0; umax and rmax the largest union and block."""
+    c, loc = cols.numpy(), tables.loc.numpy().astype(np.int64)
+    assert tables.loc.dtype == torch.int16 and loc.shape == c.shape
+    assert tables.blocks.dtype == tables.urows.dtype == torch.int32
+    blocks = _blocks(tables)
+    assert blocks[0][0] == 0 and blocks[-1][1] == c.shape[0]
+    assert all(e == f for (_, e, _), (f, _, _) in zip(blocks, blocks[1:]))
+    for f, e, u in blocks:
+        assert f < e and np.all(np.diff(u) > 0) and u[-1] < n_x
+        np.testing.assert_array_equal(u, np.unique(c[f:e]))
+        np.testing.assert_array_equal(u[loc[f:e]], c[f:e])
+    assert tables.umax == max(len(u) for _, _, u in blocks)
+    assert tables.rmax == max(e - f for f, e, _ in blocks)
+    padded = (vals.numpy() == 0) & (c == 0)
+    for f, e, u in blocks:
+        if padded[f:e].any():
+            assert u[0] == 0
+    return blocks
+
+
+def _tables_product(vals, tables, x):
+    """The product as the kernel computes it, in plain PyTorch: each
+    block's union rows of x gathered (its shared-memory slab), then its
+    rows' products read through the local index, in the slot order."""
+    return torch.cat([
+        ell_spmm_reference(vals[f:e], tables.loc[f:e].int(),
+                           x[torch.from_numpy(u).long()])
+        for f, e, u in _blocks(tables)])
+
+
+def test_union_tables_map_slots_to_columns(graph):
+    n = graph.L.shape[0]
+    op = EllOperator.from_scipy(graph.L, symmetric=graph.is_symmetric,
+                                device="cpu")
+    for _, vals, cols, tables in _layouts(op):
+        blocks = _check_tables(vals, cols, tables, n)
+        # nested HEALPix keeps a block's neighbourhood small: whole blocks
+        rows = bcsr_mod.ELL_BLOCK_ROWS
+        assert [e - f for f, e, _ in blocks[:-1]] == [rows] * (len(blocks) - 1)
+
+
+def test_row_shard_tables_cover_its_rows_against_full_x(graph):
+    n = graph.L.shape[0]
+    op = EllOperator.from_scipy(graph.L, symmetric=graph.is_symmetric,
+                                device="cpu")
+    x = torch.from_numpy(_np((n, 12), 14))
+    for v0, v1 in ((0, n // 2), (n // 4, n // 2), (n // 3, n)):
+        shard = op.row_shard(v0, v1, group=None)
+        for (_, fvals, fcols, _), layout in zip(
+                _layouts(op), (shard.forward_layout(),
+                               shard.transpose_layout())):
+            _, vals, cols, tables, r0, rows = layout
+            assert (r0, rows) == (v0, n)
+            assert torch.equal(cols, fcols[v0:v1])
+            _check_tables(vals, cols, tables, n)
+            assert torch.equal(_tables_product(vals, tables, x),
+                               ell_spmm_reference(fvals, fcols, x)[v0:v1])
+
+
+def test_product_through_tables_equals_plain_version(graph):
+    n = graph.L.shape[0]
+    op = EllOperator.from_scipy(graph.L, symmetric=graph.is_symmetric,
+                                device="cpu")
+    x_np = _np((n, 20), 15)
+    x = torch.from_numpy(x_np)
+    for label, vals, cols, tables in _layouts(op):
+        got = _tables_product(vals, tables, x)
+        assert torch.equal(got, ell_spmm_reference(vals, cols, x)), label
+        want = jell_matvec(jnp.asarray(cols), jnp.asarray(vals),
+                           jnp.asarray(x_np))
+        assert rel_err(got.numpy(), np.asarray(want)) <= TOL, label
+
+
+def test_tables_split_wide_unions():
+    # rows whose columns scatter over x: a block is halved until its
+    # union names at most the cap
+    rng = np.random.default_rng(16)
+    n, width = 300, 9
+    cols = torch.from_numpy(rng.integers(0, n, (n, width)).astype(np.int32))
+    cols[::7, -2:] = 0                                # padded slots
+    vals = torch.from_numpy(rng.standard_normal((n, width)).astype(
+        np.float32))
+    vals[::7, -2:] = 0
+    tables = ell_tables(cols)
+    blocks = _check_tables(vals, cols, tables, n)
+    assert tables.umax <= bcsr_mod.ELL_UNION_CAP
+    assert tables.rmax < bcsr_mod.ELL_BLOCK_ROWS
+    assert len(blocks) > n // bcsr_mod.ELL_BLOCK_ROWS + 1
+    x = torch.from_numpy(_np((n, 8), 17))
+    assert torch.equal(_tables_product(vals, tables, x),
+                       ell_spmm_reference(vals, cols, x))
+
+
+def test_ell_ops_take_the_tables_unmapped():
+    g = build_graph("healpix", {"subdivisions": 4, "nest": True}, k=KNN)
+    op = EllOperator.from_scipy(g.L, device="cpu")
+    loc, blocks, urows, umax, rmax = op.tables
+    x = torch.from_numpy(_np((3, g.n_nodes, 8), 18))
+    y = torch.func.vmap(lambda xi: bcsr_mod.spmm_ell(
+        op.vals, op.cols, loc, blocks, urows, xi, umax, rmax))(x)
+    assert torch.equal(y, torch.stack([ell_spmm_reference(op.vals, op.cols,
+                                                          xi) for xi in x]))
+    with pytest.raises(NotImplementedError, match="arrays themselves"):
+        torch.func.vmap(lambda li: bcsr_mod.spmm_ell(
+            op.vals, op.cols, li, blocks, urows, x[0], umax, rmax))(
+                loc.expand(2, *loc.shape))
 
 
 def test_plain_version_adds_in_the_kernels_order():

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from deepsphere_weather_tpu.sphere import (  # noqa: E402
     build_graph as jbuild_graph,

@@ -8,6 +8,7 @@ import shutil
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from deepsphere_weather_torch.kernels import build  # noqa: E402
 

@@ -40,6 +40,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
@@ -112,14 +113,6 @@ AR2 = ([-3, -2, -1], [0], 1, 2)
 # products whose input is the shared batch (no member axis): the first
 # convolution's two Laplacian products, in the first AR iteration
 SHARED_PRODUCTS = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rel_err(got, ref):

@@ -66,6 +66,7 @@ from test_torch_grids400 import (  # noqa: E402
 )
 from torch_grad_terms import term_sums  # noqa: E402
 from torch_parallel_worker import grid_worker, join_ranks, start_ranks  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 # the six cases of `tests/test_torch_configs.py`'s sharding test
 CASES = [("Healpix_400km", "interp", "graph"),

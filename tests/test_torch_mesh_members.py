@@ -104,6 +104,7 @@ from torch_parallel_worker import (  # noqa: E402
     start_ranks,
     tasks_worker,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SAMPLING = {"subdivisions": 4, "nest": True}
 V, KNN, B, M = 192, 8, 4, 4
@@ -131,14 +132,6 @@ SCHEDULER = dict(method="LinearStep", factor=0.5, fixed_ar_weights=[0],
 STOPPING = dict(patience=2, minimum_improvement=1e4)
 # the training periods [0, end) of the fresh and the resumed runs
 TRAIN_ENDS = (80, 40)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rel_err(got, ref):

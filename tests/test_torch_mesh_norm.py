@@ -90,6 +90,7 @@ from torch_parallel_worker import (  # noqa: E402
     start_ranks,
     tasks_worker,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SAMPLING = {"subdivisions": 4, "nest": True}
 V, KNN, B = 192, 8, 4

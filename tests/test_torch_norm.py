@@ -46,6 +46,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
@@ -114,16 +115,6 @@ KINDS = [("batch", False), ("batch", True), ("layer", False),
          ("layer", True)]
 AR2 = ([-3, -2, -1], [0], 1, 2)
 ADAM_EPS_BN = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the port's CPU work in this module: the
-    suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rel_err(got, ref):

@@ -89,6 +89,7 @@ from torch_parallel_worker import (  # noqa: E402
     start_ranks,
     train_worker,
 )
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SUBDIV, KNN, N = 8, 8, 768
 SAMPLING = {"subdivisions": SUBDIV, "nest": True}

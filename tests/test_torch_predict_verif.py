@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -86,17 +87,6 @@ STATIC = "Data/static.zarr"
 def rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.nanmax(np.abs(got - want)) / np.nanmax(np.abs(want)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the port's CPU work in this module: the
-    suite's workers share the cores, and OpenMP teams oversubscribed
-    across them slowed these small-shape runs many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def seeded_tree(info, seed):

@@ -18,6 +18,7 @@ import pandas as pd
 import pytest
 
 pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 from deepsphere_weather_tpu.cli.common import (  # noqa: E402
     resolve_scalers as jresolve_scalers,

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -172,9 +173,10 @@ def test_submit_matches_jax_rollout(setup):
 
 
 # torch-only test helpers: the spawned ranks of tests/test_torch_parallel.py
-# import the worker, chip_smoke.py the others, and none may pull JAX in
-TEST_HELPERS = ("torch_parallel_worker", "torch_grad_terms", "torch_steer",
-                "torch_split_probe")
+# import the worker and the thread pin, chip_smoke.py the others, and none
+# may pull JAX in
+TEST_HELPERS = ("torch_parallel_worker", "torch_threads", "torch_grad_terms",
+                "torch_steer", "torch_split_probe")
 
 
 def _port_sources():

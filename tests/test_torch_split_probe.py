@@ -32,6 +32,7 @@ from deepsphere_weather_torch.ops import (  # noqa: E402
 )
 from deepsphere_weather_torch.sphere import build_graph  # noqa: E402
 from torch_split_probe import SPLIT_BAR, split_probe  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 WIDTH = 128
 

@@ -39,6 +39,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
@@ -110,14 +111,6 @@ BC = "Data/bc/time_chunked/bc.zarr"
 STATIC = "Data/static.zarr"
 AR = {"input_k": [-3, -2, -1], "output_k": [0], "forecast_cycle": 1,
       "ar_iterations": 1}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rel_err(got, ref):

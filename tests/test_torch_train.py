@@ -79,6 +79,7 @@ from deepsphere_weather_torch.weights import (  # noqa: E402
     seeded_params,
 )
 from torch_grad_terms import term_sums  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 SUBDIV, KNN, B = 8, 8, 2
 F_DYN, F_BC, F_STATIC = 2, 1, 2

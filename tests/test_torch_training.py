@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -111,17 +112,6 @@ RUNS = {
         levers=dict(early_stopping_reset_on_growth="counter"),
         patience=10),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for the port's CPU work in this module: the
-    suite's workers share the cores, and OpenMP teams oversubscribed
-    across them slowed these small-shape runs many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def rel(got, want):

@@ -5,8 +5,9 @@ a test).
 method 'spawn'); each joins a `gloo` process group through a FileStore
 (timeout 60 s), runs one worker function and pickles its result.
 `join_ranks` waits for them with a limit, so a hang fails the test
-instead of eating the suite's clock. This module imports torch and the port only, never JAX:
-the spawned ranks import it.
+instead of eating the suite's clock. Each rank runs torch on one
+intra-op thread (`torch_threads.one_thread`). This module imports torch
+and the port only, never JAX: the spawned ranks import it.
 """
 
 import pickle
@@ -31,12 +32,13 @@ from deepsphere_weather_torch.parallel import (
     shard_batch,
 )
 from deepsphere_weather_torch.weights import broadcast_params
+from torch_threads import one_thread
 
 PG_TIMEOUT = timedelta(seconds=60)
 
 
 def _entry(rank, fn, world, out_dir, args):
-    torch.set_num_threads(1)
+    one_thread()
     store = dist.FileStore(str(Path(out_dir) / "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
                             timeout=PG_TIMEOUT)
