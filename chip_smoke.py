@@ -11,8 +11,10 @@ once, the train -> predict -> verify CLI, serving from artifacts, SWAG
 fine-tuning with its ensemble, six shipped configurations over the
 other samplings, graph types and pools with the variant architectures,
 and the whole mesh (members over ranks, BatchNorm over a data or node
-mesh, node-sharded grids), on the card and checks them, in phases
-printed one per line:
+mesh, node-sharded grids), member steps that recompute in the backward,
+an experiment built from nothing by the data-preparation CLIs, the CLI on
+2 ranks, the DeepEnsemble sweep and the profiling harness, on the card and
+checks them, in phases printed one per line:
 
 1. card      name and power limit (nvidia-smi)
 2. build     the three CUDA kernels (all three include one header; the
@@ -145,11 +147,12 @@ printed one per line:
              parity readings and its row range
 
 11. protocol16 the port's train -> predict -> verify CLI
-             (`cli.train_predict.main`) on the shipped flagship config
-             (configs/UNetSpherical/Healpix_400km/MaxPool-Graph_knn.json)
-             with numeric_precision bfloat16 and its epochs cut (full width
-             and depth; K1 at level 0), over toy HEALPix-16 data (the
-             port's generate_toy_data, 1460 six-hour steps, seed 0): the
+             (`cli.train_predict.main`) on the flagship config
+             (configs/UNetSpherical/Healpix_400km/MaxPool-Graph_knn.json,
+             as prep16's `create_configs` wrote it) with numeric_precision
+             bfloat16 and its epochs cut (full width and depth; K1 at level
+             0), over prep16's toy HEALPix-16 data (1460 six-hour steps,
+             seed 0): the
              device-cache path taken, K1 launched in the training forward
              and backward, validation and the AR20 prediction (and nothing
              else), every logged loss finite, the checkpoint and skill
@@ -164,7 +167,7 @@ printed one per line:
              (torch.use_deterministic_algorithms, reset after it).
 12. serve16  protocol16's trained flagship served from artifacts, two
              members: the experiment copied before its --resume epoch
-             (4 epochs) and the resumed one (5). `cli.predict` of the
+             (2 epochs) and the resumed one (3). `cli.predict` of the
              resumed experiment, AR20 from 4 reference times: finite,
              lead 1 within the bf16 bar (2e-2) of the experiment's own
              forecast store, 10 K1 launches per forward; `cli.export_model`
@@ -209,8 +212,8 @@ printed one per line:
              the member step's ReLU and max-pool decisions (each that
              differs within 1e-6 of its kink or tie)
 15. swag16   (after serve16) `cli.finetune_swag.main` on protocol16's
-             resumed experiment: 1 epoch, 3 members, a collection every 2nd
-             scoring, AR20 on the toy test period; K1's launches by part
+             resumed experiment: 1 epoch, 2 members, a collection every 2nd
+             scoring, AR10 on the toy test period; K1's launches by part
              (fine-tune forward and backward, validation, member rollouts:
              their sum is every launch), `model_swag.npz` with 2 models or
              more, member and median stores [201, 21, 3072, 2] finite, the
@@ -299,8 +302,49 @@ printed one per line:
              version and cuSPARSE's CSR row slice (`member_folded`,
              `voronoi_transposed` under K2's row of the kernel line). It
              prints the three phases' seconds together.
+20. remat16  (after ens16) ens16's 2-member step with `remat=True` beside
+             the same step without, on one weights and batch: exactly 208
+             K1 launches a step with remat (the recompute repeats the 70
+             forward products) and 138 without, no other kernel; peak
+             device memory of a step and step time of each (in turns);
+             the fp32 batch-2 member step with and without remat on the
+             same ReLU and max-pool decisions (`steer`, every one equal),
+             losses and every gradient within 1e-5. Inside ensmesh16's
+             spawn, the 1 x 2 x 2 member step with remat: 208 K2 launches
+             a step on each rank, 22 gathers in each of 14 model calls,
+             losses within 3e-2 of the same ranks without remat and of one
+             process, step time beside ensmesh16's.
+21. prep16   an experiment's data and configs built from nothing by the
+             port's CLIs (host only): `prepare_toy_data` (HEALPix-16,
+             1460 six-hour steps, seed 0), `compute_scalers`,
+             `compute_benchmarks`, `create_configs` (108 configs, each
+             equal to the shipped one of its name); seconds and files of
+             each stage. protocol16 trains on this data and config.
+22. cli2rank (after prep16) `python -m
+             deepsphere_weather_torch.cli.train_predict` on prep16's data
+             with the flagship config at `n_node_parallel: 2` (bf16, 1
+             epoch, AR1, short periods of the toy year, AR4 forecast):
+             the CLI spawns its 2 ranks on gloo (they share the card);
+             rc 0, the scored losses within 3e-2 and rank 0's RMSE within
+             3e-3 of the same config on one process; every output written
+             once, all by rank 0 (the write log of
+             tests/write_log_site/sitecustomize.py, with each process's
+             launch counters: K2 on both ranks, K1 in rank 0's prediction
+             alone); wall seconds by stage.
+23. ensemble16 (after swag16) `cli.experiments.run_deep_ensemble`, 2
+             members in the member step with `remat: true`, on prep16's
+             data and cli2rank's cut of the flagship config, AR4 forecast:
+             AR iterations recomputed, only K1 launched, the ensemble and
+             median stores, the median's RMSE and the CRPS finite; seconds
+             by stage.
+24. profile16 `utils.profiling.profile_step` of the flagship forward and
+             train step with torch.profiler Chrome traces (the top device
+             rows by name), `summarize_model`; `scalability_sweep` (fp32)
+             over HEALPix-16 and -32 at knn 8 and 20: forward and forward
+             + backward ms against nodes, exactly 636 ELL launches (level
+             0 of HEALPix-32) and no other kernel.
 
-The ranks of phases 7-9 and 17-19 are started after the kernels are built, join a
+The ranks of phases 7-9, 17-20 and 22 are started after the kernels are built, join a
 `gloo` process group with a timeout, and the phase waits for them with a
 limit; a rank that fails fails its phase. Any failed phase raises, and the
 script exits non-zero. The lines before the last are the kernel table as
@@ -389,11 +433,12 @@ NODE16_STEPS, MESH16_STEPS, NODE64_STEPS = 3, 1, 2
 FP32_DENSE_THRESHOLD = 2048
 PG_TIMEOUT_S, RANKS_LIMIT_S = 300, 900
 # protocol16: the shipped flagship config through the CLI, bf16, epochs cut
-# to about 20 s of training on an H100 (12 until the swag16 phase came, 6
-# until grids400: the script stays well inside its time limit); AR20
-# forecasts
+# to about 10 s of training on an H100 (12 until the swag16 phase came, 6
+# until grids400, 4 until the phases of remat, the CLIs on 2 ranks, data
+# preparation, profiling and the ensemble sweep: the script stays well
+# inside its time limit); AR20 forecasts
 PROTOCOL_CONFIG = "configs/UNetSpherical/Healpix_400km/MaxPool-Graph_knn.json"
-PROTOCOL_EPOCHS, PROTOCOL_AR_PREDICT = 4, 20
+PROTOCOL_EPOCHS, PROTOCOL_AR_PREDICT = 2, 20
 PROTOCOL_INPUT_K, PROTOCOL_CYCLE = (-18, -12, -6), 6
 # serve16: reference times of cli.predict; the HTTP answer's bar against
 # svc.predict (the JAX package's serving test's)
@@ -407,9 +452,29 @@ BN_STEPS, BN_UPDATE_STEPS, BN_UPDATE_BATCHES = 3, 80, 2
 # in whichever direction its rounding gives (3.8e-4 of uconv2.res_kernel,
 # H100, 700 W); with 1e-3 the step follows the gradient
 ENS_MEMBERS, ENS_STEPS, ENS_TOL, ENS_CHECK_EPS = 2, 3, 1e-4, 1e-3
-# swag16: members predicted, collection every SWAG_FREQ-th scoring, members
-# of the exported artifact
-SWAG_SAMPLES, SWAG_FREQ, SWAG_EXPORT = 3, 2, 2
+# remat16: the bar of the fp32 member step with remat against the step
+# without (the same decisions, the same kernels); its timing windows
+REMAT_TOL, REMAT_WINDOWS = 1e-5, 2
+# cli2rank and ensemble16: prep16's flagship config cut to a short run
+# (`_short_config`): the toy year's periods it trains, validates and
+# forecasts on, its scoring interval (the period's 14 updates an epoch
+# would score none at the shipped 30), the forecast's AR depth, and rank
+# 0's RMSE bar against one process (protocol16's skill-curve bar)
+CLI_PERIODS = {"training_period": ["2010-01-01", "2010-03-01"],
+               "validation_period": ["2010-03-01", "2010-03-15"],
+               "test_period": ["2010-04-01", "2010-04-14"]}
+CLI_SCORING, CLI_AR_PREDICT, RMSE_TOL = 5, 4, 3e-3
+# prep16: the benchmark forecasts' leads (protocol16's AR depth; the CLI's
+# default 39 took 33 s on the card machine's host)
+PREP_LEADS = 20
+# profile16: the device rows printed per profile, the sweep's samplings
+# and knn values, the node count above which an fp32 level is block-sparse
+PROFILE_TOP = 12
+SWEEP_SUBDIVS, SWEEP_KNN, FP32_DENSE_LIMIT = (16, 32), (8, 20), 8192
+# swag16: members predicted and their AR depth (3 members at AR20 until the
+# phases of remat and the CLIs came: each AR20 member cost about 26 s),
+# collection every SWAG_FREQ-th scoring, members of the exported artifact
+SWAG_SAMPLES, SWAG_AR_PREDICT, SWAG_FREQ, SWAG_EXPORT = 2, 10, 2, 2
 # grids400: six shipped configurations at their full 400 km size and the
 # shipped UNet widths, cut to bf16 (at the shipped fp32 every 400 km level
 # is dense and no kernel runs): all six pool methods, all three graph
@@ -2491,7 +2556,7 @@ def _mesh_members(model):
 
 
 def rank_members(rank, device, n_data, n_node, n_member,
-                 check_products=False):
+                 check_products=False, remat=False, steps=MESH_STEPS):
     """One rank of a member mesh (ensmesh16): this rank's members of the
     4-member flagship stack (`parallel.member_range`; rank 0's weights on
     every rank), MESH_STEPS member steps (`make_member_train_step(mesh)`:
@@ -2499,7 +2564,9 @@ def rank_members(rank, device, n_data, n_node, n_member,
     from 0. Returns every member's losses per step (gathered over the
     member group), the launches and gathers of each step, its level-0
     kernel's widths, its members' parameters after; with
-    `check_products`, K2 at every (level, width) the step launched."""
+    `check_products`, K2 at every (level, width) the step launched. With
+    `remat`, `steps` member steps that recompute each AR iteration in the
+    backward (remat16's mesh check)."""
     from deepsphere_weather_torch.engine import Adam, make_member_train_step
     from deepsphere_weather_torch.models import MemberStack, shard_geometry
     from deepsphere_weather_torch.parallel import (
@@ -2524,8 +2591,8 @@ def rank_members(rank, device, n_data, n_node, n_member,
                        mesh)
     opt = Adam(local.parameters(), lr=LR, member_axis=True)
     step = make_member_train_step(local, indexer, opt, TRAIN_AR + 1,
-                                  mesh=mesh)
-    res = _counted_steps(model, lambda: step(data, w, area_w), MESH_STEPS,
+                                  mesh=mesh, remat=remat)
+    res = _counted_steps(model, lambda: step(data, w, area_w), steps,
                          ROW_KERNEL if n_node > 1 else KERNEL)
     out = {"mesh": (mesh.data_rank, mesh.node_rank, mesh.member_rank),
            "members": (m0, m1),
@@ -2679,7 +2746,10 @@ def phase_ensmesh16(device, card_line, ens_widths):
                             "check_products": True}),
             (rank_members, {"device": str(device), "n_data": d2,
                             "n_node": j2, "n_member": m2}),
-            (rank_rollout, {"device": str(device), "root": root})])
+            (rank_rollout, {"device": str(device), "root": root}),
+            # remat16's mesh check, on the same spawn
+            (rank_members, {"device": str(device), "n_data": d1,
+                            "n_node": j1, "n_member": m1, "remat": True})])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     launches = {}
@@ -2688,6 +2758,8 @@ def phase_ensmesh16(device, card_line, ens_widths):
         "ensmesh16", node, ref, ROW_KERNEL, "1 x 2 x 2")
     launches["ensmesh16_2x1x2"] = _check_member_ranks(
         "ensmesh16", data_ranks, ref, KERNEL, "2 x 1 x 2")
+    launches["remat16_1x2x2"] = _check_remat_ranks([r[3] for r in ranks],
+                                                   node, ref)
     for r in node:
         if any(ws != ens_widths for ws in r["widths"]):
             raise AssertionError(f"ensmesh16 rank {r['mesh']}: K2 widths "
@@ -3265,19 +3337,19 @@ def _bare_step_ms(model, n_ar, batch, n_static, n_bc):
     return 1e3 * best
 
 
-def phase_protocol(device, card_line, bare_ar6_ms):
+def phase_protocol(device, card_line, bare_ar6_ms, prep):
     """protocol16: the flagship config (bf16, full width and depth)
     trained, forecast AR20 and verified through the port's CLI entry point
-    (`cli.train_predict.main`) on toy HEALPix-16 data; then one --resume
-    epoch. Returns K1's launches by part and, for serve16, the temporary
-    directory (the caller removes it), the data directory, the resumed
-    experiment and a copy of the experiment from before the resume."""
+    (`cli.train_predict.main`) on prep16's toy HEALPix-16 data and its
+    generated config; then one --resume epoch. Returns K1's launches by
+    part and, for serve16, the temporary directory (prep16's; the caller
+    removes it), the data directory, the resumed experiment and a copy of
+    the experiment from before the resume."""
     import shutil
 
     import torch
 
     from deepsphere_weather_torch.cli.train_predict import main as train_main
-    from deepsphere_weather_torch.data import generate_toy_data
     from deepsphere_weather_torch.engine.prediction import ForecastDataset
     from deepsphere_weather_torch.native import bloscio
     from deepsphere_weather_torch.ops.bcsr import (
@@ -3285,15 +3357,10 @@ def phase_protocol(device, card_line, bare_ar6_ms):
         reset_launch_counts,
     )
 
-    root = tempfile.mkdtemp(prefix="dsw_protocol_")
+    root = prep["root"]
     try:
-        t0 = time.perf_counter()
-        generate_toy_data(os.path.join(root, "data"),
-                          sampling_kwargs={"subdivisions": SLICE_SUBDIV,
-                                           "nest": True}, seed=SEED)
-        t_data = time.perf_counter() - t0
-        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               PROTOCOL_CONFIG)) as f:
+        t_data = prep["seconds"]["prepare_toy_data"]
+        with open(prep["config"]) as f:
             cfg = json.load(f)
         shipped = {k: cfg["training_settings"][k]
                    for k in ("numeric_precision", "epochs")}
@@ -3305,9 +3372,10 @@ def phase_protocol(device, card_line, bare_ar6_ms):
         log("protocol16", f"{PROTOCOL_CONFIG}, cut: numeric_precision "
                           f"{shipped['numeric_precision']} -> bfloat16, "
                           f"epochs {shipped['epochs']} -> {PROTOCOL_EPOCHS}; "
-                          "full width and depth, num_workers as shipped; toy "
-                          f"HEALPix-{SLICE_SUBDIV} data, 1460 six-hour steps, "
-                          f"seed {SEED} ({t_data:.1f} s)")
+                          "full width and depth, num_workers as shipped; "
+                          f"prep16's config and toy HEALPix-{SLICE_SUBDIV} "
+                          f"data, 1460 six-hour steps, seed {SEED} "
+                          f"({t_data:.1f} s)")
 
         rec, undo = _instrument_protocol()
         try:
@@ -4045,14 +4113,14 @@ def _want_step_launches(per_step, label, phase):
 
 
 def _fp32_step(device, params, seed_batch, members=None, clip=None,
-               pinned=None):
+               pinned=None, remat=False):
     """One fp32 batch-2 step of the flagship (level 0 block-sparse) with
     its gradients kept: losses, gradients (clipped when `clip`) and the
     parameters after it, its ReLU and max-pool decisions (`steer`; taken
     from `pinned` when given) and how far those that differed from its own
     sat from their kink or tie. `members` (a list of state dicts) runs the
     member step over their stack instead, its decisions stacked over the
-    members."""
+    members; `remat` recomputes each AR iteration in the backward."""
     from deepsphere_weather_torch.engine import (
         Adam,
         make_member_train_step,
@@ -4073,7 +4141,8 @@ def _fp32_step(device, params, seed_batch, members=None, clip=None,
     opt = Adam(owner.parameters(), lr=LR, gradient_clipping=clip or 0.0,
                member_axis=members is not None, eps=ENS_CHECK_EPS)
     make = make_train_step if members is None else make_member_train_step
-    _, per_iter = make(owner, indexer, opt, TRAIN_AR + 1)(data, w, area_w)
+    _, per_iter = make(owner, indexer, opt, TRAIN_AR + 1,
+                       remat=remat)(data, w, area_w)
     return {"per_iter": per_iter.detach().cpu().double(),
             "grads": {k: p.grad.detach().cpu().double()
                       for k, p in owner.named_parameters()},
@@ -4377,7 +4446,7 @@ def phase_ens16(device, card_line, single_ms, profile=False):
 
 def phase_swag16(device, card_line, proto):
     """swag16: `cli.finetune_swag.main` on protocol16's trained flagship
-    (1 epoch, 3 members, collection every 2nd scoring, AR20 on the toy
+    (1 epoch, 2 members, collection every 2nd scoring, AR10 on the toy
     test period), K1's launches by part; then `cli.export_model
     --swag_samples 2`: one block of the artifact, 10 K1 launches per
     forward at twice the widths."""
@@ -4404,7 +4473,7 @@ def phase_swag16(device, card_line, proto):
         t0 = time.perf_counter()
         out, gs = finetune(exp, proto["data"], epochs=1,
                            nb_samples=SWAG_SAMPLES, swag_freq=SWAG_FREQ,
-                           ar_iterations_prediction=PROTOCOL_AR_PREDICT,
+                           ar_iterations_prediction=SWAG_AR_PREDICT,
                            device=device, verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -4427,7 +4496,7 @@ def phase_swag16(device, card_line, proto):
     V = 12 * SLICE_SUBDIV ** 2
     for fc in out["members"] + [out["median"]]:
         arr = np.stack([fc.variables[n][...] for n in fc.feature_order], -1)
-        want = (fc.n_frt, PROTOCOL_AR_PREDICT + 1, V, F_DYN)
+        want = (fc.n_frt, SWAG_AR_PREDICT + 1, V, F_DYN)
         if arr.shape != want or not np.isfinite(arr).all():
             raise AssertionError(f"swag16 store {arr.shape}, want {want}")
     ens = out["ensemble"]
@@ -4439,20 +4508,20 @@ def phase_swag16(device, card_line, proto):
                               "swag_probabilistic_global_skill.npz")) as z:
         crps = np.asarray(z["skill_CRPS"])
     if not (np.isfinite(rmse).all() and np.isfinite(crps).all()
-            and (crps[PROTOCOL_AR_PREDICT] > crps[1]).all()):
+            and (crps[SWAG_AR_PREDICT] > crps[1]).all()):
         raise AssertionError(f"median RMSE {rmse}, CRPS lead 1 {crps[1]} "
-                             f"-> {crps[PROTOCOL_AR_PREDICT]}")
+                             f"-> {crps[SWAG_AR_PREDICT]}")
     secs = rec["seconds"]
     n_frt = out["members"][0].n_frt
     log("swag16", f"finetune_swag: {rec['train_steps']} updates, "
                   f"{n_models} SWAG models, {SWAG_SAMPLES} members x "
-                  f"{n_frt} reference times AR{PROTOCOL_AR_PREDICT}, "
+                  f"{n_frt} reference times AR{SWAG_AR_PREDICT}, "
                   f"stores finite; median RMSE lead 1 "
                   f"{np.round(rmse[1], 4).tolist()} -> lead "
-                  f"{PROTOCOL_AR_PREDICT} "
-                  f"{np.round(rmse[PROTOCOL_AR_PREDICT], 4).tolist()}, CRPS "
+                  f"{SWAG_AR_PREDICT} "
+                  f"{np.round(rmse[SWAG_AR_PREDICT], 4).tolist()}, CRPS "
                   f"{np.round(crps[1], 4).tolist()} -> "
-                  f"{np.round(crps[PROTOCOL_AR_PREDICT], 4).tolist()}; "
+                  f"{np.round(crps[SWAG_AR_PREDICT], 4).tolist()}; "
                   f"{KERNEL} launches {parts} = {launches[KERNEL]}")
     predict_s = wall - secs.get("train", 0.0)
     log("swag16", f"wall seconds: main {wall:.1f} (fine-tune "
@@ -5009,6 +5078,617 @@ def phase_grids400(device, card_line):
             "cli_parts": cli["parts"]}
 
 
+# ---------------------------------------------------------------------------
+# remat16, prep16, cli2rank, profile16, ensemble16: remat in member steps,
+# the data-preparation CLIs, the CLI on a 2-rank mesh, the profiling
+# harness and the DeepEnsemble sweep
+# ---------------------------------------------------------------------------
+
+def _remat_launches(remat):
+    """K1 launches of one flagship member step (AR6): every forward
+    product once, once more in the recompute with remat, and the
+    backward's (but the first convolution's on the raw input)."""
+    per_fwd = LAUNCHES_PER_FORWARD * (TRAIN_AR + 1)
+    return per_fwd * (2 if remat else 1) + per_fwd - NO_GRAD_PRODUCTS
+
+
+def phase_remat16(device, card_line):
+    """remat16: ens16's 2-member flagship step (bf16, AR6, batch 16; its
+    weights and batch) with `remat=True` beside the same step without:
+    exactly the K1 launches `_remat_launches` gives (the recompute runs
+    every forward product again) and no other kernel, the losses of both,
+    peak device memory over one step of each (after a first step), step
+    time (`time_steps`, in turns); then the fp32 batch-2 member step with
+    and without remat (level 0 block-sparse: the ELL kernel): the remat
+    run takes the plain run's ReLU and max-pool decisions (recorded by
+    `steer`, forward and recompute, every one equal), losses and every
+    gradient within REMAT_TOL."""
+    import torch
+
+    from deepsphere_weather_torch.engine import Adam, make_member_train_step
+    from deepsphere_weather_torch.models import MemberStack
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    t_phase = time.perf_counter()
+    model = build_flagship(device, SLICE_SUBDIV).train()
+    members = [train_params(model, SEED + 30 + m) for m in range(ENS_MEMBERS)]
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = train_batch(indexer, model.input_n_node, BATCH, device, SEED + 32)
+    steps, res = {}, {}
+    # the memory allocated as each model call of a step returns: what the
+    # step keeps for its backward grows with it (the forward hook fires
+    # under functional_call, in the recompute too)
+    at_call = []
+    hook = model.register_forward_hook(
+        lambda *_: at_call.append(torch.cuda.memory_allocated()))
+    for remat in (False, True):
+        stack = MemberStack.from_states(model, members)
+        opt = Adam(stack.parameters(), lr=LR, member_axis=True)
+        step = make_member_train_step(stack, indexer, opt, TRAIN_AR + 1,
+                                      remat=remat)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        total, per_iter = step(data, w, area_w)
+        torch.cuda.synchronize()
+        launches = dict(launch_counts)
+        want = _remat_launches(remat)
+        if launches[KERNEL] != want or sum(launches.values()) != want:
+            raise AssertionError(f"remat16 remat={remat}: launches "
+                                 f"{launches}, want {want} {KERNEL}")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        at_call.clear()
+        step(data, w, area_w)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        kept = max(at_call[:TRAIN_AR + 1]) - base
+        res[remat] = {"per_iter": per_iter.float().cpu().numpy(),
+                      "launches": want, "peak_gib": peak / 2 ** 30,
+                      "step_gib": (peak - base) / 2 ** 30,
+                      "kept_gib": kept / 2 ** 30}
+        if not np.isfinite(res[remat]["per_iter"]).all():
+            raise AssertionError(f"remat16 losses {res[remat]['per_iter']}")
+        steps["remat16 member step" + (" with remat" if remat else "")] = (
+            lambda step=step: step(data, w, area_w))
+    hook.remove()
+    ms = time_steps(steps, BATCH, card_line, windows=REMAT_WINDOWS)
+    plain_ms, remat_ms = ms.values()
+    e_bf16 = rel_err(res[True]["per_iter"], res[False]["per_iter"])
+    log("remat16", f"{ENS_MEMBERS}-member step, HEALPix-{SLICE_SUBDIV} "
+                   f"AR{TRAIN_AR} batch {BATCH} bf16: {KERNEL} launches "
+                   f"{res[False]['launches']} without remat, "
+                   f"{res[True]['launches']} with (the recompute's "
+                   f"{LAUNCHES_PER_FORWARD * (TRAIN_AR + 1)} more), no other "
+                   f"kernel; first-step losses with vs without {e_bf16:.3e}; "
+                   f"peak device memory {res[False]['peak_gib']:.3f} -> "
+                   f"{res[True]['peak_gib']:.3f} GiB (the step's own "
+                   f"{res[False]['step_gib']:.3f} -> "
+                   f"{res[True]['step_gib']:.3f} GiB, "
+                   f"{res[True]['step_gib'] / res[False]['step_gib']:.2f}x), "
+                   f"allocated past the step's start as its forward's "
+                   f"{TRAIN_AR + 1} model calls return: at most "
+                   f"{res[False]['kept_gib']:.3f} -> "
+                   f"{res[True]['kept_gib']:.3f} GiB; "
+                   f"step {plain_ms:.2f} -> {remat_ms:.2f} ms "
+                   f"({remat_ms / plain_ms:.2f}x) ({card_line})")
+
+    # fp32 batch 2: remat against the plain member step, same decisions
+    fp32 = [train_params(model, SEED + 33 + m) for m in range(ENS_MEMBERS)]
+    plain = _fp32_step(device, None, SEED + 35, members=fp32)
+    rem = _fp32_step(device, None, SEED + 35, members=fp32, remat=True)
+    n = len(plain["decisions"])
+    per_call = n // (TRAIN_AR + 1)
+    # the remat run records its forward's decisions, then the recompute's,
+    # iteration by iteration from the last
+    recompute = [d for i in reversed(range(TRAIN_AR + 1))
+                 for d in plain["decisions"][i * per_call:(i + 1) * per_call]]
+    differ = [i for i, (a, b) in enumerate(zip(
+        rem["decisions"], plain["decisions"] + recompute))
+        if not torch.equal(a, b)]
+    if len(rem["decisions"]) != 2 * n or differ:
+        raise AssertionError(f"remat16 fp32: {len(rem['decisions'])} "
+                             f"decisions (want {2 * n}), {len(differ)} "
+                             f"differ from the plain step's")
+    e_loss = rel_err(rem["per_iter"].numpy(), plain["per_iter"].numpy())
+    top = max(float(r.abs().max()) for r in plain["grads"].values())
+    e_grad, key = grads_close(
+        rem["grads"], plain["grads"],
+        {k: top for k, r in plain["grads"].items() if r[0].numel() == 1},
+        REMAT_TOL, "remat16 fp32 member step with vs without remat")
+    if not e_loss <= REMAT_TOL:
+        raise AssertionError(f"remat16 fp32 losses {e_loss:.3e}")
+    log("remat16", f"fp32 batch {TRAIN_CHECK_BATCH} member step with vs "
+                   f"without remat, on the same {n} ReLU and max-pool "
+                   f"decisions (forward and recompute, every one equal): "
+                   f"losses {e_loss:.3e}, gradients {e_grad:.3e} ({key}) "
+                   f"(bar {REMAT_TOL:g}); phase "
+                   f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"remat16_train": (
+                2 * LAUNCHES_PER_FORWARD * (TRAIN_AR + 1),
+                LAUNCHES_PER_FORWARD * (TRAIN_AR + 1) - NO_GRAD_PRODUCTS)},
+            "ms": {"plain": plain_ms, "remat": remat_ms},
+            "peak_gib": {k: v["peak_gib"] for k, v in res.items()},
+            "kept_gib": {k: v["kept_gib"] for k, v in res.items()}}
+
+
+def _check_remat_ranks(ranks, plain, ref):
+    """remat16's mesh check, inside ensmesh16's spawn: the 1 x 2 x 2 member
+    step with remat (2 steps) against the same ranks' step without (its
+    launches, gathers and losses) and the single-process member step.
+    Returns the (forward and recompute, backward) K2 launches over the
+    ranks."""
+    want = _remat_launches(True)
+    calls = 2 * (TRAIN_AR + 1)
+    worst = 0.0
+    for r, p in zip(ranks, plain):
+        where = f"1 x 2 x 2 rank {r['mesh']} members {r['members']}"
+        for i, (fwd, bwd) in enumerate(r["per_step"]):
+            total = {k: fwd[k] + bwd[k] for k in fwd}
+            if total[ROW_KERNEL] != want or sum(total.values()) != want:
+                raise AssertionError(f"remat16 {where} step {i}: launches "
+                                     f"{total}, want {want} {ROW_KERNEL}")
+        if any(gs != [GATHERS_PER_FORWARD] * calls for gs in r["gathers"]):
+            raise AssertionError(f"remat16 {where}: gathers {r['gathers']}")
+        e = rel_err(r["per_iter"], ref[:len(r["per_iter"])])
+        e_plain = rel_err(r["per_iter"], p["per_iter"][:len(r["per_iter"])])
+        worst = max(worst, e_plain)
+        if not (e <= SLICE_TOL and e_plain <= SLICE_TOL):
+            raise AssertionError(f"remat16 {where}: losses vs one process "
+                                 f"{e:.3e}, vs the step without remat "
+                                 f"{e_plain:.3e}")
+    ms = _mesh_ms(ranks)
+    log("remat16", f"1 x 2 x 2 member mesh (4 ranks sharing the card over "
+                   f"gloo), with remat: {want} {ROW_KERNEL} launches a step "
+                   f"on each rank, {GATHERS_PER_FORWARD} gathers in each of "
+                   f"{calls} model calls (forward and recompute); losses vs "
+                   f"the same ranks without remat {worst:.3e} (bar "
+                   f"{SLICE_TOL}); step {ms:.2f} ms vs ensmesh16's "
+                   f"{_mesh_ms(plain):.2f} ms without (host clock, the slower "
+                   f"rank; not a scaling number)")
+    n = sum(len(r["per_step"]) for r in ranks)
+    per_fwd = LAUNCHES_PER_FORWARD * (TRAIN_AR + 1)
+    return 2 * per_fwd * n, (per_fwd - NO_GRAD_PRODUCTS) * n
+
+
+def phase_prep16(card_line):
+    """prep16: an experiment's data and configs built from nothing by the
+    port's data-preparation CLIs: `prepare_toy_data` (HEALPix-16, the
+    flagship's features: 1460 six-hour steps, seed SEED, and its global
+    scalers), `compute_scalers` (the scaler and climatology family),
+    `compute_benchmarks` (persistence and climatology skills)
+    and `create_configs` (the 108-file grid, each equal to the shipped
+    config of its name); the benchmarks at PREP_LEADS leads. Host only. Returns the temporary directory (the
+    caller removes it), the data directory, the generated flagship config
+    and the seconds of each stage."""
+    from deepsphere_weather_torch.cli import (
+        compute_benchmarks,
+        compute_scalers,
+        create_configs,
+        prepare_toy_data,
+    )
+    from deepsphere_weather_torch.verif import SkillDataset
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="dsw_prep16_")
+    try:
+        data = os.path.join(root, "data")
+        secs = {}
+        stages = [
+            ("prepare_toy_data", lambda: prepare_toy_data.main(
+                data, subdivisions=SLICE_SUBDIV, seed=SEED, verbose=False)),
+            ("compute_scalers", lambda: compute_scalers.main(
+                data, verbose=False)),
+            ("compute_benchmarks", lambda: compute_benchmarks.main(
+                data, n_leadtimes=PREP_LEADS, verbose=False)),
+            ("create_configs", lambda: create_configs.create_configs(
+                os.path.join(root, "configs")))]
+        for name, run in stages:
+            t0 = time.perf_counter()
+            out = run()
+            secs[name] = time.perf_counter() - t0
+        n_cfg = out
+        made = sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(os.path.join(root, "configs"))
+                      for f in fs)
+        shipped = sorted(os.path.relpath(os.path.join(d, f), here)
+                         for d, _, fs in os.walk(os.path.join(here, "configs"))
+                         for f in fs if f.endswith(".json"))
+        if n_cfg != 108 or made != shipped:
+            raise AssertionError(f"prep16: create_configs wrote {n_cfg} "
+                                 f"files, {len(made)} of the shipped "
+                                 f"{len(shipped)} names")
+        for rel in made:
+            with open(os.path.join(root, rel)) as f, \
+                    open(os.path.join(here, rel)) as g:
+                if json.load(f) != json.load(g):
+                    raise AssertionError(f"prep16: {rel} differs from the "
+                                         "shipped config")
+        files = {}
+        for sub in ("Data", "Scalers", "Climatology", "Benchmarks"):
+            top = os.path.join(data, sub)
+            names = [os.path.join(d, f) for d, _, fs in os.walk(top)
+                     for f in fs]
+            files[sub] = (len(names), sum(os.path.getsize(p) for p in names))
+        bench = SkillDataset.load(os.path.join(
+            data, "Benchmarks", "Persistence_Global_Skills.npz"))
+        rmse = np.asarray(bench["RMSE"])
+        if not (np.isfinite(rmse).all() and (rmse[-1] > rmse[0]).all()):
+            raise AssertionError(f"prep16: persistence RMSE {rmse}")
+        log("prep16", "seconds: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in secs.items())
+            + f"; files written under data/: " + ", ".join(
+                f"{k} {n} ({b / 2 ** 20:.1f} MiB)"
+                for k, (n, b) in files.items())
+            + f"; configs/: {n_cfg}, each equal to the shipped config of its "
+              f"name; persistence RMSE lead 1 "
+              f"{np.round(rmse[0], 3).tolist()} -> lead {len(rmse)} "
+              f"{np.round(rmse[-1], 3).tolist()} (host only)")
+        return {"root": root, "data": data, "seconds": secs,
+                "config": os.path.join(root, PROTOCOL_CONFIG)}
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+
+
+def _short_config(prep, **training):
+    """prep16's flagship config cut to a short run: bf16, one epoch,
+    AR1 training, the short periods of CLI_PERIODS, scored every
+    CLI_SCORING updates; `training` overrides more."""
+    with open(prep["config"]) as f:
+        cfg = json.load(f)
+    cfg["training_settings"].update(numeric_precision="bfloat16", epochs=1,
+                                    scoring_interval=CLI_SCORING,
+                                    **CLI_PERIODS, **training)
+    cfg["ar_settings"]["ar_iterations"] = 1
+    return cfg
+
+
+def _write_log(path):
+    """The write log of tests/write_log_site/sitecustomize.py: (writes
+    [(pid, time, path)], launches {pid: {kernel: n}})."""
+    writes, launches = [], {}
+    with open(path) as f:
+        for line in f:
+            pid, t, text = line.rstrip("\n").split(" ", 2)
+            if text.startswith("launches "):
+                launches[int(pid)] = json.loads(text[len("launches "):])
+            else:
+                writes.append((int(pid), float(t), text))
+    return writes, launches
+
+
+def phase_cli2rank(device, card_line, prep):
+    """cli2rank: `python -m deepsphere_weather_torch.cli.train_predict` on
+    prep16's data with the flagship config at `n_node_parallel: 2` (cut
+    by `_short_config`), started as a user starts it: the CLI spawns its
+    2 ranks (they share the card over gloo), each trains its half of the
+    sphere (K2), rank 0 alone predicts on the whole geometry (K1),
+    rechunks, verifies and writes. Against the same config on one process
+    (`main`, in this process): the scored losses within SLICE_TOL, rank
+    0's RMSE within RMSE_TOL, the forecast stores finite and of one
+    shape; every output written once, all by rank 0 (the write log of
+    tests/write_log_site/sitecustomize.py, with each process's launch
+    counters); wall seconds by stage from the log's times."""
+    import torch
+
+    from deepsphere_weather_torch.cli.train_predict import main as train_main
+    from deepsphere_weather_torch.engine.prediction import ForecastDataset
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(prep["root"], "cli2rank")
+    os.makedirs(root)
+    paths = {}
+    for tag, n_node in (("one", 1), ("two", 2)):
+        cfg = _short_config(prep, n_node_parallel=n_node)
+        paths[tag] = os.path.join(root, f"{tag}.json")
+        with open(paths[tag], "w") as f:
+            json.dump(cfg, f)
+    wlog = os.path.join(root, "writes.log")
+    env = dict(os.environ, DSW_WRITE_LOG=wlog, PYTHONPATH=os.pathsep.join(
+        [os.path.join(here, "tests", "write_log_site"), here]))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deepsphere_weather_torch.cli.train_predict",
+         "--config_file", paths["two"], "--data_dir", prep["data"],
+         "--exp_dir", os.path.join(root, "exp_two"), "--force",
+         "--ar_iterations_prediction", str(CLI_AR_PREDICT)],
+        cwd=here, env=env, capture_output=True, text=True,
+        timeout=RANKS_LIMIT_S)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"cli2rank: rc {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    launch_line = [ln for ln in proc.stdout.splitlines()
+                   if ln.startswith("launch: ")]
+    reset_launch_counts()
+    t1 = time.perf_counter()
+    try:
+        exp1, gs1 = train_main(paths["one"], prep["data"],
+                               os.path.join(root, "exp_one"), force=True,
+                               ar_iterations_prediction=CLI_AR_PREDICT,
+                               device=device, verbose=False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    one_s = time.perf_counter() - t1
+    one_launches = dict(launch_counts)
+    exp2 = os.path.join(root, "exp_two", os.path.basename(str(exp1)))
+
+    writes, launches = _write_log(wlog)
+    written = [p for _, _, p in writes]
+    writers = {pid for pid, _, _ in writes}
+    # the CLI, its 2 ranks and multiprocessing's resource tracker
+    if (len(launch_line) != 1 or len(launches) < 3 or len(writers) != 1
+            or len(written) != len(set(written))):
+        raise AssertionError(f"cli2rank: launch lines {launch_line}, "
+                             f"{len(launches)} processes, writers {writers}, "
+                             f"{len(written)} writes of "
+                             f"{len(set(written))} paths")
+    rank0 = writers.pop()
+    ranks = [pid for pid in launches if launches[pid][ROW_KERNEL]]
+    if (len(ranks) != 2 or rank0 not in ranks
+            or launches[rank0][KERNEL] == 0
+            or any(launches[p][KERNEL] for p in ranks if p != rank0)
+            or any(sum(launches[p].values()) != launches[p][ROW_KERNEL]
+                   + launches[p][KERNEL] for p in ranks)):
+        raise AssertionError(f"cli2rank: launches by process {launches} "
+                             f"(rank 0 {rank0})")
+    losses = []
+    for exp in (str(exp1), exp2):
+        with open(os.path.join(exp, "training_info",
+                               "ar_training_info.json")) as f:
+            info = json.load(f)
+        losses.append(np.asarray(info["training_total_loss"]
+                                 + info["validation_total_loss"]))
+    e_loss = rel_err(losses[1], losses[0])
+    stores = [ForecastDataset.open(os.path.join(
+        e, "model_predictions", "forecast_chunked", "test_forecasts.zarr"))
+        for e in (str(exp1), exp2)]
+    arrs = [np.stack([s.variables[n][...] for n in s.feature_order], -1)
+            for s in stores]
+    from deepsphere_weather_torch.verif import SkillDataset
+
+    rmse = np.asarray(SkillDataset.load(os.path.join(
+        exp2, "model_skills", "deterministic_global_skill.npz"))["RMSE"])
+    e_rmse = rel_err(rmse, np.asarray(gs1["RMSE"]))
+    if (not losses[0].size or losses[0].shape != losses[1].shape
+            or not e_loss <= SLICE_TOL or arrs[0].shape != arrs[1].shape
+            or not np.isfinite(arrs[1]).all() or not e_rmse <= RMSE_TOL):
+        raise AssertionError(f"cli2rank: losses {losses} ({e_loss:.3e}), "
+                             f"stores {[a.shape for a in arrs]}, RMSE "
+                             f"{e_rmse:.3e}")
+    times = sorted(t for _, t, _ in writes)
+    at = {os.path.relpath(p, exp2).split(os.sep)[0] + "/"
+          + os.path.basename(p): t for _, t, p in writes}
+    t_cfg = at.get("config.json/config.json", times[0])
+    t_fc = min(t for _, t, p in writes if "forecast_chunked" in p)
+    t_sp = min(t for _, t, p in writes if "space_chunked" in p)
+    log("cli2rank", launch_line[0])
+    log("cli2rank", f"flagship config, n_node_parallel 2, cut: bf16, 1 "
+                    f"epoch, AR1, periods {CLI_PERIODS}, scored every "
+                    f"{CLI_SCORING} updates, AR{CLI_AR_PREDICT} forecast of "
+                    f"{stores[1].n_frt} reference times: rc 0; losses vs one "
+                    f"process {e_loss:.3e} (bar {SLICE_TOL}), rank 0's RMSE "
+                    f"{e_rmse:.3e} (bar {RMSE_TOL}); forecast store "
+                    f"{arrs[1].shape} finite; {len(written)} outputs, each "
+                    f"written once, all by rank 0 (pid {rank0})")
+    log("cli2rank", f"launches by process: {launches} (rank 0 {rank0}: "
+                    f"{ROW_KERNEL} in training, {KERNEL} in its prediction); "
+                    f"one process: {one_launches}")
+    log("cli2rank", f"wall seconds: 2 ranks {wall:.1f} (start, spawn, data "
+                    f"and model to the config write {t_cfg - t0:.1f}, train "
+                    f"{t_fc - t_cfg:.1f}, predict {t_sp - t_fc:.1f}, rechunk "
+                    f"and verify {times[-1] - t_sp:.1f}, exit "
+                    f"{t0 + wall - times[-1]:.1f}); one process in this "
+                    f"process {one_s:.1f} ({card_line})")
+    k2 = sum(launches[p][ROW_KERNEL] for p in ranks)
+    return {"k2": k2, "k1": launches[rank0][KERNEL] + one_launches[KERNEL]}
+
+
+def _trace_rows(path):
+    """Device kernel rows of a Chrome trace: [(ms, count, name)], largest
+    first."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    rows = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "dur" in e:
+            ms, n = rows.get(e["name"], (0.0, 0))
+            rows[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    return sorted(((ms, n, k) for k, (ms, n) in rows.items()), reverse=True)
+
+
+def phase_profile16(device, card_line):
+    """profile16: the port's profiling harness on the card. `profile_step`
+    of the flagship forward (bf16, batch 16, no gradient) and of its train
+    step (AR6, batch 16), each with a torch.profiler Chrome trace: the
+    top device rows by name; `summarize_model`'s total; then
+    `scalability_sweep` (fp32, as the JAX sweep) over HEALPix-16 and -32
+    at knn 8 and 20: forward and forward + backward ms against nodes,
+    with exactly the ELL launches the sweep's block-sparse level (HEALPix-
+    32 level 0) takes and no other kernel."""
+    import torch
+
+    from deepsphere_weather_torch.engine import Adam, make_train_step
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+    from deepsphere_weather_torch.utils.profiling import (
+        profile_step,
+        scalability_sweep,
+        summarize_model,
+    )
+
+    t_phase = time.perf_counter()
+    model = build_flagship(device, SLICE_SUBDIV,
+                           train_params(build_flagship(device, SLICE_SUBDIV),
+                                        SEED + 70)).train()
+    total = summarize_model(model).splitlines()[-1].split()[1]
+    indexer, area_w, w = train_setup(model, TRAIN_AR)
+    data = train_batch(indexer, model.input_n_node, BATCH, device, SEED + 71)
+    x = torch.from_numpy(np.random.default_rng(SEED + 72).standard_normal(
+        (BATCH, len(INPUT_K), model.input_n_node, model.input_n_feature)
+    ).astype(np.float32)).to(device)
+    step = make_train_step(model, indexer, Adam(model.parameters(), lr=LR),
+                           TRAIN_AR + 1)
+
+    def forward(x):
+        with torch.no_grad():
+            return model(x)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fn, args, n in (
+                (f"forward, batch {BATCH}", forward, (x,), 10),
+                (f"train step, AR{TRAIN_AR} batch {BATCH}", step,
+                 (data, w, area_w), 4)):
+            out = profile_step(fn, *args, n=n, warmup=1,
+                               trace_dir=os.path.join(tmp, "t"))
+            rows = _trace_rows(os.path.join(tmp, "t", "trace.json"))
+            busy = sum(r[0] for r in rows)
+            log("profile16", f"profile_step {label}: median "
+                             f"{1e3 * out['median_s']:.3f} ms, p10 "
+                             f"{1e3 * out['p10_s']:.3f}, p90 "
+                             f"{1e3 * out['p90_s']:.3f} ({n} calls, host "
+                             f"clock); traced call: {len(rows)} kernel "
+                             f"names, {sum(r[1] for r in rows)} launches, "
+                             f"device busy {busy:.3f} ms ({card_line})")
+            for ms, count, name in rows[:PROFILE_TOP]:
+                log("profile16", f"{100 * ms / max(busy, 1e-9):5.1f}%  "
+                                 f"{ms:8.4f} ms  {count:4d}x  {name[:90]}")
+    log("profile16", f"summarize_model: {total} parameters")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sweep = scalability_sweep(
+        [{"sampling": "healpix", "sampling_kwargs": {"subdivisions": s,
+                                                     "nest": True}}
+         for s in SWEEP_SUBDIVS], knn_list=SWEEP_KNN, device=device)
+    torch.cuda.synchronize()
+    launches = dict(launch_counts)
+    # per (sampling, knn) with a block-sparse level 0: 12 forwards (2
+    # warm) and 11 steps (1 warm), 10 products a forward, 8 backward (the
+    # first convolution's input needs no gradient)
+    sparse = [r for r in sweep if r["n_nodes"] > FP32_DENSE_LIMIT]
+    want = len(sparse) * (12 * LAUNCHES_PER_FORWARD + 11 * (
+        2 * LAUNCHES_PER_FORWARD - NO_GRAD_PRODUCTS))
+    if (not sparse or launches[ELL_KERNEL] != want
+            or sum(launches.values()) != want):
+        raise AssertionError(f"profile16 sweep launches {launches}, want "
+                             f"{want} {ELL_KERNEL}")
+    for r in sweep:
+        log("profile16", f"scalability_sweep fp32 batch 1: {r['n_nodes']} "
+                         f"nodes, knn {r['knn']}: forward "
+                         f"{r['forward_ms']:.3f} ms, forward + backward "
+                         f"{r['forward_backward_ms']:.3f} ms ({card_line})")
+    log("profile16", f"sweep: {want} {ELL_KERNEL} launches (level 0 of "
+                     f"the {len(sparse)} block-sparse configurations), no "
+                     f"other kernel; phase {time.perf_counter() - t_phase:.1f} "
+                     "s")
+    per = len(sparse)
+    return {"launches": (per * (12 + 11) * LAUNCHES_PER_FORWARD,
+                         per * 11 * (LAUNCHES_PER_FORWARD
+                                     - NO_GRAD_PRODUCTS))}
+
+
+def phase_ensemble16(device, card_line, prep):
+    """ensemble16: `cli.experiments.run_deep_ensemble` with 2 members in
+    the member step (`member_parallel`), `remat: true`, on prep16's data
+    with the flagship config cut by `_short_config`, an
+    AR{CLI_AR_PREDICT} forecast: every member step recomputes its AR
+    iterations (`_RematIteration` applied), only K1 launched, the
+    ensemble and median stores finite, the median's RMSE and the
+    ensemble's CRPS finite; seconds by stage."""
+    import torch
+
+    import deepsphere_weather_torch.engine as engine
+    from deepsphere_weather_torch.cli import experiments
+    from deepsphere_weather_torch.engine import step as step_mod
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    root = os.path.join(prep["root"], "ensemble16")
+    os.makedirs(root)
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(_short_config(prep, remat=True), f)
+    secs, remat_calls = {}, [0]
+    trainer, members, remat_step = (engine.AutoregressiveTraining,
+                                    experiments._train_members_parallel,
+                                    step_mod._remat_step)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                secs[name] = time.perf_counter() - t0
+        return run
+
+    def counted(*a, **k):
+        remat_calls[0] += 1
+        return remat_step(*a, **k)
+
+    engine.AutoregressiveTraining = timed("train", trainer)
+    experiments._train_members_parallel = timed("members", members)
+    step_mod._remat_step = counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = experiments.run_deep_ensemble(
+            cfg_path, prep["data"], os.path.join(root, "exp"),
+            n_members=ENS_MEMBERS, ar_iterations_prediction=CLI_AR_PREDICT,
+            member_parallel=True, device=device)
+    finally:
+        engine.AutoregressiveTraining = trainer
+        experiments._train_members_parallel = members
+        step_mod._remat_step = remat_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    med = res["median"]
+    arr = np.stack([med.variables[n][...] for n in med.feature_order], -1)
+    rmse = np.asarray(res["global_skill"]["RMSE"])
+    crps = np.asarray(res["probabilistic_skill"]["CRPS"])
+    if (not remat_calls[0] or launches[KERNEL] == 0
+            or sum(launches.values()) != launches[KERNEL]
+            or arr.shape[1:] != (CLI_AR_PREDICT + 1, 12 * SLICE_SUBDIV ** 2,
+                                 F_DYN)
+            or not np.isfinite(arr).all() or not np.isfinite(rmse).all()
+            or not np.isfinite(crps).all()):
+        raise AssertionError(f"ensemble16: {remat_calls[0]} remat "
+                             f"iterations, launches {launches}, median "
+                             f"{arr.shape}, RMSE {rmse}, CRPS {crps}")
+    log("ensemble16", f"run_deep_ensemble, {ENS_MEMBERS} members in the "
+                      f"member step with remat ({remat_calls[0]} AR "
+                      f"iterations recomputed in the backward), flagship "
+                      f"config cut as cli2rank's: median store "
+                      f"{arr.shape} finite, RMSE lead 1 "
+                      f"{np.round(rmse[1], 4).tolist()} -> lead "
+                      f"{CLI_AR_PREDICT} {np.round(rmse[-1], 4).tolist()}, "
+                      f"CRPS lead {CLI_AR_PREDICT} "
+                      f"{np.round(crps[-1], 4).tolist()}; {launches[KERNEL]} "
+                      f"{KERNEL} launches, no other kernel")
+    log("ensemble16", f"wall seconds: {wall:.1f} (members trained "
+                      f"{secs['train']:.1f}, member predictions "
+                      f"{secs['members'] - secs['train']:.1f}, ensemble, "
+                      f"median and verification "
+                      f"{wall - secs['members']:.1f}) ({card_line})")
+    return {"k1": launches[KERNEL]}
+
+
 def main() -> int:
     import argparse
 
@@ -5052,6 +5732,7 @@ def main() -> int:
     bn16 = phase_bn16(device, card_line)
     ens16 = phase_ens16(device, card_line, tr["ms"]["train16"],
                         args.profile)
+    remat16 = phase_remat16(device, card_line)
     t_mesh = time.perf_counter()
     ensmesh = phase_ensmesh16(device, card_line, ens16["widths"])
     bnmesh = phase_bnmesh16(device, card_line, bn16)
@@ -5111,12 +5792,16 @@ def main() -> int:
     if args.profile:
         phase_profile(tr["model"], device, BATCH, tr["steps"], tr64["step"],
                       f32["step"])
-    proto = phase_protocol(device, card_line, tr["ms"]["train16"])
+    prep = phase_prep16(card_line)
     try:
+        cli2 = phase_cli2rank(device, card_line, prep)
+        proto = phase_protocol(device, card_line, tr["ms"]["train16"], prep)
         serve16 = phase_serve16(device, card_line, proto)
         swag16 = phase_swag16(device, card_line, proto)
+        ens_cli = phase_ensemble16(device, card_line, prep)
     finally:
-        shutil.rmtree(proto["root"], ignore_errors=True)
+        shutil.rmtree(prep["root"], ignore_errors=True)
+    prof16 = phase_profile16(device, card_line)
     rows[0]["launches_protocol16"] = proto["parts"]
     rows[0]["launches_swag16"] = swag16["parts"]
     grids = phase_grids400(device, card_line)
@@ -5136,7 +5821,8 @@ def main() -> int:
                  ("ensmesh16_rollout",
                   ensmesh["launches"]["ensmesh16_rollout"])],
         ROW_KERNEL: [("ensmesh16_1x2x2",
-                      ensmesh["launches"]["ensmesh16_1x2x2"])]
+                      ensmesh["launches"]["ensmesh16_1x2x2"]),
+                     ("remat16_1x2x2", ensmesh["launches"]["remat16_1x2x2"])]
         + list(gridsnode["launches"].items())}
     for path, (kernel, counts) in bnmesh["launches"].items():
         mesh_paths[kernel].append((path, counts))
@@ -5146,6 +5832,7 @@ def main() -> int:
             bn16["launches"].items()) + list(
             ens16["launches"].items()) + list(
             swag16["launches"].items()) + list(
+            remat16["launches"].items()) + list(
             grids["launches"].items()) + mesh_paths[KERNEL]:
         rows[0]["launches_by_path"][path] = [fwd, bwd]
         rows[0]["launches_forward"] += fwd
@@ -5156,6 +5843,20 @@ def main() -> int:
         rows[2]["launches_forward"] += fwd
         rows[2]["launches_backward"] += bwd
         rows[2]["launches"] += fwd + bwd
+    # the paths run in other processes or through whole drivers, whose
+    # launches are counted as a total: cli2rank's ranks (K2) and rank 0's
+    # prediction with the one-process run beside it (K1); ensemble16 (K1)
+    rows[0]["launches_other_paths"] = {"cli2rank": cli2["k1"],
+                                       "ensemble16": ens_cli["k1"]}
+    rows[2]["launches_other_paths"] = {"cli2rank": cli2["k2"]}
+    for row in (rows[0], rows[2]):
+        row["launches"] += sum(row["launches_other_paths"].values())
+    # profile16's sweep: level 0 of HEALPix-32 in fp32, the ELL kernel
+    fwd, bwd = prof16["launches"]
+    rows[3]["launches_by_path"]["profile16_sweep"] = [fwd, bwd]
+    rows[3]["launches_forward"] += fwd
+    rows[3]["launches_backward"] += bwd
+    rows[3]["launches"] += fwd + bwd
     # K2 at the shapes of this round's phases: the member-folded level-0
     # widths and the voronoi transposed layout
     rows[2].update(k2_new_shapes(device, gridsnode["voronoi"], BATCH))

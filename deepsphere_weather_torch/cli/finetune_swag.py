@@ -29,6 +29,11 @@ Usage:
 The model runs on the card unless `--device cpu` asks for the CPU; without
 CUDA the default raises. The members are drawn from a `torch.Generator`
 seeded with `--seed`.
+
+An experiment whose `n_data_parallel` x `n_node_parallel` mesh has more
+than one rank fine-tunes on that many ranks, started here or by torchrun
+(`cli/launch.py`); rank 0 alone then writes the posterior, samples,
+predicts and verifies, while the others return.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ def main(model_dir, data_dir, epochs: int = 1, nb_samples: int = 5,
 
     from .._device import resolve_device
     from ..config import (get_ar_settings, get_dataloader_settings,
-                          get_model_settings, get_training_settings)
+                          get_model_settings, get_training_settings,
+                          read_config_file)
     from ..engine import (Adam, ARScheduler, AreaWeights,
                           AutoregressiveTraining, swa_schedule)
     from ..prob import SWAG, AutoregressiveSWAGPredictions
@@ -57,8 +63,27 @@ def main(model_dir, data_dir, epochs: int = 1, nb_samples: int = 5,
     from ..utils import Checkpointer, set_deterministic_training
     from ..verif import deterministic, global_summary
     from ..verif import probabilistic as prob_verify
+    from ..weights import broadcast_params
+    from . import launch
     from .common import (load_experiment_model, open_datasets,
                          resolve_scalers, split_datasets)
+
+    resolve_device(device)          # no card: raise before anything else
+    # a mesh of more than one rank: start (or join) its ranks, each of
+    # which runs this function in the process group
+    launched = launch.launch(
+        "deepsphere_weather_torch.cli.finetune_swag:main",
+        launch.mesh_world(get_training_settings(read_config_file(
+            Path(model_dir) / "config.json"))),
+        dict(model_dir=model_dir, data_dir=data_dir, epochs=epochs,
+             nb_samples=nb_samples, sampling_scale=sampling_scale,
+             swag_freq=swag_freq, swa_start=swa_start,
+             max_num_models=max_num_models,
+             ar_iterations_prediction=ar_iterations_prediction,
+             target_learning_rate=target_learning_rate, seed=seed,
+             verbose=verbose, device=device))
+    if launched is not launch.IN_GROUP:
+        return launched
 
     model_dir = Path(model_dir)
     data_dir = Path(data_dir)
@@ -110,6 +135,7 @@ def main(model_dir, data_dir, epochs: int = 1, nb_samples: int = 5,
     mesh = training_mesh(training_settings.get("n_data_parallel", 1),
                          training_settings.get("n_node_parallel", 1),
                          device=device)
+    broadcast_params(model, mesh)
     model, _, info = AutoregressiveTraining(
         model,
         mesh=mesh,
@@ -134,6 +160,11 @@ def main(model_dir, data_dir, epochs: int = 1, nb_samples: int = 5,
         # the fine-tune's own checkpoints: the experiment keeps its weights
         exp_dir=model_dir / "swag_finetune", num_workers=2, verbose=verbose,
     )
+    # every rank holds the same posterior; rank 0 alone writes it, samples
+    # the members, predicts and verifies
+    launch.rank_barrier()
+    if launch.rank() != 0:
+        return None, None
     swag.save(model_dir / "model_weights" / "model_swag.npz")
 
     # --- ensemble predictions on the test period --------------------------

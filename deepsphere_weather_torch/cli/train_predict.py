@@ -18,6 +18,11 @@ The model runs on the card unless `--device cpu` (or `device="cpu"`) asks
 for the CPU, where every kernel runs its plain PyTorch version; without
 CUDA the default raises rather than falling back.
 
+A config whose `n_data_parallel` x `n_node_parallel` mesh has more than
+one rank starts its ranks itself (or joins torchrun's; `cli/launch.py`):
+every rank trains its shard, then rank 0 alone predicts on the whole
+geometry, rechunks, verifies and writes, while the others return.
+
 Data directory layout (written by the preprocessing/toy pipeline):
     <data_dir>/Data/dynamic/time_chunked/dynamic.zarr
     <data_dir>/Data/bc/time_chunked/bc.zarr
@@ -67,8 +72,11 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
     from ..sphere import build_sampling
     from ..utils import Checkpointer, set_deterministic_training
     from ..verif import deterministic, global_summary
+    from ..weights import broadcast_params
     from .common import (build_schedulers, open_datasets, resolve_scalers,
                          split_datasets)
+
+    from . import launch
 
     t_start = time.time()
     cfg = read_config_file(cfg_path)
@@ -78,6 +86,21 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
     dl_settings = get_dataloader_settings(cfg)
     if seed_override is not None:
         training_settings["seed_model_weights"] = seed_override
+    resolve_device(device)          # no card: raise before anything else
+    # a mesh of more than one rank: start (or join) its ranks, each of
+    # which runs this function in the process group
+    launched = launch.launch(
+        "deepsphere_weather_torch.cli.train_predict:main",
+        launch.mesh_world(training_settings),
+        dict(cfg_path=cfg_path, data_dir=data_dir, exp_dir=exp_dir,
+             force=force, resume=resume,
+             ar_iterations_prediction=ar_iterations_prediction,
+             seed_override=seed_override, verbose=verbose, device=device))
+    if launched is not launch.IN_GROUP:
+        return launched
+    # rank 0 writes (the directories, the config copies, the fitted
+    # scaler, the predictions and the skills; the trainer's checkpoints)
+    writer = launch.rank() == 0
 
     # reference: set_pytorch_settings -> deterministic seeding
     # (utils_config.py:444-455); before the first CUDA work
@@ -95,7 +118,8 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
     #     fitted and saved when none is given) ----------------------------
     scaler, scaler_bc = resolve_scalers(dl_settings, data_dir,
                                         data_dynamic=data_dynamic,
-                                        fit_default=True, save_fitted=True)
+                                        fit_default=True,
+                                        save_fitted=writer)
 
     # --- time split: explicit date ranges from config or the fractional
     #     70/15/15 index split --------------------------------------------
@@ -131,11 +155,15 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
 
     # --- experiment dir ---------------------------------------------------
     model_name = get_model_name(cfg)
-    exp_path = create_experiment_directories(exp_dir, model_name,
-                                             force=force, resume=resume)
-    write_config_file(cfg, exp_path / "config.json")
-    (exp_path / "tensor_info.json").write_text(
-        json.dumps(tensor_info, indent=1, default=str))
+    exp_path = Path(exp_dir) / model_name
+    if writer:
+        exp_path = create_experiment_directories(exp_dir, model_name,
+                                                 force=force, resume=resume)
+        write_config_file(cfg, exp_path / "config.json")
+        (exp_path / "tensor_info.json").write_text(
+            json.dumps(tensor_info, indent=1, default=str))
+    # the other ranks read nothing of it before rank 0 has made it
+    launch.rank_barrier()
 
     # --- optimizer; a resumed run loads params, optimizer moments and the
     #     grown AR-scheduler and early-stopping state ----------------------
@@ -188,6 +216,8 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
                          device=device)
     if mesh is not None and verbose:
         print(f"training mesh: {mesh.n_data} (data) x {mesh.n_node} (node)")
+    # every rank trains from rank 0's weights
+    broadcast_params(model, mesh)
 
     model, optimizer, info = AutoregressiveTraining(
         model,
@@ -226,6 +256,12 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
         initial_norm_state=initial_norm_state,
         verbose=verbose,
     )
+
+    # every rank holds the trained parameters and the whole geometry again;
+    # rank 0 alone predicts and writes
+    launch.rank_barrier()
+    if not writer:
+        return exp_path, None
 
     # --- prediction on the test period (reference: AR=20 -> +120 h,
     #     train_predict_state.py:484) --------------------------------------

@@ -13,7 +13,11 @@ eps=1e-7)`: both add eps outside the square root).
   area-weighted MSE, combined with the normalized AR weights. 'RNN'
   backpropagates through the whole rollout; 'AR' detaches the buffer
   write (`stop_gradient`). `remat=True` recomputes each iteration in the
-  backward (`torch.utils.checkpoint`).
+  backward: `torch.utils.checkpoint` in the single step, and
+  `_RematIteration` (an autograd Function in torch.func's form, the
+  parameters among its inputs) where the loss runs on given tensors under
+  `torch.func.grad` and `vmap`, as the member steps run it; the JAX
+  package's `jax.checkpoint` of the scan body.
 - `make_train_step`, `make_validation_fn` and their device-cache variants
   `make_cached_train_step`, `make_cached_validation_fn`, which gather the
   window batch from a device-resident dataset. With a `mesh`
@@ -153,7 +157,7 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
         pouts = torch.as_tensor(out_pos, dtype=torch.long, device=dev)
         weights, w_sum = _node_weights(area_w, dyn.shape[2], mesh)
 
-        def forward(x):
+        def forward(x, tensors):
             kw = {"train": False} if eval_mode else {}
             stats = {} if collect_stats else None
             if stats is not None:
@@ -165,31 +169,44 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
                     y = model(x, **kw)
             return y, (None if stats is None else _flat_stats(stats))
 
-        def step(dyn_buf, written, i):
-            x = assemble_input(dyn_buf, bc, static, pins[i])
-            y_pred, stats = forward(x)
-            loss = weighted_mse(y_pred, dyn.index_select(1, pouts[i]),
-                                weights, w_sum=w_sum)
+        # every tensor an iteration reads besides the buffer, the mask and
+        # the model's: inputs of `_RematIteration` under remat (a tensor
+        # made under a torch.func transform may not be captured)
+        env = {"dyn": dyn, "bc": bc, "static": static, "weights": weights,
+               "w_sum": w_sum, "pins": pins, "pouts": pouts}
+
+        def step(dyn_buf, written, i, tensors, env):
+            pin, pout = env["pins"][i], env["pouts"][i]
+            x = assemble_input(dyn_buf, env["bc"], env["static"], pin)
+            y_pred, stats = forward(x, tensors)
+            loss = weighted_mse(y_pred, env["dyn"].index_select(1, pout),
+                                env["weights"], w_sum=env["w_sum"])
             y_write = y_pred.detach() if detach else y_pred
             if keep_first:
                 # a slot predicted by an earlier iteration keeps that
                 # prediction (stack_most_recent_prediction=False)
-                prev = dyn_buf.index_select(1, pouts[i])
-                wmask = written[pouts[i]]
+                prev = dyn_buf.index_select(1, pout)
+                wmask = written[pout]
                 y_write = torch.where(wmask[None, :, None, None], prev, y_write)
-                written = written.index_fill(0, pouts[i], True)
-            return (dyn_buf.index_copy(1, pouts[i], y_write), written, loss,
+                written = written.index_fill(0, pout, True)
+            return (dyn_buf.index_copy(1, pout, y_write), written, loss,
                     stats)
 
         dyn_buf = dyn
         written = torch.zeros(dyn.shape[1], dtype=torch.bool, device=dev)
         losses, all_stats = [], []
         for i in range(n_scan_iterations):
-            if remat:
+            if remat and tensors is not None:
+                dyn_buf, written, loss, stats = _remat_step(
+                    step, i, dyn_buf, written, tensors, env, collect_stats,
+                    not detach)
+            elif remat:
                 dyn_buf, written, loss, stats = checkpoint(
-                    step, dyn_buf, written, i, use_reentrant=False)
+                    step, dyn_buf, written, i, tensors, env,
+                    use_reentrant=False)
             else:
-                dyn_buf, written, loss, stats = step(dyn_buf, written, i)
+                dyn_buf, written, loss, stats = step(dyn_buf, written, i,
+                                                     tensors, env)
             losses.append(loss)
             all_stats.append(stats)
         per_iter = torch.stack(losses)
@@ -204,6 +221,91 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
         return total, per_iter
 
     return loss_fn
+
+
+class _RematIteration(torch.autograd.Function):
+    """One AR iteration whose backward recomputes it (remat under
+    `torch.func.grad` and `vmap`, where `torch.utils.checkpoint`'s saved
+    tensor hooks do not run).
+
+    apply(run, feedback, dyn_buf, written, *values) -> run(dyn_buf,
+    written, *values): (new dyn_buf, new written, loss, *statistics).
+    The forward runs the iteration without recording and saves only its
+    inputs (the buffer, the written mask, and the parameter, buffer and
+    batch tensors, which are inputs so that their gradients reach the
+    caller); the backward reruns it under `torch.func.vjp` and pulls the
+    buffer's and the loss's cotangents through it. The written mask and
+    the statistics are not differentiable: the statistics a caller folds
+    are the forward's, the recompute's are dropped. `feedback` False (the
+    'AR' strategy: the write is detached, and the window, the batch,
+    needs no gradient) makes the new buffer not differentiable either.
+    The vmap rule is generated (the products inside run their registered
+    ops' own rules)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, feedback, dyn_buf, written, *values):
+        with torch.no_grad():
+            out = run(dyn_buf, written, *values)
+        # an input returned as it is (the mask without keep-first) leaves
+        # as a view: the Function saves its inputs
+        inputs = (dyn_buf, written, *values)
+        return tuple(o.view_as(o) if any(o is t for t in inputs) else o
+                     for o in out)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, feedback, dyn_buf, written, *values = inputs
+        ctx.run = run
+        ctx.save_for_backward(dyn_buf, written, *values)
+        ctx.mark_non_differentiable(*output[1:2], *output[3:],
+                                    *(() if feedback else output[:1]))
+
+    @staticmethod
+    def backward(ctx, g_buf, g_written, g_loss, *g_stats):
+        args = list(ctx.saved_tensors)
+        diff = [k for k, need in enumerate(ctx.needs_input_grad[2:]) if need]
+
+        def recompute(*primals):
+            full = list(args)
+            for k, v in zip(diff, primals):
+                full[k] = v
+            new_buf, _, loss, *_ = ctx.run(*full)
+            return new_buf, loss
+
+        with torch.enable_grad():
+            _, pull = torch.func.vjp(recompute, *(args[k] for k in diff))
+            grads = pull((g_buf, g_loss))
+        out = [None] * len(args)
+        for k, g in zip(diff, grads):
+            out[k] = g
+        return (None, None, *out)
+
+
+def _remat_step(step, i, dyn_buf, written, tensors, env, collect_stats,
+                feedback):
+    """`step(dyn_buf, written, i, tensors, env)` through `_RematIteration`,
+    the model's tensors and those of `env` its inputs; returns what `step`
+    returns."""
+    names = list(tensors)
+    env_names = [k for k, v in env.items() if v is not None]
+    stat_names = []
+
+    def run(buf, wr, *values):
+        given = dict(zip(names + env_names, values))
+        new_buf, new_wr, loss, stats = step(
+            buf, wr, i, {k: given[k] for k in names},
+            {k: given.get(k) for k in env})
+        stats = stats or {}
+        stat_names[:] = list(stats)
+        return (new_buf, new_wr, loss, *stats.values())
+
+    new_buf, new_wr, loss, *stats = _RematIteration.apply(
+        run, feedback, dyn_buf, written, *tensors.values(),
+        *(env[k] for k in env_names))
+    return (new_buf, new_wr, loss,
+            dict(zip(stat_names, stats)) if collect_stats else None)
 
 
 @torch.no_grad()
@@ -450,14 +552,10 @@ def _member_update(stack, optimizer, loss_fn, batch, ar_weights, area_w,
 
 def _member_loss(stack, indexer, n_scan_iterations, ar_training_strategy,
                  remat, with_norm_state, mesh):
-    if remat:
-        raise NotImplementedError(
-            "remat=True in member steps: torch.utils.checkpoint does not run "
-            "under torch.func.grad and vmap; train members without remat")
     if getattr(stack, "n_members", None) is None:
         raise TypeError("member steps take a models.MemberStack")
     return make_ar_loss_fn(stack.model, indexer, n_scan_iterations,
-                           ar_training_strategy, mesh=mesh,
+                           ar_training_strategy, remat=remat, mesh=mesh,
                            collect_stats=with_norm_state)
 
 
@@ -473,7 +571,8 @@ def make_member_train_step(stack, indexer: ARIndexer, optimizer,
     `engine.optim.Adam(member_axis=True)` clips each member by its own
     global norm). Every member trains on the same batch. With
     `with_norm_state` each member's statistics fold into its own running
-    statistics (`stack.norm_state()`, [M, C]). `remat` raises.
+    statistics (`stack.norm_state()`, [M, C]). `remat` recomputes each
+    AR iteration in the backward (`_RematIteration`).
 
     With a `mesh`, one rank's step: `stack` holds the rank's members
     (`parallel.member_range`), `batch` and `area_w` are as in

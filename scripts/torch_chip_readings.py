@@ -7,6 +7,7 @@ chip_smoke.py:
     python3 scripts/torch_chip_readings.py gaps
     python3 scripts/torch_chip_readings.py ab TAG
     python3 scripts/torch_chip_readings.py ell TAG
+    python3 scripts/torch_chip_readings.py remat
 
 gaps  The slice phase's card-vs-CPU forward check (HEALPix-16 bf16 flagship,
       batch 16, the CPU taking the card's ReLU and max-pool decisions) at
@@ -34,6 +35,15 @@ ell   The ELL kernel's readings of the tree it runs from, through that
       (torch.profiler: busy share of the host time, the ELL kernel's
       share, the top rows). One line `ELL {json}` tagged TAG. Run it from
       a parent archive's root and this one's in turns (A, B, B, A).
+remat Where the member step's peak device memory is set: chip_smoke's
+      remat16 step (2 flagship members, bf16, batch 16; ens16's weights
+      and batch) at AR6 and at AR0 (one model call), with and without
+      remat, and the single model's AR6 step: each step's own peak (over
+      what was allocated before it, after a first step). Then for the
+      AR6 member step with and without remat, the allocator's history
+      over one step (`torch.cuda.memory._record_memory_history`): the
+      largest blocks live at the step's peak, with the Python frames that
+      allocated them. One line `REMAT {json}`.
 """
 
 import json
@@ -184,6 +194,91 @@ def ell(device, tag):
     print("ELL " + json.dumps(out), flush=True)
 
 
+def _step_peak(step):
+    """GiB the allocator held at its peak over one call of step() beyond
+    what was allocated before it (after a first call)."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+
+def _live_at_peak(step, top=8):
+    """The largest blocks live when one call of step() peaks: (MiB, the
+    innermost frames of the port, torch or the caller that allocated
+    it), from the allocator's history replayed in order."""
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.memory._record_memory_history(stacks="python",
+                                             max_entries=1_000_000)
+    try:
+        step()
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    live, peak, at_peak, total = {}, 0, {}, 0
+    for trace in snap["device_traces"]:
+        for e in trace:
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                total += e["size"]
+            elif e["action"] == "free_completed" and e["addr"] in live:
+                total -= live.pop(e["addr"])["size"]
+            if total > peak:
+                peak, at_peak = total, dict(live)
+    blocks = sorted(at_peak.values(), key=lambda e: -e["size"])[:top]
+
+    def where(e):
+        frames = [f"{os.path.basename(f['filename'])}:{f['line']} "
+                  f"{f['name']}" for f in e.get("frames", [])
+                  if "deepsphere_weather_torch" in f["filename"]
+                  or "torch_chip_readings" in f["filename"]]
+        return frames[:4]
+    return {"peak_gib_over_step": peak / 2 ** 30,
+            "top": [{"mib": e["size"] / 2 ** 20, "frames": where(e)}
+                    for e in blocks]}
+
+
+def remat(device):
+    from deepsphere_weather_torch.engine import (
+        Adam,
+        make_member_train_step,
+        make_train_step,
+    )
+    from deepsphere_weather_torch.models import MemberStack
+
+    model = c.build_flagship(device, c.SLICE_SUBDIV).train()
+    members = [c.train_params(model, c.SEED + 30 + m)
+               for m in range(c.ENS_MEMBERS)]
+    out = {"card": c.card()}
+    for ar in (c.TRAIN_AR, 0):
+        indexer, area_w, w = c.train_setup(model, ar)
+        data = c.train_batch(indexer, model.input_n_node, c.BATCH, device,
+                             c.SEED + 32)
+        for rm in (False, True):
+            stack = MemberStack.from_states(model, members)
+            step = make_member_train_step(
+                stack, indexer, Adam(stack.parameters(), lr=c.LR,
+                                     member_axis=True), ar + 1, remat=rm)
+            key = f"members_ar{ar}_{'remat' if rm else 'plain'}"
+            out[key] = _step_peak(lambda: step(data, w, area_w))
+            if ar == c.TRAIN_AR:
+                out[key + "_live"] = _live_at_peak(
+                    lambda: step(data, w, area_w))
+            del stack, step
+        if ar == c.TRAIN_AR:
+            model.load_state_dict(members[0])
+            single = make_train_step(model, indexer, Adam(
+                model.parameters(), lr=c.LR), ar + 1)
+            out["single_ar6"] = _step_peak(lambda: single(data, w, area_w))
+    print("REMAT " + json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("torch_chip_readings: needs an NVIDIA GPU")
@@ -196,5 +291,7 @@ if __name__ == "__main__":
         gaps(dev)
     elif sys.argv[1] == "ell":
         ell(dev, sys.argv[2])
+    elif sys.argv[1] == "remat":
+        remat(dev)
     else:
         ab(dev, sys.argv[2])

@@ -179,10 +179,15 @@ TEST_HELPERS = ("torch_parallel_worker", "torch_threads", "torch_grad_terms",
                 "torch_steer", "torch_split_probe")
 
 
+# the write log the CLI tests and chip_smoke.py's cli2rank put on the CLIs'
+# path (read, not imported: it acts at interpreter start)
+SITE_HELPERS = ("write_log_site/sitecustomize",)
+
+
 def _port_sources():
     return sorted((REPO / "deepsphere_weather_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"] + [REPO / "tests" / f"{m}.py"
-                                   for m in TEST_HELPERS]
+                                   for m in TEST_HELPERS + SITE_HELPERS]
 
 
 def test_port_sources_import_no_jax():
@@ -220,6 +225,19 @@ def test_import_checks_cover_the_ell_route():
     for m in ("ops/bcsr.py", "ops/cheb.py", "sphere/graph.py",
               "kernels/build.py"):
         assert f"deepsphere_weather_torch/{m}" in mods
+
+
+def test_import_checks_cover_the_launch_and_cli_modules():
+    """The launch path, the data-preparation CLIs, the experiment sweeps,
+    the profiling harness and the write log are among the sources the
+    checks read (and, but the write log, import)."""
+    mods = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    for m in ("cli/launch.py", "cli/prepare_toy_data.py",
+              "cli/compute_scalers.py", "cli/compute_benchmarks.py",
+              "cli/create_configs.py", "cli/experiments.py",
+              "utils/profiling.py"):
+        assert f"deepsphere_weather_torch/{m}" in mods
+    assert "tests/write_log_site/sitecustomize.py" in mods
 
 
 def test_port_imports_no_jax_in_fresh_process():

@@ -202,7 +202,8 @@ def _counting(monkeypatch_targets):
 def member_worker(rank, world, cfg):
     """Two member-parallel train steps of a stack of M HEALPix-4
     UNetSphericals (level 0 block-sparse) on an n_data x n_node x n_member
-    mesh, for each precision in cfg['runs']: this rank's members, every
+    mesh (with cfg['remat'], each AR iteration recomputed in the
+    backward), for each precision in cfg['runs']: this rank's members, every
     member's losses, the gradients each step stepped on (this rank's
     members) and its members' parameters after the steps. On a node mesh,
     K5 over K2 at level 0: the vmapped row-shard product (forward and
@@ -242,7 +243,8 @@ def member_worker(rank, world, cfg):
         grads = []
         _grad_recorder(opt, local, grads)
         step = make_member_train_step(local, indexer, opt, n_scan,
-                                      mesh=mesh)
+                                      mesh=mesh,
+                                      remat=cfg.get("remat", False))
         losses = []
         for _ in range(2):
             total, per_iter = step(batch, cfg["w"], area_w)
