@@ -13,8 +13,9 @@ other samplings, graph types and pools with the variant architectures,
 and the whole mesh (members over ranks, BatchNorm over a data or node
 mesh, node-sharded grids), member steps that recompute in the backward,
 an experiment built from nothing by the data-preparation CLIs, the CLI on
-2 ranks, the DeepEnsemble sweep and the profiling harness, on the card and
-checks them, in phases printed one per line:
+2 ranks, the DeepEnsemble sweep, the profiling harness and an experiment
+ingested from raw GRIB2 files, on the card and checks them, in phases
+printed one per line:
 
 1. card      name and power limit (nvidia-smi)
 2. build     the three CUDA kernels (all three include one header; the
@@ -67,7 +68,7 @@ checks them, in phases printed one per line:
              learning, bf16, 7 features x 3 lags -> 2, seeded weights in
              the JAX layout loaded through `weights.py`, exported
              (`torch.export`, in process) behind ForecastService (batch
-             16, block 4): a 20-step forecast of 16
+             16, block 2): a 20-step forecast of 16
              histories and 5 concurrent submit() requests; finite outputs
              of the right shapes, agreement with the same forward on the
              CPU plain path (3e-2; the CPU takes the card's ReLU and
@@ -111,7 +112,7 @@ checks them, in phases printed one per line:
              step card vs CPU (losses and every gradient at 1e-5, the CPU
              taking the card's decisions)
 7. node16    the step of (2) on a 1 data x 2 node mesh: 2 spawned ranks
-             share the card over `gloo` (NCCL refuses two ranks on one
+             (of the rank phases' one spawn, below) share the card over `gloo` (NCCL refuses two ranks on one
              device), each holding half the sphere at every level; 3
              steps: per-iteration losses within 3e-2 of (2)'s first
              steps, 70 forward + 68 backward K2 launches and no K1 launch
@@ -167,12 +168,12 @@ checks them, in phases printed one per line:
              (torch.use_deterministic_algorithms, reset after it).
 12. serve16  protocol16's trained flagship served from artifacts, two
              members: the experiment copied before its --resume epoch
-             (2 epochs) and the resumed one (3). `cli.predict` of the
+             (1 epoch) and the resumed one (2). `cli.predict` of the
              resumed experiment, AR20 from 4 reference times: finite,
              lead 1 within the bf16 bar (2e-2) of the experiment's own
              forecast store, 10 K1 launches per forward; `cli.export_model`
              of each member alone and of both (`member_dirs`; batch 16,
-             block 4), loaded from disk with the geometry builder made to
+             block 2), loaded from disk with the geometry builder made to
              raise; the resumed member's artifact behind ForecastService:
              its first block within 2e-2 of the in-process rollout of the
              same weights, a 20-step forecast of 16 histories and 5
@@ -189,7 +190,7 @@ checks them, in phases printed one per line:
              submit latency and the HTTP round trip, and times K5's one
              launch per product against the member loop it replaces
              (`k5_vmap_rule` under K1's row of the kernel line).
-13. bn16     (run after phase 9) the flagship built with BatchNorm: 3
+13. bn16     (run after phase 6) the flagship built with BatchNorm: 3
              `with_norm_state` steps (bf16, AR6, batch 16), exactly 70 + 68
              K1 launches each, the running statistics finite and moved by
              every step, the step time; one fp32 batch-2 step (level 0
@@ -213,11 +214,11 @@ checks them, in phases printed one per line:
              differs within 1e-6 of its kink or tie)
 15. swag16   (after serve16) `cli.finetune_swag.main` on protocol16's
              resumed experiment: 1 epoch, 2 members, a collection every 2nd
-             scoring, AR10 on the toy test period; K1's launches by part
+             scoring, AR5 on the toy test period; K1's launches by part
              (fine-tune forward and backward, validation, member rollouts:
              their sum is every launch), `model_swag.npz` with 2 models or
-             more, member and median stores [201, 21, 3072, 2] finite, the
-             ensemble store, CRPS growing from lead 1 to lead 20; then
+             more, member and median stores [201, 6, 3072, 2] finite, the
+             ensemble store, CRPS growing from lead 1 to lead 5; then
              `cli.export_model --swag_samples 2`: one block of the
              artifact, 10 K1 launches per forward at twice the single
              model's widths; fine-tune, per-member and export seconds.
@@ -233,7 +234,7 @@ checks them, in phases printed one per line:
              `models.get_model` as the CLI builds it: its level sizes, the
              nonzero/total 128x128 blocks of level 0's forward layout (and
              of the transposed one for voronoi, whose backward runs it) and
-             the geometry's host seconds (numpy remap; a fresh machine's
+             the geometry's host seconds (native remap overlaps; a fresh machine's
              disk cache is empty); 3 AR6
              batch-16 steps (RNN, area-weighted MSE, the port's Adam with
              eps 1e-7 and the config's clipping): finite, decreasing
@@ -247,7 +248,7 @@ checks them, in phases printed one per line:
              forward). For O24 also K1 per launch on both layouts at the
              step's widths beside the bound and cuSPARSE. Then the O24
              config through `cli.train_predict.main` (bf16, 1 epoch, toy O24
-             data, AR20 predict, verify: finite losses, store and RMSE) and
+             data, AR4 predict, verify: finite losses, store and RMSE) and
              `cli.export_model`, its artifact loaded with the geometry
              builder refused and its first step within the bf16 bar of the
              in-process rollout, after the remap pools' scatter and
@@ -259,7 +260,7 @@ checks them, in phases printed one per line:
              Equiangular_400km): one bf16 forward and backward, finite,
              exactly the level-0 K1 launches its blocks give. It prints the
              phase's seconds, geometry (host) apart.
-17. ensmesh16 (after ens16) 4 flagship members (bf16, AR6, batch 16)
+17. ensmesh16 (after remat16) 4 flagship members (bf16, AR6, batch 16)
              over member ranks, 4 spawned ranks sharing the card: the
              member step (`make_member_train_step(mesh)`) on 1 x 2 x 2 and
              on 2 x 1 x 2 (data x node x member), 2 steps each: every
@@ -276,7 +277,7 @@ checks them, in phases printed one per line:
              1 x 1 x 2 over a toy HEALPix-16 store: every rank's [4, ...]
              within the bf16 bar of one process's, 40 K1 launches a rank
              for its 2 members, 2 gathers.
-18. bnmesh16 (after ensmesh16) bn16's step on 2 x 1 and 1 x 2 (2
+18. bnmesh16 bn16's step on 2 x 1 and 1 x 2 (2
              ranks): 2 `with_norm_state` steps, the statistics over the
              whole mesh's batch: losses and running statistics within 3e-2
              of bn16's steps, the statistics identical on both ranks,
@@ -285,7 +286,7 @@ checks them, in phases printed one per line:
              steps on against the single-process card step's, per key at
              3e-2 (a norm bias that feeds another BatchNorm against its
              block's norm scale).
-19. gridsnode400 (after grids400) Equiangular_400km/MaxPool-Graph_voronoi
+19. gridsnode400 Equiangular_400km/MaxPool-Graph_voronoi
              and Cubed_400km/MaxAreaPool-Graph_knn on 1 x 2 (bf16, AR6,
              batch 16), 2 steps each: losses within 3e-2 of one process's
              steps, exactly 70 + 68 K2 launches a step, 26 gathers a model
@@ -300,8 +301,7 @@ checks them, in phases printed one per line:
              (`device_ms`) at the member-folded level-0 widths and on the
              voronoi transposed layout, beside its bound, its plain
              version and cuSPARSE's CSR row slice (`member_folded`,
-             `voronoi_transposed` under K2's row of the kernel line). It
-             prints the three phases' seconds together.
+             `voronoi_transposed` under K2's row of the kernel line).
 20. remat16  (after ens16) ens16's 2-member step with `remat=True` beside
              the same step without, on one weights and batch: exactly 208
              K1 launches a step with remat (the recompute repeats the 70
@@ -317,9 +317,10 @@ checks them, in phases printed one per line:
 21. prep16   an experiment's data and configs built from nothing by the
              port's CLIs (host only): `prepare_toy_data` (HEALPix-16,
              1460 six-hour steps, seed 0), `compute_scalers`,
-             `compute_benchmarks`, `create_configs` (108 configs, each
-             equal to the shipped one of its name); seconds and files of
-             each stage. protocol16 trains on this data and config.
+             `compute_benchmarks` (5 leads), `create_configs` (108
+             configs, each equal to the shipped one of its name); seconds
+             and files of each stage. protocol16 trains on this data and
+             config.
 22. cli2rank (after prep16) `python -m
              deepsphere_weather_torch.cli.train_predict` on prep16's data
              with the flagship config at `n_node_parallel: 2` (bf16, 1
@@ -343,10 +344,33 @@ checks them, in phases printed one per line:
              over HEALPix-16 and -32 at knn 8 and 20: forward and forward
              + backward ms against nodes, exactly 636 ELL launches (level
              0 of HEALPix-32) and no other kernel.
+25. ingest16 (last) raw GRIB2 to a verified experiment: a GRIB2 tree in
+             the reference's layout (tests/torch_ingest_chain.py) on the
+             ECMWF O32 grid (5248 points): z and t at 500 and 850 hPa and
+             accumulated TOA solar radiation every 6 hours for 120 days,
+             and topography, land-sea mask and soil type;
+             `data.preprocess.remap_grib_files` onto HEALPix-16 (overlaps
+             from the native library, no disk cache; soil type by largest
+             area fraction), reformat, `zarrify_raw_data`,
+             `rechunk_to_space_chunked`, the statics, `cli.compute_scalers`;
+             then `cli.train_predict.main` with the flagship config cut as
+             cli2rank's (bf16, full width and depth, K1 at level 0), AR4
+             forecast, verification and plots. Checks: the native overlaps
+             against their plain version on O8 -> HEALPix-4 (1e-12), the
+             ingested z500 mean against the GRIB field's (2e-3), the
+             native bulk chunk reader against the per-chunk Python path
+             on the ingested stores (exactly), K1 launched and no other
+             kernel, finite losses and RMSE; the figures written or the
+             driver's `plots skipped` line; host seconds by stage and the
+             GRIB bytes.
 
-The ranks of phases 7-9, 17-20 and 22 are started after the kernels are built, join a
-`gloo` process group with a timeout, and the phase waits for them with a
-limit; a rank that fails fails its phase. Any failed phase raises, and the
+The rank phases 7-9 and 17-20 run in one spawn of 4 ranks, after remat16:
+their single-process references first, then every task in turn on the
+ranks its mesh uses (a 2-rank mesh leaves ranks 2 and 3 idle), then each
+phase's checks. cli2rank (22) starts its own ranks. Ranks are started
+after the kernels are built, join a `gloo` process group with a timeout,
+and the script waits for them with a limit; a rank that fails fails the
+run. At its end the script prints each phase's wall seconds. Any failed phase raises, and the
 script exits non-zero. The lines before the last are the kernel table as
 JSON and the card; the last line is {"ok": true, "device": {...}}. Without
 CUDA it exits non-zero at once.
@@ -360,6 +384,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import json
 import os
 import pickle
@@ -375,7 +400,10 @@ import numpy as np
 
 SEED = 0
 SLICE_SUBDIV, BIG_SUBDIV, KNN = 16, 64, 20
-BATCH, BLOCK, N_STEPS, N_SUBMIT = 16, 4, 20, 5
+# the block of every exported rollout (the slice's, serve16's, swag16's,
+# grids400's): each export traces the block's model calls on the host (4
+# until ingest16 came)
+BATCH, BLOCK, N_STEPS, N_SUBMIT = 16, 2, 20, 5
 F_DYN, F_BC, F_STATIC, INPUT_K = 2, 1, 4, (-3, -2, -1)
 MATVEC_WIDTH = 1024
 BARS = {"fp32": 1e-5, "bf16": 2e-2}
@@ -433,12 +461,12 @@ NODE16_STEPS, MESH16_STEPS, NODE64_STEPS = 3, 1, 2
 FP32_DENSE_THRESHOLD = 2048
 PG_TIMEOUT_S, RANKS_LIMIT_S = 300, 900
 # protocol16: the shipped flagship config through the CLI, bf16, epochs cut
-# to about 10 s of training on an H100 (12 until the swag16 phase came, 6
+# to about 5 s of training on an H100 (12 until the swag16 phase came, 6
 # until grids400, 4 until the phases of remat, the CLIs on 2 ranks, data
-# preparation, profiling and the ensemble sweep: the script stays well
-# inside its time limit); AR20 forecasts
+# preparation, profiling and the ensemble sweep, 2 until ingest16: the
+# script stays inside its time limit); AR20 forecasts
 PROTOCOL_CONFIG = "configs/UNetSpherical/Healpix_400km/MaxPool-Graph_knn.json"
-PROTOCOL_EPOCHS, PROTOCOL_AR_PREDICT = 2, 20
+PROTOCOL_EPOCHS, PROTOCOL_AR_PREDICT = 1, 20
 PROTOCOL_INPUT_K, PROTOCOL_CYCLE = (-18, -12, -6), 6
 # serve16: reference times of cli.predict; the HTTP answer's bar against
 # svc.predict (the JAX package's serving test's)
@@ -464,24 +492,25 @@ CLI_PERIODS = {"training_period": ["2010-01-01", "2010-03-01"],
                "validation_period": ["2010-03-01", "2010-03-15"],
                "test_period": ["2010-04-01", "2010-04-14"]}
 CLI_SCORING, CLI_AR_PREDICT, RMSE_TOL = 5, 4, 3e-3
-# prep16: the benchmark forecasts' leads (protocol16's AR depth; the CLI's
-# default 39 took 33 s on the card machine's host)
-PREP_LEADS = 20
+# prep16: the benchmark forecasts' leads (the CLI's default 39 took 33 s
+# on the card machine's host, 20 took 21 s; cut to 5 to make room for
+# ingest16)
+PREP_LEADS = 5
 # profile16: the device rows printed per profile, the sweep's samplings
 # and knn values, the node count above which an fp32 level is block-sparse
 PROFILE_TOP = 12
 SWEEP_SUBDIVS, SWEEP_KNN, FP32_DENSE_LIMIT = (16, 32), (8, 20), 8192
 # swag16: members predicted and their AR depth (3 members at AR20 until the
-# phases of remat and the CLIs came: each AR20 member cost about 26 s),
-# collection every SWAG_FREQ-th scoring, members of the exported artifact
-SWAG_SAMPLES, SWAG_AR_PREDICT, SWAG_FREQ, SWAG_EXPORT = 2, 10, 2, 2
+# phases of remat and the CLIs came: each AR20 member cost about 26 s; AR10
+# 16 s, cut to AR5 to make room for ingest16), collection every
+# SWAG_FREQ-th scoring, members of the exported artifact
+SWAG_SAMPLES, SWAG_AR_PREDICT, SWAG_FREQ, SWAG_EXPORT = 2, 5, 2, 2
 # grids400: six shipped configurations at their full 400 km size and the
 # shipped UNet widths, cut to bf16 (at the shipped fp32 every 400 km level
 # is dense and no kernel runs): all six pool methods, all three graph
 # types, six of the seven sampling directories. Per configuration:
 # bf16 AR6 batch-16 steps, the AR depth of the fp32 card-vs-CPU step; the
-# CLI configuration, the six-hour steps of its toy store and its epochs;
-# the bar of the fp32 check's differing decisions (fp32 rounding of their
+# bar of the fp32 check's differing decisions (fp32 rounding of their
 # kink or tie, as tests/test_torch_cuda.py holds it)
 GRIDS400 = ("Equiangular_400km/MaxPool-Graph_voronoi",
             "Equiangular_400km_tropics/AvgPool-Graph_knn",
@@ -490,13 +519,13 @@ GRIDS400 = ("Equiangular_400km/MaxPool-Graph_voronoi",
             "O24/MaxValPool-Graph_voronoi",
             "Healpix_400km/InterpPool-Graph_mesh")
 GRIDS_STEPS, GRIDS_CHECK_AR = 3, 2
-# the step's timing windows and the exported forecast's block (each
-# export traces the block's model calls on the host): the phase stays
-# near 150 s
-GRIDS_TIME_WINDOWS, GRIDS_BLOCK = 2, 2
-GRIDS_CLI, GRIDS_CLI_STEPS, GRIDS_CLI_EPOCHS = (
-    "O24/MaxValPool-Graph_voronoi", 1000, 1)
 KINK_TOL = 1e-6
+# the step's timing windows (the phase stays near 150 s); the CLI
+# configuration, the six-hour steps of its toy store (1000 until ingest16
+# came) and its epochs, scored every CLI_SCORING updates as cli2rank's
+GRIDS_TIME_WINDOWS = 2
+GRIDS_CLI, GRIDS_CLI_STEPS, GRIDS_CLI_EPOCHS = (
+    "O24/MaxValPool-Graph_voronoi", 400, 1)
 # level-0 block-sparse products of one forward of each variant (2 per
 # convolution at level 0) and those of them on the raw input, which get
 # no backward: ResNet 20 + 5 convolutions, EPDNet 2 + 12 + 2,
@@ -519,6 +548,18 @@ BNMESH = ((2, 1), (1, 2))
 GRIDSNODE = ("Equiangular_400km/MaxPool-Graph_voronoi",
              "Cubed_400km/MaxAreaPool-Graph_knn")
 POOL_GATHERS = 4
+# ingest16: the GRIB tree (ECMWF octahedral O32: 5248 points), its six-hour
+# steps (120 days from 2010-01-01: CLI_PERIODS' training, validation and
+# forecast periods at the flagship's 3 input lags), the registry name the
+# phase gives it (the dataset registry has no O32 entry), the sampling name
+# of its remapped tree, the small pair of the native-vs-plain check (O8 ->
+# HEALPix-4) and its bar, and the conservativity bar of
+# tests/test_ingest.py
+INGEST_O, INGEST_STEPS = 32, 480
+INGEST_DATASET, INGEST_SAMPLING_NAME = "ERA5_O32_TOY", "Healpix_400km"
+INGEST_PAIR = (("gauss", 16, 8), ("healpix", {"subdivisions": 4,
+                                              "nest": True}))
+NATIVE_TOL, CONSERVE_TOL = 1e-12, 2e-3
 # seeded ReZero weights are scaled by this for training: at U(0.5, 1.5)
 # the random network's rollout grows several-fold per iteration
 TRAIN_REZERO_SCALE = 0.1
@@ -530,6 +571,26 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+# wall seconds of each phase in this run (`clocked`), printed at its end
+PHASE_SECONDS = {}
+
+
+def clocked(fn):
+    """The phase `fn`, its wall seconds added to PHASE_SECONDS under its
+    name without the `phase_` prefix."""
+    name = fn.__name__.removeprefix("phase_")
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                                   + time.perf_counter() - t0)
+    return run
 
 
 def rel_err(got, ref):
@@ -606,6 +667,7 @@ def card():
     return out.strip().splitlines()[0]
 
 
+@clocked
 def phase_build():
     from deepsphere_weather_torch.kernels.build import _nvcc, load_kernels
 
@@ -874,6 +936,7 @@ def _laplacian(subdiv):
         "healpix", {"subdivisions": subdiv, "nest": True}, KNN, "knn")[1]
 
 
+@clocked
 def phase_parity(device, subdivs, width):
     """K1 and K3 forward against scipy and their plain versions, each
     kernel's own output; in fp32 also the route the operator takes
@@ -963,6 +1026,7 @@ def phase_parity(device, subdivs, width):
     return ell_rows
 
 
+@clocked
 def phase_parity_regimes(device, subdivs, batch):
     """K3 at the main path's widths (bf16, HEALPix-16) against scipy, and
     both regimes of fp32 A against bf16 x at each of `subdivs` (timed at
@@ -1062,6 +1126,7 @@ def split_check(L, device, subdiv):
     return got
 
 
+@clocked
 def phase_parity_backward(device, subdiv, width):
     """d/dx sum((Lx)^2) through the operator's autograd.Function against
     2 L^T (L x): the knn L (symmetric: the backward reuses the forward
@@ -1123,6 +1188,7 @@ def phase_parity_backward(device, subdiv, width):
                                          "bar")
 
 
+@clocked
 def phase_parity_rows(device, subdivs, width):
     """K2 alone, and the plain layout's row range (fp32, bf16, and fp32 A
     against bf16 x in both regimes): each node shard's row-range launch,
@@ -1407,6 +1473,7 @@ def synthetic_service(model, params, batch, n_steps, rng, block=BLOCK):
     return svc, rollout, history(batch), boundary(batch, n_steps), scaler
 
 
+@clocked
 def phase_slice(device, subdiv, batch, n_steps):
     """Drive the forecast service; returns the main-path figures."""
     import torch
@@ -1573,6 +1640,7 @@ def grads_close(grads, ref, sums, tol, what="card vs CPU"):
     return worst
 
 
+@clocked
 def phase_train_check(device, subdiv, batch):
     """(1) The first step's losses and gradients, card vs CPU plain path."""
     import torch
@@ -1706,6 +1774,7 @@ def time_steps(steps, batch, card_line, windows=None):
     return {label: 1e3 * t for label, t in best.items()}
 
 
+@clocked
 def phase_train(device, subdiv, card_line):
     """(2) the super-row level-0 operator (K1) and (3) the plain one
     (K3), batch 16, 10 steps each at the same weights."""
@@ -1744,6 +1813,7 @@ def phase_train(device, subdiv, card_line):
                                               "train16_plain": ms["(3) K3"]}}
 
 
+@clocked
 def phase_train64(device, subdiv, card_line):
     import torch
 
@@ -1924,6 +1994,7 @@ def time_step_products(products, subdiv, device, card_line):
     return rows[KERNEL], rows[PLAIN_KERNEL]
 
 
+@clocked
 def phase_train64f32(device, card_line):
     """train64f32: the shipped fp32 HEALPix-64 configuration (F32_CONFIG)
     through `models.get_model`, at its own float32, full width and depth:
@@ -2132,12 +2203,13 @@ def _rank_main(rank, world, out_dir, tasks):
     dist.init_process_group(
         "gloo", store=store, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+    joined = time.time()
     try:
         results = [task(rank, **kw) for task, kw in tasks]
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-        pickle.dump(results, f)
+        pickle.dump((joined, results), f)
 
 
 def run_ranks(world, tasks):
@@ -2150,6 +2222,7 @@ def run_ranks(world, tasks):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
+        t_spawn = time.time()
         ctx = mp.start_processes(_rank_main, args=(world, out_dir, tasks),
                                  nprocs=world, join=False,
                                  start_method="spawn")
@@ -2161,10 +2234,15 @@ def run_ranks(world, tasks):
                     proc.join()
                 raise TimeoutError(f"{world} ranks did not end within "
                                    f"{RANKS_LIMIT_S} s")
-        results = []
+        t_end, joined, results = time.time(), [], []
         for r in range(world):
             with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
-                results.append(pickle.load(f))
+                t, res = pickle.load(f)
+            joined.append(t)
+            results.append(res)
+    log("ranks", f"{world} ranks: {max(joined) - t_spawn:.1f} s from the "
+                 f"spawn to the last rank's joining its group, then "
+                 f"{t_end - max(joined):.1f} s of tasks ({len(tasks)})")
     return results
 
 
@@ -2207,6 +2285,8 @@ def rank_train(rank, device, subdiv, n_data, n_node, ar_iters, batch,
     )
 
     mesh = make_mesh(n_data=n_data, n_node=n_node, device=device)
+    if mesh is None:          # idle in this task
+        return None
     model, n = _sharded_model(mesh, subdiv, param_seed)
     v0, v1 = node_range(n, mesh)
     indexer, area_w, w = train_setup(model, ar_iters)
@@ -2244,6 +2324,8 @@ def rank_grads(rank, device, subdiv, n_data, n_node, batch,
     from deepsphere_weather_torch.parallel import make_mesh, shard_batch
 
     mesh = make_mesh(n_data=n_data, n_node=n_node, device=device)
+    if mesh is None:          # idle in this task
+        return None
     model, n = _sharded_model(mesh, subdiv, SEED + 6, "float32",
                               FP32_DENSE_THRESHOLD, batch_norm)
     indexer, area_w, w = train_setup(model, TRAIN_AR)
@@ -2424,9 +2506,9 @@ def _check_grad_ranks(phase, ranks, grad_ref, mesh_label):
                    f"worst {e_grad:.3e} ({key}); tol {SLICE_TOL} per key")
 
 
-def phase_node(device, card_line, train_ref, train64_ref):
-    """node16 (with its fp32 gradient check) and node64, on 2 ranks."""
-    ranks = run_ranks(2, [
+def node_tasks(device):
+    """node16 (with its fp32 gradient check) and node64: 2-rank tasks."""
+    return [
         (rank_train, {"device": str(device), "subdiv": SLICE_SUBDIV,
                       "n_data": 1, "n_node": 2,
                       "ar_iters": TRAIN_AR, "batch": BATCH,
@@ -2437,7 +2519,11 @@ def phase_node(device, card_line, train_ref, train64_ref):
                       "n_data": 1, "n_node": 2,
                       "ar_iters": HP64_AR, "batch": HP64_BATCH,
                       "n_steps": NODE64_STEPS, "param_seed": SEED + 10,
-                      "check_products": True})])
+                      "check_products": True})]
+
+
+def check_node(device, card_line, train_ref, train64_ref, ranks):
+    """node16's and node64's checks of their ranks' results."""
     node16 = [r[0] for r in ranks]
     k2 = {"node16": _check_rank_runs("node16", node16, train_ref,
                                      LAUNCHES_PER_FORWARD, TRAIN_AR + 1)}
@@ -2467,16 +2553,20 @@ def phase_node(device, card_line, train_ref, train64_ref):
             "grad_ref": grad_ref, "shapes64": node64[0]["products"]["shapes"]}
 
 
-def phase_mesh(device, card_line, train_ref, grad_ref):
+def mesh16_tasks(device):
     """mesh16: the HEALPix-16 step on 2 data x 2 node ranks, and the fp32
     gradient check of node16 on the same mesh."""
-    ranks = run_ranks(4, [
+    return [
         (rank_train, {"device": str(device), "subdiv": SLICE_SUBDIV,
                       "n_data": 2, "n_node": 2, "ar_iters": TRAIN_AR,
                       "batch": BATCH, "n_steps": MESH16_STEPS,
                       "param_seed": SEED + 9}),
         (rank_grads, {"device": str(device), "subdiv": SLICE_SUBDIV,
-                      "n_data": 2, "n_node": 2, "batch": TRAIN_CHECK_BATCH})])
+                      "n_data": 2, "n_node": 2, "batch": TRAIN_CHECK_BATCH})]
+
+
+def check_mesh16(card_line, train_ref, grad_ref, ranks):
+    """mesh16's checks of its ranks' results; its K2 launches."""
     launches = _check_rank_runs("mesh16", [r[0] for r in ranks], train_ref,
                                 LAUNCHES_PER_FORWARD, TRAIN_AR + 1)
     _check_grad_ranks("mesh16", [r[1] for r in ranks], grad_ref,
@@ -2713,16 +2803,14 @@ def _check_member_ranks(phase, ranks, ref, kernel, label):
     return tuple(total)
 
 
-def phase_ensmesh16(device, card_line, ens_widths):
-    """ensmesh16 (module docstring). `ens_widths`: ens16's K1 widths of
-    one 2-member step, which each rank's 2 members must launch K2 at."""
-    import torch
-
+def ensmesh16_refs(device, root):
+    """ensmesh16's single-process references: the 4-member step's losses
+    over MESH_STEPS steps, and the ensemble rollout of a toy store it
+    writes to `root` (which the rollout ranks read)."""
     from deepsphere_weather_torch.data import generate_toy_data
     from deepsphere_weather_torch.engine import Adam, make_member_train_step
     from deepsphere_weather_torch.models import MemberStack
 
-    t_phase = time.perf_counter()
     model = build_flagship(device, SLICE_SUBDIV).train()
     stack = MemberStack.from_states(model, _mesh_members(model))
     indexer, area_w, w = train_setup(model, TRAIN_AR)
@@ -2733,25 +2821,30 @@ def phase_ensmesh16(device, card_line, ens_widths):
     ref = np.stack([step(data, w, area_w)[1].float().cpu().numpy()
                     for _ in range(MESH_STEPS)])
     del stack, step
-    root = tempfile.mkdtemp(prefix="dsw_ensmesh16_")
-    try:
-        generate_toy_data(root, sampling_kwargs={
-            "subdivisions": SLICE_SUBDIV, "nest": True},
-            n_timesteps=ENSMESH_STORE_STEPS, seed=SEED + 62)
-        roll_ref = ensemble_rollout(device, root)
-        (d1, j1, m1), (d2, j2, m2) = ENSMESH
-        ranks = run_ranks(4, [
-            (rank_members, {"device": str(device), "n_data": d1,
-                            "n_node": j1, "n_member": m1,
-                            "check_products": True}),
-            (rank_members, {"device": str(device), "n_data": d2,
-                            "n_node": j2, "n_member": m2}),
-            (rank_rollout, {"device": str(device), "root": root}),
-            # remat16's mesh check, on the same spawn
-            (rank_members, {"device": str(device), "n_data": d1,
-                            "n_node": j1, "n_member": m1, "remat": True})])
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    generate_toy_data(root, sampling_kwargs={
+        "subdivisions": SLICE_SUBDIV, "nest": True},
+        n_timesteps=ENSMESH_STORE_STEPS, seed=SEED + 62)
+    return ref, ensemble_rollout(device, root)
+
+
+def ensmesh16_tasks(device, root):
+    """ensmesh16's member meshes, its rollout on 1 x 1 x 2 and remat16's
+    mesh check (the last a 4-rank task: the spawn ends with one)."""
+    (d1, j1, m1), (d2, j2, m2) = ENSMESH
+    return [
+        (rank_members, {"device": str(device), "n_data": d1, "n_node": j1,
+                        "n_member": m1, "check_products": True}),
+        (rank_members, {"device": str(device), "n_data": d2, "n_node": j2,
+                        "n_member": m2}),
+        (rank_rollout, {"device": str(device), "root": root}),
+        (rank_members, {"device": str(device), "n_data": d1, "n_node": j1,
+                        "n_member": m1, "remat": True})]
+
+
+def check_ensmesh16(card_line, ens_widths, ref, roll_ref, ranks):
+    """ensmesh16's and remat16's mesh checks of their ranks' results
+    (module docstring). `ens_widths`: ens16's K1 widths of one 2-member
+    step, which each rank's 2 members must launch K2 at."""
     launches = {}
     node, data_ranks = [r[0] for r in ranks], [r[1] for r in ranks]
     launches["ensmesh16_1x2x2"] = _check_member_ranks(
@@ -2795,9 +2888,8 @@ def phase_ensmesh16(device, card_line, ens_widths):
                      f"AR{TRAIN_AR} batch {BATCH} bf16: "
                      + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
                      + f" per step (host clock, the slower rank; 4 ranks "
-                     f"sharing one H100 over gloo: not a scaling number); "
-                     f"phase {time.perf_counter() - t_phase:.1f} s "
-                     f"({card_line})")
+                     f"sharing one H100 over gloo: not a scaling number; "
+                     f"{card_line})")
     return {"launches": launches, "ms": ms}
 
 
@@ -2812,6 +2904,8 @@ def rank_bn(rank, device, n_data, n_node):
     from deepsphere_weather_torch.parallel import make_mesh, shard_batch
 
     mesh = make_mesh(n_data=n_data, n_node=n_node, device=device)
+    if mesh is None:          # idle in this task
+        return None
     model, n = _sharded_model(mesh, SLICE_SUBDIV, SEED + 20, batch_norm=True)
     indexer, area_w, w = train_setup(model, TRAIN_AR)
     data = shard_batch(train_batch(indexer, n, BATCH, mesh.device, SEED + 21),
@@ -2832,10 +2926,9 @@ def rank_bn(rank, device, n_data, n_node):
             "losses": res.pop("outs"), "stats": stats, **res}
 
 
-def phase_bnmesh16(device, card_line, bn_ref):
-    """bnmesh16 (module docstring). `bn_ref`: bn16's losses and running
-    statistics after each of its steps."""
-    t_phase = time.perf_counter()
+def bnmesh16_tasks(device):
+    """bnmesh16's BatchNorm steps and fp32 gradient checks: 2-rank
+    tasks."""
     tasks = []
     for n_data, n_node in BNMESH:
         tasks.append((rank_bn, {"device": str(device), "n_data": n_data,
@@ -2845,7 +2938,13 @@ def phase_bnmesh16(device, card_line, bn_ref):
                                    "n_node": n_node,
                                    "batch": TRAIN_CHECK_BATCH,
                                    "batch_norm": True}))
-    ranks = run_ranks(2, tasks)
+    return tasks
+
+
+def check_bnmesh16(device, card_line, bn_ref, ranks):
+    """bnmesh16's checks of its ranks' results (module docstring).
+    `bn_ref`: bn16's losses and running statistics after each of its
+    steps."""
     grad_ref = single_grads(device, SLICE_SUBDIV, TRAIN_CHECK_BATCH,
                             batch_norm=True)
     launches, ms = {}, {}
@@ -2886,9 +2985,8 @@ def phase_bnmesh16(device, card_line, bn_ref):
     log("bnmesh16", f"BatchNorm flagship AR{TRAIN_AR} batch {BATCH} bf16: "
                     + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
                     + f" per step (host clock, the slower rank; 2 ranks "
-                    f"sharing one H100 over gloo: not a scaling number); "
-                    f"phase {time.perf_counter() - t_phase:.1f} s "
-                    f"({card_line})")
+                    f"sharing one H100 over gloo: not a scaling number; "
+                    f"{card_line})")
     return {"launches": launches, "ms": ms}
 
 
@@ -2922,6 +3020,8 @@ def rank_grid(rank, device, name, index):
     from deepsphere_weather_torch.weights import broadcast_params
 
     mesh = make_mesh(n_data=1, n_node=2, device=device)
+    if mesh is None:          # idle in this task
+        return None
     cfg = _grids_config(name)
     model = grids_model(mesh.device, cfg, "bfloat16").train()
     model.load_state_dict(train_params(model, SEED + 70 + index))
@@ -3003,21 +3103,25 @@ def rank_image(rank, device):
     from deepsphere_weather_torch.parallel import make_mesh
 
     mesh = make_mesh(n_data=1, n_node=2, device=device)
+    if mesh is None:
+        return None
     return {"mesh": (mesh.data_rank, mesh.node_rank),
             **image_conv_step(mesh.device, mesh)}
 
 
-def phase_gridsnode400(device, card_line):
-    """gridsnode400 (module docstring). Returns K2's launches by path and
-    the voronoi configuration's level-0 operator and Laplacian (for the
-    transposed layout's kernel row)."""
-    t_phase = time.perf_counter()
-    refs = [grids_reference(device, name, i)
-            for i, name in enumerate(GRIDSNODE)]
-    tasks = [(rank_grid, {"device": str(device), "name": name, "index": i})
-             for i, name in enumerate(GRIDSNODE)]
-    tasks.append((rank_image, {"device": str(device)}))
-    ranks = run_ranks(2, tasks)
+def gridsnode400_tasks(device):
+    """gridsnode400's configurations and the image ConvNet on 1 x 2: 2-rank
+    tasks."""
+    return [(rank_grid, {"device": str(device), "name": name, "index": i})
+            for i, name in enumerate(GRIDSNODE)] + [
+        (rank_image, {"device": str(device)})]
+
+
+def check_gridsnode400(device, card_line, refs, ranks):
+    """gridsnode400's checks of its ranks' results (module docstring)
+    against `refs` (`grids_reference` of each configuration). Returns K2's
+    launches by path and the voronoi configuration's level-0 operator and
+    Laplacian (for the transposed layout's kernel row)."""
     launches, voronoi = {}, None
     for i, name in enumerate(GRIDSNODE):
         ref, model, laplacian = refs[i]
@@ -3072,9 +3176,49 @@ def phase_gridsnode400(device, card_line):
                             f"gathers (one a convolution), loss {e_loss:.3e} "
                             f"and gradients worst {e_grad:.3e} ({key}) vs one "
                             f"process (tol {SLICE_TOL})")
-    log("gridsnode400", f"phase {time.perf_counter() - t_phase:.1f} s "
-                        f"({card_line})")
     return {"launches": launches, "voronoi": voronoi}
+
+
+@clocked
+def phase_meshes(device, card_line, train_ref, train64_ref, ens_widths,
+                 bn_ref):
+    """node16, node64, mesh16, bnmesh16, gridsnode400 and ensmesh16 (with
+    remat16's mesh check) in one spawn of 4 ranks sharing the card: the
+    single-process references the checks need from the card first, then
+    every phase's tasks in turn, each on the ranks of its mesh (a 2-rank
+    mesh leaves ranks 2 and 3 idle for that task), then each phase's
+    checks (module docstring). `train_ref`, `train64_ref`: the
+    single-process steps' per-iteration losses of train16 and train64;
+    `ens_widths`: ens16's; `bn_ref`: bn16's. Returns each phase's
+    readings."""
+    root = tempfile.mkdtemp(prefix="dsw_ensmesh16_")
+    try:
+        ens_ref, roll_ref = ensmesh16_refs(device, root)
+        grid_refs = [grids_reference(device, name, i)
+                     for i, name in enumerate(GRIDSNODE)]
+        phases = {"node": node_tasks(device), "mesh16": mesh16_tasks(device),
+                  "bnmesh16": bnmesh16_tasks(device),
+                  "gridsnode400": gridsnode400_tasks(device),
+                  "ensmesh16": ensmesh16_tasks(device, root)}
+        ranks = run_ranks(4, [t for tasks in phases.values() for t in tasks])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # each phase's results on the ranks its meshes use
+    res, i = {}, 0
+    for name, tasks in phases.items():
+        part = [r[i:i + len(tasks)] for r in ranks]
+        res[name] = [p for p in part if any(x is not None for x in p)]
+        i += len(tasks)
+    node = check_node(device, card_line, train_ref, train64_ref, res["node"])
+    node["launches"]["mesh16"] = check_mesh16(card_line, train_ref,
+                                              node["grad_ref"], res["mesh16"])
+    return {"node": node,
+            "ensmesh16": check_ensmesh16(card_line, ens_widths, ens_ref,
+                                         roll_ref, res["ensmesh16"]),
+            "bnmesh16": check_bnmesh16(device, card_line, bn_ref,
+                                       res["bnmesh16"]),
+            "gridsnode400": check_gridsnode400(device, card_line, grid_refs,
+                                               res["gridsnode400"])}
 
 
 def shard_rows_times(name, fn, plain, layout, L_rows, n, widths, device,
@@ -3337,6 +3481,7 @@ def _bare_step_ms(model, n_ar, batch, n_static, n_bc):
     return 1e3 * best
 
 
+@clocked
 def phase_protocol(device, card_line, bare_ar6_ms, prep):
     """protocol16: the flagship config (bf16, full width and depth)
     trained, forecast AR20 and verified through the port's CLI entry point
@@ -3596,6 +3741,7 @@ def _serve_inputs(data, meta, batch, n_steps, seed):
     return hist.astype(np.float32), bcs.astype(np.float32)
 
 
+@clocked
 def phase_serve16(device, card_line, proto):
     """serve16: protocol16's trained flagship (bf16, full width and depth)
     served from artifacts on disk: `cli.predict` on the resumed
@@ -4049,6 +4195,7 @@ def _profile(fn, n, label):
                            f"{100 * t / busy:.1f}% of device time")
 
 
+@clocked
 def phase_profile(model, device, batch, train_steps, step64, step64f32,
                   n_fwd=3, n_steps=2):
     import torch
@@ -4151,6 +4298,7 @@ def _fp32_step(device, params, seed_batch, members=None, clip=None,
             "decisions": decisions, "gaps": gaps}
 
 
+@clocked
 def phase_bn16(device, card_line):
     """bn16: the flagship with BatchNorm. 3 with_norm_state steps (bf16,
     AR6, batch 16): exactly 70 + 68 K1 launches each, the running
@@ -4314,6 +4462,7 @@ def phase_bn16(device, card_line):
             "ms": t_step, "losses": losses, "stats": step_stats}
 
 
+@clocked
 def phase_ens16(device, card_line, single_ms, profile=False):
     """ens16: 2 flagship members trained together (bf16, AR6, batch 16,
     member step: torch.func.grad under vmap). 3 steps: exactly 70 + 68 K1
@@ -4444,9 +4593,10 @@ def phase_ens16(device, card_line, single_ms, profile=False):
             "widths": widths, "single_widths": single_widths}
 
 
+@clocked
 def phase_swag16(device, card_line, proto):
     """swag16: `cli.finetune_swag.main` on protocol16's trained flagship
-    (1 epoch, 2 members, collection every 2nd scoring, AR10 on the toy
+    (1 epoch, 2 members, collection every 2nd scoring, AR5 on the toy
     test period), K1's launches by part; then `cli.export_model
     --swag_samples 2`: one block of the artifact, 10 K1 launches per
     forward at twice the widths."""
@@ -4534,8 +4684,8 @@ def phase_swag16(device, card_line, proto):
     art = os.path.join(proto["root"], "artifact_swag")
     t0 = time.perf_counter()
     export_main(exp, proto["data"], out=art, batch_size=BATCH,
-                block_size=BLOCK, swag_samples=SWAG_EXPORT, device=device,
-                verbose=False)
+                block_size=BLOCK, swag_samples=SWAG_EXPORT,
+                device=device, verbose=False)
     t_export = time.perf_counter() - t0
     rollout, _, _ = load_artifact(art)
     m = rollout.meta
@@ -4715,7 +4865,8 @@ def grids_config(device, name, index, card_line):
                     f"{type(geom.pools[0]).__name__}/"
                     f"{type(geom.unpools[0]).__name__}; level 0 bf16 "
                     f"nonzero/total 128x128 blocks: {blocks}; geometry "
-                    f"built in {t_geom:.1f} s (host, numpy; disk cache "
+                    f"built in {t_geom:.1f} s (host, remap overlaps "
+                    f"native; disk cache "
                     f"{cache_dir()})")
 
     params = train_params(model, SEED + 30 + index)
@@ -4729,16 +4880,20 @@ def grids_config(device, name, index, card_line):
     step_ms = time_steps({label: res["step"]}, BATCH, card_line,
                          GRIDS_TIME_WINDOWS)[label]
     laplacian = _grid_laplacian(cfg, geom)
+    t0 = time.perf_counter()
     products = check_step_products(model, res["step"], None, laplacian,
                                    phase="grids400", name=name)
+    t_products = time.perf_counter() - t0
     grids_card_vs_cpu(device, cfg, params, name)
+    t_cpu = time.perf_counter() - t0 - t_products
 
     # a 20-step forecast of 16 histories through ForecastService
+    t_service = time.perf_counter()
     svc, rollout, hist, bc, _ = synthetic_service(
         model.eval(), None, BATCH, N_STEPS,
-        np.random.default_rng(SEED + 32 + index), block=GRIDS_BLOCK)
+        np.random.default_rng(SEED + 32 + index))
     forwards = count_forwards(rollout)
-    svc.predict(hist, n_steps=GRIDS_BLOCK, bc=bc[:, :GRIDS_BLOCK])  # warm-up
+    svc.predict(hist, n_steps=BLOCK, bc=bc[:, :BLOCK])  # warm-up
     reset_launch_counts()
     forwards[0] = 0
     torch.cuda.synchronize()
@@ -4747,6 +4902,7 @@ def grids_config(device, name, index, card_line):
     torch.cuda.synchronize()
     fc_ms = 1e3 * (time.perf_counter() - t0) / N_STEPS
     svc.close()
+    t_service = time.perf_counter() - t_service
     fc = launch_counts[KERNEL]
     V = model.input_n_node
     if (out.shape != (BATCH, N_STEPS, 1, V, F_DYN) or not np.isfinite(out).all()
@@ -4766,7 +4922,9 @@ def grids_config(device, name, index, card_line):
                     f"{out.shape} finite, {fc_ms:.2f} ms per step ({fc} "
                     f"launches, {LAUNCHES_PER_FORWARD} per forward); "
                     f"config {time.perf_counter() - t_cfg:.1f} s, of it "
-                    f"geometry {t_geom:.1f} s ({card_line})")
+                    f"geometry {t_geom:.1f} s, product checks "
+                    f"{t_products:.1f} s, card vs CPU {t_cpu:.1f} s, export "
+                    f"and forecast {t_service:.1f} s ({card_line})")
     return {"train": train, "forecast": (fc, 0), "step_ms": step_ms,
             "forecast_ms": fc_ms, "geometry_s": t_geom, "rows": rows,
             "seconds": time.perf_counter() - t_cfg}
@@ -4842,7 +5000,8 @@ def grids_cli(device, card_line):
                           n_timesteps=GRIDS_CLI_STEPS, seed=SEED)
         t_data = time.perf_counter() - t0
         cfg["training_settings"].update(numeric_precision="bfloat16",
-                                        epochs=GRIDS_CLI_EPOCHS)
+                                        epochs=GRIDS_CLI_EPOCHS,
+                                        scoring_interval=CLI_SCORING)
         cfg_path = os.path.join(root, "config.json")
         with open(cfg_path, "w") as f:
             json.dump(cfg, f)
@@ -4852,7 +5011,7 @@ def grids_cli(device, card_line):
             t0 = time.perf_counter()
             exp, gs = train_main(cfg_path, data, os.path.join(root, "exp"),
                                  force=True,
-                                 ar_iterations_prediction=PROTOCOL_AR_PREDICT,
+                                 ar_iterations_prediction=CLI_AR_PREDICT,
                                  device=device, verbose=False)
             torch.cuda.synchronize()
             t_main = time.perf_counter() - t0
@@ -4875,7 +5034,7 @@ def grids_cli(device, card_line):
             "test_forecasts.zarr"))
         arr = np.stack([fc.variables[n][...] for n in fc.feature_order], -1)
         V = arr.shape[2]
-        want = (fc.n_frt, PROTOCOL_AR_PREDICT + 1, V, F_DYN)
+        want = (fc.n_frt, CLI_AR_PREDICT + 1, V, F_DYN)
         rmse = np.asarray(gs["RMSE"])
         if (not losses or not np.isfinite(losses).all() or arr.shape != want
                 or not np.isfinite(arr).all() or not np.isfinite(rmse).all()
@@ -4890,8 +5049,8 @@ def grids_cli(device, card_line):
                         f"{rec['train_steps']} updates, losses finite, "
                         f"forecast store {arr.shape} finite, RMSE lead 1 "
                         f"{np.round(rmse[1], 4).tolist()} lead "
-                        f"{PROTOCOL_AR_PREDICT} "
-                        f"{np.round(rmse[PROTOCOL_AR_PREDICT], 4).tolist()}; "
+                        f"{CLI_AR_PREDICT} "
+                        f"{np.round(rmse[CLI_AR_PREDICT], 4).tolist()}; "
                         f"{KERNEL} launches {parts}; main {t_main:.1f} s")
 
         art = os.path.join(root, "artifact")
@@ -5050,6 +5209,7 @@ def grids_determinism(device, card_line):
                              f"deterministic algorithms: {out}")
 
 
+@clocked
 def phase_grids400(device, card_line):
     """grids400 (module docstring): the six configurations, the O24 CLI
     run and the variants. Returns K1's launches by path and the readings."""
@@ -5092,6 +5252,7 @@ def _remat_launches(remat):
     return per_fwd * (2 if remat else 1) + per_fwd - NO_GRAD_PRODUCTS
 
 
+@clocked
 def phase_remat16(device, card_line):
     """remat16: ens16's 2-member flagship step (bf16, AR6, batch 16; its
     weights and batch) with `remat=True` beside the same step without:
@@ -5254,6 +5415,7 @@ def _check_remat_ranks(ranks, plain, ref):
     return 2 * per_fwd * n, (per_fwd - NO_GRAD_PRODUCTS) * n
 
 
+@clocked
 def phase_prep16(card_line):
     """prep16: an experiment's data and configs built from nothing by the
     port's data-preparation CLIs: `prepare_toy_data` (HEALPix-16, the
@@ -5361,6 +5523,7 @@ def _write_log(path):
     return writes, launches
 
 
+@clocked
 def phase_cli2rank(device, card_line, prep):
     """cli2rank: `python -m deepsphere_weather_torch.cli.train_predict` on
     prep16's data with the flagship config at `n_node_parallel: 2` (cut
@@ -5507,6 +5670,7 @@ def _trace_rows(path):
     return sorted(((ms, n, k) for k, (ms, n) in rows.items()), reverse=True)
 
 
+@clocked
 def phase_profile16(device, card_line):
     """profile16: the port's profiling harness on the card. `profile_step`
     of the flagship forward (bf16, batch 16, no gradient) and of its train
@@ -5599,6 +5763,7 @@ def phase_profile16(device, card_line):
                                      - NO_GRAD_PRODUCTS))}
 
 
+@clocked
 def phase_ensemble16(device, card_line, prep):
     """ensemble16: `cli.experiments.run_deep_ensemble` with 2 members in
     the member step (`member_parallel`), `remat: true`, on prep16's data
@@ -5689,6 +5854,239 @@ def phase_ensemble16(device, card_line, prep):
     return {"k1": launches[KERNEL]}
 
 
+def _ingest_config():
+    """The shipped flagship config cut as cli2rank's is (`_short_config`:
+    bf16, 1 epoch, AR1, CLI_PERIODS, scored every CLI_SCORING updates),
+    full width and depth."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return _short_config({"config": os.path.join(here, PROTOCOL_CONFIG)})
+
+
+def _bulk_vs_chunks(paths):
+    """Every array of the zarr groups at `paths` read whole by the native
+    bulk reader and chunk by chunk in Python (the chunk cache bypassed):
+    (exactly equal, bulk seconds, Python seconds, decompressed bytes,
+    chunks)."""
+    from deepsphere_weather_torch.data import zarrstore
+
+    equal, t_bulk, t_py, n_bytes, n_chunks = True, 0.0, 0.0, 0, 0
+    for path in paths:
+        group = zarrstore.open_group(path)
+        for name in group.array_names():
+            arr = group[name]
+            idxs = arr._chunks_overlapping(arr._norm_key(...)[0])
+            t0 = time.perf_counter()
+            bulk = [c for _, c in arr._read_chunks_uncached(idxs)]
+            t1 = time.perf_counter()
+            plain = [arr._read_chunk(i) for i in idxs]
+            t2 = time.perf_counter()
+            t_bulk += t1 - t0
+            t_py += t2 - t1
+            n_chunks += len(idxs)
+            n_bytes += sum(c.nbytes for c in plain)
+            equal &= all(np.array_equal(a, b) and a.dtype == b.dtype
+                         for a, b in zip(bulk, plain))
+    return equal, t_bulk, t_py, n_bytes, n_chunks
+
+
+def ingest16_host():
+    """ingest16's host stages (no device work): a GRIB2 tree in the reference's layout
+    (`<dataset>/<native>/<type>/<var>/*.grib`, tests/torch_ingest_chain.py)
+    on the O32 reduced Gaussian grid: z and t at 500 and 850 hPa and
+    accumulated TOA solar radiation every 6 hours for INGEST_STEPS steps,
+    and topography, land-sea mask and soil type; `remap_grib_files` onto
+    the flagship's HEALPix-16 (conservative, soil type by largest area
+    fraction; weights from the native library, no disk cache), reformat,
+    `zarrify_raw_data`, `rechunk_to_space_chunked`, the statics,
+    `cli.compute_scalers`. Checks: the native weights against the plain
+    version on INGEST_PAIR (NATIVE_TOL), the ingested z500's area-weighted
+    mean against the GRIB field's (CONSERVE_TOL), the native bulk reader
+    against the per-chunk Python path on every ingested store (exactly).
+    Returns the temporary directory (the caller removes it), the data
+    directory, the config and the seconds of each stage."""
+    from deepsphere_weather_torch.cli import compute_scalers
+    from deepsphere_weather_torch.data import grib
+    from deepsphere_weather_torch.data import preprocess as pp
+    from deepsphere_weather_torch.data.dataset import save_static
+    from deepsphere_weather_torch.native import build, geometry
+    from deepsphere_weather_torch.sphere import build_sampling
+    from deepsphere_weather_torch.sphere.remap import (
+        _conservative_weights_numpy,
+        area_weights,
+    )
+    from torch_ingest_chain import ingest, write_grib_tree
+
+    t_host = time.perf_counter()
+    cfg = _ingest_config()
+    ms = cfg["model_settings"]
+    dst = build_sampling(ms["sampling"], dict(ms["sampling_kwargs"]))
+    grid = grib.GridSpec("reduced_gg", 2 * INGEST_O,
+                         pl=grib.octahedral_pl(INGEST_O))
+    native = f"O{INGEST_O}"
+    root = tempfile.mkdtemp(prefix="dsw_ingest16_")
+    secs = {}
+    try:
+        # both host libraries built (or loaded) before any stage is timed
+        t0 = time.perf_counter()
+        for lib in ("geometry", "chunkio"):
+            build.load_library(lib)
+        secs["native_build"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tree = write_grib_tree(grib, root, INGEST_DATASET, native, grid,
+                               INGEST_STEPS, SEED)
+        secs["grib_write"] = time.perf_counter() - t0
+
+        (sname, nlat, o), (dname, dkw) = INGEST_PAIR
+        small = (build_sampling(sname, {"nlat": nlat, "nlon": list(
+            grib.octahedral_pl(o))}), build_sampling(dname, dkw))
+        t0 = time.perf_counter()
+        W, _, _ = geometry.conservative_weights(*small)
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        Wp, _, _ = _conservative_weights_numpy(*small)
+        t_plain = time.perf_counter() - t0
+        e_native = float(abs(W - Wp).max())
+        if not e_native <= NATIVE_TOL:
+            raise AssertionError(f"ingest16: native weights vs plain "
+                                 f"{e_native:.3e} (bar {NATIVE_TOL})")
+
+        data = os.path.join(root, "data")
+        registry = dict(pp.NATIVE_GRIDS)
+        pp.NATIVE_GRIDS[INGEST_DATASET] = native
+        try:
+            out = ingest(pp, save_static, root, INGEST_DATASET,
+                         INGEST_SAMPLING_NAME, dst, data, time_chunk=24 * 7)
+        finally:
+            pp.NATIVE_GRIDS.clear()
+            pp.NATIVE_GRIDS.update(registry)
+        secs.update(out["seconds"])
+        w_src = area_weights(grid.to_sampling()).astype(np.float64)
+        w_dst = area_weights(dst).astype(np.float64)
+        with np.load(out["dynamic"][0]) as z:
+            remapped = z["z"][0, 0].astype(np.float64)
+        src = tree["fields"][(0, "z", 500)].astype(np.float64)
+        m_src = float(w_src @ src / w_src.sum())
+        m_dst = float(w_dst @ remapped / w_dst.sum())
+        e_cons = abs(m_dst - m_src) / abs(m_src)
+        if not e_cons < CONSERVE_TOL:
+            raise AssertionError(f"ingest16: z500 mean {m_dst} vs GRIB "
+                                 f"{m_src} ({e_cons:.3e}, bar "
+                                 f"{CONSERVE_TOL})")
+        t0 = time.perf_counter()
+        compute_scalers.main(data, verbose=False)
+        secs["compute_scalers"] = time.perf_counter() - t0
+
+        stores = [os.path.join(data, "Data", *rel) for rel in (
+            ("dynamic", "time_chunked", "dynamic.zarr"),
+            ("dynamic", "space_chunked", "dynamic.zarr"),
+            ("bc", "time_chunked", "bc.zarr"))]
+        equal, t_bulk, t_py, n_read, n_chunks = _bulk_vs_chunks(stores)
+        if not equal:
+            raise AssertionError("ingest16: the native bulk reader differs "
+                                 "from the per-chunk Python path")
+        secs["host"] = time.perf_counter() - t_host
+        log("ingest16", f"GRIB2 tree O{INGEST_O} ({grid.n_points} points, "
+                        f"{INGEST_STEPS} six-hour steps, z and t at 500 "
+                        f"and 850 hPa, tisr, 3 statics): {tree['files']} "
+                        f"files, {tree['bytes']} bytes")
+        log("ingest16", f"native weights vs plain on O{o} -> "
+                        f"HEALPix-{dkw['subdivisions']}: {e_native:.3e} "
+                        f"(bar {NATIVE_TOL}; native {t_native:.2f} s, "
+                        f"plain {t_plain:.2f} s, host); z500 area-weighted "
+                        f"mean ingested {m_dst:.3f} vs GRIB {m_src:.3f}: "
+                        f"{e_cons:.3e} (bar {CONSERVE_TOL})")
+        log("ingest16", f"bulk reader vs per-chunk Python on the 3 "
+                        f"ingested stores: equal exactly, {n_chunks} "
+                        f"chunks, {n_read} bytes; bulk {t_bulk:.4f} s, "
+                        f"Python {t_py:.4f} s (host)")
+        return {"root": root, "data": data, "config": cfg, "seconds": secs}
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+
+
+@clocked
+def phase_ingest16(device, card_line):
+    """ingest16: raw GRIB2 to a trained and verified experiment through the
+    port's entry points: `ingest16_host`'s data directory (the GRIB tree
+    remapped, ingested and scaled on the host), then `cli.train_predict.main` with
+    the flagship config cut as cli2rank's (bf16, full width and depth, K1
+    at level 0), AR4 forecast, verification and the plots (or the
+    driver's skip line). Checks: K1 launched in the run and no other
+    kernel, finite losses and RMSE, the figures or the skip line. Seconds
+    by stage."""
+    import contextlib
+    import io
+
+    import torch
+
+    from deepsphere_weather_torch.cli.train_predict import main as train_main
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    t_phase = time.perf_counter()
+    res = ingest16_host()
+    root, data, secs = res["root"], res["data"], res["seconds"]
+    try:
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(res["config"], f)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(text):
+                exp, gs = train_main(
+                    cfg_path, data, os.path.join(root, "exp"), force=True,
+                    ar_iterations_prediction=CLI_AR_PREDICT, device=device)
+        except BaseException:
+            print(text.getvalue()[-3000:])
+            raise
+        finally:
+            torch.use_deterministic_algorithms(False)
+        torch.cuda.synchronize()
+        secs["train_predict"] = time.perf_counter() - t0
+        launches = dict(launch_counts)
+        lines = text.getvalue().splitlines()
+        with open(os.path.join(exp, "training_info",
+                               "ar_training_info.json")) as f:
+            info = json.load(f)
+        losses = np.asarray(info["training_total_loss"]
+                            + info["validation_total_loss"])
+        rmse = np.asarray(gs["RMSE"])
+        figs = sorted(os.path.relpath(os.path.join(d, f), exp)
+                      for d, _, fs in os.walk(os.path.join(exp, "figs"))
+                      for f in fs)
+        skipped = "plots skipped: matplotlib is not installed" in lines
+        if (launches[KERNEL] == 0
+                or sum(launches.values()) != launches[KERNEL]
+                or not losses.size or not np.isfinite(losses).all()
+                or not np.isfinite(rmse).all()
+                or rmse.shape != (CLI_AR_PREDICT + 1, 2)
+                or skipped == bool(figs)):
+            raise AssertionError(f"ingest16: launches {launches}, losses "
+                                 f"{losses}, RMSE {rmse}, figs {figs}, "
+                                 f"skip line {skipped}")
+        log("ingest16", f"cli.train_predict.main, flagship config cut "
+                        f"(bf16, 1 epoch, AR1, {CLI_PERIODS}, AR"
+                        f"{CLI_AR_PREDICT} forecast): {launches[KERNEL]} "
+                        f"{KERNEL} launches, nothing else; "
+                        f"{len(info['iterations'])} losses finite; RMSE by "
+                        f"lead {np.round(rmse, 4).tolist()} finite")
+        log("ingest16", (f"figs/: {figs}" if figs else
+                         "plots skipped: matplotlib is not installed "
+                         "(the driver's line; no figs/ file written)"))
+        secs["phase"] = time.perf_counter() - t_phase
+        log("ingest16", "seconds: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in secs.items()) + f" ({card_line})")
+        return {"k1": launches[KERNEL], "seconds": secs}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import argparse
 
@@ -5712,6 +6110,21 @@ def main() -> int:
     t_start = time.perf_counter()
     card_line = card()
     log("card", card_line)
+    # every geometry of the run is built here from nothing, into a cache of
+    # its own (spawned ranks and subprocesses inherit it), so no reading
+    # depends on what an earlier run left in the shared cache
+    cache = tempfile.mkdtemp(prefix="dsw_cache_")
+    os.environ["DSW_TPU_CACHE"] = cache
+    try:
+        return _phases(args, device, t_start, card_line)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def _phases(args, device, t_start, card_line) -> int:
+    """Every phase after the card line, in order."""
+    import torch
+
     phase_build()
     ell_parity = phase_parity(device, (SLICE_SUBDIV, BIG_SUBDIV),
                               MATVEC_WIDTH)
@@ -5726,20 +6139,18 @@ def main() -> int:
     tr = phase_train(device, SLICE_SUBDIV, card_line)
     tr64 = phase_train64(device, BIG_SUBDIV, card_line)
     f32 = phase_train64f32(device, card_line)
-    node = phase_node(device, card_line, tr["per_iter"], tr64["per_iter"])
-    node["launches"]["mesh16"] = phase_mesh(device, card_line,
-                                            tr["per_iter"], node["grad_ref"])
     bn16 = phase_bn16(device, card_line)
     ens16 = phase_ens16(device, card_line, tr["ms"]["train16"],
                         args.profile)
     remat16 = phase_remat16(device, card_line)
-    t_mesh = time.perf_counter()
-    ensmesh = phase_ensmesh16(device, card_line, ens16["widths"])
-    bnmesh = phase_bnmesh16(device, card_line, bn16)
-    t_mesh = time.perf_counter() - t_mesh
+    meshes = phase_meshes(device, card_line, tr["per_iter"], tr64["per_iter"],
+                          ens16["widths"], bn16)
+    node, ensmesh, bnmesh, gridsnode = (meshes[k] for k in (
+        "node", "ensmesh16", "bnmesh16", "gridsnode400"))
 
     from deepsphere_weather_torch.ops import BlockSparseOperator
 
+    t_rows = time.perf_counter()
     op3 = BlockSparseOperator.from_scipy(
         _laplacian(SLICE_SUBDIV), dtype=torch.bfloat16, rows_per_super=0,
         device=device)
@@ -5769,6 +6180,7 @@ def main() -> int:
     # K2 at the node64 step's shapes beside cuSPARSE's CSR row slice
     rows[2]["node64_shapes"] = k2_node64_shapes(device, node["shapes64"],
                                                 card_line)
+    PHASE_SECONDS["kernel rows"] = time.perf_counter() - t_rows
     log("times", f"slice: {fig['step_ms']:.2f} ms per forecast step (batch "
                  f"{BATCH}, host clock, {N_STEPS} steps), {fig['submit_ms']:.1f} "
                  f"ms for {N_SUBMIT} concurrent submits, forward "
@@ -5805,11 +6217,7 @@ def main() -> int:
     rows[0]["launches_protocol16"] = proto["parts"]
     rows[0]["launches_swag16"] = swag16["parts"]
     grids = phase_grids400(device, card_line)
-    t_grids = time.perf_counter()
-    gridsnode = phase_gridsnode400(device, card_line)
-    t_mesh += time.perf_counter() - t_grids
-    log("times", f"ensmesh16, bnmesh16 and gridsnode400 together "
-                 f"{t_mesh:.1f} s")
+    ingest16 = phase_ingest16(device, card_line)
     rows[0]["launches_grids400_cli"] = grids["cli_parts"]
     # K1 per launch at each of the O24 voronoi level 0's step widths,
     # forward layout and the transposed one its backward runs
@@ -5847,7 +6255,8 @@ def main() -> int:
     # launches are counted as a total: cli2rank's ranks (K2) and rank 0's
     # prediction with the one-process run beside it (K1); ensemble16 (K1)
     rows[0]["launches_other_paths"] = {"cli2rank": cli2["k1"],
-                                       "ensemble16": ens_cli["k1"]}
+                                       "ensemble16": ens_cli["k1"],
+                                       "ingest16": ingest16["k1"]}
     rows[2]["launches_other_paths"] = {"cli2rank": cli2["k2"]}
     for row in (rows[0], rows[2]):
         row["launches"] += sum(row["launches_other_paths"].values())
@@ -5877,7 +6286,11 @@ def main() -> int:
         "row_rule_source": "deepsphere_weather_torch/ops/bcsr.py (spmm_rows)",
         "launches_by_path_rows": {
             "ensmesh16_1x2x2": ensmesh["launches"]["ensmesh16_1x2x2"]}}
-    log("times", f"total {time.perf_counter() - t_start:.1f} s")
+    total = time.perf_counter() - t_start
+    log("times", "phases (wall s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + f"; the rest {total - sum(PHASE_SECONDS.values()):.1f}")
+    log("times", f"total {total:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

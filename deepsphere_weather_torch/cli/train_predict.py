@@ -5,9 +5,12 @@ scripts_training/train_predict_state.py:136-632): config -> open zarr
 stores -> scalers -> train/val/test time split -> tensor_info -> model
 build -> area-weighted loss -> Adam -> AR scheduler + early stopping ->
 AutoregressiveTraining -> AutoregressivePredictions (AR=20) -> rechunk ->
-deterministic verification + global summary. It writes the JAX driver's
-experiment directory, named by the same model name, except the plots
-(`figs/` stays empty; plotting is ROADMAP Queue 1 item 9).
+deterministic verification + global summary -> plots. It writes the JAX
+driver's experiment directory, named by the same model name, the plots
+under `figs/` included. The plot step imports the plotting package (and
+with it matplotlib) only then; on a machine without matplotlib it prints
+`plots skipped: matplotlib is not installed` and writes no figure, the
+one absent package the driver tolerates.
 
 Usage:
     python -m deepsphere_weather_torch.cli.train_predict \
@@ -262,6 +265,9 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
     launch.rank_barrier()
     if not writer:
         return exp_path, None
+    plotting = _plotting()
+    if plotting is not None:
+        info.plots(exp_path)
 
     # --- prediction on the test period (reference: AR=20 -> +120 h,
     #     train_predict_state.py:484) --------------------------------------
@@ -311,12 +317,32 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
         "verify_read_gb": round((read_bytes_counter() - b_ve) / 1e9, 3),
     }, indent=1))
 
+    # --- plots ------------------------------------------------------------
+    if plotting is not None:
+        plotting.plot_global_skills(gs, exp_path / "figs" / "skills")
+        plotting.plot_skill_maps(skill, exp_path / "figs" / "skills",
+                                 sampling=samp)
+
     if verbose:
         rmse_last = gs["RMSE"][-1]
         print(f"[{model_name}] done in {time.time() - t_start:.0f}s; "
               f"final-leadtime RMSE per var: "
               f"{dict(zip(tensor_info['feature_order']['dynamic'], np.round(rmse_last, 3)))}")
     return exp_path, gs
+
+
+def _plotting():
+    """The plotting package, imported at the plot step; None, with one
+    printed line, where matplotlib is not installed (plots are neither
+    the device nor a kernel; any other import error raises)."""
+    try:
+        from .. import plotting
+    except ModuleNotFoundError as e:
+        if e.name != "matplotlib":
+            raise
+        print("plots skipped: matplotlib is not installed")
+        return None
+    return plotting
 
 
 def cli():

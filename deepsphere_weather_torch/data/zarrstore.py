@@ -11,8 +11,10 @@ reads back byte for byte in the other.
   system libblosc (`native/bloscio.py`, loaded only when a blosc store is
   read or written, so a store without blosc never needs it)
 - `s3://`-style URLs go through fsspec, imported only for such a path
-- chunks are read one by one in Python; the JAX package's native bulk
-  reader (`native/chunkio.cpp`) is not ported
+- a read of more than one chunk of a local store goes through the native
+  bulk reader (`native/chunkio.cpp`: a thread pool reads and decompresses
+  the chunk files into one buffer); a single chunk, and every chunk of an
+  fsspec store, is read in Python (`_read_chunk`), as in the JAX package
 """
 
 from __future__ import annotations
@@ -383,20 +385,50 @@ class ZarrArray:
                 n for d, n in enumerate(out_shape) if d not in squeeze))
         return out
 
+    # cap on the decompressed bytes one native bulk read holds: peak
+    # memory stays out + one batch of chunks, not out + every chunk of a
+    # store-sized selection
+    _BULK_BATCH_BYTES = 256 * 1024 * 1024
+
     def _read_chunks_bulk(self, idxs):
-        """Read many chunks, decompressed-chunk cache first. Yields
-        (idx, chunk)."""
+        """Read many chunks, decompressed-chunk cache first, the misses
+        through `_read_chunks_uncached`. Yields (idx, chunk)."""
         if _chunk_cache.max_bytes <= 0:
+            yield from self._read_chunks_uncached(idxs)
+            return
+        missing, miss_keys = [], {}
+        for i in idxs:
+            key = self._cache_key(i)
+            hit = _chunk_cache.get(key)
+            if hit is not None:
+                yield i, hit
+            else:
+                missing.append(i)
+                miss_keys[i] = key
+        for i, chunk in self._read_chunks_uncached(missing):
+            _chunk_cache.put(miss_keys[i], chunk)
+            yield i, chunk
+
+    def _read_chunks_uncached(self, idxs):
+        """More than one chunk of a local store: the native reader
+        (`native/chunkio.cpp`), in batches of `_BULK_BATCH_BYTES`;
+        otherwise one chunk at a time in Python."""
+        if len(idxs) <= 1 or not isinstance(self.path, Path):
             for i in idxs:
                 yield i, self._read_chunk(i)
             return
-        for i in idxs:
-            key = self._cache_key(i)
-            chunk = _chunk_cache.get(key)
-            if chunk is None:
-                chunk = self._read_chunk(i)
-                _chunk_cache.put(key, chunk)
-            yield i, chunk
+        from ..native import chunkio
+
+        chunk_bytes = int(np.prod(self.chunks)) * self.dtype.itemsize
+        batch = max(1, self._BULK_BATCH_BYTES // max(chunk_bytes, 1))
+        for lo in range(0, len(idxs), batch):
+            part = idxs[lo: lo + batch]
+            buf = np.empty((len(part),) + self.chunks, dtype=self.dtype)
+            found = chunkio.read_chunks(
+                [str(self._chunk_path(i)) for i in part], buf,
+                self.compressor, fill_value=self.fill_value)
+            _READ_BYTES[0] += found * chunk_bytes
+            yield from zip(part, buf)
 
     def __setitem__(self, key, value):
         sel, _ = self._norm_key(key)

@@ -51,8 +51,9 @@ in place; a resumed run loads them first (`utils.Checkpointer`). Steps are
 queued without a host synchronization; the loss is read once per scoring
 interval.
 
-Not ported: the training plots (`ARTrainingInfo.plots`, ROADMAP Queue 1
-item 9).
+`ARTrainingInfo.plots` draws the training curves through the plotting
+package (`plotting/training.py`), imported when it is called: the trainer
+itself never loads matplotlib.
 """
 
 from __future__ import annotations
@@ -133,6 +134,14 @@ class ARTrainingInfo:
     @classmethod
     def load(cls, path) -> "ARTrainingInfo":
         return cls(**json.loads(Path(path).read_text()))
+
+    def plots(self, exp_dir, ylim=None):
+        """Render the training/validation curves under
+        `exp_dir/figs/training_info/` (reference: ar_training_info.plots,
+        train_predict_state.py:449)."""
+        from ..plotting.training import plot_training_info
+
+        return plot_training_info(self, exp_dir, ylim=ylim)
 
 
 @torch.no_grad()

@@ -1,6 +1,6 @@
-"""Conservative spherical remapping and cell areas (numpy, scipy; host).
+"""Conservative spherical remapping and cell areas (host).
 
-The port's own copy of `deepsphere_weather_tpu/sphere/remap.py`, numpy only:
+The port's own copy of `deepsphere_weather_tpu/sphere/remap.py`:
 
 1. Voronoi tessellation of each sampling (scipy `SphericalVoronoi`): cell
    areas, and the normalized per-node weights of the area-weighted loss.
@@ -9,9 +9,13 @@ The port's own copy of `deepsphere_weather_tpu/sphere/remap.py`, numpy only:
    Sutherland-Hodgman pass (half-spaces are planes through the origin).
 3. Overlap weight = spherical polygon area of the intersection.
 
-The weights satisfy the conservativity invariants, asserted on every
-build: row sums equal destination cell areas, column sums source cell
-areas, and the 'fracarea'-normalized matrix has unit row sums. This runs
+Step 2's clipping runs in the C++ library `native/geometry.cpp` (built at
+first use; a failed build raises), as the JAX package's does when its
+library is built. `_conservative_weights_numpy` is its plain version,
+which the tests hold it against. The weights satisfy the conservativity
+invariants, asserted on every build: row sums equal destination cell
+areas, column sums source cell areas, and the 'fracarea'-normalized
+matrix has unit row sums. This runs
 once per sampling pair at geometry build time (cached on disk by the
 pools, `ops/pool.py`); the hot path consumes only the resulting matrices.
 """
@@ -187,7 +191,9 @@ def compute_interpolation_weights(src: Sampling, dst: Sampling,
     covered by source cell s (row sums = 1), the CDO convention.
     normalization=None returns raw overlap areas.
     """
-    W, src_area, dst_area = _conservative_weights_numpy(src, dst)
+    from ..native import geometry
+
+    W, src_area, dst_area = geometry.conservative_weights(src, dst)
 
     # conservativity invariants
     np.testing.assert_allclose(np.asarray(W.sum(axis=1)).ravel(), dst_area, rtol=1e-4)
@@ -203,6 +209,7 @@ def compute_interpolation_weights(src: Sampling, dst: Sampling,
 
 
 def _conservative_weights_numpy(src: Sampling, dst: Sampling):
+    """Plain numpy version of `native.geometry.conservative_weights`."""
     sv_src = voronoi_cells(src)
     sv_dst = voronoi_cells(dst)
     src_area = sv_src.calculate_areas()

@@ -1,5 +1,5 @@
-"""Verification: deterministic and probabilistic skills, their summaries
-and the benchmark forecasts."""
+"""Verification: deterministic and probabilistic skills, their summaries,
+the benchmark forecasts and external baseline skills."""
 
 from .deterministic import (  # noqa: F401
     SkillDataset,
@@ -17,3 +17,4 @@ from .probabilistic import (  # noqa: F401
     probabilistic,
     rank_histogram,
 )
+from .external import load_external_skill  # noqa: F401

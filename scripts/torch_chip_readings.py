@@ -8,6 +8,7 @@ chip_smoke.py:
     python3 scripts/torch_chip_readings.py ab TAG
     python3 scripts/torch_chip_readings.py ell TAG
     python3 scripts/torch_chip_readings.py remat
+    python3 scripts/torch_chip_readings.py remap
 
 gaps  The slice phase's card-vs-CPU forward check (HEALPix-16 bf16 flagship,
       batch 16, the CPU taking the card's ReLU and max-pool decisions) at
@@ -44,6 +45,19 @@ remat Where the member step's peak device memory is set: chip_smoke's
       over one step (`torch.cuda.memory._record_memory_history`): the
       largest blocks live at the step's peak, with the Python frames that
       allocated them. One line `REMAT {json}`.
+remap The host work of the ingest and geometry layers on the card
+      machine's host (no kernel runs): the remap geometry of the shipped
+      Healpix_100km/InterpPool-Graph_knn config, each of its pool pairs
+      (HEALPix-64 -> 32 -> 16) through the native library
+      (`native.geometry.conservative_weights`; its g++ build timed
+      before) and its plain numpy version
+      (`sphere.remap._conservative_weights_numpy`): seconds and max abs
+      difference; the config's whole model geometry (`models.get_model`,
+      fp32, on the card) built into an empty disk cache: seconds; then
+      the native bulk chunk reader against the per-chunk Python path
+      (chip_smoke's `_bulk_vs_chunks`) on protocol16's store (the port's
+      `cli.prepare_toy_data` at HEALPix-16, 1460 six-hour steps): equal,
+      seconds, bytes. One line `REMAP {json}`.
 """
 
 import json
@@ -279,6 +293,74 @@ def remat(device):
     print("REMAT " + json.dumps(out), flush=True)
 
 
+def remap(device):
+    import shutil
+    import tempfile
+    import time
+
+    from deepsphere_weather_torch.cli import prepare_toy_data
+    from deepsphere_weather_torch.native import build, geometry
+    from deepsphere_weather_torch.sphere import (
+        build_sampling,
+        coarsen_sampling_kwargs,
+    )
+    from deepsphere_weather_torch.sphere.remap import (
+        _conservative_weights_numpy,
+    )
+
+    name = "Healpix_100km/InterpPool-Graph_knn"
+    cfg = c._grids_config(name)
+    ms = cfg["model_settings"]
+    out = {"card": c.card(), "config": name, "pairs": []}
+    # the libraries' first build is timed apart from the readings
+    t0 = time.perf_counter()
+    for lib in ("geometry", "chunkio"):
+        build.load_library(lib)
+    out["native_build_s"] = time.perf_counter() - t0
+    kw = dict(ms["sampling_kwargs"])
+    for _ in range(2):
+        coarse = coarsen_sampling_kwargs(ms["sampling"], kw, 2)
+        src = build_sampling(ms["sampling"], kw)
+        dst = build_sampling(ms["sampling"], coarse)
+        t0 = time.perf_counter()
+        W, _, _ = geometry.conservative_weights(src, dst)
+        t1 = time.perf_counter()
+        Wp, _, _ = _conservative_weights_numpy(src, dst)
+        t2 = time.perf_counter()
+        out["pairs"].append({
+            "src": kw, "dst": coarse, "n_src": src.n_nodes,
+            "n_dst": dst.n_nodes, "native_s": t1 - t0, "plain_s": t2 - t1,
+            "max_abs_diff": float(abs(W - Wp).max()), "nnz": int(W.nnz)})
+        print("REMAP pair " + json.dumps(out["pairs"][-1]), flush=True)
+        kw = coarse
+    root = tempfile.mkdtemp(prefix="dsw_remap_")
+    saved = os.environ.get("DSW_TPU_CACHE")
+    os.environ["DSW_TPU_CACHE"] = os.path.join(root, "cache")
+    try:
+        t0 = time.perf_counter()
+        c.grids_model(device, cfg, "float32")
+        torch.cuda.synchronize()
+        out["geometry_s_empty_cache"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prepare_toy_data.main(os.path.join(root, "data"),
+                              subdivisions=c.SLICE_SUBDIV, seed=c.SEED,
+                              verbose=False)
+        out["prepare_toy_data_s"] = time.perf_counter() - t0
+        stores = [os.path.join(root, "data", "Data", *rel) for rel in (
+            ("dynamic", "time_chunked", "dynamic.zarr"),
+            ("bc", "time_chunked", "bc.zarr"))]
+        equal, t_bulk, t_py, n_bytes, n_chunks = c._bulk_vs_chunks(stores)
+        out["bulk"] = {"equal": equal, "bulk_s": t_bulk, "python_s": t_py,
+                       "bytes": n_bytes, "chunks": n_chunks}
+    finally:
+        if saved is None:
+            os.environ.pop("DSW_TPU_CACHE")
+        else:
+            os.environ["DSW_TPU_CACHE"] = saved
+        shutil.rmtree(root, ignore_errors=True)
+    print("REMAP " + json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("torch_chip_readings: needs an NVIDIA GPU")
@@ -286,6 +368,9 @@ if __name__ == "__main__":
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     print(c.card(), flush=True)
+    if sys.argv[1] == "remap":
+        remap(dev)
+        sys.exit(0)
     c.phase_build()
     if sys.argv[1] == "gaps":
         gaps(dev)

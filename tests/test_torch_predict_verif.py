@@ -14,7 +14,7 @@ At HEALPix-4 (192 nodes, knn 8), fp32, from the same seeded weights
   1e-6, and the same global summary;
 - the CLI: both `main`s train, predict and verify one toy experiment from
   one initial checkpoint (`pretrained_model_name`): the same experiment
-  tree except the JAX driver's plots, and RMSE per leadtime within 3e-3
+  tree, the plots under figs/ included, and RMSE per leadtime within 3e-3
   relative (`docs/benchmarks/parity_protocol.json`); then each package
   `--resume`s the other's experiment.
 """
@@ -276,9 +276,13 @@ def experiments(tmp_path_factory):
 def test_cli_matches_jax(experiments):
     (exp, gs), (jexp, jgs) = experiments["port"], experiments["jax"]
     assert exp.name == jexp.name == NAME
-    # the experiment tree: the JAX driver's files, without its plots
-    jfiles = [f for f in _files(jexp) if not f.endswith(".png")]
-    assert _files(exp) == jfiles
+    # the experiment tree: the JAX driver's files, its plots included
+    assert _files(exp) == _files(jexp)
+    assert [f for f in _files(exp) if f.endswith(".png")] == [
+        "figs/skills/global_skills.png", "figs/skills/skill_maps_t850.png",
+        "figs/skills/skill_maps_z500.png",
+        "figs/training_info/loss_curves.png",
+        "figs/training_info/per_leadtime_loss.png"]
     assert sorted(p.name for p in exp.rglob("*") if p.is_dir()) == \
         sorted(p.name for p in jexp.rglob("*") if p.is_dir())
     for f in ("config.json", "tensor_info.json"):

@@ -176,7 +176,7 @@ def test_submit_matches_jax_rollout(setup):
 # import the worker and the thread pin, chip_smoke.py the others, and none
 # may pull JAX in
 TEST_HELPERS = ("torch_parallel_worker", "torch_threads", "torch_grad_terms",
-                "torch_steer", "torch_split_probe")
+                "torch_steer", "torch_split_probe", "torch_ingest_chain")
 
 
 # the write log the CLI tests and chip_smoke.py's cli2rank put on the CLIs'
@@ -190,20 +190,44 @@ def _port_sources():
                                    for m in TEST_HELPERS + SITE_HELPERS]
 
 
+# matplotlib and PIL: only the plotting package imports them (the card's
+# paths never load it; the CLI imports it in its plot step)
+PLOTTING = REPO / "deepsphere_weather_torch" / "plotting"
+
+
+def _imports(tree):
+    """(top-level package, inside a function body) of every absolute
+    import in a module."""
+    out = []
+
+    def visit(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                out.extend((a.name.split(".")[0], in_function)
+                           for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                out.append(((child.module or "").split(".")[0],
+                            in_function))
+            visit(child, in_function or isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)))
+    visit(tree, False)
+    return out
+
+
 def test_port_sources_import_no_jax():
-    banned = ("jax", "jaxlib", "deepsphere_weather_tpu", "pandas", "optax",
-              "matplotlib")
+    """No port source imports JAX, the JAX package, pandas or optax;
+    matplotlib and PIL only inside `plotting/`; h5py (the netCDF4 reader)
+    only inside a function body."""
+    banned = ("jax", "jaxlib", "deepsphere_weather_tpu", "pandas", "optax")
     for path in _port_sources():
         tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                assert name.split(".")[0] not in banned, f"{path}: {name}"
+        plotting = PLOTTING in path.parents
+        for name, in_function in _imports(tree):
+            assert name not in banned, f"{path}: {name}"
+            if name in ("matplotlib", "PIL"):
+                assert plotting, f"{path}: {name} outside plotting/"
+            if name == "h5py":
+                assert in_function, f"{path}: h5py at module level"
 
 
 def test_import_checks_cover_every_sampling_module():
@@ -240,17 +264,50 @@ def test_import_checks_cover_the_launch_and_cli_modules():
     assert "tests/write_log_site/sitecustomize.py" in mods
 
 
-def test_port_imports_no_jax_in_fresh_process():
+def test_import_checks_cover_ingest_native_and_plotting():
+    """The GRIB codec, the preprocessing pipeline, the native build and
+    bindings (and their C++ sources beside them), every plotting module
+    and the ingest chain chip_smoke.py imports are among the sources the
+    checks read; the fresh-process check imports every one of them but
+    plotting/."""
+    mods = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    assert "tests/torch_ingest_chain.py" in mods
+    for m in ("data/grib.py", "data/preprocess.py", "verif/external.py",
+              "native/build.py", "native/geometry.py", "native/chunkio.py",
+              "native/bloscio.py", "plotting/__init__.py",
+              "plotting/skills.py", "plotting/mesh.py",
+              "plotting/hovmoller.py", "plotting/animation.py",
+              "plotting/training.py"):
+        assert f"deepsphere_weather_torch/{m}" in mods, m
+    for cpp in ("geometry.cpp", "chunkio.cpp"):
+        assert (REPO / "deepsphere_weather_torch" / "native" / cpp).exists()
+    fresh = _fresh_modules()
+    assert "deepsphere_weather_torch.data.preprocess" in fresh
+    assert "deepsphere_weather_torch.native.chunkio" in fresh
+    assert not [m for m in fresh if ".plotting" in m]
+
+
+def _fresh_modules():
+    """Every port module outside plotting/, by import name."""
     mods = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
-        for p in (REPO / "deepsphere_weather_torch").rglob("*.py"))
-    mods = [m[:-len(".__init__")] if m.endswith(".__init__") else m
-            for m in mods] + list(TEST_HELPERS)
+        for p in (REPO / "deepsphere_weather_torch").rglob("*.py")
+        if PLOTTING not in p.parents)
+    return [m[:-len(".__init__")] if m.endswith(".__init__") else m
+            for m in mods]
+
+
+def test_port_imports_no_jax_in_fresh_process():
+    """Importing every port module outside plotting/ (and the torch-only
+    test helpers) loads no JAX, JAX package, pandas, matplotlib, PIL or
+    h5py."""
+    mods = _fresh_modules() + list(TEST_HELPERS)
     code = ("import importlib, sys\n"
             "sys.path.insert(0, 'tests')\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'deepsphere_weather_tpu', 'pandas', 'matplotlib')]\n"
+            "('jax', 'deepsphere_weather_tpu', 'pandas', 'matplotlib', "
+            "'PIL', 'h5py')]\n"
             "print('BAD', bad)\n"
             "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
