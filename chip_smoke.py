@@ -202,8 +202,8 @@ printed one per line:
              statistics: finite, 10 K1 launches per forward
 14. ens16    (after bn16) 2 flagship members from two seeds
              (`models.MemberStack`) trained together, the member step
-             (`torch.func.grad` under `torch.func.vmap`, bf16, AR6, batch
-             16), 3 steps: exactly 70 + 68 K1 launches per step for both
+             (each AR iteration under `torch.func.vmap`, one backward,
+             bf16, AR6, batch 16), 3 steps: exactly 70 + 68 K1 launches per step for both
              members, each at twice the single step's width but the 2
              products on the shared batch, the member step's time beside
              the single step's (phase train); one fp32 batch-2 member step
@@ -306,7 +306,10 @@ printed one per line:
              the same step without, on one weights and batch: exactly 208
              K1 launches a step with remat (the recompute repeats the 70
              forward products) and 138 without, no other kernel; peak
-             device memory of a step and step time of each (in turns);
+             device memory of a step of each beside the single model's
+             AR6 step's: the member step's own peak at most 2.25x the
+             single step's, and with remat at most 0.6x itself without;
+             step time of each (in turns);
              the fp32 batch-2 member step with and without remat on the
              same ReLU and max-pool decisions (`steer`, every one equal),
              losses and every gradient within 1e-5. Inside ensmesh16's
@@ -483,6 +486,10 @@ ENS_MEMBERS, ENS_STEPS, ENS_TOL, ENS_CHECK_EPS = 2, 3, 1e-4, 1e-3
 # remat16: the bar of the fp32 member step with remat against the step
 # without (the same decisions, the same kernels); its timing windows
 REMAT_TOL, REMAT_WINDOWS = 1e-5, 2
+# remat16's memory bars: the 2-member step's own peak against the single
+# model's step (the JAX package's member step holds 2.00x), and the member
+# step with remat against itself without (the single step's cut)
+MEMBER_PEAK_BAR, REMAT_PEAK_BAR = 2.25, 0.6
 # cli2rank and ensemble16: prep16's flagship config cut to a short run
 # (`_short_config`): the toy year's periods it trains, validates and
 # forecasts on, its scoring interval (the period's 14 updates an epoch
@@ -4465,9 +4472,10 @@ def phase_bn16(device, card_line):
 @clocked
 def phase_ens16(device, card_line, single_ms, profile=False):
     """ens16: 2 flagship members trained together (bf16, AR6, batch 16,
-    member step: torch.func.grad under vmap). 3 steps: exactly 70 + 68 K1
-    launches per step for both members, at twice the single step's widths
-    (but the first convolution's 2 products on the shared batch); then one
+    member step: each AR iteration under vmap, one backward). 3 steps:
+    exactly 70 + 68 K1 launches per step for both members, at twice the
+    single step's widths (but the first convolution's 2 products on the
+    shared batch); then one
     fp32 batch-2 member step against each member's single step on the
     card (1e-4), with a clip between the members' gradient norms, the
     single steps taking the member step's ReLU and max-pool decisions
@@ -5258,15 +5266,22 @@ def phase_remat16(device, card_line):
     weights and batch) with `remat=True` beside the same step without:
     exactly the K1 launches `_remat_launches` gives (the recompute runs
     every forward product again) and no other kernel, the losses of both,
-    peak device memory over one step of each (after a first step), step
-    time (`time_steps`, in turns); then the fp32 batch-2 member step with
+    peak device memory over one step of each (after a first step) beside
+    the single model's AR6 step's (member 0's weights): the member step's
+    own peak at most MEMBER_PEAK_BAR of the single step's, and with remat
+    at most REMAT_PEAK_BAR of itself without; step time (`time_steps`, in
+    turns); then the fp32 batch-2 member step with
     and without remat (level 0 block-sparse: the ELL kernel): the remat
     run takes the plain run's ReLU and max-pool decisions (recorded by
     `steer`, forward and recompute, every one equal), losses and every
     gradient within REMAT_TOL."""
     import torch
 
-    from deepsphere_weather_torch.engine import Adam, make_member_train_step
+    from deepsphere_weather_torch.engine import (
+        Adam,
+        make_member_train_step,
+        make_train_step,
+    )
     from deepsphere_weather_torch.models import MemberStack
     from deepsphere_weather_torch.ops.bcsr import (
         launch_counts,
@@ -5299,13 +5314,8 @@ def phase_remat16(device, card_line):
         if launches[KERNEL] != want or sum(launches.values()) != want:
             raise AssertionError(f"remat16 remat={remat}: launches "
                                  f"{launches}, want {want} {KERNEL}")
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
         at_call.clear()
-        step(data, w, area_w)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
+        base, peak = _peak_over(lambda: step(data, w, area_w))
         kept = max(at_call[:TRAIN_AR + 1]) - base
         res[remat] = {"per_iter": per_iter.float().cpu().numpy(),
                       "launches": want, "peak_gib": peak / 2 ** 30,
@@ -5316,6 +5326,32 @@ def phase_remat16(device, card_line):
         steps["remat16 member step" + (" with remat" if remat else "")] = (
             lambda step=step: step(data, w, area_w))
     hook.remove()
+    model.load_state_dict(members[0])
+    single = make_train_step(model, indexer,
+                             Adam(model.parameters(), lr=LR), TRAIN_AR + 1)
+    single(data, w, area_w)
+    torch.cuda.synchronize()
+    base, peak = _peak_over(lambda: single(data, w, area_w))
+    single_gib = (peak - base) / 2 ** 30
+    del single
+    log("remat16", f"peak device memory over one AR{TRAIN_AR} batch {BATCH} "
+                   f"bf16 step (after a first), past the step's start: the "
+                   f"single model {single_gib:.3f} GiB, {ENS_MEMBERS} members "
+                   f"{res[False]['step_gib']:.3f} GiB "
+                   f"({res[False]['step_gib'] / single_gib:.2f}x, bar "
+                   f"{MEMBER_PEAK_BAR}), {ENS_MEMBERS} members with remat "
+                   f"{res[True]['step_gib']:.3f} GiB "
+                   f"({res[True]['step_gib'] / res[False]['step_gib']:.2f}x "
+                   f"of the member step without, bar {REMAT_PEAK_BAR}) "
+                   f"({card_line})")
+    if not (res[False]["step_gib"] <= MEMBER_PEAK_BAR * single_gib
+            and res[True]["step_gib"]
+            <= REMAT_PEAK_BAR * res[False]["step_gib"]):
+        raise AssertionError(
+            f"remat16 peaks: single {single_gib:.3f} GiB, members "
+            f"{res[False]['step_gib']:.3f} GiB (bar {MEMBER_PEAK_BAR}x the "
+            f"single's), with remat {res[True]['step_gib']:.3f} GiB (bar "
+            f"{REMAT_PEAK_BAR}x the members' without)")
     ms = time_steps(steps, BATCH, card_line, windows=REMAT_WINDOWS)
     plain_ms, remat_ms = ms.values()
     e_bf16 = rel_err(res[True]["per_iter"], res[False]["per_iter"])
@@ -5373,7 +5409,21 @@ def phase_remat16(device, card_line):
                 LAUNCHES_PER_FORWARD * (TRAIN_AR + 1) - NO_GRAD_PRODUCTS)},
             "ms": {"plain": plain_ms, "remat": remat_ms},
             "peak_gib": {k: v["peak_gib"] for k, v in res.items()},
+            "step_gib": {"single": single_gib,
+                         **{k: v["step_gib"] for k, v in res.items()}},
             "kept_gib": {k: v["kept_gib"] for k, v in res.items()}}
+
+
+def _peak_over(run):
+    """(bytes allocated before run(), the allocator's peak over it)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    return base, torch.cuda.max_memory_allocated()
 
 
 def _check_remat_ranks(ranks, plain, ref):
@@ -5768,8 +5818,9 @@ def phase_ensemble16(device, card_line, prep):
     """ensemble16: `cli.experiments.run_deep_ensemble` with 2 members in
     the member step (`member_parallel`), `remat: true`, on prep16's data
     with the flagship config cut by `_short_config`, an
-    AR{CLI_AR_PREDICT} forecast: every member step recomputes its AR
-    iterations (`_RematIteration` applied), only K1 launched, the
+    AR{CLI_AR_PREDICT} forecast: every member step recomputes each AR
+    iteration it checkpoints (`torch.utils.checkpoint` in `engine.step`:
+    each checkpointed iteration runs twice), only K1 launched, the
     ensemble and median stores finite, the median's RMSE and the
     ensemble's CRPS finite; seconds by stage."""
     import torch
@@ -5787,10 +5838,10 @@ def phase_ensemble16(device, card_line, prep):
     cfg_path = os.path.join(root, "config.json")
     with open(cfg_path, "w") as f:
         json.dump(_short_config(prep, remat=True), f)
-    secs, remat_calls = {}, [0]
-    trainer, members, remat_step = (engine.AutoregressiveTraining,
+    secs, checkpoints, runs = {}, [0], [0]
+    trainer, members, checkpoint = (engine.AutoregressiveTraining,
                                     experiments._train_members_parallel,
-                                    step_mod._remat_step)
+                                    step_mod.checkpoint)
 
     def timed(name, fn):
         def run(*a, **k):
@@ -5801,13 +5852,17 @@ def phase_ensemble16(device, card_line, prep):
                 secs[name] = time.perf_counter() - t0
         return run
 
-    def counted(*a, **k):
-        remat_calls[0] += 1
-        return remat_step(*a, **k)
+    def counted(fn, *a, **k):
+        checkpoints[0] += 1
+
+        def run(*a, **k):
+            runs[0] += 1
+            return fn(*a, **k)
+        return checkpoint(run, *a, **k)
 
     engine.AutoregressiveTraining = timed("train", trainer)
     experiments._train_members_parallel = timed("members", members)
-    step_mod._remat_step = counted
+    step_mod.checkpoint = counted
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -5819,7 +5874,7 @@ def phase_ensemble16(device, card_line, prep):
     finally:
         engine.AutoregressiveTraining = trainer
         experiments._train_members_parallel = members
-        step_mod._remat_step = remat_step
+        step_mod.checkpoint = checkpoint
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(launch_counts)
@@ -5827,17 +5882,20 @@ def phase_ensemble16(device, card_line, prep):
     arr = np.stack([med.variables[n][...] for n in med.feature_order], -1)
     rmse = np.asarray(res["global_skill"]["RMSE"])
     crps = np.asarray(res["probabilistic_skill"]["CRPS"])
-    if (not remat_calls[0] or launches[KERNEL] == 0
+    recomputed = runs[0] - checkpoints[0]
+    if (not checkpoints[0] or recomputed != checkpoints[0]
+            or launches[KERNEL] == 0
             or sum(launches.values()) != launches[KERNEL]
             or arr.shape[1:] != (CLI_AR_PREDICT + 1, 12 * SLICE_SUBDIV ** 2,
                                  F_DYN)
             or not np.isfinite(arr).all() or not np.isfinite(rmse).all()
             or not np.isfinite(crps).all()):
-        raise AssertionError(f"ensemble16: {remat_calls[0]} remat "
-                             f"iterations, launches {launches}, median "
+        raise AssertionError(f"ensemble16: {checkpoints[0]} checkpointed "
+                             f"AR iterations, {recomputed} recomputed, "
+                             f"launches {launches}, median "
                              f"{arr.shape}, RMSE {rmse}, CRPS {crps}")
     log("ensemble16", f"run_deep_ensemble, {ENS_MEMBERS} members in the "
-                      f"member step with remat ({remat_calls[0]} AR "
+                      f"member step with remat ({recomputed} AR "
                       f"iterations recomputed in the backward), flagship "
                       f"config cut as cli2rank's: median store "
                       f"{arr.shape} finite, RMSE lead 1 "

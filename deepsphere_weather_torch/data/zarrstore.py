@@ -24,6 +24,7 @@ import math
 import os
 import shutil
 import threading
+import time
 import zlib
 from collections import OrderedDict
 from pathlib import Path
@@ -33,7 +34,8 @@ import numpy as np
 
 __all__ = ["ZarrArray", "ZarrGroup", "open_group", "create_group",
            "set_chunk_cache_bytes", "chunk_cache_stats",
-           "read_bytes_counter"]
+           "read_bytes_counter", "memory_size", "disk_size",
+           "profile_zarr_io"]
 
 
 class _ChunkCache:
@@ -551,3 +553,56 @@ def open_group(path) -> ZarrGroup:
 
 def create_group(path, attrs=None, overwrite=False) -> ZarrGroup:
     return ZarrGroup.create(path, attrs=attrs, overwrite=overwrite)
+
+
+# ---------------------------------------------------------------------------
+# Storage introspection: the reference's chunk study
+# (xforecasting.utils.zarr's profile_zarr_io and size helpers, which its
+# scripts/03b_optimize_zarr_chunks.py drives)
+# ---------------------------------------------------------------------------
+
+def memory_size(obj) -> int:
+    """Uncompressed in-memory size in bytes of a ZarrArray or ZarrGroup."""
+    if isinstance(obj, ZarrGroup):
+        return sum(memory_size(obj[n]) for n in obj.array_names())
+    return int(np.prod(obj.shape)) * np.dtype(obj.dtype).itemsize
+
+
+def disk_size(path) -> int:
+    """On-disk (compressed) size in bytes of a store directory."""
+    p = _as_path(path)
+    return sum(f.stat().st_size for f in p.rglob("*") if f.is_file())
+
+
+def profile_zarr_io(path, n: int = 3) -> Dict:
+    """Read throughput (MB/s, the median of `n` reads) of a store's first
+    2-D array under the AR pipeline's two access patterns, full time
+    slices (training windows) and node series (verification, scaler
+    fits), and whole; with the store's memory and disk sizes."""
+    g = open_group(path)
+    names = [nm for nm in g.array_names() if g[nm].ndim == 2]
+    if not names:
+        raise ValueError(f"no 2-D arrays in store {path}")
+    out: Dict = {"store": str(path),
+                 "memory_size_bytes": memory_size(g),
+                 "disk_size_bytes": disk_size(path),
+                 "arrays": names}
+    out["compression_ratio"] = (out["memory_size_bytes"]
+                                / max(out["disk_size_bytes"], 1))
+
+    def rate(read) -> float:
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            nbytes = read()
+            ts.append(time.perf_counter() - t0)
+        return nbytes / (sorted(ts)[len(ts) // 2] + 1e-12) / 1e6
+
+    arr = g[names[0]]
+    T, V = arr.shape
+    t_slice = min(64, T)
+    out["read_time_slice_MBps"] = rate(lambda: arr[:t_slice, :].nbytes)
+    out["read_node_series_MBps"] = rate(
+        lambda: arr[:, : max(V // 16, 1)].nbytes)
+    out["read_full_MBps"] = rate(lambda: arr[...].nbytes)
+    return out

@@ -13,11 +13,9 @@ eps=1e-7)`: both add eps outside the square root).
   area-weighted MSE, combined with the normalized AR weights. 'RNN'
   backpropagates through the whole rollout; 'AR' detaches the buffer
   write (`stop_gradient`). `remat=True` recomputes each iteration in the
-  backward: `torch.utils.checkpoint` in the single step, and
-  `_RematIteration` (an autograd Function in torch.func's form, the
-  parameters among its inputs) where the loss runs on given tensors under
-  `torch.func.grad` and `vmap`, as the member steps run it; the JAX
-  package's `jax.checkpoint` of the scan body.
+  backward (`torch.utils.checkpoint` around it, in the member steps around
+  the iteration's `vmap` over the members); the JAX package's
+  `jax.checkpoint` of the scan body.
 - `make_train_step`, `make_validation_fn` and their device-cache variants
   `make_cached_train_step`, `make_cached_validation_fn`, which gather the
   window batch from a device-resident dataset. With a `mesh`
@@ -36,10 +34,16 @@ eps=1e-7)`: both add eps outside the square root).
 - The member (DeepEnsemble) steps `make_member_train_step`,
   `make_cached_member_train_step`, `make_member_validation_fn` and
   `make_cached_member_validation_fn` run every member of a
-  `models.MemberStack` at once: `torch.func.grad` of the loss through
-  `functional_call` under `torch.func.vmap`, the batch shared. Each
-  block-sparse product is one launch for all members, forward and
-  backward (the registered op's vmap rule and `_MatVec`'s generated one).
+  `models.MemberStack` at once: each AR iteration's forward is
+  `functional_call` of the model under `torch.func.vmap` over the stacked
+  tensors, the batch shared, and one `backward()` of the members' summed
+  losses gives each member's gradient in its slice of the stacked
+  parameters (a member's loss reads only its own slice). So M members hold
+  what M single steps hold for their backward, and remat cuts that as it
+  cuts the single step's (`torch.func.grad` would keep every iteration's
+  backward alive until it returns). Each block-sparse product is one
+  launch for all members, forward and backward (the registered op's vmap
+  rule and `_MatVec`'s generated one).
   Gradient clipping is per member (`engine.optim.Adam(member_axis=True)`),
   as the JAX package clips inside its vmap; Adam itself is elementwise,
   so one optimizer over the stacked parameters is exact. With a `mesh`
@@ -114,7 +118,8 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
                     remat: bool = False,
                     mesh: Optional[ProcessMesh] = None,
                     collect_stats: bool = False,
-                    eval_mode: bool = False) -> Callable:
+                    eval_mode: bool = False,
+                    members: bool = False) -> Callable:
     """Build loss(batch, ar_weights, area_w=None, tensors=None) ->
     (total, per_iter), or (total, (per_iter, stats)) with `collect_stats`.
 
@@ -129,7 +134,11 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
 
     `tensors` ({name: tensor}, parameters and/or buffers) runs the model
     on them (`torch.func.functional_call`) instead of its own: the member
-    steps pass one member's under `vmap`.
+    validation functions pass one member's under `vmap`. With `members`,
+    `tensors` are member-stacked ([M, ...], `MemberStack.tensors()`) and
+    each AR iteration runs every member under `torch.func.vmap`, the batch
+    shared: total is then [M], per_iter [M, n_scan_iterations] and each
+    statistic [M, n_scan_iterations, C].
 
     BatchNorm models: `collect_stats` returns the statistics of every
     model call, {buffer name: [n_scan_iterations, C]}, detached (they feed
@@ -159,28 +168,22 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
 
         def forward(x, tensors):
             kw = {"train": False} if eval_mode else {}
-            stats = {} if collect_stats else None
-            if stats is not None:
+            stats = {}
+            if collect_stats:
                 kw["stats_out"] = stats
             with batch_stats_over(stats_groups):
                 if tensors is not None:
                     y = torch.func.functional_call(model, tensors, (x,), kw)
                 else:
                     y = model(x, **kw)
-            return y, (None if stats is None else _flat_stats(stats))
+            return y, _flat_stats(stats)
 
-        # every tensor an iteration reads besides the buffer, the mask and
-        # the model's: inputs of `_RematIteration` under remat (a tensor
-        # made under a torch.func transform may not be captured)
-        env = {"dyn": dyn, "bc": bc, "static": static, "weights": weights,
-               "w_sum": w_sum, "pins": pins, "pouts": pouts}
-
-        def step(dyn_buf, written, i, tensors, env):
-            pin, pout = env["pins"][i], env["pouts"][i]
-            x = assemble_input(dyn_buf, env["bc"], env["static"], pin)
+        def step(dyn_buf, written, i, tensors):
+            pin, pout = pins[i], pouts[i]
+            x = assemble_input(dyn_buf, bc, static, pin)
             y_pred, stats = forward(x, tensors)
-            loss = weighted_mse(y_pred, env["dyn"].index_select(1, pout),
-                                env["weights"], w_sum=env["w_sum"])
+            loss = weighted_mse(y_pred, dyn.index_select(1, pout), weights,
+                                w_sum=w_sum)
             y_write = y_pred.detach() if detach else y_pred
             if keep_first:
                 # a slot predicted by an earlier iteration keeps that
@@ -192,120 +195,41 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
             return (dyn_buf.index_copy(1, pout, y_write), written, loss,
                     stats)
 
+        def iteration(dyn_buf, written, i, tensors):
+            if not members:
+                return step(dyn_buf, written, i, tensors)
+            # the buffer is the shared batch until the first write; the
+            # written mask depends on no member
+            return torch.func.vmap(
+                lambda buf, t: step(buf, written, i, t),
+                in_dims=(0 if i else None, 0), out_dims=(0, None, 0, 0))(
+                    dyn_buf, tensors)
+
         dyn_buf = dyn
         written = torch.zeros(dyn.shape[1], dtype=torch.bool, device=dev)
         losses, all_stats = [], []
         for i in range(n_scan_iterations):
-            if remat and tensors is not None:
-                dyn_buf, written, loss, stats = _remat_step(
-                    step, i, dyn_buf, written, tensors, env, collect_stats,
-                    not detach)
-            elif remat:
+            if remat:
                 dyn_buf, written, loss, stats = checkpoint(
-                    step, dyn_buf, written, i, tensors, env,
+                    iteration, dyn_buf, written, i, tensors,
                     use_reentrant=False)
             else:
-                dyn_buf, written, loss, stats = step(dyn_buf, written, i,
-                                                     tensors, env)
+                dyn_buf, written, loss, stats = iteration(dyn_buf, written,
+                                                          i, tensors)
             losses.append(loss)
             all_stats.append(stats)
-        per_iter = torch.stack(losses)
+        per_iter = torch.stack(losses, dim=-1)
         w = torch.as_tensor(ar_weights, dtype=torch.float32,
                             device=dev)[:n_scan_iterations]
         w = w / torch.clamp(w.sum(), min=1e-12)
-        total = (per_iter * w).sum()
+        total = (per_iter * w).sum(-1)
         if collect_stats:
-            stats = {k: torch.stack([s[k] for s in all_stats])
+            stats = {k: torch.stack([s[k] for s in all_stats], dim=-2)
                      for k in all_stats[0]}
             return total, (per_iter, stats)
         return total, per_iter
 
     return loss_fn
-
-
-class _RematIteration(torch.autograd.Function):
-    """One AR iteration whose backward recomputes it (remat under
-    `torch.func.grad` and `vmap`, where `torch.utils.checkpoint`'s saved
-    tensor hooks do not run).
-
-    apply(run, feedback, dyn_buf, written, *values) -> run(dyn_buf,
-    written, *values): (new dyn_buf, new written, loss, *statistics).
-    The forward runs the iteration without recording and saves only its
-    inputs (the buffer, the written mask, and the parameter, buffer and
-    batch tensors, which are inputs so that their gradients reach the
-    caller); the backward reruns it under `torch.func.vjp` and pulls the
-    buffer's and the loss's cotangents through it. The written mask and
-    the statistics are not differentiable: the statistics a caller folds
-    are the forward's, the recompute's are dropped. `feedback` False (the
-    'AR' strategy: the write is detached, and the window, the batch,
-    needs no gradient) makes the new buffer not differentiable either.
-    The vmap rule is generated (the products inside run their registered
-    ops' own rules)."""
-
-    generate_vmap_rule = True
-
-    @staticmethod
-    def forward(run, feedback, dyn_buf, written, *values):
-        with torch.no_grad():
-            out = run(dyn_buf, written, *values)
-        # an input returned as it is (the mask without keep-first) leaves
-        # as a view: the Function saves its inputs
-        inputs = (dyn_buf, written, *values)
-        return tuple(o.view_as(o) if any(o is t for t in inputs) else o
-                     for o in out)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        run, feedback, dyn_buf, written, *values = inputs
-        ctx.run = run
-        ctx.save_for_backward(dyn_buf, written, *values)
-        ctx.mark_non_differentiable(*output[1:2], *output[3:],
-                                    *(() if feedback else output[:1]))
-
-    @staticmethod
-    def backward(ctx, g_buf, g_written, g_loss, *g_stats):
-        args = list(ctx.saved_tensors)
-        diff = [k for k, need in enumerate(ctx.needs_input_grad[2:]) if need]
-
-        def recompute(*primals):
-            full = list(args)
-            for k, v in zip(diff, primals):
-                full[k] = v
-            new_buf, _, loss, *_ = ctx.run(*full)
-            return new_buf, loss
-
-        with torch.enable_grad():
-            _, pull = torch.func.vjp(recompute, *(args[k] for k in diff))
-            grads = pull((g_buf, g_loss))
-        out = [None] * len(args)
-        for k, g in zip(diff, grads):
-            out[k] = g
-        return (None, None, *out)
-
-
-def _remat_step(step, i, dyn_buf, written, tensors, env, collect_stats,
-                feedback):
-    """`step(dyn_buf, written, i, tensors, env)` through `_RematIteration`,
-    the model's tensors and those of `env` its inputs; returns what `step`
-    returns."""
-    names = list(tensors)
-    env_names = [k for k, v in env.items() if v is not None]
-    stat_names = []
-
-    def run(buf, wr, *values):
-        given = dict(zip(names + env_names, values))
-        new_buf, new_wr, loss, stats = step(
-            buf, wr, i, {k: given[k] for k in names},
-            {k: given.get(k) for k in env})
-        stats = stats or {}
-        stat_names[:] = list(stats)
-        return (new_buf, new_wr, loss, *stats.values())
-
-    new_buf, new_wr, loss, *stats = _RematIteration.apply(
-        run, feedback, dyn_buf, written, *tensors.values(),
-        *(env[k] for k in env_names))
-    return (new_buf, new_wr, loss,
-            dict(zip(stat_names, stats)) if collect_stats else None)
 
 
 @torch.no_grad()
@@ -523,30 +447,20 @@ def _member_losses(total, per_iter, mesh):
 
 def _member_update(stack, optimizer, loss_fn, batch, ar_weights, area_w,
                    with_norm_state, mesh=None):
-    """One update of every member: per-member gradients from `torch.func`
-    (grad under vmap, the batch shared), reduced over the mesh's node and
-    data groups, then one optimizer step over the stacked parameters and,
-    with norm state, the per-member fold."""
-    params = {k: p.detach() for k, p in stack.named_parameters()}
-    buffers = stack.norm_state()
-
-    def one(p, b):
-        def loss(p_):
-            total, aux = loss_fn(batch, ar_weights, area_w,
-                                 tensors={**p_, **b})
-            return total, (total.detach(), aux)
-        grads, (total, aux) = torch.func.grad(loss, has_aux=True)(p)
-        return grads, total, aux
-
-    grads, total, aux = torch.func.vmap(one)(params, buffers)
+    """One update of every member: the members' losses (`loss_fn` built
+    with `members=True`, the batch shared), one backward of their sum
+    (each member's gradient lands in its slice of the stacked
+    parameters), reduced over the mesh's node and data groups, then one
+    optimizer step over the stacked parameters and, with norm state, the
+    per-member fold."""
     optimizer.zero_grad(set_to_none=True)
-    for name, p in stack.named_parameters():
-        p.grad = grads[name]
+    total, aux = loss_fn(batch, ar_weights, area_w, tensors=stack.tensors())
+    total.sum().backward()
     reduce_gradients(stack, mesh)
     optimizer.step()
     if with_norm_state:
         aux, stats = aux
-        fold_running_stats(buffers, stats)
+        fold_running_stats(stack.norm_state(), stats)
     return _member_losses(total, aux, mesh)
 
 
@@ -556,7 +470,7 @@ def _member_loss(stack, indexer, n_scan_iterations, ar_training_strategy,
         raise TypeError("member steps take a models.MemberStack")
     return make_ar_loss_fn(stack.model, indexer, n_scan_iterations,
                            ar_training_strategy, remat=remat, mesh=mesh,
-                           collect_stats=with_norm_state)
+                           collect_stats=with_norm_state, members=True)
 
 
 def make_member_train_step(stack, indexer: ARIndexer, optimizer,
@@ -572,7 +486,8 @@ def make_member_train_step(stack, indexer: ARIndexer, optimizer,
     global norm). Every member trains on the same batch. With
     `with_norm_state` each member's statistics fold into its own running
     statistics (`stack.norm_state()`, [M, C]). `remat` recomputes each
-    AR iteration in the backward (`_RematIteration`).
+    AR iteration in the backward (`torch.utils.checkpoint` around the
+    iteration's `vmap`).
 
     With a `mesh`, one rank's step: `stack` holds the rank's members
     (`parallel.member_range`), `batch` and `area_w` are as in

@@ -13,20 +13,28 @@ runs every fp32 product of a block-sparse operator).
 `ChebOperator.row_shard` gives one node rank's rows of any of them
 (node-parallel training): every product then gathers its input over the
 node group first.
+
+`ell_matvec`, `cheb_basis_dense` and `cheb_basis_ell` are the JAX
+module's functional forms: one product of ELL arrays, and the stacked
+Chebyshev basis [K, V, M] of x [V, M] over a dense or an ELL Laplacian.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+from scipy import sparse
 from torch.autograd.function import once_differentiable
 
 from .._device import resolve_device
 from ..parallel.collectives import all_gather_op, group_key
+from ..sphere.graph import laplacian_to_ell
 from .bcsr import BlockSparseOperator, EllOperator
 
-__all__ = ["ChebOperator", "cheb_conv"]
+__all__ = ["ChebOperator", "cheb_basis_dense", "cheb_basis_ell", "cheb_conv",
+           "ell_matvec"]
 
 
 class _RowShardDense(torch.autograd.Function):
@@ -128,6 +136,16 @@ class ChebOperator:
         raise ValueError(f"unknown ChebOperator mode {mode!r}; expected "
                          "'dense', 'bcsr' or 'ell'")
 
+    @property
+    def n_nodes(self) -> int:
+        """The graph level's node count (a row shard's too: the whole
+        level's)."""
+        if self.bcsr is not None:
+            return self.bcsr.n
+        if self.ell is not None:
+            return self.ell.n
+        return self.dense.shape[1]
+
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """L @ x for x of shape [V, M] (a row shard: its rows of both)."""
         if self.bcsr is not None:
@@ -139,6 +157,63 @@ class ChebOperator:
         return _RowShardDense.apply(x, self.dense.float(),
                                     self.dense_t.float(),
                                     group_key(self.group), x.dtype)
+
+
+def _ell_operator(cols: torch.Tensor, vals: torch.Tensor,
+                  transpose: bool) -> EllOperator:
+    """An `EllOperator` over given ELL arrays; with `transpose` it also
+    holds L^T's layout (built on the host from these arrays), which the
+    gradient in x runs on."""
+    vals, cols = vals.float().contiguous(), cols.to(torch.int32).contiguous()
+    n = cols.shape[0]
+    if not transpose:
+        return EllOperator(n, vals, cols)
+    v, c = vals.detach().cpu().numpy(), cols.cpu().numpy()
+    mat = sparse.csr_matrix((v.ravel(), (np.repeat(np.arange(n), c.shape[1]),
+                                         c.ravel())), shape=(n, n))
+    mat.eliminate_zeros()
+    cols_t, vals_t = laplacian_to_ell(mat.T.tocsr())
+    return EllOperator(n, vals, cols, torch.from_numpy(vals_t).to(vals.device),
+                       torch.from_numpy(cols_t).to(cols.device))
+
+
+def ell_matvec(cols: torch.Tensor, vals: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """L @ x for L in ELL: cols [V, W] int, vals [V, W], x [V, M] ->
+    [V, M] (the JAX `ell_matvec`, sum_w vals[v, w] * x[cols[v, w]]).
+
+    It runs `EllOperator.matvec`: the ELL kernel on the card, its plain
+    version on the CPU; L in fp32, bf16 x gives a bf16 result. A gradient
+    reaches x (through L^T's layout), not vals: the Laplacian is no
+    parameter."""
+    return _ell_operator(cols, vals, x.requires_grad).matvec(x)
+
+
+def cheb_basis_dense(L: torch.Tensor, x: torch.Tensor, K: int
+                     ) -> torch.Tensor:
+    """Chebyshev basis [K, V, M] of x [V, M] over a dense L [V, V]: fp32
+    products, each term in x's dtype."""
+    a = L.float()
+
+    def mv(h):
+        return (a @ h.float()).to(x.dtype)
+    return _basis(mv, x, K)
+
+
+def cheb_basis_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+                   K: int) -> torch.Tensor:
+    """Chebyshev basis [K, V, M] of x [V, M] over L in ELL (`ell_matvec`'s
+    arrays, one operator for every product)."""
+    return _basis(_ell_operator(cols, vals, x.requires_grad).matvec, x, K)
+
+
+def _basis(mv: Callable, x: torch.Tensor, K: int) -> torch.Tensor:
+    xs = [x]
+    if K > 1:
+        xs.append(mv(x))
+    for _ in range(2, K):
+        xs.append(2.0 * mv(xs[-1]) - xs[-2])
+    return torch.stack(xs)
 
 
 def cheb_conv(op: ChebOperator, x: torch.Tensor, weight: torch.Tensor,
@@ -182,12 +257,7 @@ def cheb_conv(op: ChebOperator, x: torch.Tensor, weight: torch.Tensor,
         out = z[0] + mv(b1) - b2
     elif node_major:
         # input side, node-major: stack the basis, mix in one contraction
-        xs = [x]
-        if K > 1:
-            xs.append(mv(x))
-        for _ in range(2, K):
-            xs.append(2.0 * mv(xs[-1]) - xs[-2])
-        out = torch.einsum("kvbf,fko->vbo", torch.stack(xs).float(), w32)
+        out = torch.einsum("kvbf,fko->vbo", _basis(mv, x, K).float(), w32)
     else:
         # input side, batch-major (dense): mix each basis term as it comes
         x0 = x

@@ -25,4 +25,4 @@ from .remap import (  # noqa: F401
     compute_interpolation_weights,
     build_pooling_matrices,
 )
-from .cache import cache_dir, cached_arrays  # noqa: F401
+from .cache import cache_dir, cached_arrays, cached_sparse  # noqa: F401

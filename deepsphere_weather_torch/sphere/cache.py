@@ -2,8 +2,8 @@
 
 Same location, file naming and key scheme as the JAX package's
 `sphere/cache.py` (`$DSW_TPU_CACHE`, else `~/.cache/deepsphere_weather_tpu`;
-file `<sha1(key)[:16]>_arrays.npz`), so the two stacks read and write the
-same `lap_v2_*` files.
+file `<sha1(key)[:16]>_arrays.npz`, `_sparse.npz` for a CSR matrix), so
+the two stacks read and write the same `lap_v2_*` files.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ from pathlib import Path
 from typing import Callable, Dict
 
 import numpy as np
+from scipy import sparse
 
-__all__ = ["cache_dir", "cached_arrays"]
+__all__ = ["cache_dir", "cached_arrays", "cached_sparse"]
 
 
 def cache_dir() -> Path:
@@ -33,9 +34,8 @@ def _key_path(key: str, suffix: str) -> Path:
     return cache_dir() / f"{h}_{suffix}.npz"
 
 
-def cached_arrays(key: str,
-                  builder: Callable[[], Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
-    path = _key_path(key, "arrays")
+def _cached(path: Path, builder: Callable[[], Dict[str, np.ndarray]]
+            ) -> Dict[str, np.ndarray]:
     if path.exists():
         try:
             with np.load(path) as z:
@@ -50,3 +50,22 @@ def cached_arrays(key: str,
     np.savez_compressed(tmp, **out)
     os.replace(tmp, path)
     return out
+
+
+def cached_arrays(key: str,
+                  builder: Callable[[], Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    return _cached(_key_path(key, "arrays"), builder)
+
+
+def cached_sparse(key: str,
+                  builder: Callable[[], sparse.spmatrix]) -> sparse.csr_matrix:
+    """The CSR matrix `builder()` returns, cached under `key` (the JAX
+    package's file layout: data, indices, indptr, shape)."""
+    def arrays():
+        mat = builder().tocsr()
+        return {"data": mat.data, "indices": mat.indices,
+                "indptr": mat.indptr, "shape": np.asarray(mat.shape)}
+
+    z = _cached(_key_path(key, "sparse"), arrays)
+    return sparse.csr_matrix((z["data"], z["indices"], z["indptr"]),
+                             shape=tuple(z["shape"]))

@@ -47,6 +47,18 @@ class SphereGraph:
     def n_nodes(self) -> int:
         return self.sampling.n_nodes
 
+    @property
+    def lon(self) -> np.ndarray:
+        return self.sampling.lon
+
+    @property
+    def lat(self) -> np.ndarray:
+        return self.sampling.lat
+
+    @property
+    def coords_3d(self) -> np.ndarray:
+        return self.sampling.coords_3d
+
     def laplacian_dense(self, dtype=np.float32) -> np.ndarray:
         return np.asarray(self.L.todense(), dtype=dtype)
 

@@ -8,6 +8,7 @@ chip_smoke.py:
     python3 scripts/torch_chip_readings.py ab TAG
     python3 scripts/torch_chip_readings.py ell TAG
     python3 scripts/torch_chip_readings.py remat
+    python3 scripts/torch_chip_readings.py members TAG
     python3 scripts/torch_chip_readings.py remap
 
 gaps  The slice phase's card-vs-CPU forward check (HEALPix-16 bf16 flagship,
@@ -45,6 +46,16 @@ remat Where the member step's peak device memory is set: chip_smoke's
       over one step (`torch.cuda.memory._record_memory_history`): the
       largest blocks live at the step's peak, with the Python frames that
       allocated them. One line `REMAT {json}`.
+members
+      ens16's and remat16's member steps of the tree it runs from (2
+      flagship members, bf16, AR6, batch 16; remat16's weights and batch:
+      the member step without remat and with), and the single model's
+      AR6 step on member 0's weights: each step's own peak (as `remat`
+      reads it) and its time (chip_smoke's `time_steps`, the three in
+      turns), then device time by kernel over 2 member steps without
+      remat (`profile_steps`). One line `MEMBERS {json}` tagged TAG. Run
+      it from a parent archive's root and this one's in turns (A, B, B,
+      A).
 remap The host work of the ingest and geometry layers on the card
       machine's host (no kernel runs): the remap geometry of the shipped
       Healpix_100km/InterpPool-Graph_knn config, each of its pool pairs
@@ -293,6 +304,40 @@ def remat(device):
     print("REMAT " + json.dumps(out), flush=True)
 
 
+def members(device, tag):
+    from deepsphere_weather_torch.engine import (
+        Adam,
+        make_member_train_step,
+        make_train_step,
+    )
+    from deepsphere_weather_torch.models import MemberStack
+
+    card = c.card()
+    model = c.build_flagship(device, c.SLICE_SUBDIV).train()
+    states = [c.train_params(model, c.SEED + 30 + m)
+              for m in range(c.ENS_MEMBERS)]
+    indexer, area_w, w = c.train_setup(model, c.TRAIN_AR)
+    data = c.train_batch(indexer, model.input_n_node, c.BATCH, device,
+                         c.SEED + 32)
+    steps = {}
+    for rm in (False, True):
+        stack = MemberStack.from_states(model, states)
+        step = make_member_train_step(
+            stack, indexer, Adam(stack.parameters(), lr=c.LR,
+                                 member_axis=True), c.TRAIN_AR + 1, remat=rm)
+        steps["members_remat" if rm else "members"] = (
+            lambda step=step: step(data, w, area_w))
+    model.load_state_dict(states[0])
+    single = make_train_step(model, indexer, Adam(model.parameters(),
+                                                  lr=c.LR), c.TRAIN_AR + 1)
+    steps["single"] = lambda: single(data, w, area_w)
+    out = {"tree": tag, "card": card,
+           "peak_gib": {k: _step_peak(v) for k, v in steps.items()},
+           "step_ms": c.time_steps(steps, c.BATCH, card),
+           "profile": profile_steps(steps["members"])}
+    print("MEMBERS " + json.dumps(out), flush=True)
+
+
 def remap(device):
     import shutil
     import tempfile
@@ -378,5 +423,7 @@ if __name__ == "__main__":
         ell(dev, sys.argv[2])
     elif sys.argv[1] == "remat":
         remat(dev)
+    elif sys.argv[1] == "members":
+        members(dev, sys.argv[2])
     else:
         ab(dev, sys.argv[2])
