@@ -101,9 +101,9 @@ printed one per line:
              steps at train64's traffic (AR2, batch 8, RNN, area-weighted
              MSE, Adam eps 1e-7 with the config's clipping): finite,
              decreasing losses, exactly 54 forward and 52 backward ELL
-             launches a step and no other kernel; step time beside the
-             same step on K1's FMA path (the ELL taken away; in turns),
-             peak memory; a forecast call (no grad, batch 8: 18 ELL
+             launches a step and no other kernel; step time, peak
+             memory; one untimed step on K1's FMA path (the ELL taken
+             away: K1 alone); a forecast call (no grad, batch 8: 18 ELL
              launches); at each (level, width) shape of the step, per
              launch: the ELL kernel
              (exact vs its plain version, 1e-5 vs scipy forward and
@@ -111,6 +111,24 @@ printed one per line:
              super-row arrays), cuSPARSE and the bound; one batch-1 AR1
              step card vs CPU (losses and every gradient at 1e-5, the CPU
              taking the card's decisions)
+6c. shipped100km all 18 shipped Healpix_100km configurations (knn,
+             voronoi and mesh Laplacians x max, avg, interp, maxarea,
+             maxval and learned pools) through `models.get_model` at
+             their own settings: fp32 HEALPix-64, levels 0-1 ELL and 2
+             dense, batch 16, AR6 (RNN, area-weighted MSE), the config's
+             lags [-18, -12, -6] and Adam at its lr with its clipping,
+             no remat; seeded weights (learned logits too), synthetic
+             inputs; per config 2 steps: finite losses, exactly 126
+             forward and 124 backward ELL launches a step and no other
+             kernel, the second step's time and its own peak memory
+             (allocator readings), a forecast call (no grad, batch 16: 18
+             launches); MaxPool-Graph_knn also with remat (first-step
+             losses and gradients equal to the step without at 1e-5,
+             peak and time beside it); 7 configs (voronoi, mesh, every
+             pool) batch 1 AR1 card vs CPU at 1e-5; the ELL kernel at
+             every shape the voronoi (L and L^T) and mesh steps launch it
+             at: exact vs its plain version, 1e-5 vs scipy, ms per launch
+             beside its bound and cuSPARSE
 7. node16    the step of (2) on a 1 data x 2 node mesh: 2 spawned ranks
              (of the rank phases' one spawn, below) share the card over `gloo` (NCCL refuses two ranks on one
              device), each holding half the sphere at every level; 3
@@ -133,9 +151,10 @@ printed one per line:
              it, forward and backward, against its plain version and
              scipy's rows (bf16 bar)
 10. times    ms per train step and samples/s (host clock ended by
-             torch.cuda.synchronize(), best of 4 windows, K1 and K3 steps
-             taken in turns); each kernel per launch (`device_ms`: a CUDA
-             graph of launches replayed) at the main path's widths beside
+             torch.cuda.synchronize(), best of 2 windows of 2 steps, K1
+             and K3 steps taken in turns); each kernel per launch
+             (`device_ms`: a CUDA graph of launches replayed) at the main
+             path's widths beside
              its bound, its plain version and cuSPARSE, and K3 in K4's
              regime (fp32 A, bf16 x [3072, 1024], `round_a_false` of K3's
              row); K2 and K3's row range on the node16 step's level-0
@@ -455,7 +474,27 @@ HP64_AR, HP64_BATCH, HP64_STEPS = 2, 8, 3
 # forwards timed
 F32_CONFIG = "Healpix_100km/MaxPool-Graph_knn"
 F32_CHECK_AR, F32_CHECK_BATCH, F32_FORWARDS = 1, 1, 5
+# the train steps' timing: best of TIME_WINDOWS windows of TIME_STEPS
+# chained steps (`time_steps`' default, kept by scripts/torch_chip_readings.py
+# so that its A/B runs compare like with like); the smoke's own phases take
+# windows of SMOKE_STEPS steps, SMOKE_WINDOWS of them where a phase sets no
+# count (4 x 4 until shipped100km came: the smoke stays inside its time
+# limit; these readings are not comparable with 4 x 4 ones)
 TIME_WINDOWS, TIME_STEPS = 4, 4
+SMOKE_WINDOWS, SMOKE_STEPS = 2, 2
+# shipped100km: the shipped Healpix_100km configurations (every graph type
+# and pool) at their own settings; steps per config; the configs held card
+# vs CPU (the new Laplacians, and the new pools at 49152 nodes); the one
+# also trained with remat; those whose ELL shapes are timed; its forecast
+# calls timed
+SHIPPED_DIR, SHIPPED_STEPS = "Healpix_100km", 2
+SHIPPED_CHECK = ("MaxPool-Graph_voronoi", "MaxPool-Graph_mesh",
+                 "AvgPool-Graph_knn", "InterpPool-Graph_knn",
+                 "MaxAreaPool-Graph_knn", "MaxValPool-Graph_knn",
+                 "LearnPool-Graph_knn")
+SHIPPED_REMAT = "MaxPool-Graph_knn"
+SHIPPED_SHAPES = ("MaxPool-Graph_voronoi", "MaxPool-Graph_mesh")
+SHIPPED_FORWARDS = 2
 LR, ADAM_EPS = 1e-3, 1e-7
 # node- and data-parallel phases: steps, the fp32 check's level-0 threshold
 # (so that level 0 stays block-sparse in fp32), the process-group timeout
@@ -1685,10 +1724,19 @@ def phase_train_check(device, subdiv, batch):
 
 
 def run_train(model, ar_iters, batch, n_steps, label, clip=None,
-              phase="train"):
+              phase="train", lr=LR, indexer=None, data=None, strategy="RNN",
+              remat=False, decreasing=True, memory=False):
     """The training main path: n_steps of make_train_step on one fixed
-    batch, counts from 0, the port's Adam (clipping the global gradient
-    norm at `clip` when given). Returns losses and per-step launches."""
+    batch, counts from 0, the port's Adam at `lr` (clipping the global
+    gradient norm at `clip` when given). The batch is `data`, else one
+    from SEED + 8; the indexer `indexer`, else `train_setup`'s. Losses
+    must be finite, and with `decreasing` fall. Returns losses,
+    per-iteration losses, per-step launches (the forward ending at the
+    step's ar_iters + 1-th model call, the end of its forward pass: a
+    remat step's recompute calls the model again in the backward) and ms (host clock to torch.cuda.synchronize()),
+    the first step's (clipped) gradients and, with `memory`, the peak of
+    the first step and the last step's own peak past its start
+    (allocator readings)."""
     import torch
 
     from deepsphere_weather_torch.engine import Adam, make_train_step
@@ -1697,42 +1745,63 @@ def run_train(model, ar_iters, batch, n_steps, label, clip=None,
         reset_launch_counts,
     )
 
-    indexer, area_w, w = train_setup(model, ar_iters)
-    data = train_batch(indexer, model.input_n_node, batch,
-                       next(model.parameters()).device, SEED + 8)
-    opt = Adam(model.parameters(), lr=LR, eps=ADAM_EPS,
+    default_indexer, area_w, w = train_setup(model, ar_iters)
+    indexer = indexer or default_indexer
+    if data is None:
+        data = train_batch(indexer, model.input_n_node, batch,
+                           next(model.parameters()).device, SEED + 8)
+    opt = Adam(model.parameters(), lr=lr, eps=ADAM_EPS,
                gradient_clipping=clip)
-    step = make_train_step(model, indexer, opt, ar_iters + 1)
+    step = make_train_step(model, indexer, opt, ar_iters + 1,
+                           ar_training_strategy=strategy, remat=remat)
     at_forward = []
     hook = model.register_forward_hook(
         lambda *_: at_forward.append(dict(launch_counts)))
     torch.cuda.synchronize()
+    if memory:
+        torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    losses, per_iters, per_step = [], [], []
+    res = {"losses": [], "per_iter": [], "per_step": [], "ms": []}
     t0 = time.perf_counter()
-    for _ in range(n_steps):
+    for i in range(n_steps):
+        if memory and i == n_steps - 1:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
         before = dict(launch_counts)
         at_forward.clear()
+        t_step = time.perf_counter()
         total, per_iter = step(data, w, area_w)
-        losses.append(total)
-        per_iters.append(per_iter)
-        fwd = {k: at_forward[-1][k] - before[k] for k in before}
-        bwd = {k: launch_counts[k] - at_forward[-1][k] for k in before}
-        per_step.append((fwd, bwd))
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        res["ms"].append(1e3 * (time.perf_counter() - t_step))
+        res["losses"].append(total)
+        res["per_iter"].append(per_iter)
+        end = at_forward[ar_iters]
+        res["per_step"].append((
+            {k: end[k] - before[k] for k in before},
+            {k: launch_counts[k] - end[k] for k in before}))
+        if i == 0:
+            res["grads"] = grads_of(model)
+            if memory:
+                res["first_peak_gib"] = \
+                    torch.cuda.max_memory_allocated() / 2 ** 30
     seconds = time.perf_counter() - t0
-    launches = dict(launch_counts)
+    if memory:
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["step_gib"] = res["peak_gib"] - base / 2 ** 30
+    res["launches"] = dict(launch_counts)
     hook.remove()
-    losses = torch.stack(losses).cpu().numpy()
-    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
-        raise AssertionError(f"{label}: losses {losses} are not finite and "
-                             "decreasing")
+    losses = res["losses"] = torch.stack(res["losses"]).cpu().numpy()
+    res["per_iter"] = torch.stack(res["per_iter"]).cpu().numpy()
+    if not (np.isfinite(losses).all() and np.isfinite(res["per_iter"]).all()
+            and (losses[-1] < losses[0] or not decreasing)):
+        raise AssertionError(f"{label}: losses {res['per_iter']} are not "
+                             "finite" + " and decreasing" * decreasing)
     log(phase, f"{label}: {n_steps} steps, losses {losses[0]:.6g} -> "
                f"{losses[-1]:.6g}, {seconds:.2f} s with the first step; "
-               f"launches {launches}")
-    return {"losses": losses, "per_step": per_step, "launches": launches,
-            "per_iter": torch.stack(per_iters).cpu().numpy(),
-            "step": lambda: step(data, w, area_w)}
+               f"launches {res['launches']}")
+    res["step"] = lambda: step(data, w, area_w)
+    return res
 
 
 def check_launches(res, kernel, per_forward, n_calls, label, phase="train"):
@@ -1753,30 +1822,31 @@ def check_launches(res, kernel, per_forward, n_calls, label, phase="train"):
     return want_f * n, want_b * n
 
 
-def time_steps(steps, batch, card_line, windows=None):
+def time_steps(steps, batch, card_line, windows=None, n_steps=None):
     """ms per train step of each of `steps` ({label: step}): windows of
-    TIME_STEPS chained steps on the host clock, ended by
+    `n_steps` (TIME_STEPS) chained steps on the host clock, ended by
     torch.cuda.synchronize(), taken in turns (A B B A ...) so that drift
     on the card or its host falls on every label alike; best of
     `windows` (TIME_WINDOWS) windows each."""
     import torch
 
     windows = windows or TIME_WINDOWS
+    n_steps = n_steps or TIME_STEPS
     labels = list(steps)
     best = dict.fromkeys(labels, float("inf"))
     for w in range(windows):
         for label in (labels if w % 2 == 0 else labels[::-1]):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            for _ in range(TIME_STEPS):
+            for _ in range(n_steps):
                 steps[label]()
             torch.cuda.synchronize()
             best[label] = min(best[label],
-                              (time.perf_counter() - t0) / TIME_STEPS)
+                              (time.perf_counter() - t0) / n_steps)
     for label in labels:
         log("times", f"{label}: {1e3 * best[label]:.2f} ms per train step, "
                      f"{batch / best[label]:.2f} samples/s (best of "
-                     f"{windows} windows of {TIME_STEPS} steps, taken "
+                     f"{windows} windows of {n_steps} steps, taken "
                      f"in turns; {card_line})")
     return {label: 1e3 * t for label, t in best.items()}
 
@@ -1813,7 +1883,7 @@ def phase_train(device, subdiv, card_line):
     if not e <= SLICE_TOL:
         raise AssertionError(f"(3) vs (2) first-step loss {e:.3e}")
     ms = time_steps({"(2) K1": res2["step"], "(3) K3": res3["step"]}, BATCH,
-                    card_line)
+                    card_line, SMOKE_WINDOWS, SMOKE_STEPS)
     return {"model": model, "steps": {"K1": res2["step"], "K3": res3["step"]},
             "per_iter": res2["per_iter"], "launches": {
         KERNEL: f2, PLAIN_KERNEL: f3}, "ms": {"train16": ms["(2) K1"],
@@ -1838,7 +1908,8 @@ def phase_train64(device, subdiv, card_line):
     launches = check_launches(res, KERNEL, sum(PRODUCTS_PER_LEVEL),
                               HP64_AR + 1, "train64")
     label = f"HEALPix-{subdiv} AR{HP64_AR} batch {HP64_BATCH}"
-    ms = time_steps({label: res["step"]}, HP64_BATCH, card_line)[label]
+    ms = time_steps({label: res["step"]}, HP64_BATCH, card_line,
+                    SMOKE_WINDOWS, SMOKE_STEPS)[label]
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log("train64", f"peak device memory {peak:.2f} GiB "
                    "(torch.cuda.max_memory_allocated)")
@@ -2009,10 +2080,10 @@ def phase_train64f32(device, card_line):
     (fp32 x), level 2 dense. 3 steps at train64's traffic (AR2, batch 8,
     RNN, area-weighted MSE, Adam eps 1e-7 with the config's clipping):
     exactly 18 + 16 ELL launches a model call and nothing else, peak
-    memory, the step time beside the same step on K1's FMA path (the ELL
-    taken away) in turns; a forecast call (no grad) at batch 8; each (level,
-    width) shape of the step (`ell_step_shapes`); one batch-1 AR1 step
-    card vs CPU at GRAD_BAR."""
+    memory, the step time; one untimed step on K1's FMA path (the ELL taken
+    away) launching K1 alone; a forecast call (no grad) at batch 8; each
+    (level, width) shape of the step (`ell_step_shapes`); one batch-1 AR1
+    step card vs CPU at GRAD_BAR."""
     import torch
 
     from deepsphere_weather_torch.ops.bcsr import launch_counts
@@ -2041,23 +2112,18 @@ def phase_train64f32(device, card_line):
     launches = check_launches(res, ELL_KERNEL, per_forward, HP64_AR + 1,
                               label, phase="train64f32")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # the same step on the FMA path, the operators' ELL taken away (K1's
-    # fp32 regime, the route before the ELL kernel), timed in turns with
-    # the ELL step
+    # one step on the FMA path, the operators' ELL taken away (K1's fp32
+    # regime, the route before the ELL kernel): its launches, untimed
     sparse = [o.bcsr for o in geom.cheb_ops if o.bcsr is not None]
     ells = [o.ell for o in sparse]
-
-    def fma_step():
-        for o in sparse:
-            o.ell = None
-        try:
-            res["step"]()
-        finally:
-            for o, e in zip(sparse, ells):
-                o.ell = e
-
     before = dict(launch_counts)
-    fma_step()
+    for o in sparse:
+        o.ell = None
+    try:
+        res["step"]()
+    finally:
+        for o, e in zip(sparse, ells):
+            o.ell = e
     torch.cuda.synchronize()
     launched = {k: v - before[k] for k, v in launch_counts.items()
                 if v != before[k]}
@@ -2065,10 +2131,8 @@ def phase_train64f32(device, card_line):
     if launched != {KERNEL: want}:
         raise AssertionError(f"train64f32 FMA-path step launched {launched}, "
                              f"not {want} {KERNEL}")
-    fma_label = f"{label}, FMA path ({KERNEL})"
-    times = time_steps({label: res["step"], fma_label: fma_step},
-                       HP64_BATCH, card_line)
-    ms, fma_ms = times[label], times[fma_label]
+    ms = time_steps({label: res["step"]}, HP64_BATCH, card_line,
+                    SMOKE_WINDOWS, SMOKE_STEPS)[label]
 
     # a forecast call: one model call without gradients, batch 8
     n = model.input_n_node
@@ -2092,8 +2156,7 @@ def phase_train64f32(device, card_line):
         raise AssertionError(f"train64f32 forecast: {tuple(y.shape)}, "
                              f"launched {launched}")
     log("train64f32", f"step {ms:.2f} ms (batch {HP64_BATCH}, "
-                      f"{HP64_BATCH * 1e3 / ms:.2f} samples/s; on the FMA "
-                      f"path {fma_ms:.2f} ms, {fma_ms / ms:.2f}x), peak "
+                      f"{HP64_BATCH * 1e3 / ms:.2f} samples/s), peak "
                       f"device memory {peak:.2f} GiB; forecast call (no "
                       f"grad, batch "
                       f"{HP64_BATCH}) {fc_ms:.2f} ms, {per_forward} "
@@ -2107,19 +2170,35 @@ def phase_train64f32(device, card_line):
     log("train64f32", f"phase {seconds:.1f} s")
     return {"launches": launches, "step": res["step"],
             "forecast": (per_forward * F32_FORWARDS, 0), "ms": ms,
-            "fma_step_ms": fma_ms,
             "peak_gib": peak, "forecast_ms": fc_ms, "shapes": shapes,
             "card_vs_cpu": cpu, "seconds": seconds}
 
 
-def ell_step_shapes(model, step, laplacian, card_line):
-    """Each (level, width) shape one train step launches the ELL kernel
-    at (recorded by wrapping `ell_spmm`), per launch: the ELL kernel
-    (against its plain version exactly, against scipy and, backward
-    through the operator, against scipy's L^T g at the fp32 bar), the FMA
-    path (the K1 wrapper on the same operator's super-row arrays, x padded
-    as its matvec pads it), cuSPARSE's fp32 CSR product and the bound of
-    the function's work (`_ell_bound`). Returns one entry per shape."""
+def _rel_err_card(got, ref):
+    """`rel_err` of a card tensor against a reference (numpy or a tensor),
+    computed in fp64 on the card."""
+    import torch
+
+    ref = torch.as_tensor(np.ascontiguousarray(ref) if isinstance(
+        ref, np.ndarray) else ref).to(got.device, torch.float64)
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def ell_step_shapes(model, step, laplacian, card_line, phase="train64f32",
+                    name="HEALPix", fma=True):
+    """Each (level, layout, width) shape one train step launches the ELL
+    kernel at (recorded by wrapping `ell_spmm`; the layout L, or L^T's own
+    for a non-symmetric L's backward), per launch, on the first columns
+    of an x and a g drawn on the card at the level's widest shape: the
+    ELL kernel against its plain version exactly, against scipy (L x,
+    resp. L^T g) and, for L, backward through the operator against
+    scipy's L^T g at the fp32 bar; cuSPARSE's fp32 CSR product of the
+    same matrix and the bound of the function's work (`_ell_bound`); with
+    `fma`, the FMA path too (the K1 wrapper on the same operator's
+    super-row arrays, x padded as its matvec pads it) and the plain
+    version's time. Returns one entry per shape."""
+    import types
+
     import torch
     import torch.nn.functional as F
 
@@ -2137,60 +2216,293 @@ def ell_step_shapes(model, step, laplacian, card_line):
     finally:
         bcsr.ell_spmm = kernel
     ops = [c.bcsr for c in model.geometry.cheb_ops]
-    level_of = {o.ell.vals.data_ptr(): lvl for lvl, o in enumerate(ops)
-                if o is not None}
+    layout_of = {}
+    for lvl, o in enumerate(ops):
+        if o is not None:
+            layout_of[o.ell.vals.data_ptr()] = (lvl, "L")
+            if not o.ell.symmetric:
+                layout_of[o.ell.vals_t.data_ptr()] = (lvl, "L^T")
     device = next(model.parameters()).device
-    rng = np.random.default_rng(SEED + 42)
-    rows = []
-    for level, width in sorted({(level_of[p], w) for p, w in launched}):
+    gen = torch.Generator(device=device).manual_seed(SEED + 42)
+    shapes = sorted({layout_of[p] + (w,) for p, w in launched})
+    rows, refs = [], {}
+    for level, layout, width in shapes:
         op, L = ops[level], laplacian(level)
         n = L.shape[0]
-        x = torch.from_numpy(rng.standard_normal((n, width)).astype(
-            np.float32)).to(device)
-        g = torch.from_numpy(rng.standard_normal((n, width)).astype(
-            np.float32)).to(device)
-        label = f"{ELL_KERNEL} HEALPix level {level} x[{n}, {width}]"
-        r = measure_ell(op.ell, L, x, device, label)
-        e_fwd = rel_err(r["y"].cpu().numpy(), L @ x.cpu().numpy())
-        xg = x.clone().requires_grad_()
-        op.matvec(xg).backward(g)
-        e_bwd = rel_err(xg.grad.cpu().numpy(), L.T @ g.cpu().numpy())
-        _, a, idx, nz = op.forward_layout()
-        x_pad = F.pad(x, (0, (-width) % 128, 0, op.rows - n))
-        e_fma = rel_err(bcsr.bcsr_super_spmm(a, idx, x_pad, nz)[:n, :width]
-                        .cpu().numpy(), r["y"].cpu().numpy())
-        fma_ms = device_ms(lambda: bcsr.bcsr_super_spmm(a, idx, x_pad, nz))
-        for e, what in ((e_fwd, "forward vs scipy"),
-                        (e_bwd, "backward vs scipy L^T g"),
-                        (e_fma, f"{KERNEL} (FMA) vs {ELL_KERNEL}")):
+        if level not in refs:
+            # x and g at the level's widest shape, drawn on the card; each
+            # shape takes their first columns, so one scipy product per
+            # level and direction holds them all: L x, and L^T g (L's
+            # backward, and L^T's own forward on g)
+            wide = max(w for lv, _, w in shapes if lv == level)
+            x, g = (torch.randn((n, wide), generator=gen, device=device)
+                    for _ in range(2))
+            refs[level] = (x, g, L @ x.cpu().numpy(),
+                           L.T @ g.cpu().numpy())
+        x, g, l_x, lt_g = refs[level]
+        ell, mat, inp, ref = op.ell, L, x, l_x
+        if layout == "L^T":
+            ell = types.SimpleNamespace(vals=op.ell.vals_t,
+                                        cols=op.ell.cols_t,
+                                        tables=op.ell.tables_t)
+            mat, inp, ref = L.T.tocsr(), g, lt_g
+        inp = inp[:, :width].contiguous()
+        label = f"{ELL_KERNEL} {name} level {level} {layout} x[{n}, {width}]"
+        r = measure_ell(ell, mat, inp, device, label, plain_timed=fma)
+        checks = [(_rel_err_card(r["y"], ref[:, :width]), "forward vs scipy")]
+        if layout == "L":
+            xg = inp.clone().requires_grad_()
+            op.matvec(xg).backward(g[:, :width])
+            checks.append((_rel_err_card(xg.grad, lt_g[:, :width]),
+                           "backward vs scipy L^T g"))
+        fma_ms = None
+        if fma:
+            _, a, idx, nz = op.forward_layout()
+            x_pad = F.pad(inp, (0, (-width) % 128, 0, op.rows - n))
+            checks.append((_rel_err_card(bcsr.bcsr_super_spmm(
+                a, idx, x_pad, nz)[:n, :width], r["y"]),
+                           f"{KERNEL} (FMA) vs {ELL_KERNEL}"))
+            fma_ms = device_ms(lambda: bcsr.bcsr_super_spmm(a, idx, x_pad,
+                                                            nz))
+        for e, what in checks:
             if not e < BARS["fp32"]:
                 raise AssertionError(f"{label}: {what} {e:.3e} breaks the "
                                      f"{BARS['fp32']:g} bar")
-        rows.append({"level": level, "width": width, "ms": r["ms"],
-                     "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
+        rows.append({"level": level, "layout": layout, "width": width,
+                     "ms": r["ms"], "host_ms": r["host_ms"],
+                     "plain_ms": r["plain_ms"],
                      "library_ms": r["library_ms"], "fma_ms": fma_ms,
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
                      "max_abs_err": r["max_abs_err"],
+                     "ell_width": r["ell_width"], "union_max": r["union_max"],
+                     "block_rows_max": r["block_rows_max"],
                      "col_tile": r["col_tile"],
                      "ctas_per_sm": r["ctas_per_sm"]})
-        log("train64f32", f"{label}: {r['ms']:.4f} ms per launch (bound "
-                          f"{r['bound_ms']:.4f} ms by {r['bound_by']}, share "
-                          f"{r['share_of_bound']:.3f}; cuSPARSE "
-                          f"{r['library_ms']:.4f} ms; FMA path {KERNEL} "
-                          f"{fma_ms:.4f} ms; plain {r['plain_ms']:.4f} ms); "
-                          f"vs plain version max abs {r['max_abs_err']:.3e}, "
-                          f"vs scipy {e_fwd:.3e}, backward vs scipy "
-                          f"{e_bwd:.3e}, FMA path vs ELL {e_fma:.3e} (bar "
-                          f"{BARS['fp32']:g}) ({card_line})")
-    total = {k: sum(r[k] for r in rows) for k in ("ms", "library_ms",
-                                                   "fma_ms", "bound_ms")}
-    log("train64f32", f"over the step's {len(rows)} shapes, one launch each: "
-                      f"{ELL_KERNEL} {total['ms']:.4f} ms, cuSPARSE "
-                      f"{total['library_ms']:.4f} ms, FMA path "
-                      f"{total['fma_ms']:.4f} ms, bound "
-                      f"{total['bound_ms']:.4f} ms ({card_line})")
+        log(phase, f"{label}: {r['ms']:.4f} ms per launch (bound "
+                   f"{r['bound_ms']:.4f} ms by {r['bound_by']}, share "
+                   f"{r['share_of_bound']:.3f}; cuSPARSE "
+                   f"{r['library_ms']:.4f} ms"
+                   + (f"; FMA path {KERNEL} {fma_ms:.4f} ms; plain "
+                      f"{r['plain_ms']:.4f} ms" if fma else "")
+                   + f"); ELL width {r['ell_width']}, union tables: largest "
+                   f"{r['union_max']}, rows a block {r['block_rows_max']}, "
+                   f"column tile {r['col_tile']}, {r['ctas_per_sm']} CTAs "
+                   f"an SM; vs plain version max abs {r['max_abs_err']:.3e}, "
+                   + ", ".join(f"{what} {e:.3e}" for e, what in checks)
+                   + f" (bar {BARS['fp32']:g}) ({card_line})")
+    keys = ("ms", "library_ms", "bound_ms") + (("fma_ms",) if fma else ())
+    total = {k: sum(r[k] for r in rows) for k in keys}
+    log(phase, f"over the {name} step's {len(rows)} shapes, one launch "
+               f"each: {ELL_KERNEL} {total['ms']:.4f} ms, cuSPARSE "
+               f"{total['library_ms']:.4f} ms, "
+               + (f"FMA path {total['fma_ms']:.4f} ms, " if fma else "")
+               + f"bound {total['bound_ms']:.4f} ms ({card_line})")
     return rows
+
+
+def _shipped_names():
+    """The shipped configurations of SHIPPED_DIR, by file name."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                     "UNetSpherical", SHIPPED_DIR)
+    return sorted(f[:-len(".json")] for f in os.listdir(d)
+                  if f.endswith(".json"))
+
+
+@clocked
+def phase_shipped100km(device, card_line):
+    """shipped100km (module docstring, 6c): every shipped Healpix_100km
+    configuration at its own settings, one after another, each model freed
+    before the next."""
+    import gc
+
+    import torch
+
+    from deepsphere_weather_torch.data.ar import ARIndexer
+    from deepsphere_weather_torch.ops.bcsr import launch_counts
+
+    t_phase = time.perf_counter()
+    names = _shipped_names()
+    per_forward = sum(PRODUCTS_PER_LEVEL[:2])
+    out = {"launches": [0, 0], "remat": [0, 0], "forecast": [0, 0],
+           "configs": {}, "shapes": {}, "card_vs_cpu": {}}
+    batches, forecast_inputs = {}, {}
+    for index, name in enumerate(names):
+        t_cfg = time.perf_counter()
+        cfg = _grids_config(f"{SHIPPED_DIR}/{name}")
+        ms_, ts, ar = (cfg[k] for k in ("model_settings", "training_settings",
+                                        "ar_settings"))
+        model = grids_model(device, cfg, ts["numeric_precision"]).train()
+        t_geom = time.perf_counter() - t_cfg
+        geom = model.geometry
+        kinds = ["dense" if o.dense is not None else
+                 "ell" if o.bcsr is not None and o.bcsr.ell is not None
+                 else "?" for o in geom.cheb_ops]
+        voronoi = ms_["graph_type"] == "voronoi"
+        if (ts["numeric_precision"] != "float32"
+                or kinds != ["ell", "ell", "dense"]
+                or any(o.bcsr.ell.symmetric == voronoi
+                       for o in geom.cheb_ops[:2])):
+            raise AssertionError(f"{name}: {ts['numeric_precision']}, "
+                                 f"levels {kinds}")
+        params = train_params(model, SEED + 50 + index)
+        model.load_state_dict(params)
+        n_calls = ar["ar_iterations"] + 1
+        batch = ts["training_batch_size"]
+        label = (f"{name} fp32 AR{ar['ar_iterations']} batch {batch} "
+                 f"lr {ts['learning_rate']} clip {ts['gradient_clipping']}")
+        # the config's own settings (Adam eps ADAM_EPS) on one synthetic
+        # batch from SEED + 51, made once for every config of its window
+        # and batch size
+        indexer = ARIndexer.build(ar["input_k"], ar["output_k"],
+                                  ar["forecast_cycle"], ar["ar_iterations"])
+        batch_key = (indexer.window_size, model.input_n_node, batch)
+        if batch_key not in batches:
+            batches[batch_key] = train_batch(indexer, *batch_key[1:], device,
+                                             SEED + 51)
+
+        def steps(remat):
+            return run_train(model, ar["ar_iterations"], batch,
+                             SHIPPED_STEPS, label + " remat" * remat,
+                             clip=ts["gradient_clipping"],
+                             phase="shipped100km", lr=ts["learning_rate"],
+                             indexer=indexer, data=batches[batch_key],
+                             strategy=ts["ar_training_strategy"],
+                             remat=remat, decreasing=False, memory=True)
+
+        res = steps(remat=False)
+        f, b = check_launches(res, ELL_KERNEL, per_forward, n_calls, label,
+                              phase="shipped100km")
+        out["launches"][0] += f
+        out["launches"][1] += b
+
+        # a forecast call: one model call without gradients
+        n = model.input_n_node
+        shape = (batch, len(ar["input_k"]), n, F_STATIC + F_BC + F_DYN)
+        if shape not in forecast_inputs:
+            forecast_inputs[shape] = torch.from_numpy(
+                np.random.default_rng(SEED + 52).standard_normal(
+                    shape).astype(np.float32)).to(device)
+        x = forecast_inputs[shape]
+        with torch.no_grad():
+            model(x)
+            torch.cuda.synchronize()
+            before = dict(launch_counts)
+            t = time.perf_counter()
+            for _ in range(SHIPPED_FORWARDS):
+                y = model(x)
+            torch.cuda.synchronize()
+            fc_ms = 1e3 * (time.perf_counter() - t) / SHIPPED_FORWARDS
+        launched = {k: v - before[k] for k, v in launch_counts.items()
+                    if v != before[k]}
+        if launched != {ELL_KERNEL: per_forward * SHIPPED_FORWARDS} or \
+                y.shape != (batch, 1, n, F_DYN) or \
+                not torch.isfinite(y).all():
+            raise AssertionError(f"{name} forecast: {tuple(y.shape)}, "
+                                 f"launched {launched}")
+        out["forecast"][0] += per_forward * SHIPPED_FORWARDS
+        row = {"step_ms": res["ms"][-1], "first_step_ms": res["ms"][0],
+               "losses": res["losses"].tolist(),
+               "first_peak_gib": res["first_peak_gib"],
+               "peak_gib": res["peak_gib"], "step_gib": res["step_gib"],
+               "forecast_ms": fc_ms, "geometry_s": t_geom}
+        log("shipped100km", f"{label}: levels {geom.n_nodes} "
+                            f"({', '.join(kinds)}), pools "
+                            f"{type(geom.pools[0]).__name__}/"
+                            f"{type(geom.unpools[0]).__name__}; losses "
+                            f"{res['losses'][0]:.6g} -> "
+                            f"{res['losses'][-1]:.6g}; step "
+                            f"{res['ms'][-1]:.2f} ms "
+                            f"({batch * 1e3 / res['ms'][-1]:.2f} samples/s; "
+                            f"the first {res['ms'][0]:.2f} ms); "
+                            f"peak device memory {res['first_peak_gib']:.2f} "
+                            f"GiB over the first step, the last step's own "
+                            f"{res['step_gib']:.2f} GiB (peak "
+                            f"{res['peak_gib']:.2f}); forecast call (no "
+                            f"grad, batch {batch}) {fc_ms:.2f} ms, "
+                            f"{per_forward} {ELL_KERNEL} launches; geometry "
+                            f"{t_geom:.1f} s ({card_line})")
+        if name in SHIPPED_SHAPES:
+            out["shapes"][name] = ell_step_shapes(
+                model, res["step"], _grid_laplacian(cfg, geom), card_line,
+                phase="shipped100km", name=name, fma=False)
+        res.pop("step")
+        if name == SHIPPED_REMAT:
+            # the same steps with remat from the same weights
+            model.load_state_dict(params)
+            rem = steps(remat=True)
+            rem.pop("step")
+            want = 2 * per_forward * n_calls + per_forward * n_calls \
+                - NO_GRAD_PRODUCTS
+            for i, (fwd, bwd) in enumerate(rem["per_step"]):
+                got = {k: fwd[k] + bwd[k] for k in fwd}
+                if got[ELL_KERNEL] != want or sum(got.values()) != want:
+                    raise AssertionError(f"{name} remat step {i}: launches "
+                                         f"{got}, want {want} {ELL_KERNEL}")
+            # the split as counted (`run_train`): the recompute falls in
+            # the backward
+            out["remat"] = [sum(s[j][ELL_KERNEL] for s in rem["per_step"])
+                            for j in (0, 1)]
+            # a one-element gradient (a ReZero weight) against the largest
+            # gradient, as remat16 holds it
+            top = max(float(r.abs().max()) for r in res["grads"].values())
+            e_loss = rel_err(rem["per_iter"][0], res["per_iter"][0])
+            e_grad, key = grads_close(
+                rem["grads"], res["grads"],
+                {k: top for k, r in res["grads"].items() if r.numel() == 1},
+                REMAT_TOL, f"{name} first step with vs without remat")
+            if not e_loss <= REMAT_TOL:
+                raise AssertionError(f"{name} remat: losses {e_loss:.3e}")
+            row["remat"] = {"step_ms": rem["ms"][-1],
+                            "first_peak_gib": rem["first_peak_gib"],
+                            "peak_gib": rem["peak_gib"],
+                            "step_gib": rem["step_gib"], "losses": e_loss,
+                            "gradients": e_grad}
+            log("shipped100km", f"{label} with remat: {want} "
+                                f"{ELL_KERNEL} launches a step (the "
+                                f"recompute's {per_forward * n_calls} more; "
+                                f"forward + backward as counted over "
+                                f"{SHIPPED_STEPS} steps {out['remat'][0]} + "
+                                f"{out['remat'][1]}), no other kernel; "
+                                f"first step vs without "
+                                f"remat: losses {e_loss:.3e}, gradients "
+                                f"{e_grad:.3e} ({key}) (bar {REMAT_TOL:g}); "
+                                f"step {rem['ms'][-1]:.2f} ms vs "
+                                f"{res['ms'][-1]:.2f} ms without; the last "
+                                f"step's own peak {rem['step_gib']:.2f} GiB "
+                                f"vs {res['step_gib']:.2f} GiB without (peak "
+                                f"over the first step "
+                                f"{rem['first_peak_gib']:.2f} vs "
+                                f"{res['first_peak_gib']:.2f} GiB) "
+                                f"({card_line})")
+            del rem
+        del model, x, y
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["configs"][name] = row
+        if name in SHIPPED_CHECK:
+            out["card_vs_cpu"][name] = grids_card_vs_cpu(
+                device, cfg, params, name, ar=F32_CHECK_AR,
+                batch=F32_CHECK_BATCH, dense_threshold=None,
+                phase="shipped100km")
+        out["configs"][name]["seconds"] = time.perf_counter() - t_cfg
+    if sorted(out["card_vs_cpu"]) != sorted(SHIPPED_CHECK) or \
+            len(names) != 18:
+        raise AssertionError(f"shipped100km ran {names}, held "
+                             f"{sorted(out['card_vs_cpu'])} card vs CPU")
+    rows = out["configs"].values()
+    log("shipped100km", f"{len(names)} configs, {SHIPPED_STEPS} steps each: "
+                        f"step {min(r['step_ms'] for r in rows):.2f}-"
+                        f"{max(r['step_ms'] for r in rows):.2f} ms, the last "
+                        f"step's own peak "
+                        f"{min(r['step_gib'] for r in rows):.2f}-"
+                        f"{max(r['step_gib'] for r in rows):.2f} GiB, peak "
+                        f"over the first step "
+                        f"{max(r['first_peak_gib'] for r in rows):.2f} GiB at "
+                        f"most; {out['launches'][0]} + {out['launches'][1]} "
+                        f"{ELL_KERNEL} launches; phase "
+                        f"{time.perf_counter() - t_phase:.1f} s ({card_line})")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3457,8 +3769,8 @@ def _instrument_protocol():
 def _bare_step_ms(model, n_ar, batch, n_static, n_bc):
     """ms per bare train step of the trained model at the driver's last AR
     depth and batch, on one device-resident synthetic batch (no loader,
-    no window gather): windows of TIME_STEPS steps, best of
-    TIME_WINDOWS."""
+    no window gather): windows of SMOKE_STEPS steps, best of
+    SMOKE_WINDOWS."""
     import torch
 
     from deepsphere_weather_torch.data.ar import ARIndexer
@@ -3478,13 +3790,13 @@ def _bare_step_ms(model, n_ar, batch, n_static, n_bc):
     w = np.ones(n_ar + 1, np.float32)
     step(data, w)
     best = float("inf")
-    for _ in range(TIME_WINDOWS):
+    for _ in range(SMOKE_WINDOWS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(TIME_STEPS):
+        for _ in range(SMOKE_STEPS):
             step(data, w)
         torch.cuda.synchronize()
-        best = min(best, (time.perf_counter() - t0) / TIME_STEPS)
+        best = min(best, (time.perf_counter() - t0) / SMOKE_STEPS)
     return 1e3 * best
 
 
@@ -4133,18 +4445,22 @@ def kernel_row_rows(device, subdiv, batch, launches):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
-def kernel_row_ell(parity, rows_range, f32):
+def kernel_row_ell(parity, rows_range, f32, shipped):
     """The ELL kernel's row: per-launch averages over the train64f32
-    step's shapes (`ell_step_shapes`), its launches there and in the
-    forecast call, the parity phase's width-1024 readings beside K1's and
-    K3's FMA regime, and its row range (`parity_ell_rows`)."""
+    step's shapes (`ell_step_shapes`), its launches there, in the forecast
+    call and in shipped100km, the parity phase's width-1024 readings
+    beside K1's and K3's FMA regime, its row range (`parity_ell_rows`),
+    and shipped100km's voronoi and mesh shapes and configurations."""
     shapes = f32["shapes"]
 
     def mean(k):
         return sum(r[k] for r in shapes) / len(shapes)
 
     paths = {"train64f32": list(f32["launches"]),
-             "train64f32_forecast": list(f32["forecast"])}
+             "train64f32_forecast": list(f32["forecast"]),
+             "shipped100km": shipped["launches"],
+             "shipped100km_remat": shipped["remat"],
+             "shipped100km_forecast": shipped["forecast"]}
     fwd = sum(f for f, _ in paths.values())
     bwd = sum(b for _, b in paths.values())
     bytes_ms, ops_ms = mean("bytes_ms"), mean("ops_ms")
@@ -4161,10 +4477,12 @@ def kernel_row_ell(parity, rows_range, f32):
             "train64f32_shapes": shapes, **parity,
             "rows_range": rows_range,
             "train64f32_step_ms": f32["ms"],
-            "train64f32_fma_path_step_ms": f32["fma_step_ms"],
             "train64f32_peak_gib": f32["peak_gib"],
             "train64f32_forecast_ms": f32["forecast_ms"],
-            "train64f32_card_vs_cpu": f32["card_vs_cpu"]}
+            "train64f32_card_vs_cpu": f32["card_vs_cpu"],
+            "shipped100km_shapes": shipped["shapes"],
+            "shipped100km_configs": shipped["configs"],
+            "shipped100km_card_vs_cpu": shipped["card_vs_cpu"]}
 
 
 def _profile(fn, n, label):
@@ -4365,7 +4683,7 @@ def phase_bn16(device, card_line):
     if not np.isfinite(losses).all():
         raise AssertionError(f"bn16 losses {losses}")
     t_step = time_steps({"bn16": lambda: step(data, w, area_w)}, BATCH,
-                        card_line)["bn16"]
+                        card_line, SMOKE_WINDOWS, SMOKE_STEPS)["bn16"]
 
     # one fp32 batch-2 step, card vs CPU (the CPU takes the card's
     # ReLU and max-pool decisions)
@@ -4532,7 +4850,8 @@ def phase_ens16(device, card_line, single_ms, profile=False):
     if not np.isfinite(losses).all():
         raise AssertionError(f"ens16 losses {losses}")
     ms = time_steps({"ens16 member step": lambda: step(data, w, area_w)},
-                    BATCH, card_line)["ens16 member step"]
+                    BATCH, card_line, SMOKE_WINDOWS,
+                    SMOKE_STEPS)["ens16 member step"]
     log("ens16", f"widths: {len(widths)} K1 launches a member step, "
                  f"{shared} at the single widths (shared input) and the rest "
                  f"at twice: {sorted(set(widths))} vs single "
@@ -4886,7 +5205,7 @@ def grids_config(device, name, index, card_line):
     train = check_launches(res, KERNEL, LAUNCHES_PER_FORWARD, TRAIN_AR + 1,
                            label, phase="grids400")
     step_ms = time_steps({label: res["step"]}, BATCH, card_line,
-                         GRIDS_TIME_WINDOWS)[label]
+                         GRIDS_TIME_WINDOWS, SMOKE_STEPS)[label]
     laplacian = _grid_laplacian(cfg, geom)
     t0 = time.perf_counter()
     products = check_step_products(model, res["step"], None, laplacian,
@@ -5352,7 +5671,7 @@ def phase_remat16(device, card_line):
             f"{res[False]['step_gib']:.3f} GiB (bar {MEMBER_PEAK_BAR}x the "
             f"single's), with remat {res[True]['step_gib']:.3f} GiB (bar "
             f"{REMAT_PEAK_BAR}x the members' without)")
-    ms = time_steps(steps, BATCH, card_line, windows=REMAT_WINDOWS)
+    ms = time_steps(steps, BATCH, card_line, REMAT_WINDOWS, SMOKE_STEPS)
     plain_ms, remat_ms = ms.values()
     e_bf16 = rel_err(res[True]["per_iter"], res[False]["per_iter"])
     log("remat16", f"{ENS_MEMBERS}-member step, HEALPix-{SLICE_SUBDIV} "
@@ -6197,6 +6516,7 @@ def _phases(args, device, t_start, card_line) -> int:
     tr = phase_train(device, SLICE_SUBDIV, card_line)
     tr64 = phase_train64(device, BIG_SUBDIV, card_line)
     f32 = phase_train64f32(device, card_line)
+    shipped = phase_shipped100km(device, card_line)
     bn16 = phase_bn16(device, card_line)
     ens16 = phase_ens16(device, card_line, tr["ms"]["train16"],
                         args.profile)
@@ -6221,7 +6541,7 @@ def _phases(args, device, t_start, card_line) -> int:
         kernel_row(PLAIN_KERNEL, op3, device, SLICE_SUBDIV, BATCH,
                    {"train16_plain": tr["launches"][PLAIN_KERNEL]}),
         kernel_row_rows(device, SLICE_SUBDIV, BATCH, node["launches"]),
-        kernel_row_ell(ell_parity, ell_rows, f32),
+        kernel_row_ell(ell_parity, ell_rows, f32, shipped),
     ]
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], k3_err)
     # K4's function: K3's kernel with round_a=False (fp32 A, bf16 x)

@@ -23,14 +23,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
-import numpy as np
 import torch
-from scipy import sparse
 from torch.autograd.function import once_differentiable
 
 from .._device import resolve_device
 from ..parallel.collectives import all_gather_op, group_key
-from ..sphere.graph import laplacian_to_ell
 from .bcsr import BlockSparseOperator, EllOperator
 
 __all__ = ["ChebOperator", "cheb_basis_dense", "cheb_basis_ell", "cheb_conv",
@@ -159,22 +156,79 @@ class ChebOperator:
                                     group_key(self.group), x.dtype)
 
 
-def _ell_operator(cols: torch.Tensor, vals: torch.Tensor,
-                  transpose: bool) -> EllOperator:
-    """An `EllOperator` over given ELL arrays; with `transpose` it also
-    holds L^T's layout (built on the host from these arrays), which the
-    gradient in x runs on."""
-    vals, cols = vals.float().contiguous(), cols.to(torch.int32).contiguous()
-    n = cols.shape[0]
-    if not transpose:
-        return EllOperator(n, vals, cols)
-    v, c = vals.detach().cpu().numpy(), cols.cpu().numpy()
-    mat = sparse.csr_matrix((v.ravel(), (np.repeat(np.arange(n), c.shape[1]),
-                                         c.ravel())), shape=(n, n))
-    mat.eliminate_zeros()
-    cols_t, vals_t = laplacian_to_ell(mat.T.tocsr())
-    return EllOperator(n, vals, cols, torch.from_numpy(vals_t).to(vals.device),
-                       torch.from_numpy(cols_t).to(cols.device))
+def _transposed_ell(cols: torch.Tensor, vals: torch.Tensor):
+    """The ELL arrays (cols_t int32, vals_t fp32) of L^T for L in ELL,
+    built on L's device: each row's nonzeros in CSR order, padded with
+    column 0 and value 0 (`laplacian_to_ell` of the transposed matrix;
+    zero values drop out as its scipy build eliminates them)."""
+    n, width = cols.shape
+    keep = (vals != 0).reshape(-1)
+    rows = torch.arange(n, device=cols.device).repeat_interleave(width)[keep]
+    c = cols.reshape(-1).long()[keep]
+    v = vals.reshape(-1)[keep]
+    order = torch.argsort(c * n + rows)
+    c, rows, v = c[order], rows[order], v[order]
+    deg = torch.bincount(c, minlength=n)
+    width_t = int(deg.max()) if c.numel() else 0
+    offs = torch.arange(c.numel(), device=c.device) - (deg.cumsum(0) - deg)[c]
+    cols_t = torch.zeros((n, width_t), dtype=torch.int32, device=cols.device)
+    vals_t = torch.zeros((n, width_t), dtype=torch.float32, device=cols.device)
+    cols_t[c, offs] = rows.to(torch.int32)
+    vals_t[c, offs] = v
+    return cols_t, vals_t
+
+
+class _EllArrays:
+    """L in ELL at one call site of `ell_matvec` or `cheb_basis_ell`: its
+    `EllOperator` (fp32 values, the kernel's type), and L^T's, built once,
+    at the first backward that needs a gradient in x."""
+
+    def __init__(self, cols: torch.Tensor, vals: torch.Tensor):
+        self.cols = cols.to(torch.int32).contiguous()
+        self.vals = vals.detach().float().contiguous()
+        self.op = EllOperator(self.cols.shape[0], self.vals, self.cols)
+        self._op_t = None
+
+    def transposed(self) -> EllOperator:
+        if self._op_t is None:
+            cols_t, vals_t = _transposed_ell(self.cols, self.vals)
+            self._op_t = EllOperator(self.cols.shape[0], vals_t, cols_t)
+        return self._op_t
+
+
+class _EllMatVec(torch.autograd.Function):
+    """L @ x over `_EllArrays` (the JAX `ell_matvec`, differentiable in x
+    and in vals). Forward and the gradient in x (L^T g) run the ELL
+    product (the kernel on the card); the gradient in vals,
+    dvals[v, w] = sum_m g[v, m] x[cols[v, w], m], is a gather and a
+    row-wise dot. The result is fp32 unless x and vals are both bf16 (the
+    JAX promotion)."""
+
+    @staticmethod
+    def forward(x, vals, arrays):
+        y = arrays.op.matvec(x.float())
+        if x.dtype == vals.dtype == torch.bfloat16:
+            return y.to(torch.bfloat16)
+        return y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, vals, ctx.arrays = inputs
+        ctx.x_dtype, ctx.vals_dtype = x.dtype, vals.dtype
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        gx = gvals = None
+        if ctx.needs_input_grad[0]:
+            gx = ctx.arrays.transposed().matvec(g.float()).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            gathered = x.float()[ctx.arrays.cols.long()]      # [V, W, M]
+            gvals = torch.einsum("vwm,vm->vw", gathered,
+                                 g.float()).to(ctx.vals_dtype)
+        return gx, gvals, None
 
 
 def ell_matvec(cols: torch.Tensor, vals: torch.Tensor,
@@ -182,11 +236,11 @@ def ell_matvec(cols: torch.Tensor, vals: torch.Tensor,
     """L @ x for L in ELL: cols [V, W] int, vals [V, W], x [V, M] ->
     [V, M] (the JAX `ell_matvec`, sum_w vals[v, w] * x[cols[v, w]]).
 
-    It runs `EllOperator.matvec`: the ELL kernel on the card, its plain
-    version on the CPU; L in fp32, bf16 x gives a bf16 result. A gradient
-    reaches x (through L^T's layout), not vals: the Laplacian is no
-    parameter."""
-    return _ell_operator(cols, vals, x.requires_grad).matvec(x)
+    The product runs `EllOperator.matvec`: the ELL kernel on the card, its
+    plain version on the CPU, in fp32; the result is fp32 unless x and
+    vals are both bf16, as JAX promotes them. Gradients reach x (through
+    L^T's layout, built on L's device at the first backward) and vals."""
+    return _EllMatVec.apply(x, vals, _EllArrays(cols, vals))
 
 
 def cheb_basis_dense(L: torch.Tensor, x: torch.Tensor, K: int
@@ -202,9 +256,11 @@ def cheb_basis_dense(L: torch.Tensor, x: torch.Tensor, K: int
 
 def cheb_basis_ell(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
                    K: int) -> torch.Tensor:
-    """Chebyshev basis [K, V, M] of x [V, M] over L in ELL (`ell_matvec`'s
-    arrays, one operator for every product)."""
-    return _basis(_ell_operator(cols, vals, x.requires_grad).matvec, x, K)
+    """Chebyshev basis [K, V, M] of x [V, M] over L in ELL: `ell_matvec`
+    of its arrays, whose operators (L's, and L^T's for the backward) are
+    built once for all K - 1 products."""
+    arrays = _EllArrays(cols, vals)
+    return _basis(lambda h: _EllMatVec.apply(h, vals, arrays), x, K)
 
 
 def _basis(mv: Callable, x: torch.Tensor, K: int) -> torch.Tensor:

@@ -33,6 +33,8 @@ from deepsphere_weather_torch.ops import (  # noqa: E402
     cheb_basis_ell,
     ell_matvec,
 )
+from deepsphere_weather_torch.ops import cheb as cheb_module  # noqa: E402
+from deepsphere_weather_torch.ops.cheb import _transposed_ell  # noqa: E402
 from deepsphere_weather_torch.sphere import build_graph, cached_sparse  # noqa: E402
 from deepsphere_weather_torch.sphere.graph import laplacian_to_ell  # noqa: E402
 
@@ -166,6 +168,62 @@ def test_ell_matvec_and_its_gradient_match_jax(graphs):
     assert rel_err(xt.grad.numpy(), want_g) <= TOL
     np.testing.assert_allclose(want_g, (L.T @ r).astype(np.float32),
                                rtol=0, atol=TOL * np.abs(want_g).max())
+
+
+@pytest.mark.parametrize("graph_type", ["knn", "voronoi"])
+def test_ell_forms_promote_and_differentiate_vals_as_jax(graph_type,
+                                                        monkeypatch):
+    """`ell_matvec` and `cheb_basis_ell` (K=3) as JAX's einsum over the
+    ELL arrays: bf16 x against fp32 vals gives fp32 values, and a loss
+    over either has a gradient in vals (and in x) equal to `jax.grad`'s,
+    on a symmetric (knn) and a non-symmetric (voronoi, M^-1 L) layout."""
+    name, kw = GRAPHS["healpix4"]
+    g = build_graph(name, kw, k=KNN, graph_type=graph_type)
+    assert g.is_symmetric == (graph_type == "knn")
+    cols, vals = g.laplacian_ell()
+    n = g.n_nodes
+    x = _x(n, 5, 5)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    # bf16 x, fp32 vals: fp32 out, the same values as JAX's promotion
+    for fn, jfn, args in ((ell_matvec, jcheb.ell_matvec, ()),
+                          (cheb_basis_ell, jcheb.cheb_basis_ell, (3,))):
+        want = jfn(jnp.asarray(cols), jnp.asarray(vals), xb, *args)
+        got = fn(torch.from_numpy(cols), torch.from_numpy(vals),
+                 torch.from_numpy(np.array(xb.astype(jnp.float32)))
+                 .bfloat16(), *args)
+        assert want.dtype == jnp.float32 and got.dtype == torch.float32
+        assert rel_err(got.numpy(), np.asarray(want)) <= TOL
+    # the gradients in vals and x of <f(vals, x), r>
+    for fn, jfn, args, shape in (
+            (ell_matvec, jcheb.ell_matvec, (), (n, 5)),
+            (cheb_basis_ell, jcheb.cheb_basis_ell, (3,), (3, n, 5))):
+        r = np.random.default_rng(6).standard_normal(shape).astype(
+            np.float32)
+
+        def jloss(v, xj):
+            return jnp.sum(jfn(jnp.asarray(cols), v, xj, *args) * r)
+        want_gv, want_gx = jax.grad(jloss, argnums=(0, 1))(
+            jnp.asarray(vals), jnp.asarray(x))
+        vt = torch.from_numpy(vals).requires_grad_()
+        xt = torch.from_numpy(x).requires_grad_()
+        (fn(torch.from_numpy(cols), vt, xt, *args)
+         * torch.from_numpy(r)).sum().backward()
+        assert vt.grad is not None and vt.grad.dtype == torch.float32
+        assert float(np.abs(np.asarray(want_gv)).max()) > 0
+        assert rel_err(vt.grad.numpy(), np.asarray(want_gv)) <= TOL
+        assert rel_err(xt.grad.numpy(), np.asarray(want_gx)) <= TOL
+    # L^T's layout, built on the device, is `laplacian_to_ell` of L^T
+    cols_t, vals_t = _transposed_ell(torch.from_numpy(cols),
+                                     torch.from_numpy(vals))
+    want_cols, want_vals = laplacian_to_ell(g.L.T.tocsr())
+    np.testing.assert_array_equal(cols_t.numpy(), want_cols)
+    np.testing.assert_array_equal(vals_t.numpy(), want_vals)
+    # vals alone needing a gradient builds no transposed layout
+    monkeypatch.setattr(cheb_module, "_transposed_ell", None)
+    vt = torch.from_numpy(vals).requires_grad_()
+    ell_matvec(torch.from_numpy(cols), vt, torch.from_numpy(x)).sum() \
+        .backward()
+    assert vt.grad.shape == vals.shape
 
 
 def test_cheb_operator_node_counts_match_jax(graphs):
