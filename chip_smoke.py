@@ -13,9 +13,10 @@ other samplings, graph types and pools with the variant architectures,
 and the whole mesh (members over ranks, BatchNorm over a data or node
 mesh, node-sharded grids), member steps that recompute in the backward,
 an experiment built from nothing by the data-preparation CLIs, the CLI on
-2 ranks, the DeepEnsemble sweep, the profiling harness and an experiment
-ingested from raw GRIB2 files, on the card and checks them, in phases
-printed one per line:
+2 ranks, the DeepEnsemble sweep (at HEALPix-16, and at the shipped
+HEALPix-64 configuration's own settings with 5 members), a year's free
+run, the profiling harness and an experiment ingested from raw GRIB2
+files, on the card and checks them, in phases printed one per line:
 
 1. card      name and power limit (nvidia-smi)
 2. build     the three CUDA kernels (all three include one header; the
@@ -129,6 +130,41 @@ printed one per line:
              every shape the voronoi (L and L^T) and mesh steps launch it
              at: exact vs its plain version, 1e-5 vs scipy, ms per launch
              beside its bound and cuSPARSE
+6d. ens64    (after the rank phases) the shipped Healpix_100km MaxPool knn
+             configuration's DeepEnsemble at its own settings (fp32
+             HEALPix-64, batch 16, AR6 RNN, lr 0.007, clipping 1.0) with
+             remat. (a) The member step driven directly: 5 members (seeds
+             1000 + m, the JAX package's default count) on one synthetic
+             batch, 3 steps: exactly 126 + 250 ELL launches a step (K5
+             folds the members into each launch: 5x the single remat
+             step's widths but the first convolution's 4 on the shared
+             batch) and no other kernel; member 0's first-step losses,
+             gradients and parameters within 1e-4 of one single remat
+             step on its weights (Adam eps 1e-3), the single step on
+             member 0's ReLU and max-pool decisions (`steer`, each that
+             differs within 1e-6 of its kink); one
+             `utils.profiling.profile_step` of it: the second step timed
+             (host clock), the third traced (device busy share, top
+             device rows), their own peak at most 1.125 x 5 x
+             shipped100km's reading of the single remat step's (taken
+             in the same run); one step of the largest
+             stack whose own peak, predicted per member, stays under 72
+             GiB with what the card holds before it, run with expandable
+             segments (the allocator's default fragments there, and no
+             entry point of the port sets them; the setting before it is
+             restored), its peak against the prediction; the ELL kernel
+             at the folded width x[49152, 5 x 2048] (exact vs its plain
+             version, 1e-5 vs scipy, beside its bound and
+             torch.sparse.mm). (b)
+             `cli.experiments.run_deep_ensemble(member_parallel=True)`
+             with 5 members on the same config (remat on; 1 epoch, short
+             periods, scored every 2 updates) over a toy HEALPix-64 store
+             from `cli.prepare_toy_data` (140 six-hour steps, seed 0,
+             written on the host beside the rank phases), an
+             AR4 forecast: every member store, the ensemble and median
+             stores finite and of their shapes, the median's RMSE and the
+             CRPS finite, only the ELL kernel launched, each checkpointed
+             AR iteration recomputed once; seconds by stage
 7. node16    the step of (2) on a 1 data x 2 node mesh: 2 spawned ranks
              (of the rank phases' one spawn, below) share the card over `gloo` (NCCL refuses two ranks on one
              device), each holding half the sphere at every level; 3
@@ -151,7 +187,7 @@ printed one per line:
              it, forward and backward, against its plain version and
              scipy's rows (bf16 bar)
 10. times    ms per train step and samples/s (host clock ended by
-             torch.cuda.synchronize(), best of 2 windows of 2 steps, K1
+             torch.cuda.synchronize(), one window of 2 steps, K1
              and K3 steps taken in turns); each kernel per launch
              (`device_ms`: a CUDA graph of launches replayed) at the main
              path's widths beside
@@ -336,9 +372,11 @@ printed one per line:
              a step on each rank, 22 gathers in each of 14 model calls,
              losses within 3e-2 of the same ranks without remat and of one
              process, step time beside ensmesh16's.
-21. prep16   an experiment's data and configs built from nothing by the
-             port's CLIs (host only): `prepare_toy_data` (HEALPix-16,
-             1460 six-hour steps, seed 0), `compute_scalers`,
+21. prep16   (in a thread beside the rank phases, with ingest16's host
+             stages and ens64's toy store in others) an experiment's
+             data and configs built from nothing by the port's CLIs
+             (host only): `prepare_toy_data` (HEALPix-16, 1460 six-hour
+             steps, seed 0), `compute_scalers`,
              `compute_benchmarks` (5 leads), `create_configs` (108
              configs, each equal to the shipped one of its name); seconds
              and files of each stage. protocol16 trains on this data and
@@ -360,14 +398,26 @@ printed one per line:
              AR iterations recomputed, only K1 launched, the ensemble and
              median stores, the median's RMSE and the CRPS finite; seconds
              by stage.
+23b. xyear16 (after ensemble16) `cli.experiments.run_x_year_simulations`
+             of protocol16's resumed flagship (bf16, K1 at level 0),
+             `years=1` (the reference's 5 cut): 1461 steps at its six-hour
+             forecast_cycle in blocks of 1000 and a tail of 461, from two
+             reference times 13 and 7 steps before the store's end, so
+             that the analytic TOA-solar generator forces every step past
+             it: every lead written and finite, exactly 10 K1 launches a
+             model call and no other kernel, the generator called for each
+             (reference time, step) past the store, the device's peak over
+             the run within 5% of its peak over the first block; seconds a
+             step and the writer thread's share of the rollout's wall.
 24. profile16 `utils.profiling.profile_step` of the flagship forward and
              train step with torch.profiler Chrome traces (the top device
              rows by name), `summarize_model`; `scalability_sweep` (fp32)
              over HEALPix-16 and -32 at knn 8 and 20: forward and forward
              + backward ms against nodes, exactly 636 ELL launches (level
              0 of HEALPix-32) and no other kernel.
-25. ingest16 (last) raw GRIB2 to a verified experiment: a GRIB2 tree in
-             the reference's layout (tests/torch_ingest_chain.py) on the
+25. ingest16 (last; its host stages in a thread beside the rank phases)
+             raw GRIB2 to a verified experiment: a GRIB2 tree in the
+             reference's layout (tests/torch_ingest_chain.py) on the
              ECMWF O32 grid (5248 points): z and t at 500 and 850 hPa and
              accumulated TOA solar radiation every 6 hours for 120 days,
              and topography, land-sea mask and soil type;
@@ -389,7 +439,11 @@ printed one per line:
 The rank phases 7-9 and 17-20 run in one spawn of 4 ranks, after remat16:
 their single-process references first, then every task in turn on the
 ranks its mesh uses (a 2-rank mesh leaves ranks 2 and 3 idle), then each
-phase's checks. cli2rank (22) starts its own ranks. Ranks are started
+phase's checks. cli2rank (22) starts its own ranks. Host-only work
+(prep16, ingest16's GRIB tree and remap, ens64's toy store) runs in
+threads beside that spawn, so the phases' seconds overlap there, and
+their host readings and the ranks' step times are taken under that
+contention. Ranks are started
 after the kernels are built, join a `gloo` process group with a timeout,
 and the script waits for them with a limit; a rank that fails fails the
 run. At its end the script prints each phase's wall seconds. Any failed phase raises, and the
@@ -404,6 +458,7 @@ and of two ens16 member steps beside two single steps on their batch.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import datetime
 import functools
@@ -478,10 +533,11 @@ F32_CHECK_AR, F32_CHECK_BATCH, F32_FORWARDS = 1, 1, 5
 # chained steps (`time_steps`' default, kept by scripts/torch_chip_readings.py
 # so that its A/B runs compare like with like); the smoke's own phases take
 # windows of SMOKE_STEPS steps, SMOKE_WINDOWS of them where a phase sets no
-# count (4 x 4 until shipped100km came: the smoke stays inside its time
-# limit; these readings are not comparable with 4 x 4 ones)
+# count (4 x 4 until shipped100km came, 2 x 2 until ens64 and xyear16
+# came: the smoke stays inside its time limit; these readings are not
+# comparable with 4 x 4 or 2 x 2 ones)
 TIME_WINDOWS, TIME_STEPS = 4, 4
-SMOKE_WINDOWS, SMOKE_STEPS = 2, 2
+SMOKE_WINDOWS, SMOKE_STEPS = 1, 2
 # shipped100km: the shipped Healpix_100km configurations (every graph type
 # and pool) at their own settings; steps per config; the configs held card
 # vs CPU (the new Laplacians, and the new pools at 49152 nodes); the one
@@ -494,8 +550,23 @@ SHIPPED_CHECK = ("MaxPool-Graph_voronoi", "MaxPool-Graph_mesh",
                  "LearnPool-Graph_knn")
 SHIPPED_REMAT = "MaxPool-Graph_knn"
 SHIPPED_SHAPES = ("MaxPool-Graph_voronoi", "MaxPool-Graph_mesh")
-SHIPPED_FORWARDS = 2
+SHIPPED_FORWARDS = 1
 LR, ADAM_EPS = 1e-3, 1e-7
+# ens64: the shipped Healpix_100km MaxPool knn configuration's
+# DeepEnsemble (members, the JAX package's default 5, drawn from seeds
+# ENS64_SEED + m as `run_deep_ensemble` seeds them) at its own settings
+# with remat; the member step's own peak against M single remat steps'
+# (remat16's 2.25 bar at 2 members, per member) and the largest stack's
+# budget (90% of the card's 80 GB); (b)'s toy HEALPix-64 store (six-hour
+# steps), the periods it trains, validates and forecasts on (the config's
+# window spans 18 + 6 x 6 steps) and its scoring interval
+ENS64_CONFIG = f"{SHIPPED_DIR}/{SHIPPED_REMAT}"
+ENS64_MEMBERS, ENS64_SEED = 5, 1000
+ENS64_PEAK_BAR, ENS64_BUDGET_GIB = 1.125, 72.0
+ENS64_STORE_STEPS, ENS64_SCORING = 140, 2
+ENS64_PERIODS = {"training_period": ["2010-01-01", "2010-01-14"],
+                 "validation_period": ["2010-01-14", "2010-01-25"],
+                 "test_period": ["2010-01-25", "2010-02-05"]}
 # node- and data-parallel phases: steps, the fp32 check's level-0 threshold
 # (so that level 0 stays block-sparse in fp32), the process-group timeout
 # and each phase's limit (seconds)
@@ -524,7 +595,7 @@ BN_STEPS, BN_UPDATE_STEPS, BN_UPDATE_BATCHES = 3, 80, 2
 ENS_MEMBERS, ENS_STEPS, ENS_TOL, ENS_CHECK_EPS = 2, 3, 1e-4, 1e-3
 # remat16: the bar of the fp32 member step with remat against the step
 # without (the same decisions, the same kernels); its timing windows
-REMAT_TOL, REMAT_WINDOWS = 1e-5, 2
+REMAT_TOL, REMAT_WINDOWS = 1e-5, 1
 # remat16's memory bars: the 2-member step's own peak against the single
 # model's step (the JAX package's member step holds 2.00x), and the member
 # step with remat against itself without (the single step's cut)
@@ -538,6 +609,11 @@ CLI_PERIODS = {"training_period": ["2010-01-01", "2010-03-01"],
                "validation_period": ["2010-03-01", "2010-03-15"],
                "test_period": ["2010-04-01", "2010-04-14"]}
 CLI_SCORING, CLI_AR_PREDICT, RMSE_TOL = 5, 4, 3e-3
+# xyear16: protocol16's model in a free run of XYEAR_YEARS years (the
+# reference's 05_exp_X_year_sims.py runs 5), from the reference times this
+# many six-hour steps before its store's end; the device's peak over the
+# run against its peak over the first block
+XYEAR_YEARS, XYEAR_FRTS, XYEAR_MEM_TOL = 1, (13, 7), 0.05
 # prep16: the benchmark forecasts' leads (the CLI's default 39 took 33 s
 # on the card machine's host, 20 took 21 s; cut to 5 to make room for
 # ingest16)
@@ -569,7 +645,7 @@ KINK_TOL = 1e-6
 # the step's timing windows (the phase stays near 150 s); the CLI
 # configuration, the six-hour steps of its toy store (1000 until ingest16
 # came) and its epochs, scored every CLI_SCORING updates as cli2rank's
-GRIDS_TIME_WINDOWS = 2
+GRIDS_TIME_WINDOWS = 1
 GRIDS_CLI, GRIDS_CLI_STEPS, GRIDS_CLI_EPOCHS = (
     "O24/MaxValPool-Graph_voronoi", 400, 1)
 # level-0 block-sparse products of one forward of each variant (2 per
@@ -621,6 +697,8 @@ def log(phase, msg):
 
 # wall seconds of each phase in this run (`clocked`), printed at its end
 PHASE_SECONDS = {}
+# temporary directories of the run, removed at its end (`main`)
+TEMP_ROOTS = []
 
 
 def clocked(fn):
@@ -1723,6 +1801,31 @@ def phase_train_check(device, subdiv, batch):
             raise AssertionError(f"card vs CPU {what}: {e:.3e} > {SLICE_TOL}")
 
 
+def split_launches(model, n_calls):
+    """(run, hook): run(fn) calls fn() and returns (its output, (forward,
+    backward)): the launches by kernel it made, its forward ending as
+    `model`'s n_calls-th call returns, the end of a train step's forward
+    pass (a remat step's recompute calls the model again in the backward;
+    the forward hook fires under functional_call too). After
+    hook.remove(), (output, None)."""
+    from deepsphere_weather_torch.ops.bcsr import launch_counts
+
+    at_call = []
+    hook = model.register_forward_hook(
+        lambda *_: at_call.append(dict(launch_counts)))
+
+    def run(fn):
+        before = dict(launch_counts)
+        at_call.clear()
+        out = fn()
+        if not at_call:
+            return out, None
+        end = at_call[n_calls - 1]
+        return out, ({k: end[k] - before[k] for k in before},
+                     {k: launch_counts[k] - end[k] for k in before})
+    return run, hook
+
+
 def run_train(model, ar_iters, batch, n_steps, label, clip=None,
               phase="train", lr=LR, indexer=None, data=None, strategy="RNN",
               remat=False, decreasing=True, memory=False):
@@ -1754,9 +1857,7 @@ def run_train(model, ar_iters, batch, n_steps, label, clip=None,
                gradient_clipping=clip)
     step = make_train_step(model, indexer, opt, ar_iters + 1,
                            ar_training_strategy=strategy, remat=remat)
-    at_forward = []
-    hook = model.register_forward_hook(
-        lambda *_: at_forward.append(dict(launch_counts)))
+    run, hook = split_launches(model, ar_iters + 1)
     torch.cuda.synchronize()
     if memory:
         torch.cuda.reset_peak_memory_stats()
@@ -1768,18 +1869,13 @@ def run_train(model, ar_iters, batch, n_steps, label, clip=None,
             torch.cuda.empty_cache()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-        before = dict(launch_counts)
-        at_forward.clear()
         t_step = time.perf_counter()
-        total, per_iter = step(data, w, area_w)
+        (total, per_iter), split = run(lambda: step(data, w, area_w))
         torch.cuda.synchronize()
         res["ms"].append(1e3 * (time.perf_counter() - t_step))
         res["losses"].append(total)
         res["per_iter"].append(per_iter)
-        end = at_forward[ar_iters]
-        res["per_step"].append((
-            {k: end[k] - before[k] for k in before},
-            {k: launch_counts[k] - end[k] for k in before}))
+        res["per_step"].append(split)
         if i == 0:
             res["grads"] = grads_of(model)
             if memory:
@@ -1804,12 +1900,14 @@ def run_train(model, ar_iters, batch, n_steps, label, clip=None,
     return res
 
 
-def check_launches(res, kernel, per_forward, n_calls, label, phase="train"):
+def check_launches(res, kernel, per_forward, n_calls, label, phase="train",
+                   remat=False):
     """Every step launched exactly per_forward * n_calls forward and that
-    minus NO_GRAD_PRODUCTS backward products on `kernel`, no other
+    minus NO_GRAD_PRODUCTS backward products on `kernel` (with `remat`
+    the recompute's forward products in the backward too), no other
     kernel; returns (forward, backward) launch totals."""
     want_f = per_forward * n_calls
-    want_b = want_f - NO_GRAD_PRODUCTS
+    want_b = want_f * (1 + remat) - NO_GRAD_PRODUCTS
     for i, (fwd, bwd) in enumerate(res["per_step"]):
         if (fwd[kernel], bwd[kernel]) != (want_f, want_b) or \
                 sum(fwd.values()) != want_f or sum(bwd.values()) != want_b:
@@ -2432,17 +2530,11 @@ def phase_shipped100km(device, card_line):
             model.load_state_dict(params)
             rem = steps(remat=True)
             rem.pop("step")
-            want = 2 * per_forward * n_calls + per_forward * n_calls \
-                - NO_GRAD_PRODUCTS
-            for i, (fwd, bwd) in enumerate(rem["per_step"]):
-                got = {k: fwd[k] + bwd[k] for k in fwd}
-                if got[ELL_KERNEL] != want or sum(got.values()) != want:
-                    raise AssertionError(f"{name} remat step {i}: launches "
-                                         f"{got}, want {want} {ELL_KERNEL}")
-            # the split as counted (`run_train`): the recompute falls in
-            # the backward
-            out["remat"] = [sum(s[j][ELL_KERNEL] for s in rem["per_step"])
-                            for j in (0, 1)]
+            # the recompute falls in the backward
+            out["remat"] = list(check_launches(
+                rem, ELL_KERNEL, per_forward, n_calls, label + " remat",
+                phase="shipped100km", remat=True))
+            want = sum(out["remat"]) // SHIPPED_STEPS
             # a one-element gradient (a ReZero weight) against the largest
             # gradient, as remat16 holds it
             top = max(float(r.abs().max()) for r in res["grads"].values())
@@ -2503,6 +2595,480 @@ def phase_shipped100km(device, card_line):
                         f"{ELL_KERNEL} launches; phase "
                         f"{time.perf_counter() - t_phase:.1f} s ({card_line})")
     return out
+
+
+# ---------------------------------------------------------------------------
+# ens64: the shipped Healpix_100km DeepEnsemble at its own settings
+# ---------------------------------------------------------------------------
+
+def _steering(model):
+    """What `steer` replaces on `model` (its ReLUs and its geometry's
+    pools): a function that puts it back."""
+    from deepsphere_weather_torch.models import ConvBlock
+
+    acts = [(m, m.act_fun) for m in model.modules()
+            if isinstance(m, ConvBlock) and m.act]
+    geometry = model.geometry
+
+    def undo():
+        for m, fn in acts:
+            m.act_fun = fn
+        model.geometry = geometry
+    return undo
+
+
+def ens64_store():
+    """ens64 (b)'s toy HEALPix-64 store, written on the host by
+    `cli.prepare_toy_data` (ENS64_STORE_STEPS six-hour steps, seed SEED)
+    under a temporary root: {"root", "data", "seconds"}."""
+    from deepsphere_weather_torch.cli import prepare_toy_data
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dsw_ens64_")
+    try:
+        data = os.path.join(root, "data")
+        prepare_toy_data.main(data, subdivisions=BIG_SUBDIV,
+                              n_timesteps=ENS64_STORE_STEPS, seed=SEED,
+                              verbose=False)
+    except BaseException:
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    return {"root": root, "data": data, "seconds": time.perf_counter() - t0}
+
+
+@clocked
+def phase_ens64(device, card_line, single, store):
+    """ens64 (module docstring, 6d): the shipped Healpix_100km MaxPool knn
+    configuration's DeepEnsemble at its own settings with remat, (a) the
+    member step driven directly, (b) `run_deep_ensemble` end to end over
+    `store` (`ens64_store`, whose root it removes). `single` is
+    shipped100km's reading of the same configuration's single remat step
+    (its `remat` row: the second step's own peak and ms)."""
+    t_phase = time.perf_counter()
+    try:
+        out = _ens64_members(device, card_line, single)
+        ensemble = _ens64_deep_ensemble(device, card_line, store["root"],
+                                        store["data"], store["seconds"])
+    finally:
+        shutil.rmtree(store["root"], ignore_errors=True)
+    out.update(ensemble_launches=ensemble["launches"],
+               ensemble_seconds=ensemble["seconds"])
+    log("ens64", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _expandable_segments():
+    """Whether the environment gives the CUDA caching allocator
+    expandable segments (PYTORCH_CUDA_ALLOC_CONF, or PYTORCH_ALLOC_CONF;
+    off unless set): the setting in force until this script changes it."""
+    conf = (os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+            or os.environ.get("PYTORCH_ALLOC_CONF", ""))
+    for item in conf.split(","):
+        key, _, value = item.partition(":")
+        if key.strip() == "expandable_segments":
+            return value.strip() == "True"
+    return False
+
+
+def _ens64_members(device, card_line, single):
+    """ens64 (a): the member step of ENS64_MEMBERS members (its own peak
+    against `single`'s), profiled, member 0 against the single remat step
+    on its weights, and the largest stack; the ELL kernel at the folded
+    width."""
+    import gc
+
+    import torch
+
+    from deepsphere_weather_torch.data.ar import ARIndexer
+    from deepsphere_weather_torch.engine import (
+        Adam,
+        make_member_train_step,
+        make_train_step,
+    )
+    from deepsphere_weather_torch.models import MemberStack
+    from deepsphere_weather_torch.utils.profiling import profile_step
+    from torch_steer import steer
+
+    cfg = _grids_config(ENS64_CONFIG)
+    ts, ar = cfg["training_settings"], cfg["ar_settings"]
+    model = grids_model(device, cfg, ts["numeric_precision"]).train()
+    geom = model.geometry
+    kinds = ["dense" if o.dense is not None else
+             "ell" if o.bcsr is not None and o.bcsr.ell is not None
+             else "?" for o in geom.cheb_ops]
+    if ts["numeric_precision"] != "float32" or \
+            kinds != ["ell", "ell", "dense"]:
+        raise AssertionError(f"ens64: {ts['numeric_precision']}, levels "
+                             f"{kinds}")
+    M, batch = ENS64_MEMBERS, ts["training_batch_size"]
+    n_calls = ar["ar_iterations"] + 1
+    per_forward = sum(PRODUCTS_PER_LEVEL[:2])
+    indexer = ARIndexer.build(ar["input_k"], ar["output_k"],
+                              ar["forecast_cycle"], ar["ar_iterations"])
+    data = train_batch(indexer, model.input_n_node, batch, device, SEED + 80)
+    _, area_w, w = train_setup(model, ar["ar_iterations"])
+    members = [train_params(model, ENS64_SEED + m) for m in range(M)]
+    label = (f"{ENS64_CONFIG} fp32 AR{ar['ar_iterations']} batch {batch} "
+             f"lr {ts['learning_rate']} clip {ts['gradient_clipping']} "
+             "remat")
+
+    def adam(params, member_axis=False):
+        # the config's lr and clipping; ens16's Adam eps (ENS_CHECK_EPS)
+        return Adam(params, lr=ts["learning_rate"], eps=ENS_CHECK_EPS,
+                    gradient_clipping=ts["gradient_clipping"],
+                    member_axis=member_axis)
+
+    def member_step(states):
+        stack = MemberStack.from_states(model, states)
+        return stack, make_member_train_step(
+            stack, indexer, adam(stack.parameters(), member_axis=True),
+            n_calls, ts["ar_training_strategy"], remat=True)
+
+    # every step on the fixed batch, its launch split kept by path
+    run, hook = split_launches(model, n_calls)
+    per_step = {}
+
+    def call(step, path):
+        out, split = run(lambda: step(data, w, area_w))
+        per_step.setdefault(path, []).append(split)
+        return out
+
+    def recorded(step, path):
+        """call() with the widths of its ELL launches, in order."""
+        out = []
+        widths = record_widths(lambda: out.append(call(step, path)),
+                               ELL_KERNEL)
+        return out[0], widths
+
+    def timed_peak(fn):
+        """(own peak GiB past the call's start, ms, GiB allocated at its
+        start) of fn(); `reserved` keeps the allocator's reserved peak."""
+        t = [0.0]
+
+        def timed():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t[0] = 1e3 * (time.perf_counter() - t0)
+        base, peak = _peak_over(timed)
+        reserved[0] = torch.cuda.max_memory_reserved() / 2 ** 30
+        return (peak - base) / 2 ** 30, t[0], base / 2 ** 30
+
+    reserved = [0.0]
+
+    # the member step: its first step on member 0's ReLU and max-pool
+    # decisions recorded (`steer`, member 0's alone), then unsteered
+    path = f"ens64_{M}_members"
+    stack, step = member_step(members)
+    undo = _steering(model)
+    decisions, _ = steer(model, None, M, member=0)
+    try:
+        (_, per_iter), member_widths = recorded(step, path)
+    finally:
+        undo()
+    mem0 = {"per_iter": per_iter[0].detach().cpu().double(),
+            "grads": {k: p.grad[0].detach().cpu().double()
+                      for k, p in stack.named_parameters()},
+            "params": {k: p[0].detach().cpu().double()
+                       for k, p in stack.named_parameters()}}
+    # the second step timed by `profile_step` (host clock), then a third
+    # under torch.profiler; the own peak past the second's start covers
+    # both
+    prof = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        member_gib, _, base_gib = timed_peak(lambda: prof.update(
+            profile_step(lambda: call(step, path), n=1, warmup=0,
+                         trace_dir=tmp)))
+        rows = _trace_rows(os.path.join(tmp, "trace.json"))
+    member_ms, busy = 1e3 * prof["median_s"], sum(r[0] for r in rows)
+    del stack, step
+    gc.collect()
+
+    # member 0 against the single remat step on its weights and batch,
+    # the single step on member 0's decisions
+    model.load_state_dict(members[0])
+    step = make_train_step(model, indexer, adam(model.parameters()), n_calls,
+                           ts["ar_training_strategy"], remat=True)
+    undo = _steering(model)
+    own, gaps = steer(model, decisions)
+    try:
+        (_, per_single), single_widths = recorded(step, "ens64_single")
+    finally:
+        undo()
+    n_dec = (len(decisions), len(own))
+    del decisions, own, step
+    one = {"per_iter": per_single.detach().cpu().double(),
+           "grads": grads_of(model),
+           "params": {k: p.detach().cpu().double()
+                      for k, p in model.named_parameters()}}
+    gc.collect()
+
+    # one launch a product for every member: M times the single widths,
+    # but the first convolution's 2 products on the shared batch (in the
+    # forward and in its recompute); the forward's products, the
+    # recompute's and the backward's
+    n_launch = 3 * per_forward * n_calls - NO_GRAD_PRODUCTS
+    shared = [i for i, (a, b) in enumerate(zip(member_widths,
+                                               single_widths)) if a != M * b]
+    if (len(member_widths) != n_launch or len(single_widths) != n_launch
+            or len(shared) != 2 * NO_GRAD_PRODUCTS
+            or any(member_widths[i] != single_widths[i] for i in shared)):
+        raise AssertionError(f"ens64 widths {member_widths} vs single "
+                             f"{single_widths}")
+    bar = ENS64_PEAK_BAR * M * single["step_gib"]
+    log("ens64", f"{label}: {M} members (seeds {ENS64_SEED}+m) in one member "
+                 f"step, each ELL launch at {M}x the single step's width "
+                 f"but the {len(shared)} on the shared batch: "
+                 f"{sorted(set(member_widths))} vs single "
+                 f"{sorted(set(single_widths))}; the second step "
+                 f"{member_ms:.2f} ms ({M * batch * 1e3 / member_ms:.2f} "
+                 f"member samples/s; shipped100km's single remat step, "
+                 f"before the smoke's host threads, {single['step_ms']:.2f} "
+                 f"ms); the own peak of steps 2-3 {member_gib:.2f} GiB past "
+                 f"{base_gib:.2f} GiB (at most {reserved[0]:.2f} GiB "
+                 f"reserved) vs shipped100km's single remat step's "
+                 f"{single['step_gib']:.2f} GiB "
+                 f"({member_gib / single['step_gib']:.2f}x, bar "
+                 f"{ENS64_PEAK_BAR} x {M} = {bar / single['step_gib']:.3f}x) "
+                 f"({card_line})")
+    if not (member_gib <= bar and base_gib + member_gib < 80e9 / 2 ** 30):
+        raise AssertionError(f"ens64 {M} members: own peak {member_gib:.2f} "
+                             f"GiB past {base_gib:.2f}, bar {bar:.2f} GiB")
+    log("ens64", f"profile_step of the {M}-member step: the third step "
+                 f"traced: device busy {busy:.2f} ms, "
+                 f"{100 * busy / member_ms:.1f}% of the second step's host "
+                 f"time, {sum(r[1] for r in rows)} kernel launches "
+                 f"({card_line})")
+    for ms, count, name in rows[:PROFILE_TOP]:
+        log("ens64", f"{100 * ms / max(busy, 1e-9):5.1f}%  {ms:9.3f} ms  "
+                     f"{count:5d}x  {name[:90]}")
+    worst = {"losses": rel_err(mem0["per_iter"].numpy(),
+                               one["per_iter"].numpy())}
+    keys = {"losses": "per_iter"}
+    for part in ("grads", "params"):
+        top = max(float(r.abs().max()) for r in one[part].values())
+        worst[part], keys[part] = grads_close(
+            mem0[part], one[part],
+            {k: top for k, r in one[part].items() if r.numel() == 1},
+            ENS_TOL, f"ens64 member 0 {part} vs its single step")
+    log("ens64", f"member 0 vs the single remat step on its weights and "
+                 f"batch (Adam eps {ENS_CHECK_EPS:g}, clipping "
+                 f"{ts['gradient_clipping']}), the single step on member 0's "
+                 f"{n_dec[0]} ReLU and max-pool decisions (forward and "
+                 f"recompute; {len(gaps)} differed from its own, up to "
+                 f"{max(gaps, default=0.0):.2e} from their kink or tie, bar "
+                 f"{KINK_TOL:g}): " + ", ".join(
+                     f"{k} {e:.3e} ({keys[k]})" for k, e in worst.items())
+                 + f" (bar {ENS_TOL:g})")
+    if n_dec[0] != n_dec[1] or max(gaps, default=0.0) > KINK_TOL or \
+            not all(e <= ENS_TOL for e in worst.values()):
+        raise AssertionError(f"ens64 member 0 vs single: {worst}, "
+                             f"decisions {n_dec}, gaps {gaps}")
+
+    # the largest stack: the M whose own peak, predicted from M members'
+    # per member, stays under ENS64_BUDGET_GIB with what the card holds
+    # at the step's start; one step of it. With the caching allocator's
+    # default segments the card fragments at such a stack (7 members
+    # failed at 61.3 GiB allocated with 16.4 GiB reserved and
+    # unallocated, H100 80GB HBM3, 700 W), so this step alone takes
+    # expandable segments, which no entry point of the port sets; the
+    # setting in force before it is restored after it
+    per_member = member_gib / M
+    m_max = int((ENS64_BUDGET_GIB - base_gib) // per_member)
+    while base_gib + m_max * per_member >= ENS64_BUDGET_GIB:
+        m_max -= 1
+    prior = _expandable_segments()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        stack, step = member_step(
+            [train_params(model, ENS64_SEED + m) for m in range(m_max)])
+        max_gib, max_ms, max_base = timed_peak(
+            lambda: call(step, f"ens64_{m_max}_members"))
+        del stack, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        torch.cuda.memory._set_allocator_settings(
+            f"expandable_segments:{prior}")
+    hook.remove()
+    log("ens64", f"the largest stack under {ENS64_BUDGET_GIB:g} GiB "
+                 f"predicted ({per_member:.3f} GiB a member at {M}, "
+                 f"{base_gib:.2f} GiB held before), with expandable "
+                 f"segments (not the allocator's default, which the port's "
+                 f"trainer runs with): {m_max} members, one step "
+                 f"{max_ms:.2f} ms, own peak {max_gib:.2f} GiB past "
+                 f"{max_base:.2f} GiB vs predicted "
+                 f"{m_max * per_member:.2f} GiB "
+                 f"({max_gib / (m_max * per_member):.3f}x), at most "
+                 f"{reserved[0]:.2f} GiB reserved ({card_line})")
+    launches = {p: check_launches({"per_step": s}, ELL_KERNEL, per_forward,
+                                  n_calls, p, phase="ens64",
+                                  remat=True)
+                for p, s in per_step.items()}
+
+    # the ELL kernel at the member step's widest level-0 width
+    L0 = _grid_laplacian(cfg, geom)(0)
+    width = M * batch * max(WIDTH_FEATURES)
+    if width not in member_widths:
+        raise AssertionError(f"ens64: no launch at x width {width}")
+    x = torch.randn((L0.shape[0], width), device=device,
+                    generator=torch.Generator(device=device).manual_seed(
+                        SEED + 81))
+    r = measure_ell(geom.cheb_ops[0].bcsr.ell, L0, x, device,
+                    f"ens64 x[{L0.shape[0]}, {width}]", plain_timed=False)
+    # scipy on the first MATVEC_WIDTH columns (the plain version holds
+    # every column, exactly)
+    e = _rel_err_card(r["y"][:, :MATVEC_WIDTH],
+                      L0 @ x[:, :MATVEC_WIDTH].cpu().numpy())
+    if not e < BARS["fp32"]:
+        raise AssertionError(f"ens64 folded width: vs scipy {e:.3e}")
+    folded = {k: r[k] for k in ("ms", "host_ms", "library_ms", "bound_ms",
+                                "bound_by", "max_abs_err", "col_tile",
+                                "ctas_per_sm")}
+    folded.update(width=width, scipy_rel_err=e)
+    log("ens64", f"{ELL_KERNEL} at the {M}-member folded width x["
+                 f"{L0.shape[0]}, {width}]: {r['ms']:.4f} ms per launch "
+                 f"(host enqueue {r['host_ms']:.4f} ms; bound "
+                 f"{r['bound_ms']:.4f} ms by {r['bound_by']}, share "
+                 f"{r['share_of_bound']:.3f}; torch.sparse.mm "
+                 f"{r['library_ms']:.4f} ms); column tile {r['col_tile']}, "
+                 f"{r['ctas_per_sm']} CTAs an SM; vs plain version max abs "
+                 f"{r['max_abs_err']:.3e}, vs scipy {e:.3e} (its first "
+                 f"{MATVEC_WIDTH} columns) ({card_line})")
+    del x, r, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "folded": folded,
+            "single_gib": single["step_gib"], "member_gib": member_gib,
+            "m_max": m_max, "max_gib": max_gib, "member_ms": member_ms,
+            "single_ms": single["step_ms"], "busy_ms": busy,
+            "member_check": worst}
+
+
+def _ens64_deep_ensemble(device, card_line, root, data, data_s):
+    """ens64 (b): `cli.experiments.run_deep_ensemble(member_parallel=True)`
+    with ENS64_MEMBERS members on the shipped config (remat on, its epochs,
+    periods and scoring cut) under `root`, over the toy HEALPix-64 store
+    `data` that `cli.prepare_toy_data` wrote in `data_s` seconds: every
+    member store, the ensemble and median stores finite and of their
+    shapes, the median's RMSE and the ensemble's CRPS finite, only the ELL
+    kernel launched, each checkpointed AR iteration recomputed once;
+    seconds by stage."""
+    import torch
+
+    import deepsphere_weather_torch.engine as engine
+    from deepsphere_weather_torch.cli import experiments
+    from deepsphere_weather_torch.engine import step as step_mod
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    secs = {}
+    cfg = _grids_config(ENS64_CONFIG)
+    cfg["training_settings"].update(epochs=1, remat=True,
+                                    scoring_interval=ENS64_SCORING,
+                                    **ENS64_PERIODS)
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    checkpoints, runs, out = [0], [0], {}
+    trainer, members, checkpoint = (engine.AutoregressiveTraining,
+                                    experiments._train_members_parallel,
+                                    step_mod.checkpoint)
+
+    def timed(name, fn):
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                out[name] = fn(*a, **k)
+                return out[name]
+            finally:
+                secs[name] = time.perf_counter() - t
+        return call
+
+    def counted(fn, *a, **k):
+        checkpoints[0] += 1
+
+        def again(*a, **k):
+            runs[0] += 1
+            return fn(*a, **k)
+        return checkpoint(again, *a, **k)
+
+    engine.AutoregressiveTraining = timed("train", trainer)
+    experiments._train_members_parallel = timed("members", members)
+    step_mod.checkpoint = counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = experiments.run_deep_ensemble(
+            cfg_path, data, os.path.join(root, "exp"),
+            n_members=ENS64_MEMBERS,
+            ar_iterations_prediction=CLI_AR_PREDICT,
+            member_parallel=True, device=device)
+    finally:
+        engine.AutoregressiveTraining = trainer
+        experiments._train_members_parallel = members
+        step_mod.checkpoint = checkpoint
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    n = 12 * BIG_SUBDIV ** 2
+    stores = {f"member {m}": np.stack(
+        [fc.variables[v][...] for v in fc.feature_order], -1)
+        for m, fc in enumerate(out["members"])}
+    ens = res["ensemble"]
+    stores["ensemble"] = np.stack([ens.variables[v][...]
+                                   for v in ens.feature_order], -1)
+    med = res["median"]
+    stores["median"] = np.stack([med.variables[v][...]
+                                 for v in med.feature_order], -1)
+    n_frt = stores["median"].shape[0]
+    shape = (n_frt, CLI_AR_PREDICT + 1, n, F_DYN)
+    rmse = np.asarray(res["global_skill"]["RMSE"])
+    crps = np.asarray(res["probabilistic_skill"]["CRPS"])
+    recomputed = runs[0] - checkpoints[0]
+    bad = [k for k, a in stores.items()
+           if a.shape != ((ENS64_MEMBERS,) + shape if k == "ensemble"
+                          else shape) or not np.isfinite(a).all()]
+    if (bad or len(out["members"]) != ENS64_MEMBERS or not n_frt
+            or not checkpoints[0] or recomputed != checkpoints[0]
+            or launches[ELL_KERNEL] == 0
+            or sum(launches.values()) != launches[ELL_KERNEL]
+            or not np.isfinite(rmse).all()
+            or not np.isfinite(crps).all()):
+        raise AssertionError(
+            f"ens64 run_deep_ensemble: stores not finite or of their "
+            f"shapes {bad} ({ {k: a.shape for k, a in stores.items()} }),"
+            f" {checkpoints[0]} checkpointed AR iterations, "
+            f"{recomputed} recomputed, launches {launches}, RMSE "
+            f"{rmse}, CRPS {crps}")
+    log("ens64", f"run_deep_ensemble(member_parallel=True), "
+                 f"{ENS64_MEMBERS} members, {ENS64_CONFIG} at its own "
+                 f"settings with remat, 1 epoch over a toy HEALPix-"
+                 f"{BIG_SUBDIV} store ({ENS64_STORE_STEPS} six-hour "
+                 f"steps, seed {SEED}; periods {ENS64_PERIODS}, scored "
+                 f"every {ENS64_SCORING} updates): {recomputed} AR "
+                 f"iterations recomputed in the backward; member, "
+                 f"ensemble {stores['ensemble'].shape} and median "
+                 f"{shape} stores finite; RMSE lead 1 "
+                 f"{np.round(rmse[1], 4).tolist()} -> lead "
+                 f"{CLI_AR_PREDICT} {np.round(rmse[-1], 4).tolist()}, "
+                 f"CRPS lead {CLI_AR_PREDICT} "
+                 f"{np.round(crps[-1], 4).tolist()}; "
+                 f"{launches[ELL_KERNEL]} {ELL_KERNEL} launches, no "
+                 "other kernel")
+    seconds = {"data (on the host, beside the rank phases)": data_s,
+               "train": secs["train"],
+               "member predictions": secs["members"] - secs["train"],
+               "ensemble, median and verification":
+               wall - secs["members"]}
+    log("ens64", "wall seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items())
+        + f" ({card_line})")
+    return {"launches": launches[ELL_KERNEL], "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -4024,21 +4590,22 @@ class _RefuseGeometry:
             setattr(m, n, fn)
 
 
-def record_widths(fn):
-    """Run fn() and return the widths of the K1 launches it made (the
-    registered op calls the module's wrapper by name)."""
+def record_widths(fn, wrapper="bcsr_super_spmm"):
+    """Run fn() and return the widths of x at the launches of `wrapper`
+    in `ops.bcsr` (K1's by default), in order (the registered ops call
+    the module's wrappers by name, x third)."""
     from deepsphere_weather_torch.ops import bcsr
 
-    widths, kernel = [], bcsr.bcsr_super_spmm
+    widths, kernel = [], getattr(bcsr, wrapper)
 
-    def record(a, idx, x, nz=None):
-        widths.append(x.shape[1])
-        return kernel(a, idx, x, nz)
-    bcsr.bcsr_super_spmm = record
+    def record(*args):
+        widths.append(args[2].shape[1])
+        return kernel(*args)
+    setattr(bcsr, wrapper, record)
     try:
         fn()
     finally:
-        bcsr.bcsr_super_spmm = kernel
+        setattr(bcsr, wrapper, kernel)
     return widths
 
 
@@ -4551,25 +5118,18 @@ def phase_profile(model, device, batch, train_steps, step64, step64f32,
 # ---------------------------------------------------------------------------
 
 def _step_launches(model, step):
-    """Wrap `step` so that each call records its (forward, backward) K1
-    launches into the returned list: the forward ends at the model's last
-    forward call of the step (a forward hook on `model`, which also fires
-    under torch.func's functional_call)."""
-    from deepsphere_weather_torch.ops.bcsr import launch_counts
+    """Wrap `step` (of TRAIN_AR + 1 model calls, no remat) so that each
+    call records its (forward, backward) K1 launches into the returned
+    list while the returned hook is on (`split_launches`)."""
+    run, hook = split_launches(model, TRAIN_AR + 1)
+    per_step = []
 
-    at_forward, per_step = [], []
-    hook = model.register_forward_hook(
-        lambda *_: at_forward.append(launch_counts[KERNEL]))
-
-    def run(*args):
-        before = launch_counts[KERNEL]
-        at_forward.clear()
-        out = step(*args)
-        if at_forward:                  # while the hook is on
-            per_step.append((at_forward[-1] - before,
-                             launch_counts[KERNEL] - at_forward[-1]))
+    def counted(*args):
+        out, split = run(lambda: step(*args))
+        if split is not None:           # while the hook is on
+            per_step.append(tuple(s[KERNEL] for s in split))
         return out
-    return run, per_step, hook
+    return counted, per_step, hook
 
 
 def _want_step_launches(per_step, label, phase):
@@ -6231,6 +6791,165 @@ def phase_ensemble16(device, card_line, prep):
     return {"k1": launches[KERNEL]}
 
 
+@clocked
+def phase_xyear16(device, card_line, proto):
+    """xyear16: `cli.experiments.run_x_year_simulations` of protocol16's
+    resumed flagship (bf16, K1 at level 0) for XYEAR_YEARS years at its
+    six-hour `forecast_cycle`, in the default blocks of 1000 steps (and
+    the tail), from two reference times near the end of protocol16's
+    store: the analytic TOA-solar generator forces every step past the
+    store. Checks: every lead written and finite (none reads back as the
+    fill value), K1 alone launched, 10 a model call, the generator called
+    for every (reference time, step) the store does not cover, the
+    device's peak over the run within XYEAR_MEM_TOL of its peak over the
+    first block. Readings: seconds per step, the writer's share."""
+    import torch
+
+    import deepsphere_weather_torch.cli.common as common
+    import deepsphere_weather_torch.data.toy as toy
+    import deepsphere_weather_torch.data.zarrstore as zarrstore
+    import deepsphere_weather_torch.engine as engine
+    import deepsphere_weather_torch.engine.prediction as prediction
+    from deepsphere_weather_torch.cli import experiments
+    from deepsphere_weather_torch.data import SphericalDataset
+    from deepsphere_weather_torch.ops.bcsr import (
+        launch_counts,
+        reset_launch_counts,
+    )
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(proto["exp"], "config.json")) as f:
+        ar = json.load(f)["ar_settings"]
+    dyn = SphericalDataset.open(os.path.join(
+        proto["data"], "Data", "dynamic", "time_chunked", "dynamic.zarr"))
+    t0s = [dyn.n_time - k for k in XYEAR_FRTS]
+    n_steps = int(round(XYEAR_YEARS * 365 * 24 / ar["forecast_cycle"])) + 1
+    # the (reference time, step) pairs whose boundary conditions lie past
+    # the store: the generator's
+    lags = np.asarray(ar["input_k"])
+    beyond = sum(int(t0 + j * ar["forecast_cycle"] + lags.max()
+                     >= dyn.n_time) for t0 in t0s for j in range(n_steps))
+    rec = {"forwards": 0, "blocks": [], "toa": 0, "writes": 0,
+           "write_s": 0.0, "predict_s": 0.0}
+    saved = []
+
+    def patch(module, name, new):
+        saved.append((module, name, getattr(module, name)))
+        setattr(module, name, new)
+
+    load = common.load_experiment_model
+
+    def loaded(*a, **k):
+        cfg, model = load(*a, **k)
+        model.register_forward_hook(
+            lambda *_: rec.__setitem__("forwards", rec["forwards"] + 1))
+        return cfg, model
+
+    make = prediction.make_rollout_block
+
+    def make_block(*a, **k):
+        fn, history = make(*a, **k)
+
+        def block(*b):
+            out = fn(*b)
+            torch.cuda.synchronize()
+            rec["blocks"].append((out[2].shape[1],
+                                  torch.cuda.max_memory_allocated()))
+            return out
+        return block, history
+
+    toa = toy.toa_solar_radiation
+
+    def counted_toa(times, *a, **k):
+        rec["toa"] += 1
+        return toa(times, *a, **k)
+
+    write_chunk = zarrstore.ZarrArray._write_chunk
+
+    def timed_write(self, idx, data):
+        t0 = time.perf_counter()
+        write_chunk(self, idx, data)
+        rec["writes"] += 1
+        rec["write_s"] += time.perf_counter() - t0
+
+    predictions = engine.AutoregressivePredictions
+
+    def timed_predictions(*a, **k):
+        t0 = time.perf_counter()
+        out = predictions(*a, **k)
+        rec["predict_s"] = time.perf_counter() - t0
+        return out
+
+    patch(common, "load_experiment_model", loaded)
+    patch(prediction, "make_rollout_block", make_block)
+    patch(toy, "toa_solar_radiation", counted_toa)
+    patch(zarrstore.ZarrArray, "_write_chunk", timed_write)
+    patch(engine, "AutoregressivePredictions", timed_predictions)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        fc = experiments.run_x_year_simulations(
+            proto["exp"], proto["data"], years=XYEAR_YEARS,
+            forecast_reference_times=[str(t) for t in dyn.time[t0s]],
+            verbose=False, device=device)
+    finally:
+        for module, name, fn in reversed(saved):
+            setattr(module, name, fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    arr = np.stack([fc.variables[v][...] for v in fc.feature_order], -1)
+    # a lead no block wrote reads back as the fill value (0) everywhere
+    unwritten = int((np.abs(arr).max(axis=(2, 3)) == 0).sum())
+    finite = np.isfinite(arr).all(axis=(0, 2, 3))
+    first_bad = None if finite.all() else int(np.argmin(finite))
+    steps = [s for s, _ in rec["blocks"]]
+    first_peak = rec["blocks"][0][1] if rec["blocks"] else 0
+    want_blocks = [1000] * (n_steps // 1000) + (
+        [n_steps % 1000] if n_steps % 1000 else [])
+    log("xyear16", f"run_x_year_simulations, {XYEAR_YEARS} year(s) of the "
+                   f"protocol16 flagship (bf16) at its {ar['forecast_cycle']}"
+                   f" h forecast_cycle: {fc.n_frt} reference times x "
+                   f"{fc.n_leadtime} leads in blocks {steps} (one batch), "
+                   f"{rec['forwards']} model calls, launches "
+                   f"{ {k: v for k, v in launches.items() if v} }; leads "
+                   f"unwritten {unwritten}, first non-finite lead "
+                   f"{first_bad}; TOA generator {rec['toa']} calls (the "
+                   f"{beyond} reference-time steps past the store); peak "
+                   f"device memory {peak / 2 ** 30:.3f} GiB over the run, "
+                   f"{first_peak / 2 ** 30:.3f} GiB over the first block")
+    if (fc.n_leadtime != n_steps or fc.n_frt != len(t0s)
+            or steps != want_blocks or rec["forwards"] != n_steps
+            or unwritten or first_bad is not None
+            or launches[KERNEL] != LAUNCHES_PER_FORWARD * rec["forwards"]
+            or sum(launches.values()) != launches[KERNEL]
+            or rec["toa"] != beyond
+            or peak > (1 + XYEAR_MEM_TOL) * first_peak):
+        raise AssertionError(
+            f"xyear16: {fc.n_frt} x {fc.n_leadtime} leads (want "
+            f"{len(t0s)} x {n_steps}), blocks {steps} (want {want_blocks}), "
+            f"{rec['forwards']} model calls, launches {launches}, "
+            f"{unwritten} unwritten, first non-finite lead {first_bad}, "
+            f"TOA {rec['toa']} (want {beyond}), peak {peak} vs first "
+            f"block's {first_peak} (bar {1 + XYEAR_MEM_TOL}x)")
+    log("xyear16", f"wall {wall:.1f} s, the rollout "
+                   f"{rec['predict_s']:.1f} s: "
+                   f"{1e3 * rec['predict_s'] / n_steps:.3f} ms a step (batch "
+                   f"{fc.n_frt}); the writer thread's {rec['writes']} chunk "
+                   f"writes {rec['write_s']:.1f} s, "
+                   f"{100 * rec['write_s'] / rec['predict_s']:.1f}% of the "
+                   f"rollout's wall; phase {time.perf_counter() - t_phase:.1f}"
+                   f" s ({card_line})")
+    return {"launches": (launches[KERNEL], 0),
+            "ms_per_step": 1e3 * rec["predict_s"] / n_steps,
+            "writer_share": rec["write_s"] / rec["predict_s"],
+            "peak_gib": peak / 2 ** 30}
+
+
 def _ingest_config():
     """The shipped flagship config cut as cli2rank's is (`_short_config`:
     bf16, 1 epoch, AR1, CLI_PERIODS, scored every CLI_SCORING updates),
@@ -6383,10 +7102,11 @@ def ingest16_host():
 
 
 @clocked
-def phase_ingest16(device, card_line):
+def phase_ingest16(device, card_line, host):
     """ingest16: raw GRIB2 to a trained and verified experiment through the
-    port's entry points: `ingest16_host`'s data directory (the GRIB tree
-    remapped, ingested and scaled on the host), then `cli.train_predict.main` with
+    port's entry points: `host`, `ingest16_host()`'s data directory (the
+    GRIB tree remapped, ingested and scaled on the host; run beside the
+    rank phases), then `cli.train_predict.main` with
     the flagship config cut as cli2rank's (bf16, full width and depth, K1
     at level 0), AR4 forecast, verification and the plots (or the
     driver's skip line). Checks: K1 launched in the run and no other
@@ -6404,7 +7124,7 @@ def phase_ingest16(device, card_line):
     )
 
     t_phase = time.perf_counter()
-    res = ingest16_host()
+    res = host
     root, data, secs = res["root"], res["data"], res["seconds"]
     try:
         cfg_path = os.path.join(root, "config.json")
@@ -6464,6 +7184,7 @@ def phase_ingest16(device, card_line):
         shutil.rmtree(root, ignore_errors=True)
 
 
+
 def main() -> int:
     import argparse
 
@@ -6492,10 +7213,12 @@ def main() -> int:
     # depends on what an earlier run left in the shared cache
     cache = tempfile.mkdtemp(prefix="dsw_cache_")
     os.environ["DSW_TPU_CACHE"] = cache
+    TEMP_ROOTS.append(cache)
     try:
         return _phases(args, device, t_start, card_line)
     finally:
-        shutil.rmtree(cache, ignore_errors=True)
+        for root in TEMP_ROOTS:
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def _phases(args, device, t_start, card_line) -> int:
@@ -6521,8 +7244,28 @@ def _phases(args, device, t_start, card_line) -> int:
     ens16 = phase_ens16(device, card_line, tr["ms"]["train16"],
                         args.profile)
     remat16 = phase_remat16(device, card_line)
-    meshes = phase_meshes(device, card_line, tr["per_iter"], tr64["per_iter"],
-                          ens16["widths"], bn16)
+    # host-only work runs in threads beside the rank phases, whose ranks
+    # are processes of their own that the threads do not hold up through
+    # the interpreter lock: prep16's experiment, ingest16's GRIB tree and
+    # remap, ens64's toy store (their seconds overlap the rank phases')
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        host_jobs = (pool.submit(phase_prep16, card_line),
+                     pool.submit(ingest16_host), pool.submit(ens64_store))
+        try:
+            meshes = phase_meshes(device, card_line, tr["per_iter"],
+                                  tr64["per_iter"], ens16["widths"], bn16)
+        finally:
+            # removed at the end of the run, whatever fails before the
+            # phases that remove them
+            TEMP_ROOTS.extend(job.result()["root"] for job in host_jobs
+                              if job.exception() is None)
+    prep, ingest_host, store = (job.result() for job in host_jobs)
+    log("times", "prep16, ingest16's host stages and ens64's toy store ran "
+                 "in threads beside the rank phases: their seconds and host "
+                 "readings, and the ranks' step times, are taken under that "
+                 "contention")
+    ens64 = phase_ens64(device, card_line,
+                        shipped["configs"][SHIPPED_REMAT]["remat"], store)
     node, ensmesh, bnmesh, gridsnode = (meshes[k] for k in (
         "node", "ensmesh16", "bnmesh16", "gridsnode400"))
 
@@ -6543,6 +7286,20 @@ def _phases(args, device, t_start, card_line) -> int:
         kernel_row_rows(device, SLICE_SUBDIV, BATCH, node["launches"]),
         kernel_row_ell(ell_parity, ell_rows, f32, shipped),
     ]
+    # ens64's member steps (K5 folding the members into each ELL launch)
+    # and its run_deep_ensemble
+    for path, (fwd, bwd) in ens64["launches"].items():
+        rows[3]["launches_by_path"][path] = [fwd, bwd]
+        rows[3]["launches_forward"] += fwd
+        rows[3]["launches_backward"] += bwd
+        rows[3]["launches"] += fwd + bwd
+    rows[3]["launches_other_paths"] = {
+        "ens64_deep_ensemble": ens64["ensemble_launches"]}
+    rows[3]["launches"] += ens64["ensemble_launches"]
+    rows[3]["ens64_folded_shape"] = ens64["folded"]
+    rows[3]["ens64"] = {k: ens64[k] for k in (
+        "single_gib", "member_gib", "m_max", "max_gib", "member_ms",
+        "single_ms", "busy_ms", "member_check", "ensemble_seconds")}
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], k3_err)
     # K4's function: K3's kernel with round_a=False (fp32 A, bf16 x)
     rows[1]["round_a_false"] = k4
@@ -6582,20 +7339,22 @@ def _phases(args, device, t_start, card_line) -> int:
     if args.profile:
         phase_profile(tr["model"], device, BATCH, tr["steps"], tr64["step"],
                       f32["step"])
-    prep = phase_prep16(card_line)
     try:
         cli2 = phase_cli2rank(device, card_line, prep)
         proto = phase_protocol(device, card_line, tr["ms"]["train16"], prep)
         serve16 = phase_serve16(device, card_line, proto)
         swag16 = phase_swag16(device, card_line, proto)
         ens_cli = phase_ensemble16(device, card_line, prep)
+        xyear = phase_xyear16(device, card_line, proto)
     finally:
         shutil.rmtree(prep["root"], ignore_errors=True)
     prof16 = phase_profile16(device, card_line)
     rows[0]["launches_protocol16"] = proto["parts"]
+    rows[0]["xyear16"] = {k: xyear[k] for k in ("ms_per_step", "writer_share",
+                                                "peak_gib")}
     rows[0]["launches_swag16"] = swag16["parts"]
     grids = phase_grids400(device, card_line)
-    ingest16 = phase_ingest16(device, card_line)
+    ingest16 = phase_ingest16(device, card_line, ingest_host)
     rows[0]["launches_grids400_cli"] = grids["cli_parts"]
     # K1 per launch at each of the O24 voronoi level 0's step widths,
     # forward layout and the transposed one its backward runs
@@ -6619,7 +7378,8 @@ def _phases(args, device, t_start, card_line) -> int:
             ens16["launches"].items()) + list(
             swag16["launches"].items()) + list(
             remat16["launches"].items()) + list(
-            grids["launches"].items()) + mesh_paths[KERNEL]:
+            grids["launches"].items()) + [
+            ("xyear16", xyear["launches"])] + mesh_paths[KERNEL]:
         rows[0]["launches_by_path"][path] = [fwd, bwd]
         rows[0]["launches_forward"] += fwd
         rows[0]["launches_backward"] += bwd
@@ -6656,11 +7416,15 @@ def _phases(args, device, t_start, card_line) -> int:
             "serve16_ensemble": serve16["launches"]["serve16_ensemble"],
             "ens16_train": ens16["launches"]["ens16_train"],
             "swag16_export": swag16["launches"]["swag16_export"]},
+        # ens64's member steps: the rule over the ELL op (`spmm_ell`)
+        "launches_by_path_ell": {
+            path: list(n) for path, n in ens64["launches"].items()
+            if path != "ens64_single"},
         "widths_ens16": ens16["widths"][:LAUNCHES_PER_FORWARD],
         "widths_ens16_single": ens16["single_widths"][:LAUNCHES_PER_FORWARD],
         # the rule folds the members into K2's row-sharded product too
         # (`spmm_rows`, the JAX rule around the partitioned op)
-        "covers": [KERNEL, ROW_KERNEL],
+        "covers": [KERNEL, ROW_KERNEL, ELL_KERNEL],
         "row_rule_source": "deepsphere_weather_torch/ops/bcsr.py (spmm_rows)",
         "launches_by_path_rows": {
             "ensmesh16_1x2x2": ensmesh["launches"]["ensmesh16_1x2x2"]}}

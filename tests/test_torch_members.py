@@ -25,7 +25,12 @@ and stacked (`models.MemberStack`; the JAX tree with a leading [M] axis):
 - one plain-version call per block-sparse product for both members: as
   many calls as the single step, each at twice its width, except the two
   products of the first convolution of the first AR iteration, whose
-  input (the shared batch) has no member axis;
+  input (the shared batch) has no member axis; every call the ELL
+  product's (the fp32 operator's layout);
+- the plain member step again at M = 5 (the JAX package's DeepEnsemble
+  default, seeds 0-4, the member increment scales x1 to x9): the same
+  bars, one ELL product per member-stacked matvec at five times the
+  single widths;
 - the member validation functions (eval mode with BatchNorm) within 1e-5;
 - `AutoregressiveTraining(n_members=2)` on a toy store against JAX's:
   per-member validation losses and the member-mean losses within 2e-4;
@@ -227,29 +232,44 @@ def grad_norm(model, indexer, batch, w, area_w):
 
 
 @pytest.fixture
-def widths(monkeypatch):
-    """The widths of the plain-version products run, in order (the fp32
-    model's are the ELL product's)."""
-    out = []
+def products(monkeypatch):
+    """The plain-version products run, by name, in order, beside their
+    widths (`widths`; the fp32 model's are the ELL product's)."""
+    out, sizes = [], []
     for name in ("bcsr_super_spmm_reference", "ell_spmm_reference"):
         fn = getattr(bcsr_mod, name)
 
-        def record(a, idx, x, *rest, fn=fn, **kw):
-            out.append(x.shape[1])
+        def record(a, idx, x, *rest, fn=fn, name=name, **kw):
+            out.append(name)
+            sizes.append(x.shape[1])
             return fn(a, idx, x, *rest, **kw)
         monkeypatch.setattr(bcsr_mod, name, record)
-    return out
+    return out, sizes
 
 
-CASES = [(False, False), (True, True), (True, False), (False, True)]
+@pytest.fixture
+def widths(products):
+    """The widths of the plain-version products run, in order."""
+    return products[1]
 
 
-@pytest.mark.parametrize("batch_norm,cached", CASES,
+# (batch_norm, cached, members); five members, the JAX package's
+# DeepEnsemble default, on the fp32 model whose level 0 runs the ELL
+# product: one product a member-stacked matvec at five times the widths
+CASES = [(False, False, M), (True, True, M), (True, False, M),
+         (False, True, M), (False, False, 5)]
+
+
+@pytest.mark.parametrize("batch_norm,cached,n_members", CASES,
                          ids=[f"{'bn' if b else 'plain'}-"
                               f"{'cached' if c else 'batch'}"
-                              for b, c in CASES])
-def test_member_train_steps_match_jax(batch_norm, cached, widths):
-    model, jmodel, trees = build_members(batch_norm)
+                              + (f"-{n}members" if n != M else "")
+                              for b, c, n in CASES])
+def test_member_train_steps_match_jax(batch_norm, cached, n_members,
+                                      products):
+    names, widths = products
+    model, jmodel, trees = build_members(batch_norm,
+                                         seeds=tuple(range(n_members)))
     eps = ADAM_EPS
     indexer, jindexer = ARIndexer.build(*AR2), JARIndexer.build(*AR2)
     area_w = _area_w()
@@ -291,7 +311,7 @@ def test_member_train_steps_match_jax(batch_norm, cached, widths):
     jparams = stack_trees([jax.tree_util.tree_map(jnp.asarray, t)
                            for t in trees])
     jopt_state = jax.vmap(jopt.init)(jparams)
-    jns = jax.tree_util.tree_map(lambda x: jnp.stack([x] * M),
+    jns = jax.tree_util.tree_map(lambda x: jnp.stack([x] * n_members),
                                  jmodel.init_norm_state())
     ctx = make_context(jmodel, jnp.asarray(area_w))
     mk = jmake_cached_member_train_step if cached else jmake_member_train_step
@@ -299,6 +319,7 @@ def test_member_train_steps_match_jax(batch_norm, cached, widths):
     jdata = jax.tree_util.tree_map(jnp.asarray, data)
     losses = []
     for i in range(3):
+        names.clear()
         widths.clear()
         if cached:
             total, per_iter = step(to_torch(data), torch.from_numpy(widxs[i]),
@@ -309,13 +330,15 @@ def test_member_train_steps_match_jax(batch_norm, cached, widths):
             jargs = (jax.tree_util.tree_map(jnp.asarray, batches[i]),
                      jnp.asarray(w), ctx)
         member_widths = list(widths)
+        member_products = list(names)
         if batch_norm:
             jparams, jopt_state, jns, jtotal, jper = jstep(
                 jparams, jopt_state, jns, *jargs)
         else:
             jparams, jopt_state, jtotal, jper = jstep(jparams, jopt_state,
                                                       *jargs)
-        assert total.shape == (M,) and per_iter.shape == (M, 3)
+        assert total.shape == (n_members,)
+        assert per_iter.shape == (n_members, 3)
         assert rel_err(per_iter.numpy(), jper) <= TRAIN_TOL, i
         assert rel_err(total.numpy(), jtotal) <= TRAIN_TOL, i
         losses.append(per_iter.numpy())
@@ -323,17 +346,18 @@ def test_member_train_steps_match_jax(batch_norm, cached, widths):
             # the moments of the first (clipped) gradients; later ones
             # follow parameters 1e-4 apart through ReLU decisions
             assert_flat_close(optimizer_arrays(opt, stack),
-                              flat_jax(jopt_state), TRAIN_TOL)
+                              flat_jax(jopt_state), TRAIN_TOL, n_members)
     assert_flat_close(flat_jax(params_to_jax(stack.state_dict())),
-                      flat_jax(jparams), TRAIN_TOL)
+                      flat_jax(jparams), TRAIN_TOL, n_members)
     counts = {k: v for k, v in optimizer_arrays(opt, stack).items()
               if k.endswith(".count")}
-    assert all(np.array_equal(v, np.full(M, 3)) for v in counts.values())
+    assert all(np.array_equal(v, np.full(n_members, 3))
+               for v in counts.values())
     assert sorted(counts) == sorted(k for k in flat_jax(jopt_state)
                                     if k.endswith(".count"))
     if batch_norm:
         assert_flat_close(flat_jax(norm_state_to_jax(stack.norm_state())),
-                          flat_jax(jns), TRAIN_TOL)
+                          flat_jax(jns), TRAIN_TOL, n_members)
 
     # each member against the port's single step on it alone
     for m, tree in enumerate(trees):
@@ -358,12 +382,14 @@ def test_member_train_steps_match_jax(batch_norm, cached, widths):
                 {k: v.numpy() for k, v in member_state(
                     stack.norm_state(), m).items()}, SINGLE_TOL,
                 n_members=1)
-    # one product per member-stacked matvec, at twice the single widths
+    # one product per member-stacked matvec, at M times the single widths,
+    # on the ELL layout (the fp32 operator's)
     single_widths = list(widths)
     assert len(member_widths) == len(single_widths) > SHARED_PRODUCTS
     assert member_widths[:SHARED_PRODUCTS] == single_widths[:SHARED_PRODUCTS]
     assert member_widths[SHARED_PRODUCTS:] == [
-        2 * x for x in single_widths[SHARED_PRODUCTS:]]
+        n_members * x for x in single_widths[SHARED_PRODUCTS:]]
+    assert set(member_products) == {"ell_spmm_reference"}
 
 
 @pytest.mark.parametrize("batch_norm", [False, True], ids=["plain", "bn"])

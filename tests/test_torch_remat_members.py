@@ -19,7 +19,11 @@ model calls), RNN strategy:
   folded running statistics within 1e-5 of the JAX step's; a gradient
   key of the BatchNorm model may read the two packages' gap without
   remat and JAX's own between its remat and plain steps besides, both
-  fp32 rounding through the normalization);
+  fp32 rounding through the normalization); again with M = 5 (the JAX
+  package's DeepEnsemble default, seeds 0-4) on the plain model, whose
+  ELL products each carry all five members: one a member-stacked matvec
+  at five times the widths of a one-member stack (but the first
+  convolution's two on the shared batch), the recompute's as many again;
 - the same port step against itself without remat: losses within 1e-6,
   the gradients and the folded statistics equal to 1e-6 (the recompute's
   statistics are not folded a second time), for the 'RNN' and 'AR'
@@ -83,7 +87,7 @@ def rel_err(got, ref):
     return np.abs(got - ref).max() / np.abs(ref).max()
 
 
-def grad_errors(got, ref, scale_of=None):
+def grad_errors(got, ref, scale_of=None, n_members=M):
     """{key: error} of two {key: array} gradient dicts: max abs error over
     the key's max abs; a leaf of one element a member (one sum in which
     terms cancel) against the largest gradient instead, and a key of
@@ -98,7 +102,7 @@ def grad_errors(got, ref, scale_of=None):
         g = np.asarray(got[k], np.float64)
         r = np.asarray(ref[k], np.float64)
         assert g.shape == r.shape, k
-        denom = (top if r.size <= M
+        denom = (top if r.size <= n_members
                  else np.abs(np.asarray(ref[scale_of[k]])).max()
                  if k in scale_of else np.abs(r).max())
         out[k] = (np.abs(g - r).max() / denom if denom
@@ -106,8 +110,8 @@ def grad_errors(got, ref, scale_of=None):
     return out
 
 
-def assert_grads_close(got, ref, tol, scale_of=None):
-    for k, e in grad_errors(got, ref, scale_of).items():
+def assert_grads_close(got, ref, tol, scale_of=None, n_members=M):
+    for k, e in grad_errors(got, ref, scale_of, n_members).items():
         assert e <= (tol[k] if isinstance(tol, dict) else tol), (k, e)
 
 
@@ -179,7 +183,7 @@ def port_member_step(model, trees, indexer, batch, remat, batch_norm=False,
                      strategy="RNN"):
     """One port member step (SGD at lr 0: the gradients are the record):
     (total [M], per_iter [M, 3], {param: grad [M, ...]}, {buffer: folded
-    statistics}, plain-version products run)."""
+    statistics}, the widths of the ELL products run, in order)."""
     stack = MemberStack.from_states(model, [params_from_jax(t)
                                             for t in trees])
     opt = torch.optim.SGD(stack.parameters(), lr=0.0)
@@ -189,12 +193,12 @@ def port_member_step(model, trees, indexer, batch, remat, batch_norm=False,
     step = make_member_train_step(stack, indexer, opt, 3,
                                   ar_training_strategy=strategy,
                                   remat=remat, with_norm_state=batch_norm)
-    calls = [0]
+    widths = []
     orig = bcsr_mod.ell_spmm_reference
 
-    def counted(*a, **k):
-        calls[0] += 1
-        return orig(*a, **k)
+    def counted(vals, cols, x, *a, **k):
+        widths.append(x.shape[1])
+        return orig(vals, cols, x, *a, **k)
     bcsr_mod.ell_spmm_reference = counted
     try:
         total, per_iter = step({k: torch.from_numpy(v)
@@ -203,16 +207,22 @@ def port_member_step(model, trees, indexer, batch, remat, batch_norm=False,
     finally:
         bcsr_mod.ell_spmm_reference = orig
     stats = {k: v.numpy().copy() for k, v in stack.norm_state().items()}
-    return total.numpy(), per_iter.numpy(), grads[0], stats, calls[0]
+    return total.numpy(), per_iter.numpy(), grads[0], stats, widths
 
 
-@pytest.mark.parametrize("batch_norm", [False, True], ids=["plain", "bn"])
-def test_remat_member_step_matches_jax(batch_norm):
+# (batch_norm, members): five members, the JAX package's DeepEnsemble
+# default, on the fp32 model whose level 0 runs the ELL product
+JAX_CASES = [(False, M), (True, M), (False, 5)]
+
+
+@pytest.mark.parametrize("batch_norm,n_members", JAX_CASES,
+                         ids=["plain", "bn", "plain-5members"])
+def test_remat_member_step_matches_jax(batch_norm, n_members):
     model = _model(batch_norm)
-    trees = _trees(model)
+    trees = _trees(model, seeds=tuple(range(n_members)))
     indexer, jindexer = ARIndexer.build(*AR2), JARIndexer.build(*AR2)
     batch = _batch(indexer)
-    total, per_iter, grads, stats, _ = port_member_step(
+    total, per_iter, grads, stats, widths = port_member_step(
         model, trees, indexer, batch, True, batch_norm)
 
     jmodel = JUNetSpherical(_info(), "healpix", SAMPLING, knn=KNN,
@@ -239,8 +249,9 @@ def test_remat_member_step_matches_jax(batch_norm):
         state = jax.vmap(GRAD_KEEPER.init)(jparams)
         args = (jbatch, jnp.asarray(W_AR), ctx)
         if batch_norm:
-            jns = jax.tree_util.tree_map(lambda x: jnp.stack([x] * M),
-                                         jmodel.init_norm_state())
+            jns = jax.tree_util.tree_map(
+                lambda x: jnp.stack([x] * n_members),
+                jmodel.init_norm_state())
             _, state, jns, jtotal, jper = jstep(jparams, state, jns, *args)
         else:
             jns = None
@@ -251,7 +262,7 @@ def test_remat_member_step_matches_jax(batch_norm):
     assert rel_err(per_iter, jper) <= JAX_TOL
     assert rel_err(total, jtotal) <= JAX_TOL
     # the same step without remat
-    total0, per0, grads0, stats0, _ = port_member_step(
+    total0, per0, grads0, stats0, widths0 = port_member_step(
         model, trees, indexer, batch, False, batch_norm)
     cancel = {k.replace(".", "/"): v.replace(".", "/")
               for k, v in cancelling_norm_biases(model).items()}
@@ -270,12 +281,22 @@ def test_remat_member_step_matches_jax(batch_norm):
         assert_grads_close(flat_jax(norm_state_to_jax(_tensors(stats))),
                            flat_jax(jns), JAX_TOL)
     assert_grads_close(flat_jax(params_to_jax(_tensors(grads))), jgrads,
-                       tol, cancel)
+                       tol, cancel, n_members)
     assert rel_err(per_iter, per0) <= SELF_TOL
     assert rel_err(total, total0) <= SELF_TOL
-    assert_grads_close(grads, grads0, SELF_TOL)
+    assert_grads_close(grads, grads0, SELF_TOL, n_members=n_members)
     if batch_norm:
         assert_grads_close(stats, stats0, SELF_TOL)
+    # one ELL product a member-stacked matvec: the step's forward (10 a
+    # model call), as many again in the recompute, and its backward (but
+    # the first convolution's on the raw input), each at n_members times
+    # the widths of a one-member stack but those 2 on the shared batch
+    one = port_member_step(model, trees[:1], indexer, batch, False)[4]
+    fwd = 10 * 3
+    assert len(widths0) == len(one) == 2 * fwd - 2
+    assert widths0[:2] == one[:2] and widths0[2:] == [
+        n_members * w for w in one[2:]]
+    assert sorted(widths) == sorted(widths0 + widths0[:fwd])
 
 
 CASES = [("RNN", AR2, 30, 28), ("AR", AR2, 30, 24),
@@ -291,10 +312,11 @@ def test_remat_member_step_matches_itself(strategy, ar, fwd, bwd):
     model = _model(info=_info(len(ar[0]), len(ar[1])))
     trees = _trees(model)
     batch = _batch(indexer, seed=3)
-    total0, per0, grads0, _, n0 = port_member_step(
+    total0, per0, grads0, _, widths0 = port_member_step(
         model, trees, indexer, batch, False, strategy=strategy)
-    total, per, grads, _, n1 = port_member_step(
+    total, per, grads, _, widths1 = port_member_step(
         model, trees, indexer, batch, True, strategy=strategy)
+    n0, n1 = len(widths0), len(widths1)
     assert rel_err(per, per0) <= SELF_TOL
     assert rel_err(total, total0) <= SELF_TOL
     assert_grads_close(grads, grads0, SELF_TOL)

@@ -15,7 +15,9 @@ destination's support), each with a `candidates` method that its own
 call reduces. A member step (`members`: the model's forward under
 `torch.func.vmap` over that many members) records its decisions, each
 stacked over the members (the member axis first), so that each member's
-own run can take them; it takes none itself. Used by the card tests
+own run can take them; it takes none itself. Where one member's run is
+all that is compared, `member` keeps that member's decisions alone (a
+fifth of the host memory for five members). Used by the card tests
 and by chip_smoke.py (a helper module, not a test)."""
 
 import dataclasses
@@ -38,7 +40,7 @@ def _plain(t):
     return t
 
 
-def steer(model, pinned=None, members=None):
+def steer(model, pinned=None, members=None, member=None):
     """Route the model's ReLUs and argmax pools through a recorder of their
     decisions (ReLU: x > 0, [B, V, C]; pool: the maximal elements of each
     output's candidates, [B, D, W, C]), in call order. With `pinned`, another
@@ -49,8 +51,8 @@ def steer(model, pinned=None, members=None):
     how far this run's input sat from the kink (|x|) or from the window's
     max, over the call's largest |x|. With `members`, the model runs a
     member step of that many members and each decision is recorded stacked
-    over them (raises if one is not). Returns (decisions, gaps), filled as
-    the model runs."""
+    over them (raises if one is not), or only member `member`'s when given.
+    Returns (decisions, gaps), filled as the model runs."""
     decisions, gaps = [], []
 
     def record(mask):
@@ -59,7 +61,7 @@ def steer(model, pinned=None, members=None):
                                     or plain.shape[0] != members):
             raise ValueError(f"a decision of the member step is not "
                              f"stacked over its {members} members")
-        decisions.append(plain.cpu())
+        decisions.append((plain if member is None else plain[member]).cpu())
 
     taken = None if pinned is None else iter(pinned)
 
