@@ -18,7 +18,9 @@ HEALPix-64 configuration's own settings with 5 members), a year's free
 run, the profiling harness and an experiment ingested from raw GRIB2
 files, on the card and checks them, in phases printed one per line:
 
-1. card      name and power limit (nvidia-smi)
+1. card      name and power limit (nvidia-smi); the allocator setting
+             the port asks for before the first CUDA allocation
+             (`_device.ask_expandable_segments`, as its entry points do)
 2. build     the three CUDA kernels (all three include one header; the
              ELL kernel takes its mbarrier helpers), compiled side by side
              with nvcc from this checkout (seconds; registers, shared
@@ -26,8 +28,9 @@ files, on the card and checks them, in phases printed one per line:
              entry; the registers and spills of the block kernels'
              tensor-core instances (bf16 x; none may spill) and the count
              of HGMMA instructions in their SASS (cuobjdump; none may have
-             0); the registers and spills of the ELL kernel's three
-             column-tile instances (none may spill)
+             0), and of their four gather-body instances (fp32 x); the
+             registers and spills of the ELL kernel's three column-tile
+             instances (none may spill)
 3. parity    the super-row SpMM kernel (K1) and the plain-BCSR one (K3) at
              HEALPix-16 and HEALPix-64 level 0, fp32 and bf16, width 1024,
              against scipy `L @ x` (bars: fp32 < 1e-5, bf16 < 2e-2, max abs
@@ -56,15 +59,28 @@ files, on the card and checks them, in phases printed one per line:
              and -64 width 1024: the operator's matvec (one ELL launch)
              against scipy (1e-5), the kernel against its plain version
              (exactly: the same rounded products in the same order),
-             timed beside K1's and K3's fp32 (FMA) regime, cuSPARSE and
-             the bound of the function's own work (element nonzeros,
-             bytes of x, y and the layout), the dense-block bound of K1's
-             layout printed beside it; its backward (2 L^T (L x), 1e-5) on
-             the knn L and on the transposed layout of D L (K1 and K3
-             held on their own layouts too, the ELL taken away); its row
-             ranges for 2 and 4 shards equal to the full launch's rows and
-             the plain version, exactly, on both layouts; K5's fold of 2
-             members equal to one launch per member, exactly
+             timed beside K1's and K3's fp32 regime (the gather body),
+             cuSPARSE and the bound of the function's own work (element
+             nonzeros, bytes of x, y and the layout); its backward (2 L^T
+             (L x), 1e-5) on the knn L and on the transposed layout of D L
+             (K1 and K3 held on their own layouts too, the ELL taken
+             away); its row ranges for 2 and 4 shards equal to the full
+             launch's rows and the plain version, exactly, on both
+             layouts; K5's fold of 2 members equal to one launch per
+             member, exactly;
+             the gather body (fp32 x: the block layouts' kernels over the
+             nonzero entries of their listed blocks, `spmm_regime`) at
+             HEALPix-16 and -64 level 0, width 1024: K1 and K3 with fp32
+             and with bf16-stored A, K2's and K3's row ranges (units
+             [0, n/2)), each against its plain version and scipy (1e-5),
+             a range against the full launch's rows (exactly), then timed
+             beside torch.sparse.mm on the same matrix and the bound of
+             its work (the listed blocks, x and the output moved once;
+             2 operations per element nonzero at the fp32 rate);
+             phase mixed: K1 and K2 with fp32 A against bf16 x (the
+             tensor cores, A rounded to bf16 in registers) at the same
+             shapes, against the plain version and scipy with A rounded
+             (2e-2), timed beside torch.sparse.mm (bf16) and the bound
 4. slice     UNetSpherical, HEALPix-16, knn-20, max pool, increment
              learning, bf16, 7 features x 3 lags -> 2, seeded weights in
              the JAX layout loaded through `weights.py`, exported
@@ -103,12 +119,12 @@ files, on the card and checks them, in phases printed one per line:
              MSE, Adam eps 1e-7 with the config's clipping): finite,
              decreasing losses, exactly 54 forward and 52 backward ELL
              launches a step and no other kernel; step time, peak
-             memory; one untimed step on K1's FMA path (the ELL taken
-             away: K1 alone); a forecast call (no grad, batch 8: 18 ELL
+             memory; one untimed step on K1's fp32 regime (the gather
+             body; the ELL taken away: K1 alone); a forecast call (no grad, batch 8: 18 ELL
              launches); at each (level, width) shape of the step, per
              launch: the ELL kernel
              (exact vs its plain version, 1e-5 vs scipy forward and
-             backward), the FMA path (K1's wrapper on the operator's
+             backward), K1's gather body (its wrapper on the operator's
              super-row arrays), cuSPARSE and the bound; one batch-1 AR1
              step card vs CPU (losses and every gradient at 1e-5, the CPU
              taking the card's decisions)
@@ -149,10 +165,11 @@ files, on the card and checks them, in phases printed one per line:
              shipped100km's reading of the single remat step's (taken
              in the same run); one step of the largest
              stack whose own peak, predicted per member, stays under 72
-             GiB with what the card holds before it, run with expandable
-             segments (the allocator's default fragments there, and no
-             entry point of the port sets them; the setting before it is
-             restored), its peak against the prediction; the ELL kernel
+             GiB with what the card holds before it, on the allocator
+             settings the port asks for (expandable segments: the
+             script's first act is the entry points' own
+             `_device.ask_expandable_segments`; the default segments
+             fragment there), its peak against the prediction; the ELL kernel
              at the folded width x[49152, 5 x 2048] (exact vs its plain
              version, 1e-5 vs scipy, beside its bound and
              torch.sparse.mm). (b)
@@ -809,6 +826,7 @@ def phase_build():
     for name, body in ((KERNEL, "bcsr_super_spmm_tc"),
                        (PLAIN_KERNEL, "bcsr_spmm_tc")):
         check_tc_instances(load_kernels([name])[0], body, _nvcc())
+        check_gather_instances(load_kernels([name])[0])
     check_ell_instances(load_kernels([ELL_KERNEL])[0])
 
 
@@ -825,6 +843,24 @@ def _ptxas_instances(k):
         elif fn and "Used" in line and "registers" in line:
             regs[fn] = int(line.split("Used")[1].split()[0])
     return {f: (r, spills.get(f, 0)) for f, r in regs.items()}
+
+
+def check_gather_instances(k):
+    """The registers and spills of a block kernel's gather-body instances
+    (fp32 x; fp32 and bf16 A, 4 and 1 float4s a lane; ptxas, when built in
+    this run): raises if one is missing. Their spills are printed, not
+    refused: at 2 CTAs an SM (128 registers) the 16 gathers in flight of
+    the 4-float4 instance spill some bytes, and measured faster than 8
+    unspilled (PERF.md)."""
+    if not k.built:
+        return
+    got = {f: v for f, v in _ptxas_instances(k).items() if "_gather" in f}
+    log("build", f"{k.name} gather-body instances (fp32 x; fp32, bf16 A; "
+                 f"4, 1 float4s a lane): registers "
+                 f"{[r for r, _ in got.values()]}, spill bytes "
+                 f"{[b for _, b in got.values()]}")
+    if len(got) != 4:
+        raise AssertionError(f"{k.name}: gather instances {got} (4 wanted)")
 
 
 def check_ell_instances(k):
@@ -918,6 +954,23 @@ def _bound(a, x, nnz_blocks, x_blocks, out_rows=None):
     return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS[dt]
 
 
+def _gather_bound(a, x, nnz_blocks, x_blocks, out_rows=None):
+    """(bytes ms, operations ms) of the gather body's work (fp32 x: the
+    nonzero entries of the listed blocks alone): the listed 128x128
+    blocks read once, the x rows they read (`x_blocks` 128-row blocks)
+    and the output (`out_rows` rows, x's by default, fp32) each moved once
+    over HBM; 2 operations per element nonzero of A and column at the fp32
+    rate without tensor cores. The least time the card could take is the
+    larger of the two."""
+    n, m = x.shape
+    out_rows = n if out_rows is None else out_rows
+    x_rows = min(x_blocks * 128, n)
+    nbytes = (nnz_blocks * 128 * 128 * a.element_size()
+              + (x_rows + out_rows) * m * 4)
+    ops = 2.0 * int((a != 0).sum()) * m
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / PEAK_OPS["fp32"]
+
+
 def _block_counts(name, a, idx):
     """(nonzero 128x128 blocks, block slots, distinct block-columns of x
     the nonzero blocks read) of a super-row (`name` KERNEL) or plain
@@ -957,7 +1010,7 @@ def measure(op, L, x, device, label, round_a=True, timed=True,
     y = kernel(a, idx, x_pad, **kw)
     ref = plain(a, idx, x_pad, **kw)
     bar = BARS["bf16" if x.dtype == torch.bfloat16 else "fp32"]
-    err_plain = rel_err(y.float().cpu(), ref.float().cpu())
+    err_plain = _rel_err_card(y.float(), ref.float())
     if not err_plain < bar:
         raise AssertionError(f"{label}: {name} vs plain version "
                              f"{err_plain:.3e} breaks the {bar:g} bar")
@@ -971,7 +1024,10 @@ def measure(op, L, x, device, label, round_a=True, timed=True,
               and a.dtype == torch.float32 else x.dtype)
     csr, x_lib = _csr(L, device, lib_dt), x.to(lib_dt)
     nnz, slots, x_blocks = _block_counts(name, a, idx)
-    t_bytes, t_ops = _bound(a, x, nnz, x_blocks)
+    # fp32 x runs the gather body (A's nonzero entries), bf16 x the
+    # tensor cores (whole blocks)
+    t_bytes, t_ops = (_gather_bound if x.dtype == torch.float32
+                      else _bound)(a, x, nnz, x_blocks)
     res.update({
         "blocks_nonzero": f"{nnz}/{slots}", "x_blocks": x_blocks,
         "ms": device_ms(lambda: kernel(a, idx, x_pad, **kw)),
@@ -1053,6 +1109,23 @@ def measure_ell(ell, L, x, device, label, timed=True, plain_timed=True):
 # Parity
 # ---------------------------------------------------------------------------
 
+# the parity phases' operators (phase_parity, phase_gather, phase_mixed),
+# built once by (subdiv, A's dtype, rows_per_super); phase_mixed drops them
+_PARITY_OPS = {}
+
+
+def _parity_op(subdiv, L, dtype, rps, device):
+    """BlockSparseOperator.from_scipy(L, ...) of HEALPix-`subdiv`'s
+    Laplacian L, shared by the parity phases."""
+    from deepsphere_weather_torch.ops.bcsr import BlockSparseOperator
+
+    key = (subdiv, str(dtype), rps)
+    if key not in _PARITY_OPS:
+        _PARITY_OPS[key] = BlockSparseOperator.from_scipy(
+            L, dtype=dtype, rows_per_super=rps, device=device)
+    return _PARITY_OPS[key]
+
+
 def _laplacian(subdiv):
     from deepsphere_weather_torch.models.geometry import cached_graph_laplacian
 
@@ -1063,19 +1136,18 @@ def _laplacian(subdiv):
 @clocked
 def phase_parity(device, subdivs, width):
     """K1 and K3 forward against scipy and their plain versions, each
-    kernel's own output; in fp32 also the route the operator takes
-    (`matvec`: the ELL kernel) against scipy, and the ELL kernel against
-    its plain version, timed beside K1's and K3's fp32 (FMA) regime,
-    cuSPARSE and the bound. Returns the ELL readings by shape."""
+    kernel's own output, timed beside cuSPARSE and the bound (fp32 x: the
+    gather body); in fp32 also the route the operator takes (`matvec`: the
+    ELL kernel) against scipy, and the ELL kernel against its plain
+    version, timed beside K1's and K3's gather body, cuSPARSE and the
+    bound. Returns the ELL readings by shape and K1's and K3's fp32
+    readings ({kernel: {shape: reading}})."""
     import torch
 
-    from deepsphere_weather_torch.ops.bcsr import (
-        BlockSparseOperator,
-        launch_counts,
-    )
+    from deepsphere_weather_torch.ops.bcsr import launch_counts
 
     rng = np.random.default_rng(SEED)
-    errs, ell_rows = [], {}
+    errs, ell_rows, block_fp32 = [], {}, {KERNEL: {}, PLAIN_KERNEL: {}}
     for subdiv in subdivs:
         t0 = time.perf_counter()
         L = _laplacian(subdiv)
@@ -1085,14 +1157,17 @@ def phase_parity(device, subdivs, width):
                       f"reference {time.perf_counter() - t0:.1f} s")
         for name, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
             x = torch.from_numpy(x_np).to(device, dt)
-            fma = {}
+            gather = {}
             for rps in (2, 0):
-                op = BlockSparseOperator.from_scipy(
-                    L, dtype=dt, rows_per_super=rps, device=device)
+                op = _parity_op(subdiv, L, dt, rps, device)
                 kname = _layout(op)[0]
                 res = measure(op, L, x, device, f"HEALPix-{subdiv} {name}")
                 err = rel_err(res["y"].float().cpu().numpy(), ref)
-                fma[kname] = res
+                gather[kname] = res
+                if dt == torch.float32:
+                    block_fp32[kname][f"x{L.shape[0]}_{width}"] = {
+                        "regime": "gather", "rel_err_scipy": err,
+                        **{k: v for k, v in res.items() if k != "y"}}
                 log("parity", f"{kname} HEALPix-{subdiv} {name} x[{L.shape[0]}"
                               f", {width}] A {tuple(_layout(op)[1].shape)}: "
                               f"rel err vs scipy {err:.3e} (bar "
@@ -1121,10 +1196,9 @@ def phase_parity(device, subdivs, width):
             if not err < BARS["fp32"]:
                 raise AssertionError(f"{label}: vs scipy {err:.3e} breaks the "
                                      f"{BARS['fp32']:g} bar")
-            k1, k3 = fma[KERNEL], fma[PLAIN_KERNEL]
-            res.update({"rel_err_scipy": err, "fma_ms": k1["ms"],
-                        "fma_plain_layout_ms": k3["ms"],
-                        "dense_block_bound_ms": k1["bound_ms"]})
+            k1, k3 = gather[KERNEL], gather[PLAIN_KERNEL]
+            res.update({"rel_err_scipy": err, "k1_fp32_ms": k1["ms"],
+                        "k3_fp32_ms": k3["ms"]})
             ell_rows[f"x{L.shape[0]}_{width}"] = {
                 k: v for k, v in res.items() if k != "y"}
             log("parity", f"{label} (ELL [{L.shape[0]}, {res['ell_width']}]):"
@@ -1136,18 +1210,193 @@ def phase_parity(device, subdivs, width):
                           f"{res['bound_by']} (share "
                           f"{res['share_of_bound']:.3f}), plain "
                           f"{res['plain_ms']:.4f} ms, cuSPARSE "
-                          f"{res['library_ms']:.4f} ms, FMA regime "
+                          f"{res['library_ms']:.4f} ms, the gather body "
                           f"{KERNEL} {k1['ms']:.4f} ms / {PLAIN_KERNEL} "
                           f"{k3['ms']:.4f} ms; cuSPARSE / ELL "
                           f"{res['library_ms'] / res['ms']:.2f}, {KERNEL} / "
-                          f"ELL {k1['ms'] / res['ms']:.2f}; the dense-block "
-                          f"bound of {KERNEL}'s layout (its 128x128 blocks "
-                          f"multiplied whole) {k1['bound_ms']:.4f} ms")
+                          f"ELL {k1['ms'] / res['ms']:.2f}")
             errs.append(f"{ELL_KERNEL} HEALPix-{subdiv} fp32 {err:.3e} / "
                         f"{res['max_abs_err']:.3e}")
     log("parity", "rel err vs scipy / max abs err vs plain version: "
                   + "; ".join(errs))
-    return ell_rows
+    return ell_rows, block_fp32
+
+
+def _verdict(r):
+    """A reading's time beside torch.sparse.mm's and its bound."""
+    return (f"{r['ms']:.4f} ms per launch (host enqueue "
+            f"{r['host_ms']:.4f} ms), torch.sparse.mm {r['library_ms']:.4f} "
+            f"ms ({'faster' if r['ms'] < r['library_ms'] else 'slower'}: "
+            f"{r['library_ms'] / r['ms']:.2f}x), bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']} (share {r['bound_ms'] / r['ms']:.3f}), plain "
+            f"{r['plain_ms']:.4f} ms")
+
+
+def measure_rows(op, L, x, device, lo, hi, label):
+    """A row-range entry (K2 on a super-row layout, K3's on a plain one)
+    over the units [lo, hi) against the full x, in x's regime: against its
+    plain version (x's bar; the max abs error kept), the full launch's
+    rows (exactly) and scipy's rows (x's bar, A as the product sees it);
+    timed (`device_ms`) beside torch.sparse.mm on the CSR row slice
+    against the full x and the bound of the range's work."""
+    import torch
+
+    from deepsphere_weather_torch.ops import bcsr
+
+    kind, a, idx, nz = op.forward_layout()
+    name, fn, plain, full_fn = (
+        (ROW_KERNEL, bcsr.bcsr_super_spmm_rows,
+         bcsr.bcsr_super_spmm_rows_reference, bcsr.bcsr_super_spmm)
+        if kind == "super" else
+        (PLAIN_ROW_KERNEL, bcsr.bcsr_spmm_rows,
+         bcsr.bcsr_spmm_rows_reference, bcsr.bcsr_spmm))
+    n, m = x.shape
+    unit = op.rows // a.shape[0]
+    x_pad = torch.nn.functional.pad(x, (0, (-m) % 128, 0, op.rows - n))
+    y = fn(a, idx, x_pad, lo, hi, nz=nz)
+    want = plain(a, idx, x_pad, lo, hi, nz=nz)
+    full = full_fn(a, idx, x_pad, nz)[lo * unit:hi * unit]
+    dt = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    e_plain = _rel_err_card(y.float(), want.float())
+    e_full = float((y.float() - full.float()).abs().max())
+    v0, v1 = lo * unit, min(hi * unit, n)
+    mat = L.copy()
+    if a.dtype == torch.bfloat16 or dt == "bf16":
+        mat.data = torch.from_numpy(L.data).to(torch.bfloat16).float().numpy()
+    e_scipy = rel_err(y[:v1 - v0].float().cpu().numpy(),
+                      mat[v0:v1] @ x.float().cpu().numpy())
+    if not (e_plain < BARS[dt] and e_full == 0 and e_scipy < BARS[dt]):
+        raise AssertionError(f"{label} {name} rows [{lo}, {hi}): vs plain "
+                             f"{e_plain:.3e}, vs the full launch {e_full:.3e} "
+                             f"(must be 0), vs scipy {e_scipy:.3e}")
+    a_rng = a[lo:hi]
+    nnz, _, x_blocks = _block_counts(
+        KERNEL if kind == "super" else PLAIN_KERNEL, a_rng, idx[lo:hi])
+    t_bytes, t_ops = (_gather_bound if dt == "fp32" else _bound)(
+        a_rng, x, nnz, x_blocks, out_rows=(hi - lo) * unit)
+    csr = _csr(L[v0:v1], device, x.dtype)
+    args = (a, idx, x_pad, lo, hi)
+    return {"kernel": name, "units": [lo, hi],
+            "regime": bcsr.spmm_regime(a.dtype, x.dtype, kind == "super"),
+            "max_abs_err": float((y.float() - want.float()).abs().max()),
+            "rel_err_plain": e_plain, "rel_err_scipy": e_scipy,
+            "ms": device_ms(lambda: fn(*args, nz=nz)),
+            "host_ms": host_ms(lambda: fn(*args, nz=nz)),
+            "plain_ms": device_ms(lambda: plain(*args, nz=nz), n_iter=5),
+            "library_ms": device_ms(lambda: torch.sparse.mm(csr, x)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+@clocked
+def phase_gather(device, subdivs, width):
+    """The gather body's other entries at HEALPix-16 and -64 level 0,
+    width 1024 (phase_parity took K1 and K3 with fp32 A): K1 and K3 with
+    bf16-stored A against fp32 x (A widened exactly), and the row ranges
+    K2 and K3's (rank 0's of 2 node shards: units [0, n/2)) with fp32 A,
+    each against its plain version, scipy and, for the ranges, the full
+    launch's rows; timed beside torch.sparse.mm and the bound. Returns
+    {"bf16_a": {kernel: {shape: reading}}, "rows": {kernel: {shape:
+    reading}}}."""
+    import torch
+
+    from deepsphere_weather_torch.ops import bcsr
+
+    rng = np.random.default_rng(SEED + 90)
+    out = {"bf16_a": {KERNEL: {}, PLAIN_KERNEL: {}},
+           "rows": {ROW_KERNEL: {}, PLAIN_ROW_KERNEL: {}}}
+    for subdiv in subdivs:
+        L = _laplacian(subdiv)
+        n = L.shape[0]
+        shape = f"x{n}_{width}"
+        x = torch.from_numpy(rng.standard_normal((n, width)).astype(
+            np.float32)).to(device)
+        L_bf16 = L.copy()
+        L_bf16.data = torch.from_numpy(L.data).to(
+            torch.bfloat16).float().numpy()
+        ref_bf16 = L_bf16 @ x.cpu().numpy()
+        for rps in (2, 0):
+            op = _parity_op(subdiv, L, torch.bfloat16, rps, device)
+            kname = _layout(op)[0]
+            label = f"{kname} HEALPix-{subdiv} bf16 A, fp32 x[{n}, {width}]"
+            r = measure(op, L, x, device, label)
+            err = rel_err(r.pop("y").cpu().numpy(), ref_bf16)
+            if not err < BARS["fp32"]:
+                raise AssertionError(f"{label}: vs scipy (A rounded to bf16 "
+                                     f"as stored) {err:.3e}")
+            r.update(regime=bcsr.spmm_regime(torch.bfloat16, torch.float32,
+                                             rps > 0), rel_err_scipy=err)
+            out["bf16_a"][kname][shape] = r
+            log("gather", f"{label} ({r['regime']}): vs plain version rel "
+                          f"{r['rel_err_plain']:.3e} max abs "
+                          f"{r['max_abs_err']:.3e}, vs scipy {err:.3e} (bar "
+                          f"{BARS['fp32']:g}); " + _verdict(r))
+            op32 = _parity_op(subdiv, L, torch.float32, rps, device)
+            half = max(1, op32.forward_layout()[1].shape[0] // 2)
+            label = f"HEALPix-{subdiv} fp32 x[{n}, {width}]"
+            r = measure_rows(op32, L, x, device, 0, half, label)
+            out["rows"][r["kernel"]][shape] = r
+            log("gather", f"{r['kernel']} {label} units [0, {half}) "
+                          f"({r['regime']}): vs plain version rel "
+                          f"{r['rel_err_plain']:.3e} max abs "
+                          f"{r['max_abs_err']:.3e}, equal to the full "
+                          f"launch's rows, vs scipy's rows "
+                          f"{r['rel_err_scipy']:.3e} (bar {BARS['fp32']:g}); "
+                          + _verdict(r))
+    return out
+
+
+@clocked
+def phase_mixed(device, subdivs, width):
+    """K1's mixed regime, fp32 A against bf16 x (the tensor-core body
+    with A rounded to bf16 in registers, as the TPU kernel casts it), at
+    HEALPix-16 and -64 level 0, width 1024, whole and its row range (K2,
+    units [0, n/2)): against its plain version and scipy with A rounded to
+    bf16 (the bf16 bar), the range against the full launch's rows
+    (exactly); timed beside torch.sparse.mm (bf16 CSR, bf16 x) and the
+    bound. Returns {kernel: {shape: reading}}."""
+    import torch
+
+    from deepsphere_weather_torch.ops import bcsr
+
+    rng = np.random.default_rng(SEED + 91)
+    out = {KERNEL: {}, ROW_KERNEL: {}}
+    for subdiv in subdivs:
+        L = _laplacian(subdiv)
+        n = L.shape[0]
+        shape = f"x{n}_{width}"
+        x = torch.from_numpy(rng.standard_normal((n, width)).astype(
+            np.float32)).to(device, torch.bfloat16)
+        L_bf16 = L.copy()
+        L_bf16.data = torch.from_numpy(L.data).to(
+            torch.bfloat16).float().numpy()
+        op = _parity_op(subdiv, L, torch.float32, 2, device)
+        label = f"{KERNEL} HEALPix-{subdiv} fp32 A, bf16 x[{n}, {width}]"
+        r = measure(op, L, x, device, label)
+        err = rel_err(r.pop("y").float().cpu().numpy(),
+                      L_bf16 @ x.float().cpu().numpy())
+        if not err < BARS["bf16"]:
+            raise AssertionError(f"{label}: vs scipy (A rounded to bf16) "
+                                 f"{err:.3e}")
+        r.update(regime=bcsr.spmm_regime(torch.float32, torch.bfloat16),
+                 rel_err_scipy=err)
+        out[KERNEL][shape] = r
+        log("mixed", f"{label} ({r['regime']}): vs plain version rel "
+                     f"{r['rel_err_plain']:.3e}, vs scipy (A rounded to "
+                     f"bf16) {err:.3e} (bar {BARS['bf16']:g}); " + _verdict(r))
+        half = max(1, op.svals.shape[0] // 2)
+        r = measure_rows(op, L, x, device, 0, half,
+                         f"HEALPix-{subdiv} fp32 A, bf16 x[{n}, {width}]")
+        out[ROW_KERNEL][shape] = r
+        log("mixed", f"{ROW_KERNEL} HEALPix-{subdiv} fp32 A, bf16 x[{n}, "
+                     f"{width}] units [0, {half}) ({r['regime']}): vs "
+                     f"plain version rel {r['rel_err_plain']:.3e}, equal to "
+                     f"the full launch's rows, vs scipy's rows "
+                     f"{r['rel_err_scipy']:.3e} (bar {BARS['bf16']:g}); "
+                     + _verdict(r))
+    _PARITY_OPS.clear()
+    return out
 
 
 @clocked
@@ -1256,8 +1505,8 @@ def phase_parity_backward(device, subdiv, width):
     2 L^T (L x): the knn L (symmetric: the backward reuses the forward
     arrays) and D L with a random positive diagonal D (through the
     transposed layout). fp32 x takes the ELL route; K1 and K3 are held on
-    their own layouts too, the operator's ELL taken away (their fp32 FMA
-    regime, which no model path reaches any more)."""
+    their own layouts too, the operator's ELL taken away (their fp32
+    regime, the gather body, which no model path reaches)."""
     import copy
 
     import torch
@@ -1866,7 +2115,10 @@ def run_train(model, ar_iters, batch, n_steps, label, clip=None,
     t0 = time.perf_counter()
     for i in range(n_steps):
         if memory and i == n_steps - 1:
-            torch.cuda.empty_cache()
+            # no torch.cuda.empty_cache() here: the step after it maps its
+            # memory again (expandable segments, which the port asks for),
+            # which no trainer step does; the own peak counts allocated
+            # bytes, which the cache does not change
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
         t_step = time.perf_counter()
@@ -2178,8 +2430,8 @@ def phase_train64f32(device, card_line):
     (fp32 x), level 2 dense. 3 steps at train64's traffic (AR2, batch 8,
     RNN, area-weighted MSE, Adam eps 1e-7 with the config's clipping):
     exactly 18 + 16 ELL launches a model call and nothing else, peak
-    memory, the step time; one untimed step on K1's FMA path (the ELL taken
-    away) launching K1 alone; a forecast call (no grad) at batch 8; each
+    memory, the step time; one untimed step on K1's fp32 regime (the
+    gather body; the ELL taken away) launching K1 alone; a forecast call (no grad) at batch 8; each
     (level, width) shape of the step (`ell_step_shapes`); one batch-1 AR1
     step card vs CPU at GRAD_BAR."""
     import torch
@@ -2210,8 +2462,8 @@ def phase_train64f32(device, card_line):
     launches = check_launches(res, ELL_KERNEL, per_forward, HP64_AR + 1,
                               label, phase="train64f32")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    # one step on the FMA path, the operators' ELL taken away (K1's fp32
-    # regime, the route before the ELL kernel): its launches, untimed
+    # one step on K1's fp32 regime, the operators' ELL taken away (the
+    # gather body, the block layout's own fp32 route): its launches, untimed
     sparse = [o.bcsr for o in geom.cheb_ops if o.bcsr is not None]
     ells = [o.ell for o in sparse]
     before = dict(launch_counts)
@@ -2227,7 +2479,7 @@ def phase_train64f32(device, card_line):
                 if v != before[k]}
     want = 2 * per_forward * (HP64_AR + 1) - NO_GRAD_PRODUCTS
     if launched != {KERNEL: want}:
-        raise AssertionError(f"train64f32 FMA-path step launched {launched}, "
+        raise AssertionError(f"train64f32 K1 fp32 step launched {launched}, "
                              f"not {want} {KERNEL}")
     ms = time_steps({label: res["step"]}, HP64_BATCH, card_line,
                     SMOKE_WINDOWS, SMOKE_STEPS)[label]
@@ -2283,7 +2535,7 @@ def _rel_err_card(got, ref):
 
 
 def ell_step_shapes(model, step, laplacian, card_line, phase="train64f32",
-                    name="HEALPix", fma=True):
+                    name="HEALPix", k1=True):
     """Each (level, layout, width) shape one train step launches the ELL
     kernel at (recorded by wrapping `ell_spmm`; the layout L, or L^T's own
     for a non-symmetric L's backward), per launch, on the first columns
@@ -2292,9 +2544,9 @@ def ell_step_shapes(model, step, laplacian, card_line, phase="train64f32",
     resp. L^T g) and, for L, backward through the operator against
     scipy's L^T g at the fp32 bar; cuSPARSE's fp32 CSR product of the
     same matrix and the bound of the function's work (`_ell_bound`); with
-    `fma`, the FMA path too (the K1 wrapper on the same operator's
-    super-row arrays, x padded as its matvec pads it) and the plain
-    version's time. Returns one entry per shape."""
+    `k1`, K1's fp32 regime too (the gather body: the K1 wrapper on the
+    same operator's super-row arrays, x padded as its matvec pads it) and
+    the plain version's time. Returns one entry per shape."""
     import types
 
     import torch
@@ -2346,21 +2598,21 @@ def ell_step_shapes(model, step, laplacian, card_line, phase="train64f32",
             mat, inp, ref = L.T.tocsr(), g, lt_g
         inp = inp[:, :width].contiguous()
         label = f"{ELL_KERNEL} {name} level {level} {layout} x[{n}, {width}]"
-        r = measure_ell(ell, mat, inp, device, label, plain_timed=fma)
+        r = measure_ell(ell, mat, inp, device, label, plain_timed=k1)
         checks = [(_rel_err_card(r["y"], ref[:, :width]), "forward vs scipy")]
         if layout == "L":
             xg = inp.clone().requires_grad_()
             op.matvec(xg).backward(g[:, :width])
             checks.append((_rel_err_card(xg.grad, lt_g[:, :width]),
                            "backward vs scipy L^T g"))
-        fma_ms = None
-        if fma:
+        k1_ms = None
+        if k1:
             _, a, idx, nz = op.forward_layout()
             x_pad = F.pad(inp, (0, (-width) % 128, 0, op.rows - n))
             checks.append((_rel_err_card(bcsr.bcsr_super_spmm(
                 a, idx, x_pad, nz)[:n, :width], r["y"]),
-                           f"{KERNEL} (FMA) vs {ELL_KERNEL}"))
-            fma_ms = device_ms(lambda: bcsr.bcsr_super_spmm(a, idx, x_pad,
+                           f"{KERNEL} (gather body) vs {ELL_KERNEL}"))
+            k1_ms = device_ms(lambda: bcsr.bcsr_super_spmm(a, idx, x_pad,
                                                             nz))
         for e, what in checks:
             if not e < BARS["fp32"]:
@@ -2369,7 +2621,7 @@ def ell_step_shapes(model, step, laplacian, card_line, phase="train64f32",
         rows.append({"level": level, "layout": layout, "width": width,
                      "ms": r["ms"], "host_ms": r["host_ms"],
                      "plain_ms": r["plain_ms"],
-                     "library_ms": r["library_ms"], "fma_ms": fma_ms,
+                     "library_ms": r["library_ms"], "k1_fp32_ms": k1_ms,
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "bytes_ms": r["bytes_ms"], "ops_ms": r["ops_ms"],
                      "max_abs_err": r["max_abs_err"],
@@ -2381,20 +2633,21 @@ def ell_step_shapes(model, step, laplacian, card_line, phase="train64f32",
                    f"{r['bound_ms']:.4f} ms by {r['bound_by']}, share "
                    f"{r['share_of_bound']:.3f}; cuSPARSE "
                    f"{r['library_ms']:.4f} ms"
-                   + (f"; FMA path {KERNEL} {fma_ms:.4f} ms; plain "
-                      f"{r['plain_ms']:.4f} ms" if fma else "")
+                   + (f"; {KERNEL}'s gather body {k1_ms:.4f} ms; plain "
+                      f"{r['plain_ms']:.4f} ms" if k1 else "")
                    + f"); ELL width {r['ell_width']}, union tables: largest "
                    f"{r['union_max']}, rows a block {r['block_rows_max']}, "
                    f"column tile {r['col_tile']}, {r['ctas_per_sm']} CTAs "
                    f"an SM; vs plain version max abs {r['max_abs_err']:.3e}, "
                    + ", ".join(f"{what} {e:.3e}" for e, what in checks)
                    + f" (bar {BARS['fp32']:g}) ({card_line})")
-    keys = ("ms", "library_ms", "bound_ms") + (("fma_ms",) if fma else ())
+    keys = ("ms", "library_ms", "bound_ms") + (("k1_fp32_ms",) if k1 else ())
     total = {k: sum(r[k] for r in rows) for k in keys}
     log(phase, f"over the {name} step's {len(rows)} shapes, one launch "
                f"each: {ELL_KERNEL} {total['ms']:.4f} ms, cuSPARSE "
                f"{total['library_ms']:.4f} ms, "
-               + (f"FMA path {total['fma_ms']:.4f} ms, " if fma else "")
+               + (f"{KERNEL}'s gather body {total['k1_fp32_ms']:.4f} ms, "
+                  if k1 else "")
                + f"bound {total['bound_ms']:.4f} ms ({card_line})")
     return rows
 
@@ -2523,7 +2776,7 @@ def phase_shipped100km(device, card_line):
         if name in SHIPPED_SHAPES:
             out["shapes"][name] = ell_step_shapes(
                 model, res["step"], _grid_laplacian(cfg, geom), card_line,
-                phase="shipped100km", name=name, fma=False)
+                phase="shipped100km", name=name, k1=False)
         res.pop("step")
         if name == SHIPPED_REMAT:
             # the same steps with remat from the same weights
@@ -2568,9 +2821,11 @@ def phase_shipped100km(device, card_line):
                                 f"{res['first_peak_gib']:.2f} GiB) "
                                 f"({card_line})")
             del rem
+        # the allocator keeps its cache for the next configuration: after
+        # torch.cuda.empty_cache() its steps would map their memory again
+        # (expandable segments), which no trainer does
         del model, x, y
         gc.collect()
-        torch.cuda.empty_cache()
         out["configs"][name] = row
         if name in SHIPPED_CHECK:
             out["card_vs_cpu"][name] = grids_card_vs_cpu(
@@ -2655,19 +2910,6 @@ def phase_ens64(device, card_line, single, store):
                ensemble_seconds=ensemble["seconds"])
     log("ens64", f"phase {time.perf_counter() - t_phase:.1f} s")
     return out
-
-
-def _expandable_segments():
-    """Whether the environment gives the CUDA caching allocator
-    expandable segments (PYTORCH_CUDA_ALLOC_CONF, or PYTORCH_ALLOC_CONF;
-    off unless set): the setting in force until this script changes it."""
-    conf = (os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-            or os.environ.get("PYTORCH_ALLOC_CONF", ""))
-    for item in conf.split(","):
-        key, _, value = item.partition(":")
-        if key.strip() == "expandable_segments":
-            return value.strip() == "True"
-    return False
 
 
 def _ens64_members(device, card_line, single):
@@ -2867,36 +3109,27 @@ def _ens64_members(device, card_line, single):
 
     # the largest stack: the M whose own peak, predicted from M members'
     # per member, stays under ENS64_BUDGET_GIB with what the card holds
-    # at the step's start; one step of it. With the caching allocator's
-    # default segments the card fragments at such a stack (7 members
-    # failed at 61.3 GiB allocated with 16.4 GiB reserved and
-    # unallocated, H100 80GB HBM3, 700 W), so this step alone takes
-    # expandable segments, which no entry point of the port sets; the
-    # setting in force before it is restored after it
+    # at the step's start; one step of it, on the allocator settings the
+    # port asks for (`main` calls `ask_expandable_segments` first, as the
+    # port's entry points do: on the default segments 7 members failed at
+    # 61.3 GiB allocated with 16.4 GiB reserved and unallocated, H100
+    # 80GB HBM3, 700 W)
     per_member = member_gib / M
     m_max = int((ENS64_BUDGET_GIB - base_gib) // per_member)
     while base_gib + m_max * per_member >= ENS64_BUDGET_GIB:
         m_max -= 1
-    prior = _expandable_segments()
+    stack, step = member_step(
+        [train_params(model, ENS64_SEED + m) for m in range(m_max)])
+    max_gib, max_ms, max_base = timed_peak(
+        lambda: call(step, f"ens64_{m_max}_members"))
+    del stack, step
+    gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
-    try:
-        stack, step = member_step(
-            [train_params(model, ENS64_SEED + m) for m in range(m_max)])
-        max_gib, max_ms, max_base = timed_peak(
-            lambda: call(step, f"ens64_{m_max}_members"))
-        del stack, step
-        gc.collect()
-        torch.cuda.empty_cache()
-    finally:
-        torch.cuda.memory._set_allocator_settings(
-            f"expandable_segments:{prior}")
     hook.remove()
     log("ens64", f"the largest stack under {ENS64_BUDGET_GIB:g} GiB "
                  f"predicted ({per_member:.3f} GiB a member at {M}, "
-                 f"{base_gib:.2f} GiB held before), with expandable "
-                 f"segments (not the allocator's default, which the port's "
-                 f"trainer runs with): {m_max} members, one step "
+                 f"{base_gib:.2f} GiB held before), on the port's own "
+                 f"allocator settings: {m_max} members, one step "
                  f"{max_ms:.2f} ms, own peak {max_gib:.2f} GiB past "
                  f"{max_base:.2f} GiB vs predicted "
                  f"{m_max * per_member:.2f} GiB "
@@ -5016,7 +5249,7 @@ def kernel_row_ell(parity, rows_range, f32, shipped):
     """The ELL kernel's row: per-launch averages over the train64f32
     step's shapes (`ell_step_shapes`), its launches there, in the forecast
     call and in shipped100km, the parity phase's width-1024 readings
-    beside K1's and K3's FMA regime, its row range (`parity_ell_rows`),
+    beside K1's and K3's gather body, its row range (`parity_ell_rows`),
     and shipped100km's voronoi and mesh shapes and configurations."""
     shapes = f32["shapes"]
 
@@ -5040,7 +5273,8 @@ def kernel_row_ell(parity, rows_range, f32, shipped):
             "ms": mean("ms"), "host_ms": mean("host_ms"),
             "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": mean("library_ms"), "fma_ms": mean("fma_ms"),
+            "library_ms": mean("library_ms"),
+            "k1_fp32_ms": mean("k1_fp32_ms"),
             "train64f32_shapes": shapes, **parity,
             "rows_range": rows_range,
             "train64f32_step_ms": f32["ms"],
@@ -6294,10 +6528,11 @@ def phase_remat16(device, card_line):
 
 
 def _peak_over(run):
-    """(bytes allocated before run(), the allocator's peak over it)."""
+    """(bytes allocated before run(), the allocator's peak over it). The
+    allocator's cache is kept (`run_train`: a step after
+    torch.cuda.empty_cache() maps its memory again)."""
     import torch
 
-    torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     run()
@@ -7202,12 +7437,22 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    # what the port's entry points do before their first CUDA allocation
+    from deepsphere_weather_torch._device import ask_expandable_segments
+
+    asked = ask_expandable_segments()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     t_start = time.perf_counter()
     card_line = card()
     log("card", card_line)
+    log("card", "allocator: " + (
+        "expandable segments, asked for by the port "
+        "(`_device.ask_expandable_segments`, as its entry points do)"
+        if asked else "the environment's setting, which the port keeps: "
+        + repr(os.environ.get("PYTORCH_ALLOC_CONF")
+               or os.environ.get("PYTORCH_CUDA_ALLOC_CONF"))))
     # every geometry of the run is built here from nothing, into a cache of
     # its own (spawned ranks and subprocesses inherit it), so no reading
     # depends on what an earlier run left in the shared cache
@@ -7226,8 +7471,10 @@ def _phases(args, device, t_start, card_line) -> int:
     import torch
 
     phase_build()
-    ell_parity = phase_parity(device, (SLICE_SUBDIV, BIG_SUBDIV),
-                              MATVEC_WIDTH)
+    ell_parity, block_fp32 = phase_parity(device, (SLICE_SUBDIV, BIG_SUBDIV),
+                                          MATVEC_WIDTH)
+    gather = phase_gather(device, (SLICE_SUBDIV, BIG_SUBDIV), MATVEC_WIDTH)
+    mixed = phase_mixed(device, (SLICE_SUBDIV, BIG_SUBDIV), MATVEC_WIDTH)
     k3_err, k4 = phase_parity_regimes(device, (SLICE_SUBDIV, BIG_SUBDIV),
                                       BATCH)
     phase_parity_backward(device, SLICE_SUBDIV, MATVEC_WIDTH)
@@ -7301,6 +7548,16 @@ def _phases(args, device, t_start, card_line) -> int:
         "single_gib", "member_gib", "m_max", "max_gib", "member_ms",
         "single_ms", "busy_ms", "member_check", "ensemble_seconds")}
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], k3_err)
+    # the fp32-x regime (the gather body) and K1's mixed regime (fp32 A,
+    # bf16 x) at x[3072, 1024] and x[49152, 1024]: each held to its plain
+    # version before it was timed
+    for row, kname in ((rows[0], KERNEL), (rows[1], PLAIN_KERNEL)):
+        row["fp32_x"] = {"fp32_a": block_fp32[kname],
+                         "bf16_a": gather["bf16_a"][kname]}
+    rows[1]["fp32_x_rows"] = gather["rows"][PLAIN_ROW_KERNEL]
+    rows[2]["fp32_x"] = gather["rows"][ROW_KERNEL]
+    rows[2]["mixed"] = mixed[ROW_KERNEL]
+    rows[0]["mixed"] = mixed[KERNEL]
     # K4's function: K3's kernel with round_a=False (fp32 A, bf16 x)
     rows[1]["round_a_false"] = k4
     # K3's row range beside K2, on the same shard (parity phase only on

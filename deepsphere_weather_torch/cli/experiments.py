@@ -287,6 +287,7 @@ def run_deep_ensemble(cfg_path, data_dir, exp_dir, n_members: int = 5,
     Writes <exp_dir>/DeepEnsemble/{ensemble,median}.zarr,
     median_global_skill.npz and, with 2 or more members,
     probabilistic_global_skill.npz."""
+    from .._device import ask_expandable_segments
     from ..config import get_training_settings
     from ..data import SphericalDataset
     from ..engine import AreaWeights, ForecastDataset
@@ -296,6 +297,8 @@ def run_deep_ensemble(cfg_path, data_dir, exp_dir, n_members: int = 5,
     from .common import split_datasets
     from .train_predict import main as train_main
 
+    # the member trainer does not go through train_predict.main
+    ask_expandable_segments()       # before the first CUDA allocation
     cfg = read_config_file(cfg_path)
     if member_parallel:
         member_forecasts = _train_members_parallel(
@@ -383,7 +386,10 @@ def run_x_year_simulations(model_dir, data_dir, years: float = 5.0,
     model's own forecast_cycle (hours) from its config.json; the analytic
     TOA-solar generator supplies the forcing beyond the BC store by
     default."""
+    from .._device import ask_expandable_segments
     from .predict import main as predict_main
+
+    ask_expandable_segments()       # cli.predict does not ask
 
     if dt_hours is None:
         cfg = read_config_file(Path(model_dir) / "config.json")

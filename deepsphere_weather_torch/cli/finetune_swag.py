@@ -51,7 +51,7 @@ def main(model_dir, data_dir, epochs: int = 1, nb_samples: int = 5,
          verbose: bool = True, device="cuda"):
     import torch
 
-    from .._device import resolve_device
+    from .._device import ask_expandable_segments, resolve_device
     from ..config import (get_ar_settings, get_dataloader_settings,
                           get_model_settings, get_training_settings,
                           read_config_file)
@@ -68,6 +68,7 @@ def main(model_dir, data_dir, epochs: int = 1, nb_samples: int = 5,
     from .common import (load_experiment_model, open_datasets,
                          resolve_scalers, split_datasets)
 
+    ask_expandable_segments()       # before the first CUDA allocation
     resolve_device(device)          # no card: raise before anything else
     # a mesh of more than one rank: start (or join) its ranks, each of
     # which runs this function in the process group

@@ -43,6 +43,8 @@ from typing import Dict, List, Tuple
 import torch
 import torch.distributed as dist
 
+from .._device import ask_expandable_segments
+
 __all__ = ["IN_GROUP", "PG_TIMEOUT_S", "launch", "mesh_world", "rank",
            "rank_barrier", "plan"]
 
@@ -100,6 +102,7 @@ def _run_rank(target: str, kwargs: Dict, device: str, r: int):
 def _rank_main(r, target, kwargs, backend, devices, out_dir):
     """One spawned rank: join the group through the file store, run the
     CLI, leave the group; rank 0 pickles its result."""
+    ask_expandable_segments()   # a fresh process: before its first allocation
     world = len(devices)
     store = dist.FileStore(str(Path(out_dir) / "store"), world)
     dist.init_process_group(backend, store=store, rank=r, world_size=world,

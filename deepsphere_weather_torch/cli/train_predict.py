@@ -49,7 +49,7 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
          verbose: bool = True, device="cuda"):
     import torch
 
-    from .._device import resolve_device
+    from .._device import ask_expandable_segments, resolve_device
     from ..config import (
         create_experiment_directories,
         get_ar_settings,
@@ -89,6 +89,7 @@ def main(cfg_path, data_dir, exp_dir, force: bool = False,
     dl_settings = get_dataloader_settings(cfg)
     if seed_override is not None:
         training_settings["seed_model_weights"] = seed_override
+    ask_expandable_segments()       # before the first CUDA allocation
     resolve_device(device)          # no card: raise before anything else
     # a mesh of more than one rank: start (or join) its ranks, each of
     # which runs this function in the process group

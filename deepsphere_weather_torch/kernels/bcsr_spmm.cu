@@ -37,7 +37,10 @@
 //     registers, into hi = bf16(a) alone (round_a = 1, K3's rounding) or
 //     hi + lo (round_a = 0, K4: within 2^-16 |a| of fp32 A per term), at
 //     most 128 columns a CTA (F32A_BN);
-//   - fp32 x (either A): the FMA body, fp32 FMAs.
+//   - fp32 x (either A): the gather body, over the nonzero entries of the
+//     listed blocks alone (spmm_tc.cuh); its first design multiplied whole
+//     blocks on fp32 FMAs, 2.92 ms at x[49152, 1024] against 0.61 for
+//     torch.sparse.mm (PERF.md).
 // The earlier design ran every regime on fp32 FMAs (67 TFLOP/s fp32 peak
 // against 989 bf16 on the tensor cores), loaded synchronously, fixed the
 // column tile at 64 and multiplied the padding slots: 24-35x above its
@@ -46,16 +49,6 @@
 #include "spmm_tc.cuh"
 
 namespace {
-
-// Widest column tile of the fp32-A regimes: at 256 columns the 128
-// accumulators a thread and the split A fragments spill.
-constexpr int F32A_BN = 128;
-
-// Columns per CTA of the tensor-core body (bf16 x) for width M.
-int tc_tile(int64_t M, int a_bf16) {
-  const int tile = tc_col_tile(M);
-  return a_bf16 || tile <= F32A_BN ? tile : F32A_BN;
-}
 
 // Row block r of vals viewed 2-D [n_rb*max_nb*128, 128]: slot b's block at
 // ((r*max_nb + b)*128, 0), its block-column cols[r, b].
@@ -70,19 +63,27 @@ struct PlainRows {
   __device__ int a_col(int) const { return 0; }
 };
 
-template <typename TA>
-__global__ void __launch_bounds__(F_THREADS)
-bcsr_spmm_fma(const TA* __restrict__ vals,
-              const int32_t* __restrict__ cols,
-              const int32_t* __restrict__ nz,
-              const float* __restrict__ x,
-              float* __restrict__ out,
-              int64_t rb_begin, int max_nb, int64_t M) {
-  const int64_t o = blockIdx.y;               // output row block
-  const int64_t r = rb_begin + o;             // row block of A
-  fma_body<TA, float, float, false>(vals, PlainRows(cols, r, max_nb),
-                                    Walk(nz, r, max_nb), x, out, o, M);
+template <typename TA, int V, int UNR>
+__global__ void __launch_bounds__(G_THREADS, G_MIN_CTAS)
+bcsr_spmm_gather(int RG, const TA* __restrict__ vals,
+                 const int32_t* __restrict__ cols,
+                 const int32_t* __restrict__ nz,
+                 const float* __restrict__ x, float* __restrict__ out,
+                 int64_t rb_begin, int max_nb, int64_t M) {
+  const int per = BS / RG;                      // CTAs a row block
+  const int64_t o = blockIdx.x / per;           // output row block
+  const int i0 = (int)(blockIdx.x % per) * RG;  // first row in the block
+  const int64_t r = rb_begin + o;               // row block of A
+  gather_body<TA, V, UNR>(vals, PlainRows(cols, r, max_nb),
+                          Walk(nz, r, max_nb), i0, RG, x,
+                          out + (o * BS + i0) * M, M);
 }
+
+// The gather kernel's instances, for launch_gather.
+template <typename TA, int V, int UNR>
+struct PlainGather {
+  static constexpr auto fn = &bcsr_spmm_gather<TA, V, UNR>;
+};
 
 template <int BN, bool A_F32, bool SPLIT>
 __global__ void __launch_bounds__(TC_THREADS, 1)
@@ -98,28 +99,25 @@ bcsr_spmm_tc(const __grid_constant__ CUtensorMap a_map,
                             Walk(nz, r, max_nb), out, o, M);
 }
 
-template <typename TA>
-int launch_fma(const void* vals, const int32_t* cols, const int32_t* nz,
-               const void* x, void* out, int64_t rb_begin, int64_t rb_end,
-               int max_nb, int64_t M, cudaStream_t stream) {
-  const dim3 grid((unsigned)(M / F_BN), (unsigned)(rb_end - rb_begin));
-  bcsr_spmm_fma<TA><<<grid, F_THREADS, 0, stream>>>(
-      static_cast<const TA*>(vals), cols, nz, static_cast<const float*>(x),
-      static_cast<float*>(out), rb_begin, max_nb, M);
-  return (int)cudaGetLastError();
-}
-
 // One launch over the row blocks [rb_begin, rb_end).
 int launch_range(const void* vals, int a_bf16, const int32_t* cols,
                  const void* x, int x_bf16, int round_a, const int32_t* nz,
                  void* out, int64_t rb_begin, int64_t rb_end, int max_nb,
                  int64_t x_rows, int64_t M, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!x_bf16)
-    return a_bf16 ? launch_fma<__nv_bfloat16>(vals, cols, nz, x, out,
-                                              rb_begin, rb_end, max_nb, M, st)
-                  : launch_fma<float>(vals, cols, nz, x, out, rb_begin,
-                                      rb_end, max_nb, M, st);
+  if (!x_bf16) {
+    if (!gather_col_tile(M)) return (int)cudaErrorInvalidValue;
+    const int64_t blocks = rb_end - rb_begin;
+    const float* xf = static_cast<const float*>(x);
+    float* y = static_cast<float*>(out);
+    if (a_bf16)
+      return launch_gather<__nv_bfloat16, PlainGather>(
+          blocks, M, st, static_cast<const __nv_bfloat16*>(vals), cols, nz,
+          xf, y, rb_begin, max_nb, M);
+    return launch_gather<float, PlainGather>(
+        blocks, M, st, static_cast<const float*>(vals), cols, nz, xf, y,
+        rb_begin, max_nb, M);
+  }
   return with_col_tile(tc_tile(M, a_bf16), [&](auto bn) {
     constexpr int BN = decltype(bn)::value;
     // the rows the range reads; vals' address is the full layout's
@@ -146,10 +144,10 @@ extern "C" {
 
 // Columns per CTA for x width M in the regime of the operand types (0: the
 // kernel does not take M); the wrapper checks M against it. Every bf16-x
-// regime runs the tensor-core body, whatever A's type.
+// regime runs the tensor-core body, whatever A's type (at most F32A_BN
+// columns with fp32 A); fp32 x the gather body.
 int bcsr_spmm_col_tile(int64_t M, int a_bf16, int x_bf16) {
-  if (x_bf16) return tc_tile(M, a_bf16);
-  return M % F_BN == 0 ? F_BN : 0;
+  return x_bf16 ? tc_tile(M, a_bf16) : gather_col_tile(M);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success),

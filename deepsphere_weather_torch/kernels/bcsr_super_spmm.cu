@@ -40,8 +40,15 @@
 // traffic from L2, where every row block reads its x tiles and every column
 // tile its A tiles again (~1.3 GB per width-1024 launch, ~5.5 TB/s).
 //
-// fp32 and mixed regimes: the FMA body (fp32 x widens bf16 A exactly; bf16
-// x rounds fp32 A to bf16 first, as the TPU kernel does).
+// fp32 x (fp32 or bf16-stored A): the gather body, which multiplies the
+// nonzero entries of the listed blocks alone (`gather_body`: the blocks
+// compacted to per-row (column, value) lists in shared memory, x gathered).
+// Its first design multiplied every entry of every listed block on fp32
+// FMAs: 2.97 ms at x[49152, 1024], against 0.61 for torch.sparse.mm
+// (PERF.md).
+// fp32 A against bf16 x: the tensor-core body with fp32 A rounded to bf16
+// in registers (as the TPU kernel casts A to bf16 against bf16 x; the plain
+// layout's round_a = 1), at most F32A_BN columns a CTA; the output is bf16.
 
 #include "spmm_tc.cuh"
 
@@ -61,21 +68,29 @@ struct SuperRows {
   __device__ int a_col(int u) const { return u * BS; }
 };
 
-template <typename TA, typename TX, typename TO, bool X_BF16>
-__global__ void __launch_bounds__(F_THREADS)
-bcsr_super_spmm_fma(const TA* __restrict__ svals,
-                    const int32_t* __restrict__ ucols,
-                    const int32_t* __restrict__ nz,
-                    const TX* __restrict__ x,
-                    TO* __restrict__ out,
-                    int64_t s_begin, int R, int max_u, int64_t M) {
-  const int64_t o = blockIdx.y;               // output row block
-  const int64_t g = s_begin * R + o;          // row block of A = s*R + r
-  fma_body<TA, TX, TO, X_BF16>(svals, SuperRows(ucols, g, R, max_u),
-                               Walk(nz, g, max_u), x, out, o, M);
+template <typename TA, int V, int UNR>
+__global__ void __launch_bounds__(G_THREADS, G_MIN_CTAS)
+bcsr_super_spmm_gather(int RG, const TA* __restrict__ svals,
+                       const int32_t* __restrict__ ucols,
+                       const int32_t* __restrict__ nz,
+                       const float* __restrict__ x, float* __restrict__ out,
+                       int64_t s_begin, int R, int max_u, int64_t M) {
+  const int per = BS / RG;                      // CTAs a row block
+  const int64_t o = blockIdx.x / per;           // output row block
+  const int i0 = (int)(blockIdx.x % per) * RG;  // first row in the block
+  const int64_t g = s_begin * R + o;            // row block of A = s*R + r
+  gather_body<TA, V, UNR>(svals, SuperRows(ucols, g, R, max_u),
+                          Walk(nz, g, max_u), i0, RG, x,
+                          out + (o * BS + i0) * M, M);
 }
 
-template <int BN>
+// The gather kernel's instances, for launch_gather.
+template <typename TA, int V, int UNR>
+struct SuperGather {
+  static constexpr auto fn = &bcsr_super_spmm_gather<TA, V, UNR>;
+};
+
+template <int BN, bool A_F32>
 __global__ void __launch_bounds__(TC_THREADS, 1)
 bcsr_super_spmm_tc(const __grid_constant__ CUtensorMap a_map,
                    const __grid_constant__ CUtensorMap x_map,
@@ -85,19 +100,8 @@ bcsr_super_spmm_tc(const __grid_constant__ CUtensorMap a_map,
                    int64_t s_begin, int R, int max_u, int64_t M) {
   const int64_t o = blockIdx.y;
   const int64_t g = s_begin * R + o;
-  tc_body<BN, false, false>(&a_map, &x_map, SuperRows(ucols, g, R, max_u),
+  tc_body<BN, A_F32, false>(&a_map, &x_map, SuperRows(ucols, g, R, max_u),
                             Walk(nz, g, max_u), out, o, M);
-}
-
-template <typename TA, typename TX, typename TO, bool X_BF16>
-int launch_fma(const void* svals, const int32_t* ucols, const int32_t* nz,
-               const void* x, void* out, int64_t s_begin, int64_t s_end, int R,
-               int max_u, int64_t M, cudaStream_t stream) {
-  const dim3 grid((unsigned)(M / F_BN), (unsigned)((s_end - s_begin) * R));
-  bcsr_super_spmm_fma<TA, TX, TO, X_BF16><<<grid, F_THREADS, 0, stream>>>(
-      static_cast<const TA*>(svals), ucols, nz, static_cast<const TX*>(x),
-      static_cast<TO*>(out), s_begin, R, max_u, M);
-  return (int)cudaGetLastError();
 }
 
 // One launch over the super-rows [s_begin, s_end).
@@ -106,24 +110,33 @@ int launch_range(const void* svals, int a_bf16, const int32_t* ucols,
                  int64_t s_begin, int64_t s_end, int R, int max_u,
                  int64_t x_rows, int64_t M, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && a_bf16)
-    return with_col_tile(tc_col_tile(M), [&](auto bn) {
-      constexpr int BN = decltype(bn)::value;
-      // the rows the range reads; svals' address is the full layout's
-      return launch_tc<BN, false>(
-          bcsr_super_spmm_tc<BN>, svals, (uint64_t)s_end * R * BS,
-          (uint64_t)max_u * BS, x, (uint64_t)x_rows, M, (s_end - s_begin) * R,
-          st, ucols, nz, static_cast<__nv_bfloat16*>(out), s_begin, R, max_u,
-          M);
-    });
-  if (x_bf16)
-    return launch_fma<float, __nv_bfloat16, __nv_bfloat16, true>(
-        svals, ucols, nz, x, out, s_begin, s_end, R, max_u, M, st);
-  if (a_bf16)
-    return launch_fma<__nv_bfloat16, float, float, false>(
-        svals, ucols, nz, x, out, s_begin, s_end, R, max_u, M, st);
-  return launch_fma<float, float, float, false>(
-      svals, ucols, nz, x, out, s_begin, s_end, R, max_u, M, st);
+  const int64_t blocks = (s_end - s_begin) * R;
+  if (!x_bf16) {
+    if (!gather_col_tile(M)) return (int)cudaErrorInvalidValue;
+    const float* xf = static_cast<const float*>(x);
+    float* y = static_cast<float*>(out);
+    if (a_bf16)
+      return launch_gather<__nv_bfloat16, SuperGather>(
+          blocks, M, st, static_cast<const __nv_bfloat16*>(svals), ucols,
+          nz, xf, y, s_begin, R, max_u, M);
+    return launch_gather<float, SuperGather>(
+        blocks, M, st, static_cast<const float*>(svals), ucols, nz, xf, y,
+        s_begin, R, max_u, M);
+  }
+  return with_col_tile(tc_tile(M, a_bf16), [&](auto bn) {
+    constexpr int BN = decltype(bn)::value;
+    // the rows the range reads; svals' address is the full layout's
+    const uint64_t a_rows = (uint64_t)s_end * R * BS;
+    __nv_bfloat16* y = static_cast<__nv_bfloat16*>(out);
+#define LAUNCH_TC(A_F32)                                                    \
+  return launch_tc<BN, A_F32>(bcsr_super_spmm_tc<BN, A_F32>, svals, a_rows, \
+                              (uint64_t)max_u * BS, x, (uint64_t)x_rows, M,  \
+                              blocks, st, ucols, nz, y, s_begin, R, max_u, M)
+    if (a_bf16) LAUNCH_TC(false);
+    if constexpr (BN <= F32A_BN) LAUNCH_TC(true);
+#undef LAUNCH_TC
+    return (int)cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace
@@ -131,10 +144,11 @@ int launch_range(const void* svals, int a_bf16, const int32_t* ucols,
 extern "C" {
 
 // Columns per CTA for x width M in the regime of the operand types (0: the
-// kernel does not take M); the wrapper checks M against it.
+// kernel does not take M); the wrapper checks M against it. bf16 x runs
+// the tensor-core body (at most F32A_BN columns with fp32 A), fp32 x the
+// gather body.
 int bcsr_super_spmm_col_tile(int64_t M, int a_bf16, int x_bf16) {
-  if (a_bf16 && x_bf16) return tc_col_tile(M);
-  return M % F_BN == 0 ? F_BN : 0;
+  return x_bf16 ? tc_tile(M, a_bf16) : gather_col_tile(M);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = success),

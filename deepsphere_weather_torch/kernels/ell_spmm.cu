@@ -64,7 +64,7 @@
 // and ran slower (PERF.md). The TPU kernels' 128x128 tiles, VMEM budget and
 // slot schedule have no counterpart here.
 
-#include "spmm_tc.cuh"   // smem_addr, mbar_init, mbar_expect_tx, mbar_wait
+#include "spmm_tc.cuh"   // bulk_load, mbar_init, mbar_expect_tx, mbar_wait
 
 namespace {
 
@@ -100,15 +100,6 @@ struct EllArgs {
   int64_t r0, r1, M;
   int nb, W, umax, rmax, tiles_per_cta;
 };
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
 
 __device__ __forceinline__ void add_term(float4& acc, float v, float4 xv) {
   acc.x = __fadd_rn(acc.x, __fmul_rn(v, xv.x));

@@ -43,11 +43,48 @@
 // the bf16 output's rounding of 2^-8. The register operands are read until
 // their group ends, so that path keeps no group in flight across stages.
 //
-// FMA body (fp32 x; `fma_body`): plain fp32 FMAs (no TF32: the fp32 path
-// matches the TPU's Precision.HIGHEST), one CTA per row block and 64
-// columns, 16-deep shared-memory slices, the same slot walk. fp32 x widens
-// bf16 A exactly; bf16 x (the super-row layout's fp32-A regime) rounds
-// fp32 A to bf16 first (X_BF16). The output is bf16 for bf16 x, else fp32.
+// Gather body (fp32 x, fp32 or bf16 A; `gather_body`): the product over
+// the nonzero entries of the listed blocks, in plain fp32 FMAs (no TF32:
+// the fp32 path matches the TPU's Precision.HIGHEST). A knn-20 Laplacian's
+// 128x128 block is about 2% filled: at HEALPix-64 a row walks about 1130
+// columns of listed blocks for about 21 nonzeros, so a body that multiplies
+// whole blocks (67 TFLOP/s fp32 without tensor cores) spends 98% of its
+// FMAs on zeros, and its bound, 1.70 ms at x[49152, 1024], lies above
+// torch.sparse.mm's time. This body's bound is memory: the listed A blocks
+// read once (223 MB fp32 at that shape), x and the output (PERF.md). One
+// CTA owns RG rows of one row block (RG = 32, 16 or 8: the largest that
+// gives every SM a CTA; at HEALPix-16's 24 row blocks, 16) and the whole
+// width M:
+//   1. warp 0 keeps a ring of A stages in flight: for each listed slot,
+//      one 1-D bulk async copy (cp.async.bulk) per row of the rows' 128
+//      entries, completing on the stage's full mbarrier; A is thus read
+//      once, not once per column tile;
+//   2. each warp compacts its rows' entries of the arrived slot into
+//      (global column, value) lists in shared memory, 32 columns a warp
+//      ballot, positions by __popc: a row's list keeps the walk's order
+//      (slot after slot, columns increasing within a slot), built on the
+//      device in the launch;
+//   3. then, tile after tile of 64 V columns (V = 4 where M is a multiple
+//      of 256, else 1), a row's 16 lanes gather the x rows its list names
+//      through L1, V float4s each per list entry read, and add v * x in
+//      list order, one fmaf a term.
+// What bounds it in fact (PERF.md): step 3 reads every x element once per
+// nonzero of its column through L1 (21 times at knn-20: 4.2 GB at
+// x[49152, 1024], about 0.13 ms of the SMs' 128 bytes a clock), and steps
+// 1-2 stream A and the output at most 2 CTAs an SM (128 registers a
+// thread); V = 4 feeds four gathers from each list entry and keeps 16 in
+// flight, which measured faster than V = 1 and 2.
+// A row's list holds G_CAP entries; a 32-column unit that would overflow
+// any row of the CTA first flushes: step 3 over the lists so far, adding
+// onto the output written by the previous flush. An fp32 sum stored and
+// read back is the same fp32 sum, so a row's result is one FMA chain over
+// its nonzeros in the walk's order whatever the flushes and RG: a range
+// launch equals the full launch's rows bit for bit. The dense-block sum
+// runs the same chain with a zero product between the terms, which adds an
+// exact zero; it differs in one respect: 0 x inf (or 0 x NaN) gives NaN
+// there and nothing here, where a zero entry of A multiplies nothing (as
+// on the ELL route, ell_spmm.cu). bf16 A widens to fp32 exactly. The
+// output is fp32.
 
 #pragma once
 
@@ -79,101 +116,6 @@ struct Walk {
       : list(nz ? nz + g * (slots + 1) : nullptr), n(list ? list[0] : slots) {}
   __device__ int slot(int i) const { return list ? list[1 + i] : i; }
 };
-
-// ---------------------------------------------------------------------------
-// fp32 FMA body (fp32 x, and the super-row layout's fp32 A against bf16 x)
-// ---------------------------------------------------------------------------
-
-constexpr int F_BM = 128;   // output rows per CTA (one row block)
-constexpr int F_BN = 64;    // output columns per CTA
-constexpr int F_BK = 16;    // depth of one shared-memory stage
-constexpr int F_TM = 8;     // rows per thread
-constexpr int F_TN = 4;     // columns per thread
-constexpr int F_THREADS = (F_BM / F_TM) * (F_BN / F_TN);   // 256
-constexpr int F_APAD = 4;   // keeps the transposed A stores 2-way at worst
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// A operand as the product sees it: fp32 A against bf16 x is rounded to
-// bf16 first (the TPU kernel casts A to the bf16 regime's dtype).
-template <typename TA, bool X_BF16>
-__device__ __forceinline__ float a_operand(TA v) {
-  float f = to_f32(v);
-  if (X_BF16) f = __bfloat162float(__float2bfloat16(f));
-  return f;
-}
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// Output row block o (blockIdx.y) x 64 columns (blockIdx.x) of A @ x.
-template <typename TA, typename TX, typename TO, bool X_BF16, class Rows>
-__device__ __forceinline__ void fma_body(const TA* __restrict__ a,
-                                         const Rows& rows, const Walk& walk,
-                                         const TX* __restrict__ x,
-                                         TO* __restrict__ out, int64_t o,
-                                         int64_t M) {
-  __shared__ __align__(16) float As[F_BK][F_BM + F_APAD];
-  __shared__ __align__(16) float Bs[F_BK][F_BN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (F_BN / F_TN);      // 0..15: column group
-  const int ty = tid / (F_BN / F_TN);      // 0..15: row group
-  const int64_t col0 = (int64_t)blockIdx.x * F_BN;
-  const int64_t K = rows.stride;           // row stride of A's 2-D view
-
-  // loader coordinates
-  const int a_k = tid % F_BK;              // A: 16 consecutive k per row
-  const int a_i = tid / F_BK;              // rows a_i + 16*p
-  const int b_c = tid % F_BN;              // x: 64 consecutive columns
-  const int b_k = tid / F_BN;              // k rows b_k + 4*p
-
-  float acc[F_TM][F_TN];
-#pragma unroll
-  for (int i = 0; i < F_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < F_TN; ++j) acc[i][j] = 0.f;
-
-  for (int n = 0; n < walk.n; ++n) {
-    const int u = walk.slot(n);
-    const int64_t c = rows.col(u);
-    const TA* a_slot = a + (int64_t)rows.a_row(u) * K + rows.a_col(u);
-    const TX* x_slot = x + c * BS * M + col0;
-    for (int kk = 0; kk < BS; kk += F_BK) {
-#pragma unroll
-      for (int p = 0; p < F_BM / (F_THREADS / F_BK); ++p) {
-        const int i = a_i + p * (F_THREADS / F_BK);
-        As[a_k][i] = a_operand<TA, X_BF16>(a_slot[(int64_t)i * K + kk + a_k]);
-      }
-#pragma unroll
-      for (int p = 0; p < F_BK / (F_THREADS / F_BN); ++p) {
-        const int k = b_k + p * (F_THREADS / F_BN);
-        Bs[k][b_c] = to_f32(x_slot[(int64_t)(kk + k) * M + b_c]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < F_BK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * F_TM]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&As[k][ty * F_TM + 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * F_TN]);
-        const float av[F_TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float bv[F_TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < F_TM; ++i)
-#pragma unroll
-          for (int j = 0; j < F_TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  TO* y = out + (o * F_BM + ty * F_TM) * M + col0 + tx * F_TN;
-#pragma unroll
-  for (int i = 0; i < F_TM; ++i)
-#pragma unroll
-    for (int j = 0; j < F_TN; ++j) store_out(y + (int64_t)i * M + j, acc[i][j]);
-}
 
 // ---------------------------------------------------------------------------
 // Tensor-core body (bf16 x): TMA ring + wgmma
@@ -517,12 +459,272 @@ __device__ __forceinline__ void tc_body(const CUtensorMap* a_map,
 }
 
 // ---------------------------------------------------------------------------
+// Gather body (fp32 x): A's nonzeros compacted on the device, x gathered
+// ---------------------------------------------------------------------------
+
+constexpr int G_THREADS = 256;            // 8 warps
+constexpr int G_WARPS = G_THREADS / 32;
+constexpr int G_MIN_CTAS = 2;             // CTAs an SM: at most 128 registers
+constexpr int G_LANES = 16;               // lanes a row: a half-warp
+constexpr int G_BN = 64;                  // columns of the narrowest tile
+constexpr int G_CAP = 64;                 // list entries a row holds
+constexpr int G_MAX_RG = 32;              // rows of a CTA at most
+constexpr int G_MAX_STAGES = 4;
+constexpr int G_RING = 32768;             // bytes of A stages at most
+constexpr int G_LISTS = 256;              // mbarriers and list lengths first
+
+static_assert(G_MAX_RG <= 32, "warp 0 copies one row a lane");
+static_assert(G_CAP >= 32, "a 32-column unit must fit an empty list");
+
+// Where a CTA's shared memory goes: the stages' full mbarriers and the
+// rows' list lengths, the lists ((column, value bits) pairs), the ring of
+// A stages (RG rows of one slot each; as many as G_RING holds, at most
+// G_MAX_STAGES).
+struct GatherSmem {
+  int lists, ring, stage, stages, bytes;
+  __host__ __device__ GatherSmem(int RG, int a_size) {
+    lists = G_LISTS;
+    ring = (lists + RG * G_CAP * 8 + 127) / 128 * 128;
+    stage = RG * BS * a_size;
+    stages = G_RING / stage < G_MAX_STAGES ? G_RING / stage : G_MAX_STAGES;
+    bytes = ring + stages * stage;
+  }
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// One 1-D bulk async copy into shared memory; completion counts on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float v, float4 x) {
+  acc.x = fmaf(v, x.x, acc.x);
+  acc.y = fmaf(v, x.y, acc.y);
+  acc.z = fmaf(v, x.z, acc.z);
+  acc.w = fmaf(v, x.w, acc.w);
+}
+
+// Step 3 over the lists so far: out[r, :] (+)= sum_j v_j * x[c_j, :] for
+// the CTA's rows, tile after tile of 64 V columns; `more` adds onto what
+// the previous flush wrote. A row's 16 lanes take V float4s each, 64
+// columns apart (16 lanes read 256 contiguous bytes of an x row), so a
+// warp covers two rows of a tile and each list entry read feeds V
+// gathers; UNR entries' gathers are in flight before their FMAs.
+template <int V, int UNR>
+__device__ __forceinline__ void gather_flush(const int* cnt,
+                                             const int2* lists, int RG,
+                                             const float* __restrict__ x,
+                                             float* __restrict__ out,
+                                             int64_t M, bool more) {
+  constexpr int T = G_BN * V;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pairs = RG / 2;
+  const int items = (int)(M / T) * pairs;
+  for (int item = warp; item < items; item += G_WARPS) {
+    const int r = (item % pairs) * 2 + lane / G_LANES;
+    const int64_t c = (int64_t)(item / pairs) * T + (lane % G_LANES) * 4;
+    const int n = cnt[r];
+    const int2* e = lists + r * G_CAP;
+    float* o = out + r * M + c;
+    float4 acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      acc[v] = more ? *reinterpret_cast<const float4*>(o + G_BN * v)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* xc = x + c;
+    int j = 0;
+    for (; j + UNR <= n; j += UNR) {
+      int2 p[UNR];
+      float4 xv[UNR][V];
+#pragma unroll
+      for (int q = 0; q < UNR; ++q) {
+        p[q] = e[j + q];
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          xv[q][v] = __ldg(reinterpret_cast<const float4*>(
+              xc + (int64_t)p[q].x * M + G_BN * v));
+      }
+#pragma unroll
+      for (int q = 0; q < UNR; ++q)
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          fma4(acc[v], __int_as_float(p[q].y), xv[q][v]);
+    }
+    for (; j < n; ++j) {
+      const int2 p = e[j];
+      float4 xv[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        xv[v] = __ldg(reinterpret_cast<const float4*>(
+            xc + (int64_t)p.x * M + G_BN * v));
+#pragma unroll
+      for (int v = 0; v < V; ++v) fma4(acc[v], __int_as_float(p.y), xv[v]);
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v)
+      *reinterpret_cast<float4*>(o + G_BN * v) = acc[v];
+  }
+}
+
+// Rows i0 .. i0 + RG - 1 of one row block (`rows`, `walk`) of A @ x, x
+// fp32 [x_rows, M] (M % (64 V) == 0, 16-byte aligned), into out, which
+// points at the CTA's first output row. RG divides 128 and is at most
+// G_MAX_RG.
+template <typename TA, int V, int UNR, class Rows>
+__device__ __forceinline__ void gather_body(const TA* __restrict__ a,
+                                            const Rows& rows, const Walk& walk,
+                                            int i0, int RG,
+                                            const float* __restrict__ x,
+                                            float* __restrict__ out,
+                                            int64_t M) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const GatherSmem sm(RG, (int)sizeof(TA));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  int* cnt = reinterpret_cast<int*>(smem + G_MAX_STAGES * 8);
+  int2* lists = reinterpret_cast<int2*>(smem + sm.lists);
+  uint8_t* ring = smem + sm.ring;
+  constexpr int ROW_BYTES = BS * (int)sizeof(TA);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < sm.stages; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp 0: slot n's rows into stage n % stages
+  auto issue = [&](int n) {
+    const int u = walk.slot(n);
+    const int s = n % sm.stages;
+    if (lane == 0) mbar_expect_tx(&full[s], (uint32_t)sm.stage);
+    __syncwarp();
+    if (lane < RG)
+      bulk_load(ring + s * sm.stage + lane * ROW_BYTES,
+                a + (int64_t)(rows.a_row(u) + i0 + lane) * rows.stride +
+                    rows.a_col(u),
+                ROW_BYTES, &full[s]);
+  };
+  if (warp == 0)
+    for (int n = 0; n < walk.n && n < sm.stages; ++n) issue(n);
+
+  // warp w compacts rows w + 8k; their list lengths live in registers and
+  // go to shared memory for a flush
+  constexpr int K = G_MAX_RG / G_WARPS;
+  int len[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) len[k] = 0;
+  bool flushed = false;
+  auto flush = [&]() {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (warp + G_WARPS * k < RG && lane == 0) cnt[warp + G_WARPS * k] = len[k];
+    __syncthreads();
+    gather_flush<V, UNR>(cnt, lists, RG, x, out, M, flushed);
+    flushed = true;
+    __syncthreads();   // the lists are read before they are written again
+#pragma unroll
+    for (int k = 0; k < K; ++k) len[k] = 0;
+  };
+
+  for (int n = 0; n < walk.n; ++n) {
+    const int s = n % sm.stages;
+    mbar_wait(&full[s], (uint32_t)((n / sm.stages) & 1));
+    const TA* st = reinterpret_cast<const TA*>(ring + s * sm.stage);
+    const int col0 = rows.col(walk.slot(n)) * BS;
+    // the ballot of each row's 32-column units, and the values
+    float v[K][4];
+    uint32_t b[K][4];
+    bool over = false;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int r = warp + G_WARPS * k;
+      if (r < RG) {   // warp-uniform
+        int total = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[k][q] = to_f32(st[r * BS + 32 * q + lane]);
+          b[k][q] = __ballot_sync(0xffffffffu, v[k][q] != 0.f);
+          total += __popc(b[k][q]);
+        }
+        over |= len[k] + total > G_CAP;
+      }
+    }
+    if (!__syncthreads_or(over)) {
+      // every warp has read stage s: its next slot may come in
+      if (warp == 0 && n + sm.stages < walk.n) issue(n + sm.stages);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int r = warp + G_WARPS * k;
+          if (r < RG) {
+            if (v[k][q] != 0.f)
+              lists[r * G_CAP + len[k] +
+                    __popc(b[k][q] & ((1u << lane) - 1u))] =
+                  make_int2(col0 + 32 * q + lane, __float_as_int(v[k][q]));
+            len[k] += __popc(b[k][q]);
+          }
+        }
+      continue;
+    }
+    // a row's list would overflow within this slot: unit by unit, a flush
+    // first where a unit would overflow one; the values are read again
+    // from stage s, which stays until the slot is done, so that none is
+    // held across a flush
+    for (int q = 0; q < 4; ++q) {
+      bool o = false;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int r = warp + G_WARPS * k;
+        if (r < RG)
+          o |= len[k] + __popc(__ballot_sync(
+                   0xffffffffu, to_f32(st[r * BS + 32 * q + lane]) != 0.f))
+               > G_CAP;
+      }
+      if (__syncthreads_or(o)) flush();
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int r = warp + G_WARPS * k;
+        if (r < RG) {
+          const float a_rq = to_f32(st[r * BS + 32 * q + lane]);
+          const uint32_t bq = __ballot_sync(0xffffffffu, a_rq != 0.f);
+          if (a_rq != 0.f)
+            lists[r * G_CAP + len[k] + __popc(bq & ((1u << lane) - 1u))] =
+                make_int2(col0 + 32 * q + lane, __float_as_int(a_rq));
+          len[k] += __popc(bq);
+        }
+      }
+    }
+    __syncthreads();   // every warp has read stage s
+    if (warp == 0 && n + sm.stages < walk.n) issue(n + sm.stages);
+  }
+  flush();
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
 // Columns per CTA of the tensor-core body for x width M (0: unsupported).
 inline int tc_col_tile(int64_t M) {
   return M % 256 == 0 ? 256 : M % 128 == 0 ? 128 : M % 64 == 0 ? 64 : 0;
+}
+
+// Widest column tile of the tensor-core body with fp32 A: at 256 columns
+// the 128 accumulators a thread and the split A fragments spill.
+constexpr int F32A_BN = 128;
+
+// Columns per CTA of the tensor-core body (bf16 x) for width M and A's type.
+inline int tc_tile(int64_t M, int a_bf16) {
+  const int tile = tc_col_tile(M);
+  return a_bf16 || tile <= F32A_BN ? tile : F32A_BN;
 }
 
 // f(std::integral_constant<int, BN>()) for the column tile `tile`.
@@ -534,6 +736,42 @@ int with_col_tile(int tile, F&& f) {
     case 64: return f(std::integral_constant<int, 64>());
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// Columns of the gather body's tile for width M (0: unsupported).
+inline int gather_col_tile(int64_t M) { return M % G_BN == 0 ? G_BN : 0; }
+
+// Rows a CTA of the gather body owns for a launch over `blocks` row
+// blocks: the largest of 32, 16, 8 that gives every SM a CTA.
+inline int gather_rows(int64_t blocks) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 132;
+  int RG = G_MAX_RG;
+  while (RG > 8 && blocks * (BS / RG) < (int64_t)sms) RG /= 2;
+  return RG;
+}
+
+// Launch the gather-body kernel K<TA, V, UNR>::fn (taking its row-group
+// size, then `args`) over `blocks` row blocks: V = 4 float4s a lane where
+// M is a multiple of 256 columns, else 1.
+template <typename TA, template <typename, int, int> class K,
+          typename... Args>
+int launch_gather(int64_t blocks, int64_t M, cudaStream_t stream,
+                  Args... args) {
+  const int RG = gather_rows(blocks);
+  const GatherSmem sm(RG, (int)sizeof(TA));
+  auto go = [&](auto kernel) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm.bytes);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<(unsigned)(blocks * (BS / RG)), G_THREADS, sm.bytes, stream>>>(
+        RG, args...);
+    return (int)cudaGetLastError();
+  };
+  return M % (4 * G_BN) == 0 ? go(K<TA, 4, 4>::fn) : go(K<TA, 1, 8>::fn);
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,

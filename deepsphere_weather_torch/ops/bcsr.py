@@ -15,7 +15,9 @@ Port of `deepsphere_weather_tpu/ops/pallas_spmm.py`:
 - `bcsr_super_spmm`: the super-row product over the listed slots. On a
   CUDA tensor it launches the CUDA kernel `kernels/bcsr_super_spmm.cu`
   (or raises); on a CPU tensor it runs the plain PyTorch version
-  `bcsr_super_spmm_reference`.
+  `bcsr_super_spmm_reference`. `spmm_regime` names the kernel body a
+  launch runs for the operand types (bf16 x: the tensor cores; fp32 x: a
+  gather over A's nonzero entries), `spmm_col_tile` the widths it takes.
 - `bcsr_spmm`: the plain-BCSR product over the listed slots, the same
   way: the CUDA kernel `kernels/bcsr_spmm.cu` or `bcsr_spmm_reference`.
 - `bcsr_super_spmm_rows`, `bcsr_spmm_rows`: the same products over a
@@ -27,8 +29,9 @@ Port of `deepsphere_weather_tpu/ops/pallas_spmm.py`:
   or a range of rows against the full x: the CUDA kernel
   `kernels/ell_spmm.cu` on a CUDA tensor (or raise), the plain versions
   `ell_spmm_reference`, `ell_spmm_rows_reference` on a CPU tensor. It is
-  the fp32 regime of K1, K2 and K3: a 128x128 block of a knn Laplacian is
-  about 2% filled, and the block kernels' fp32 body multiplied all of it.
+  the fp32 route of every fp32 operator (K1, K2 and K3's fp32 regime on
+  the nonzeros held row by row; the block kernels' own fp32 entries
+  gather over the nonzeros of their blocks).
 - `EllOperator`: the ELL operator (JAX's `ell_matvec`, the ELL mode of
   `ChebOperator`), with the gradient of `BlockSparseOperator`.
 - `BlockSparseOperator`: the operator a Chebyshev convolution calls,
@@ -73,6 +76,7 @@ __all__ = ["bcsr_from_scipy", "bcsr_super_from_scipy", "super_nonzero_slots",
            "ell_spmm_rows_reference", "EllTables", "ell_tables", "ell_plan",
            "BlockSparseOperator", "ShardedBlockSparseOperator", "EllOperator",
            "spmm", "spmm_rows", "spmm_ell", "spmm_rows_ell",
+           "spmm_regime", "spmm_col_tile",
            "launch_counts", "reset_launch_counts"]
 
 _BS = 128
@@ -296,6 +300,49 @@ def _check_range(begin, end, n, x, what):
                          f"{x.shape[0]} rows")
 
 
+def spmm_regime(a_dtype: torch.dtype, x_dtype: torch.dtype,
+                super_layout: bool = True, round_a: bool = True) -> str:
+    """The body a CUDA launch of `bcsr_super_spmm` (`super_layout`) or
+    `bcsr_spmm`, whole or a row range, runs for A blocks stored in
+    `a_dtype` against x in `x_dtype` (float32 or bfloat16 each; raises
+    TypeError otherwise):
+
+    - "tensor cores": bf16 A, bf16 x (wgmma);
+    - "tensor cores, A rounded": fp32 A rounded to bf16 in registers
+      against bf16 x, the TPU kernels' cast (K1, and K3 with `round_a`);
+    - "tensor cores, A split": fp32 A as bf16 hi + lo against bf16 x, the
+      interpreter kernel's fp32 A (K4: the plain layout without
+      `round_a`);
+    - "gather": fp32 x against fp32 or bf16 A (widened exactly), fp32
+      FMAs over the nonzero entries of the listed blocks alone.
+
+    The output is bf16 for bf16 x, else fp32. The plain versions compute
+    the same functions on the CPU."""
+    for dt in (a_dtype, x_dtype):
+        if dt not in (torch.float32, torch.bfloat16):
+            raise TypeError("the A blocks and x must be float32 or bfloat16")
+    if x_dtype == torch.float32:
+        return "gather"
+    if a_dtype == torch.bfloat16:
+        return "tensor cores"
+    return ("tensor cores, A rounded" if super_layout or round_a
+            else "tensor cores, A split")
+
+
+def spmm_col_tile(M: int, a_dtype: torch.dtype, x_dtype: torch.dtype) -> int:
+    """Columns a CTA of the block layouts' kernels takes at x width M in
+    the regime of the operand types (`spmm_regime`); 0 where the kernel
+    does not take M. The tensor-core bodies: 256, 128 or 64 by M alone, at
+    most 128 with fp32 A (256 spills); the gather body: 64. A launch
+    needs M a multiple of it (`matvec` pads to 128 columns). The kernels'
+    own `*_col_tile` entries answer the same on the card."""
+    regime = spmm_regime(a_dtype, x_dtype)
+    if regime == "gather":
+        return 64 if M % 64 == 0 else 0
+    tile = next((t for t in (256, 128, 64) if M % t == 0), 0)
+    return tile if a_dtype == torch.bfloat16 else min(tile, 128)
+
+
 def _check_launch(k, name, tensors, M, a_bf16, x_bf16):
     tile = getattr(k.lib, f"{name}_col_tile")(M, a_bf16, x_bf16)
     if not tile or M % tile:
@@ -304,6 +351,11 @@ def _check_launch(k, name, tensors, M, a_bf16, x_bf16):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the A blocks, their columns, x and the slot list "
                          "must be contiguous")
+    # the gather body copies A rows and reads x in 16-byte units (the
+    # tensor-core body's descriptors raise on a misaligned x themselves)
+    a, _, x = tensors[:3]
+    if not x_bf16 and (a.data_ptr() % 16 or x.data_ptr() % 16):
+        raise ValueError("the A blocks and x must be 16-byte aligned")
 
 
 def _raise_on(k, name, err):
@@ -416,12 +468,15 @@ def bcsr_super_spmm(svals: torch.Tensor, ucols: torch.Tensor,
                     x: torch.Tensor,
                     nz: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = A @ x for A in super-row BCSR; x [n_s*R*128, M], M a multiple
-    of the kernel's column tile (64 does for every regime). `nz`
-    (`super_nonzero_slots`) lists the slots each row block walks; None
-    walks every slot.
+    of the kernel's column tile (`spmm_col_tile`; 64 does for every
+    regime). `nz` (`super_nonzero_slots`) lists the slots each row block
+    walks; None walks every slot.
 
     CUDA tensors run the hand-written kernel (a failed build, descriptor
-    encode or launch raises); CPU tensors run `bcsr_super_spmm_reference`."""
+    encode or launch raises) in the body `spmm_regime` names: the tensor
+    cores for bf16 x (fp32 A rounded to bf16), the gather over A's
+    nonzero entries for fp32 x (bf16 A widened); CPU tensors run
+    `bcsr_super_spmm_reference`, the same function."""
     _check_args(svals, ucols, x, nz)
     if not x.is_cuda:
         return bcsr_super_spmm_reference(svals, ucols, x, nz)
@@ -503,13 +558,16 @@ def bcsr_spmm(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
               nz: Optional[torch.Tensor] = None,
               round_a: bool = True) -> torch.Tensor:
     """y = A @ x for A in plain padded BCSR; x [n_rb*128, M], M a multiple
-    of the kernel's column tile (64 does for every regime). `nz`
-    (`plain_nonzero_slots`) lists the slots each row block walks; None
-    walks every slot.
+    of the kernel's column tile (`spmm_col_tile`; 64 does for every
+    regime). `nz` (`plain_nonzero_slots`) lists the slots each row block
+    walks; None walks every slot.
 
     CUDA tensors run the hand-written kernel (a failed build, descriptor
-    encode or launch raises); CPU tensors run `bcsr_spmm_reference`.
-    `round_a` as there."""
+    encode or launch raises) in the body `spmm_regime` names: the tensor
+    cores for bf16 x (fp32 A rounded to bf16 with `round_a`, split into
+    bf16 hi + lo without), the gather over A's nonzero entries for fp32 x
+    (bf16 A widened); CPU tensors run `bcsr_spmm_reference`, the same
+    function. `round_a` as there."""
     _check_plain_args(vals, cols, x, nz)
     if not x.is_cuda:
         return bcsr_spmm_reference(vals, cols, x, nz, round_a)

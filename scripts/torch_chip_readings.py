@@ -10,6 +10,9 @@ chip_smoke.py:
     python3 scripts/torch_chip_readings.py remat
     python3 scripts/torch_chip_readings.py members TAG
     python3 scripts/torch_chip_readings.py remap
+    python3 scripts/torch_chip_readings.py frag [M]
+    python3 scripts/torch_chip_readings.py alloc
+    python3 scripts/torch_chip_readings.py gather
 
 gaps  The slice phase's card-vs-CPU forward check (HEALPix-16 bf16 flagship,
       batch 16, the CPU taking the card's ReLU and max-pool decisions) at
@@ -69,6 +72,45 @@ remap The host work of the ingest and geometry layers on the card
       (chip_smoke's `_bulk_vs_chunks`) on protocol16's store (the port's
       `cli.prepare_toy_data` at HEALPix-16, 1460 six-hour steps): equal,
       seconds, bytes. One line `REMAP {json}`.
+frag  The largest member stack on the allocator settings the port itself
+      asks for. The shipped Healpix_100km MaxPool knn configuration's member
+      step (fp32 HEALPix-64, batch 16, AR6 RNN, remat, its lr and
+      clipping; chip_smoke's ens64 weights, seeds 1000 + m, and batch) of
+      M members (7 by default), one step in each of two fresh processes,
+      both of which call `_device.ask_expandable_segments()` first, as the
+      port's entry points do: (a) with PYTORCH_CUDA_ALLOC_CONF=
+      expandable_segments:False in its environment, the allocator's
+      default segments, which the port leaves as the user set them; the
+      allocator's history recorded over the step
+      (`torch.cuda.memory._record_memory_history`); if the step runs out
+      of memory, the error, the allocator's counters and, from
+      `torch.cuda.memory._snapshot()` at the failure, its segments (size,
+      free bytes, largest free block) and the tensors whose freed blocks
+      make up the free bytes, by the port frames that allocated them
+      (sizes summed); (b) with no variable: the port asks for expandable
+      segments; the step's own peak past its start and its ms. One line
+      `FRAG {json}` per process, then one line `FRAG_BOTH {json}`.
+alloc What the port's allocator setting costs a step: the shipped
+      Healpix_100km MaxPool knn configuration's single train step (fp32
+      HEALPix-64, batch 16, AR6 RNN, remat, ens64's weights of member 0
+      and batch), in one fresh process on the default segments
+      (PYTORCH_CUDA_ALLOC_CONF=expandable_segments:False, which the port
+      keeps) and one on the port's own setting, in turns (default, port,
+      port, default): 3 steps, then 3 more timed on a warm allocator
+      cache (host clock to torch.cuda.synchronize(), the best), then one
+      timed right after torch.cuda.empty_cache(), which hands the cached
+      memory back (a step after it must map its pages again with
+      expandable segments, or allocate them again with the default). One
+      line `ALLOC {json}` per process.
+gather The block layouts' fp32-x and mixed regimes (`spmm_regime`: the
+      gather body; fp32 A rounded to bf16 against bf16 x on the tensor
+      cores) per launch at x[3072, 1024] and x[49152, 1024] (HEALPix-16
+      and -64 level 0): K1 and K3 with fp32 and bf16-stored A against fp32
+      x, K2's and K3's row ranges (rows [0, n/2)), K1 with fp32 A against
+      bf16 x; each held to its plain version (chip_smoke's `measure`: the
+      fp32 bar 1e-5, bf16 2e-2) and timed (`device_ms`) beside
+      torch.sparse.mm on the same matrix and its bound. One line
+      `GATHER {json}`.
 """
 
 import json
@@ -406,9 +448,266 @@ def remap(device):
     print("REMAP " + json.dumps(out), flush=True)
 
 
+def _stack_step(device, n_members):
+    """One step of chip_smoke's ens64 member step of `n_members` members
+    (a callable) and the model."""
+    from deepsphere_weather_torch.data.ar import ARIndexer
+    from deepsphere_weather_torch.engine import Adam, make_member_train_step
+    from deepsphere_weather_torch.models import MemberStack
+
+    cfg = c._grids_config(c.ENS64_CONFIG)
+    ts, ar = cfg["training_settings"], cfg["ar_settings"]
+    model = c.grids_model(device, cfg, ts["numeric_precision"]).train()
+    indexer = ARIndexer.build(ar["input_k"], ar["output_k"],
+                              ar["forecast_cycle"], ar["ar_iterations"])
+    data = c.train_batch(indexer, model.input_n_node,
+                         ts["training_batch_size"], device, c.SEED + 80)
+    _, area_w, w = c.train_setup(model, ar["ar_iterations"])
+    stack = MemberStack.from_states(
+        model, [c.train_params(model, c.ENS64_SEED + m)
+                for m in range(n_members)])
+    step = make_member_train_step(
+        stack, indexer, Adam(stack.parameters(), lr=ts["learning_rate"],
+                             eps=c.ENS_CHECK_EPS,
+                             gradient_clipping=ts["gradient_clipping"],
+                             member_axis=True),
+        ar["ar_iterations"] + 1, ts["ar_training_strategy"], remat=True)
+    return lambda: step(data, w, area_w)
+
+
+def _live(snap, top=10):
+    """The snapshot's largest live blocks, by the port frames that
+    allocated them."""
+    blocks = [b for seg in snap["segments"] for b in seg["blocks"]
+              if b["state"] == "active_allocated"]
+    blocks.sort(key=lambda b: -b["size"])
+    return [{"mib": b["size"] / 2 ** 20, "frames": "; ".join(
+        f"{os.path.basename(f['filename'])}:{f['line']} {f['name']}"
+        for f in b.get("frames", [])
+        if "deepsphere_weather_torch" in f["filename"])[:400]}
+        for b in blocks[:top]]
+
+
+def _holes(snap):
+    """The free bytes of the snapshot's segments, by what last held them:
+    for each inactive block, the last recorded allocation that began at
+    its address, by the port frames that made it."""
+    allocs = {}
+    for trace in snap["device_traces"]:
+        for e in trace:
+            if e["action"] == "alloc":
+                allocs[e["addr"]] = e
+    by_frames, segments = {}, []
+    for seg in snap["segments"]:
+        free = [b for b in seg["blocks"] if b["state"] == "inactive"]
+        segments.append({
+            "mib": seg["total_size"] / 2 ** 20,
+            "free_mib": sum(b["size"] for b in free) / 2 ** 20,
+            "largest_free_mib": max([b["size"] for b in free], default=0)
+            / 2 ** 20})
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            if b["state"] == "inactive":
+                held = allocs.get(addr)
+                key = "; ".join(
+                    f"{os.path.basename(f['filename'])}:{f['line']} "
+                    f"{f['name']}" for f in (held or {}).get("frames", [])
+                    if "deepsphere_weather_torch" in f["filename"])[:400]
+                entry = by_frames.setdefault(
+                    key or ("(no port frame)" if held else "(no record)"),
+                    {"mib": 0.0, "blocks": 0, "held_mib": 0.0})
+                entry["mib"] += b["size"] / 2 ** 20
+                entry["blocks"] += 1
+                entry["held_mib"] += (held or {}).get("size", 0) / 2 ** 20
+            addr += b["size"]
+    segments.sort(key=lambda g: -g["free_mib"])
+    return {"segments": len(segments),
+            "segment_mib": sum(g["mib"] for g in segments),
+            "free_mib": sum(g["free_mib"] for g in segments),
+            "largest_segments_by_free": segments[:12],
+            "free_by_allocation": sorted(
+                ({"frames": k, **v} for k, v in by_frames.items()),
+                key=lambda e: -e["mib"])[:12]}
+
+
+def frag_one(device, mode, n_members):
+    import time
+
+    from deepsphere_weather_torch._device import ask_expandable_segments
+
+    out = {"mode": mode, "members": n_members, "card": c.card(),
+           "asked": ask_expandable_segments(),
+           "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "")}
+    c.phase_build()
+    step = _stack_step(device, n_members)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    out["held_gib"] = base / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    at_oom = {}
+    if mode == "default":
+        torch.cuda.memory._record_memory_history(stacks="python",
+                                                 max_entries=2_000_000)
+
+        def observer(dev, alloc, device_allocated, device_free):
+            # the allocator's state at the failure, before any unwinding
+            at_oom.update(snap=torch.cuda.memory._snapshot(),
+                          stats=torch.cuda.memory_stats(),
+                          request_gib=alloc / 2 ** 30)
+        torch._C._cuda_attach_out_of_memory_observer(observer)
+    t0 = time.perf_counter()
+    try:
+        step()
+        torch.cuda.synchronize()
+        out["step_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["own_peak_gib"] = (torch.cuda.max_memory_allocated()
+                               - base) / 2 ** 30
+    except torch.OutOfMemoryError as e:
+        out["oom"] = str(e).splitlines()[0][:600]
+        if at_oom:
+            stats = at_oom["stats"]
+            out["at_oom"] = {k: stats.get(k, 0) / 2 ** 30 for k in (
+                "allocated_bytes.all.current", "reserved_bytes.all.current",
+                "inactive_split_bytes.all.current",
+                "allocated_bytes.all.peak")}
+            out["request_gib"] = at_oom["request_gib"]
+            out["num_alloc_retries"] = stats.get("num_alloc_retries", 0)
+            out["holes"] = _holes(at_oom["snap"])
+            out["largest_live"] = _live(at_oom["snap"])
+    finally:
+        if mode == "default":
+            torch.cuda.memory._record_memory_history(enabled=None)
+    out["reserved_peak_gib"] = torch.cuda.max_memory_reserved() / 2 ** 30
+    print("FRAG " + json.dumps(out), flush=True)
+
+
+def alloc_one(device, mode):
+    import time
+
+    from deepsphere_weather_torch._device import ask_expandable_segments
+    from deepsphere_weather_torch.data.ar import ARIndexer
+    from deepsphere_weather_torch.engine import Adam, make_train_step
+
+    out = {"mode": mode, "card": c.card(), "asked": ask_expandable_segments(),
+           "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "")}
+    c.phase_build()
+    cfg = c._grids_config(c.ENS64_CONFIG)
+    ts, ar = cfg["training_settings"], cfg["ar_settings"]
+    model = c.grids_model(device, cfg, ts["numeric_precision"]).train()
+    model.load_state_dict(c.train_params(model, c.ENS64_SEED))
+    indexer = ARIndexer.build(ar["input_k"], ar["output_k"],
+                              ar["forecast_cycle"], ar["ar_iterations"])
+    data = c.train_batch(indexer, model.input_n_node,
+                         ts["training_batch_size"], device, c.SEED + 80)
+    _, area_w, w = c.train_setup(model, ar["ar_iterations"])
+    step = make_train_step(
+        model, indexer, Adam(model.parameters(), lr=ts["learning_rate"],
+                             eps=c.ENS_CHECK_EPS,
+                             gradient_clipping=ts["gradient_clipping"]),
+        ar["ar_iterations"] + 1, ts["ar_training_strategy"], remat=True)
+
+    def timed():
+        t0 = time.perf_counter()
+        step(data, w, area_w)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+    for _ in range(3):
+        timed()
+    out["warm_ms"] = [timed() for _ in range(3)]
+    torch.cuda.empty_cache()
+    out["after_empty_cache_ms"] = timed()
+    print("ALLOC " + json.dumps(out), flush=True)
+
+
+def alloc():
+    import subprocess
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as cache:
+        for mode in ("default", "port", "port", "default"):
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("PYTORCH_CUDA_ALLOC_CONF",
+                                "PYTORCH_ALLOC_CONF")}
+            env["DSW_TPU_CACHE"] = cache
+            if mode == "default":
+                env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:False"
+            proc = subprocess.run(
+                [sys.executable, __file__, "alloc_one", mode], env=env,
+                capture_output=True, text=True, timeout=900)
+            print("\n".join(ln for ln in proc.stdout.splitlines()
+                            if ln.startswith("ALLOC ")) or
+                  f"ALLOC {mode} rc {proc.returncode}: "
+                  + proc.stderr[-1500:], flush=True)
+
+
+def frag(n_members):
+    import subprocess
+    import tempfile
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as cache:
+        for mode in ("default", "port"):
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("PYTORCH_CUDA_ALLOC_CONF",
+                                "PYTORCH_ALLOC_CONF")}
+            env["DSW_TPU_CACHE"] = cache
+            if mode == "default":
+                env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:False"
+            proc = subprocess.run(
+                [sys.executable, __file__, "frag_one", mode,
+                 str(n_members)], env=env, capture_output=True, text=True,
+                timeout=1200)
+            lines = [ln for ln in proc.stdout.splitlines()
+                     if ln.startswith("FRAG ")]
+            print("\n".join(lines), flush=True)
+            runs[mode] = {"rc": proc.returncode,
+                          "stderr_tail": proc.stderr[-1500:]
+                          if proc.returncode else ""}
+    print("FRAG_BOTH " + json.dumps(runs), flush=True)
+
+
+def gather(device):
+    from deepsphere_weather_torch.ops import BlockSparseOperator
+
+    subdivs = (c.SLICE_SUBDIV, c.BIG_SUBDIV)
+    out = {"card": c.card(), "fp32_a": {}}
+    rng = np.random.default_rng(c.SEED)
+    for subdiv in subdivs:
+        L = c._laplacian(subdiv)
+        n = L.shape[0]
+        x = torch.from_numpy(rng.standard_normal(
+            (n, c.MATVEC_WIDTH)).astype(np.float32)).to(device)
+        for rps in (2, 0):
+            op = BlockSparseOperator.from_scipy(L, rows_per_super=rps,
+                                                device=device)
+            r = c.measure(op, L, x, device, f"HEALPix-{subdiv}")
+            r.pop("y")
+            print(f"{c._layout(op)[0]} HEALPix-{subdiv} fp32 A, fp32 x[{n}, "
+                  f"{c.MATVEC_WIDTH}]: vs plain version rel "
+                  f"{r['rel_err_plain']:.3e} max abs {r['max_abs_err']:.3e}; "
+                  + c._verdict(r), flush=True)
+            out["fp32_a"].setdefault(c._layout(op)[0], {})[
+                f"x{n}_{c.MATVEC_WIDTH}"] = r
+    out["gather"] = c.phase_gather(device, subdivs, c.MATVEC_WIDTH)
+    out["mixed"] = c.phase_mixed(device, subdivs, c.MATVEC_WIDTH)
+    print("GATHER " + json.dumps(out), flush=True)
+
+
 if __name__ == "__main__":
     if not torch.cuda.is_available():
         sys.exit("torch_chip_readings: needs an NVIDIA GPU")
+    if sys.argv[1] == "frag":
+        frag(int(sys.argv[2]) if len(sys.argv) > 2 else 7)
+        sys.exit(0)
+    if sys.argv[1] == "alloc":
+        alloc()
+        sys.exit(0)
+    if sys.argv[1] == "alloc_one":
+        alloc_one(torch.device("cuda"), sys.argv[2])
+        sys.exit(0)
+    if sys.argv[1] == "frag_one":
+        frag_one(torch.device("cuda"), sys.argv[2], int(sys.argv[3]))
+        sys.exit(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -425,5 +724,7 @@ if __name__ == "__main__":
         remat(dev)
     elif sys.argv[1] == "members":
         members(dev, sys.argv[2])
+    elif sys.argv[1] == "gather":
+        gather(dev)
     else:
         ab(dev, sys.argv[2])

@@ -1,9 +1,14 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: the super-row SpMM (K1) and the plain-BCSR SpMM (K3, and K4's fp32-A
-regime), forward and backward, their row-range entries (K2 and K3's
+regime), forward and backward, in every regime (`spmm_regime`: the
+tensor-core bodies for bf16 x, fp32 A rounded or split; the gather body
+for fp32 x, fp32 or bf16 A), their row-range entries (K2 and K3's
 row-sharded form) against the rows of the full launch (exactly) and their
-plain versions (exactly in the fp32-x regimes; the bf16-x tensor-core body
-at the bf16 bar: it sums in another order), the slot lists (every column
+plain versions (exactly in the fp32-x regimes: one FMA chain over the
+nonzeros in the walk's order, as the plain version's product sums them;
+the bf16-x tensor-core body at the bf16 bar: it sums in another order),
+the gather body's row groups, its flushes of rows longer than its lists
+and its skipped zero entries (0 x inf), the slot lists (every column
 tile, zero row blocks, the list against walking every slot), K4's split of
 fp32 A into bf16 hi + lo told apart from K3's rounding on a product that
 cancels (`tests/torch_split_probe.py`: under 2^-14 and above it), one
@@ -44,6 +49,7 @@ from deepsphere_weather_torch.models.geometry import cached_graph_laplacian  # n
 from deepsphere_weather_torch.ops import (  # noqa: E402
     BlockSparseOperator,
     bcsr_from_scipy,
+    bcsr_super_from_scipy,
     bcsr_spmm,
     bcsr_spmm_reference,
     bcsr_spmm_rows,
@@ -59,6 +65,8 @@ from deepsphere_weather_torch.ops import (  # noqa: E402
     ell_spmm_rows_reference,
     launch_counts,
     plain_nonzero_slots,
+    spmm_col_tile,
+    super_nonzero_slots,
 )
 from deepsphere_weather_torch.sphere import build_graph  # noqa: E402
 from deepsphere_weather_torch.weights import params_from_jax, seeded_params  # noqa: E402
@@ -127,7 +135,7 @@ def test_kernel_rejects_non_contiguous(cuda):
 @pytest.mark.parametrize("layout", ["super", "plain"])
 def test_kernel_raises_when_the_descriptor_encode_fails(cuda, layout):
     # TMA needs x 16-byte aligned: a view 2 bytes in cannot be encoded,
-    # and the bf16 launch raises rather than fall back to the FMA body
+    # and the bf16 launch raises rather than fall back to another body
     g = build_graph("healpix", {"subdivisions": 4, "nest": True}, k=8)
     op = BlockSparseOperator.from_scipy(
         g.L, dtype=torch.bfloat16,
@@ -249,7 +257,8 @@ def test_kernel_every_column_tile(cuda, M, tile, layout):
     n = L.shape[0]
     Lb = L.copy()
     Lb.data = torch.from_numpy(L.data).to(torch.bfloat16).float().numpy()
-    regimes = ([(torch.bfloat16, True)] if layout == "super" else
+    regimes = ([(torch.bfloat16, True), (torch.float32, True)]
+               if layout == "super" else
                [(torch.bfloat16, True), (torch.float32, True),
                 (torch.float32, False)])
     for a_dt, round_a in regimes:
@@ -259,24 +268,191 @@ def test_kernel_every_column_tile(cuda, M, tile, layout):
         _, a, idx, nz = op.forward_layout()
         x = torch.from_numpy(rng.standard_normal((op.rows, M)).astype(
             np.float32)).to(cuda, torch.bfloat16)
+        # the fp32-A regimes stop at 128 columns (256 spill)
+        want_tile = tile if a_dt == torch.bfloat16 else min(tile, 128)
+        assert spmm_col_tile(M, a_dt, torch.bfloat16) == want_tile
         if layout == "super":
-            assert _kernel().lib.bcsr_super_spmm_col_tile(M, 1, 1) == tile
+            tile_of = _kernel().lib.bcsr_super_spmm_col_tile
+            assert tile_of(M, int(a_dt == torch.bfloat16), 1) == want_tile
             y = bcsr_super_spmm(a, idx, x, nz)
             want = bcsr_super_spmm_reference(a, idx, x, nz)
         else:
             tile_of = _plain_kernel().lib.bcsr_spmm_col_tile
-            # the fp32-A regimes stop at 128 columns (256 spill)
-            assert tile_of(M, int(a_dt == torch.bfloat16), 1) == (
-                tile if a_dt == torch.bfloat16 else min(tile, 128))
+            assert tile_of(M, int(a_dt == torch.bfloat16), 1) == want_tile
             y = bcsr_spmm(a, idx, x, nz, round_a=round_a)
             want = bcsr_spmm_reference(a, idx, x, nz, round_a=round_a)
         torch.cuda.synchronize()
         assert y.dtype == torch.bfloat16 and y.shape == (op.rows, M)
         assert rel_err(y, want) <= TOL["bf16"]
         # scipy with A as the product sees it: fp32 only in K4's regime
+        # (the super layout rounds fp32 A to bf16 against bf16 x, as K1)
         mat = L if a_dt == torch.float32 and not round_a else Lb
         ref = torch.from_numpy(mat @ x[:n].float().cpu().numpy())
         assert rel_err(y[:n].float(), ref) <= 2 * TOL["bf16"]
+
+
+def test_column_tile_rule_matches_the_kernels(cuda):
+    # `spmm_col_tile` (the rule the CPU tests hold) is the kernels' own
+    from deepsphere_weather_torch.ops.bcsr import _kernel, _plain_kernel
+
+    for lib, name in ((_kernel().lib, "bcsr_super_spmm"),
+                      (_plain_kernel().lib, "bcsr_spmm")):
+        tile_of = getattr(lib, f"{name}_col_tile")
+        for a_dt in (torch.float32, torch.bfloat16):
+            for x_dt in (torch.float32, torch.bfloat16):
+                for M in (4, 60, 64, 96, 128, 192, 256, 320, 384, 1024,
+                          2048, 10240):
+                    assert tile_of(M, int(a_dt == torch.bfloat16),
+                                   int(x_dt == torch.bfloat16)) == \
+                        spmm_col_tile(M, a_dt, x_dt), (name, a_dt, x_dt, M)
+
+
+# every A/x pair that is not one dtype on both sides, on both layouts'
+# row ranges: the gather body (bf16 A, fp32 x) exactly, the fp32-A
+# tensor-core bodies (fp32 A, bf16 x) at the bf16 bar against the plain
+# version, and each range equal to the full launch's rows
+@pytest.mark.parametrize("subdiv", [16, 64])
+@pytest.mark.parametrize("layout", ["super", "plain"])
+@pytest.mark.parametrize("a_dt,x_dt", [("bf16", "fp32"), ("fp32", "bf16")])
+def test_row_range_kernel_mixed_types_equals_full_launch_rows(
+        cuda, subdiv, layout, a_dt, x_dt):
+    L = cached_graph_laplacian("healpix", {"subdivisions": subdiv,
+                                           "nest": True}, 20, "knn")[1]
+    op = BlockSparseOperator.from_scipy(
+        L, dtype=DT[a_dt], rows_per_super=2 if layout == "super" else 0,
+        device=cuda)
+    _, a, idx, nz = op.forward_layout()
+    full_fn, rows_fn, plain_fn, key, full_key = ROW_FNS[layout]
+    unit = op.rows // a.shape[0]
+    x = torch.from_numpy(np.random.default_rng(subdiv).standard_normal(
+        (op.rows, 256)).astype(np.float32)).to(cuda, DT[x_dt])
+    before = launch_counts[full_key]
+    full = full_fn(a, idx, x, nz)
+    torch.cuda.synchronize()
+    assert launch_counts[full_key] == before + 1
+    assert full.dtype == DT[x_dt]
+    n = a.shape[0]
+    for lo, hi in ((0, n // 2), (n // 2, n), (1, n - 1)):
+        y = rows_fn(a, idx, x, lo, hi, nz)
+        assert torch.equal(y, full[lo * unit:hi * unit])
+        ref = plain_fn(a, idx, x, lo, hi, nz)
+        if x_dt == "bf16":
+            assert rel_err(y, ref) <= TOL["bf16"]
+        else:
+            assert torch.equal(y, ref)
+    Lb = L.copy()
+    Lb.data = torch.from_numpy(L.data).to(torch.bfloat16).float().numpy()
+    m = L.shape[0]
+    want = torch.from_numpy(Lb @ x[:m].float().cpu().numpy())
+    assert rel_err(full[:m].float(), want) <= 2 * TOL[x_dt]
+
+
+# the gather body's row groups: 32 rows a CTA where the launch has enough
+# row blocks for two CTAs an SM, else 16 or 8 (HEALPix-16's 24 row blocks:
+# 8); ranges of every size between give each, all equal to the full
+# launch's rows, and within the fp32 bar of the plain version (whose
+# product cuBLAS may split along k for a small range)
+@pytest.mark.parametrize("layout", ["super", "plain"])
+@pytest.mark.parametrize("a_dt", ["fp32", "bf16"])
+def test_gather_body_every_row_group(cuda, layout, a_dt):
+    L = cached_graph_laplacian("healpix", {"subdivisions": 64, "nest": True},
+                               20, "knn")[1]
+    op = BlockSparseOperator.from_scipy(
+        L, dtype=DT[a_dt], rows_per_super=2 if layout == "super" else 0,
+        device=cuda)
+    _, a, idx, nz = op.forward_layout()
+    full_fn, rows_fn, plain_fn = ROW_FNS[layout][:3]
+    unit = op.rows // a.shape[0]
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (op.rows, 128)).astype(np.float32)).to(cuda)
+    full = full_fn(a, idx, x, nz)
+    n = a.shape[0]
+    for span in (1, 3, 16, 40, 70, n // 2, n):
+        lo = (n - span) // 3
+        y = rows_fn(a, idx, x, lo, lo + span, nz)
+        assert torch.equal(y, full[lo * unit:(lo + span) * unit]), span
+        assert rel_err(y, plain_fn(a, idx, x, lo, lo + span, nz)) \
+            <= TOL["fp32"], span
+
+
+def _long_rows(n, seed):
+    """A sparse [n, n] fp32 matrix whose rows hold up to all 128 columns of
+    a block and up to 3 x 128 nonzeros: longer than the gather body's
+    lists (64 entries a row), so that its flushes run."""
+    rng = np.random.default_rng(seed)
+    rows, cols = [], []
+    for r in range(n):
+        k = int(rng.integers(0, 3)) if r % 5 else 3 * 128
+        c = (rng.choice(n, size=k, replace=False) if r % 5
+             else np.arange(3 * 128) % n)
+        if r % 7 == 0:     # one whole block row
+            c = np.concatenate([c, (r // 128) * 128 + np.arange(128)])
+        c = np.unique(c)
+        rows.append(np.full(c.size, r))
+        cols.append(c)
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    vals = rng.standard_normal(rows.size).astype(np.float32)
+    return sparse.csr_matrix((vals, (rows, cols)), shape=(n, n))
+
+
+@pytest.mark.parametrize("layout", ["super", "plain"])
+@pytest.mark.parametrize("a_dt", ["fp32", "bf16"])
+def test_gather_body_flushes_long_rows(cuda, layout, a_dt):
+    A = _long_rows(1024, 3)
+    if layout == "super":
+        a_np, idx_np, n_pad = bcsr_super_from_scipy(A)
+        a = torch.from_numpy(a_np).to(cuda, DT[a_dt])
+        nz = super_nonzero_slots(a)
+    else:
+        a_np, idx_np, n_pad = bcsr_from_scipy(A)
+        a = torch.from_numpy(a_np).to(cuda, DT[a_dt])
+        nz = plain_nonzero_slots(a)
+    idx = torch.from_numpy(idx_np).to(cuda)
+    full_fn, rows_fn, plain_fn = ROW_FNS[layout][:3]
+    rows = n_pad if layout == "plain" else a.shape[0] * a.shape[1] * 128
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (rows, 192)).astype(np.float32)).to(cuda)
+    y = full_fn(a, idx, x, nz)
+    assert torch.equal(y, full_fn(a, idx, x, None))
+    ref = (bcsr_super_spmm_reference(a, idx, x, nz) if layout == "super"
+           else bcsr_spmm_reference(a, idx, x, nz))
+    assert rel_err(y, ref) <= TOL["fp32"]
+    n = a.shape[0]
+    unit = rows // n
+    assert torch.equal(rows_fn(a, idx, x, 1, n, nz), y[unit:])
+    Ab = A.copy()
+    if a_dt == "bf16":
+        Ab.data = torch.from_numpy(A.data).to(torch.bfloat16).float().numpy()
+    want = torch.from_numpy(Ab @ x[:1024].cpu().numpy())
+    assert rel_err(y[:1024], want) <= TOL["fp32"]
+
+
+# 0 x inf: a dense-block sum gives NaN where an infinite x row meets only
+# zero entries of a listed block; the gather body multiplies A's nonzero
+# entries alone, so its output stays finite (as the ELL route's)
+@pytest.mark.parametrize("layout", ["super", "plain"])
+def test_gather_body_skips_zero_entries(cuda, layout):
+    # HEALPix-4: 192 nodes in two row blocks; x's padding rows 192..255
+    # lie in block-column 1, which every row block lists, and meet only
+    # zero entries of A
+    g = build_graph("healpix", {"subdivisions": 4, "nest": True}, k=8)
+    op = BlockSparseOperator.from_scipy(
+        g.L, rows_per_super=2 if layout == "super" else 0, device=cuda)
+    _, a, idx, nz = op.forward_layout()
+    n = g.n_nodes
+    assert op.rows == 256
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (op.rows, 64)).astype(np.float32)).to(cuda)
+    x[n:] = float("inf")
+    full_fn = ROW_FNS[layout][0]
+    y = full_fn(a, idx, x, nz)
+    assert torch.isfinite(y).all()
+    x0 = x.clone()
+    x0[n:] = 0.0
+    assert torch.equal(y, full_fn(a, idx, x0, nz))
+    plain = (bcsr_super_spmm_reference if layout == "super"
+             else bcsr_spmm_reference)
+    assert torch.isnan(plain(a, idx, x, nz)).any()
 
 
 # R = 4 at HEALPix-4: one super-row of 4 row blocks, the last 2 padding
