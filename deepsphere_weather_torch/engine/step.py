@@ -54,6 +54,11 @@ eps=1e-7)`: both add eps outside the square root).
 - `make_rollout_block`: the rolling-history block rollout for prediction,
   with the model-error perturbation `noise_block` and, for BatchNorm
   models, eval-mode normalization with a given `norm_state`.
+- Spans (`utils.tracing`): `dsw.train.step` around each update, with
+  `dsw.train.loss`, `dsw.train.backward` and `dsw.train.optimizer` inside
+  it; `dsw.train.gather` around the device-cache gather; `dsw.rollout`
+  around a block rollout; `dsw.model` around every model call. Any
+  `torch.profiler` trace shows them as CPU ops.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from ..data.ar import ARIndexer
 from ..models.layers import batch_stats_over
 from ..parallel.collectives import all_reduce_, gather_rows
 from ..parallel.mesh import ProcessMesh, node_range
+from ..utils.tracing import span
 from .loss import weighted_mse
 
 __all__ = ["assemble_input", "keep_first_feedback", "make_ar_loss_fn",
@@ -171,7 +177,7 @@ def make_ar_loss_fn(model, indexer: ARIndexer, n_scan_iterations: int,
             stats = {}
             if collect_stats:
                 kw["stats_out"] = stats
-            with batch_stats_over(stats_groups):
+            with batch_stats_over(stats_groups), span("dsw.model"):
                 if tensors is not None:
                     y = torch.func.functional_call(model, tensors, (x,), kw)
                 else:
@@ -313,16 +319,20 @@ def _global_losses(total, per_iter, mesh):
 
 def _optimizer_step(model, optimizer, loss_fn, batch, ar_weights, area_w,
                     mesh=None, with_norm_state=False):
-    optimizer.zero_grad(set_to_none=True)
-    total, aux = loss_fn(batch, ar_weights, area_w)
-    total.backward()
-    reduce_gradients(model, mesh)
-    optimizer.step()
-    if with_norm_state:
-        per_iter, stats = aux
-        fold_running_stats(model.norm_state(), stats)
-        aux = per_iter
-    return _global_losses(total, aux, mesh)
+    with span("dsw.train.step"):
+        optimizer.zero_grad(set_to_none=True)
+        with span("dsw.train.loss"):
+            total, aux = loss_fn(batch, ar_weights, area_w)
+        with span("dsw.train.backward"):
+            total.backward()
+        reduce_gradients(model, mesh)
+        with span("dsw.train.optimizer"):
+            optimizer.step()
+        if with_norm_state:
+            per_iter, stats = aux
+            fold_running_stats(model.norm_state(), stats)
+            aux = per_iter
+        return _global_losses(total, aux, mesh)
 
 
 def make_train_step(model, indexer: ARIndexer, optimizer,
@@ -379,10 +389,11 @@ def _gather_window_batch(data: Dict, widx: torch.Tensor) -> Dict:
     {'dynamic': [T, V, Fd], 'bc': [T, V, Fb] or None, 'static': [V, Fs] or
     None}, widx [B, W] absolute time indices. Only widx crosses from the
     host per step."""
-    widx = widx.to(data["dynamic"].device, torch.long)
-    batch = {"dynamic": data["dynamic"][widx]}
-    if data.get("bc") is not None:
-        batch["bc"] = data["bc"][widx]
+    with span("dsw.train.gather"):
+        widx = widx.to(data["dynamic"].device, torch.long)
+        batch = {"dynamic": data["dynamic"][widx]}
+        if data.get("bc") is not None:
+            batch["bc"] = data["bc"][widx]
     if data.get("static") is not None:
         batch["static"] = data["static"]
     return batch
@@ -453,15 +464,20 @@ def _member_update(stack, optimizer, loss_fn, batch, ar_weights, area_w,
     parameters), reduced over the mesh's node and data groups, then one
     optimizer step over the stacked parameters and, with norm state, the
     per-member fold."""
-    optimizer.zero_grad(set_to_none=True)
-    total, aux = loss_fn(batch, ar_weights, area_w, tensors=stack.tensors())
-    total.sum().backward()
-    reduce_gradients(stack, mesh)
-    optimizer.step()
-    if with_norm_state:
-        aux, stats = aux
-        fold_running_stats(stack.norm_state(), stats)
-    return _member_losses(total, aux, mesh)
+    with span("dsw.train.step"):
+        optimizer.zero_grad(set_to_none=True)
+        with span("dsw.train.loss"):
+            total, aux = loss_fn(batch, ar_weights, area_w,
+                                 tensors=stack.tensors())
+        with span("dsw.train.backward"):
+            total.sum().backward()
+        reduce_gradients(stack, mesh)
+        with span("dsw.train.optimizer"):
+            optimizer.step()
+        if with_norm_state:
+            aux, stats = aux
+            fold_running_stats(stack.norm_state(), stats)
+        return _member_losses(total, aux, mesh)
 
 
 def _member_loss(stack, indexer, n_scan_iterations, ar_training_strategy,
@@ -615,40 +631,44 @@ def make_rollout_block(model, indexer: ARIndexer, block_size: int,
                 "the first block and thread the returned mask across blocks")
         if not keep_first:
             wmask = None
-        ip = torch.as_tensor(in_pos, device=hist.device)
-        op = torch.as_tensor(out_pos, device=hist.device)
-        n_steps = (bc_block.shape[1] if bc_block is not None
-                   else noise_block.shape[1] if noise_block is not None
-                   else block_size)
-        h = hist
-        preds = []
-        for i in range(n_steps):
-            x_dyn = h.index_select(1, ip)                 # [B, n_in, V, Fd]
-            B, T, V, _ = x_dyn.shape
-            parts = []
-            if static is not None:
-                parts.append(static[None, None].expand((B, T) + static.shape))
-            if bc_block is not None:
-                parts.append(bc_block[:, i])              # [B, n_in, V, Fb]
-            parts.append(x_dyn)
-            y = forward(torch.cat(parts, dim=-1))         # [B, n_out, V, Fd]
-            if noise_block is not None:
-                y = y + noise_block[:, i]
-            y_write = y
-            if keep_first:
-                prev = h.index_select(1, op)
-                wsel = wmask[op]
-                y_write = torch.where(wsel[None, :, None, None], prev, y)
-                wmask = wmask.clone()
-                wmask[op] = True
-                # roll the mask with the buffer; slots entering from the
-                # future are unwritten
-                wmask = torch.roll(wmask, -fc)
-                wmask[-fc:] = False
-            h = h.clone()
-            h[:, op] = y_write
-            h = torch.roll(h, -fc, dims=1)                # advance one cycle
-            preds.append(y)
-        return h, wmask, torch.stack(preds, dim=1)
+        with span("dsw.rollout"):
+            ip = torch.as_tensor(in_pos, device=hist.device)
+            op = torch.as_tensor(out_pos, device=hist.device)
+            n_steps = (bc_block.shape[1] if bc_block is not None
+                       else noise_block.shape[1] if noise_block is not None
+                       else block_size)
+            h = hist
+            preds = []
+            for i in range(n_steps):
+                x_dyn = h.index_select(1, ip)             # [B, n_in, V, Fd]
+                B, T, V, _ = x_dyn.shape
+                parts = []
+                if static is not None:
+                    parts.append(static[None, None].expand(
+                        (B, T) + static.shape))
+                if bc_block is not None:
+                    parts.append(bc_block[:, i])          # [B, n_in, V, Fb]
+                parts.append(x_dyn)
+                x = torch.cat(parts, dim=-1)
+                with span("dsw.model"):
+                    y = forward(x)                        # [B, n_out, V, Fd]
+                if noise_block is not None:
+                    y = y + noise_block[:, i]
+                y_write = y
+                if keep_first:
+                    prev = h.index_select(1, op)
+                    wsel = wmask[op]
+                    y_write = torch.where(wsel[None, :, None, None], prev, y)
+                    wmask = wmask.clone()
+                    wmask[op] = True
+                    # roll the mask with the buffer; slots entering from the
+                    # future are unwritten
+                    wmask = torch.roll(wmask, -fc)
+                    wmask[-fc:] = False
+                h = h.clone()
+                h[:, op] = y_write
+                h = torch.roll(h, -fc, dims=1)            # advance one cycle
+                preds.append(y)
+            return h, wmask, torch.stack(preds, dim=1)
 
     return rollout, H

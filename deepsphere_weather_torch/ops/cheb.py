@@ -28,6 +28,7 @@ from torch.autograd.function import once_differentiable
 
 from .._device import resolve_device
 from ..parallel.collectives import all_gather_op, group_key
+from ..utils.tracing import span
 from .bcsr import BlockSparseOperator, EllOperator
 
 __all__ = ["ChebOperator", "cheb_basis_dense", "cheb_basis_ell", "cheb_conv",
@@ -278,56 +279,58 @@ def cheb_conv(op: ChebOperator, x: torch.Tensor, weight: torch.Tensor,
 
     x [B, V, Fin], weight [Fin, K, Fout], bias [Fout] or None -> [B, V, Fout],
     computed in x.dtype with fp32 accumulation."""
-    B, V, Fin = x.shape
-    Fin_w, K, Fout = weight.shape
-    if Fin != Fin_w:
-        raise ValueError(
-            f"input features {Fin} do not match weight in_channels {Fin_w}")
-    cdt = x.dtype
-    w32 = weight.to(cdt).float()
+    with span("dsw.cheb_conv"):
+        B, V, Fin = x.shape
+        Fin_w, K, Fout = weight.shape
+        if Fin != Fin_w:
+            raise ValueError(f"input features {Fin} do not match weight "
+                             f"in_channels {Fin_w}")
+        cdt = x.dtype
+        w32 = weight.to(cdt).float()
 
-    # sparse operators consume [V, B*F]: run the recurrence node-major with
-    # one layout transpose at entry and exit
-    node_major = op.dense is None
-    if not node_major:
-        mv = op.batched_matvec(cdt)              # [B, V, F] -> [B, V, F]
-    else:
-        def mv(h):  # node-major [V, B, F]
-            V_, B_, F_ = h.shape
-            out = op.matvec(h.reshape(V_, B_ * F_))
-            return out.reshape(V_, B_, F_).to(cdt)
+        # sparse operators consume [V, B*F]: run the recurrence node-major with
+        # one layout transpose at entry and exit
+        node_major = op.dense is None
+        if not node_major:
+            mv = op.batched_matvec(cdt)              # [B, V, F] -> [B, V, F]
+        else:
+            def mv(h):  # node-major [V, B, F]
+                V_, B_, F_ = h.shape
+                out = op.matvec(h.reshape(V_, B_ * F_))
+                return out.reshape(V_, B_, F_).to(cdt)
 
-    if node_major:
-        x = x.permute(1, 0, 2).contiguous()              # [V, B, Fin]
+        if node_major:
+            x = x.permute(1, 0, 2).contiguous()              # [V, B, Fin]
 
-    if Fout < Fin and K > 1:
-        # output side (Clenshaw): mix channels first, then run the matvecs
-        # on the narrow Fout-wide tensors:
-        #   b_k = z_k + 2 L b_{k+1} - b_{k+2},  out = z_0 + L b_1 - b_2
-        z = torch.einsum("vbf,fko->kvbo" if node_major else "bvf,fko->kbvo",
-                         x.float(), w32).to(cdt)
-        b1 = z[K - 1]
-        b2 = torch.zeros_like(b1)
-        for k in range(K - 2, 0, -1):
-            b1, b2 = z[k] + 2.0 * mv(b1) - b2, b1
-        out = z[0] + mv(b1) - b2
-    elif node_major:
-        # input side, node-major: stack the basis, mix in one contraction
-        out = torch.einsum("kvbf,fko->vbo", _basis(mv, x, K).float(), w32)
-    else:
-        # input side, batch-major (dense): mix each basis term as it comes
-        x0 = x
-        out = torch.einsum("bvf,fo->bvo", x0.float(), w32[:, 0])
-        if K > 1:
-            x1 = mv(x0)
-            out = out + torch.einsum("bvf,fo->bvo", x1.float(), w32[:, 1])
-        for k in range(2, K):
-            x2 = 2.0 * mv(x1) - x0
-            out = out + torch.einsum("bvf,fo->bvo", x2.float(), w32[:, k])
-            x0, x1 = x1, x2
-    out = out.to(cdt)
-    if node_major:
-        out = out.permute(1, 0, 2)                       # [B, V, Fout]
-    if bias is not None:
-        out = out + bias.to(cdt)
-    return out
+        if Fout < Fin and K > 1:
+            # output side (Clenshaw): mix channels first, then run the matvecs
+            # on the narrow Fout-wide tensors:
+            #   b_k = z_k + 2 L b_{k+1} - b_{k+2},  out = z_0 + L b_1 - b_2
+            z = torch.einsum(
+                "vbf,fko->kvbo" if node_major else "bvf,fko->kbvo",
+                x.float(), w32).to(cdt)
+            b1 = z[K - 1]
+            b2 = torch.zeros_like(b1)
+            for k in range(K - 2, 0, -1):
+                b1, b2 = z[k] + 2.0 * mv(b1) - b2, b1
+            out = z[0] + mv(b1) - b2
+        elif node_major:
+            # input side, node-major: stack the basis, mix in one contraction
+            out = torch.einsum("kvbf,fko->vbo", _basis(mv, x, K).float(), w32)
+        else:
+            # input side, batch-major (dense): mix each basis term as it comes
+            x0 = x
+            out = torch.einsum("bvf,fo->bvo", x0.float(), w32[:, 0])
+            if K > 1:
+                x1 = mv(x0)
+                out = out + torch.einsum("bvf,fo->bvo", x1.float(), w32[:, 1])
+            for k in range(2, K):
+                x2 = 2.0 * mv(x1) - x0
+                out = out + torch.einsum("bvf,fo->bvo", x2.float(), w32[:, k])
+                x0, x1 = x1, x2
+        out = out.to(cdt)
+        if node_major:
+            out = out.permute(1, 0, 2)                       # [B, V, Fout]
+        if bias is not None:
+            out = out + bias.to(cdt)
+        return out
