@@ -335,8 +335,7 @@ class ResBlock(nn.Module):
             out = blk(out, cheb_op=cheb_op, train=train, stats_out=sub)
         out = out * self.rezero_weight.to(out.dtype)
         if self.needs_projection:
-            res = ((x.float() @ self.res_kernel.to(x.dtype).float()).to(x.dtype)
-                   + self.res_bias.to(x.dtype))
+            res = x @ self.res_kernel.to(x.dtype) + self.res_bias.to(x.dtype)
         else:
             res = x
         return out + res

@@ -52,6 +52,12 @@ class SphericalModel(nn.Module):
         self.input_channels = self.input_n_feature * self.input_n_time
         self.output_channels = self.output_n_feature * self.output_n_time
         self.compute_dtype = _COMPUTE_DTYPES[str(numeric_precision)]
+        if self.compute_dtype == torch.bfloat16:
+            # bf16 channel mixes accumulate in fp32 end to end: cuBLAS may
+            # otherwise add the split-K partials of a long contraction (a
+            # weight's gradient sums over batch x nodes) in bf16
+            matmul = torch.backends.cuda.matmul
+            matmul.allow_bf16_reduced_precision_reduction = False
 
     def _operator_dtype(self):
         # bf16 models store the block-sparse Laplacian in bf16

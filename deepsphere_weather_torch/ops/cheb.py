@@ -285,8 +285,10 @@ def cheb_conv(op: ChebOperator, x: torch.Tensor, weight: torch.Tensor,
         if Fin != Fin_w:
             raise ValueError(f"input features {Fin} do not match weight "
                              f"in_channels {Fin_w}")
+        # the channel mixes contract operands of the compute dtype (bf16 on
+        # the tensor cores) with fp32 accumulation, rounded once to cdt
         cdt = x.dtype
-        w32 = weight.to(cdt).float()
+        w = weight.to(cdt)
 
         # sparse operators consume [V, B*F]: run the recurrence node-major with
         # one layout transpose at entry and exit
@@ -307,8 +309,7 @@ def cheb_conv(op: ChebOperator, x: torch.Tensor, weight: torch.Tensor,
             # on the narrow Fout-wide tensors:
             #   b_k = z_k + 2 L b_{k+1} - b_{k+2},  out = z_0 + L b_1 - b_2
             z = torch.einsum(
-                "vbf,fko->kvbo" if node_major else "bvf,fko->kbvo",
-                x.float(), w32).to(cdt)
+                "vbf,fko->kvbo" if node_major else "bvf,fko->kbvo", x, w)
             b1 = z[K - 1]
             b2 = torch.zeros_like(b1)
             for k in range(K - 2, 0, -1):
@@ -316,9 +317,11 @@ def cheb_conv(op: ChebOperator, x: torch.Tensor, weight: torch.Tensor,
             out = z[0] + mv(b1) - b2
         elif node_major:
             # input side, node-major: stack the basis, mix in one contraction
-            out = torch.einsum("kvbf,fko->vbo", _basis(mv, x, K).float(), w32)
+            out = torch.einsum("kvbf,fko->vbo", _basis(mv, x, K), w)
         else:
-            # input side, batch-major (dense): mix each basis term as it comes
+            # input side, batch-major (dense): mix each basis term as it
+            # comes, the terms' mixes added in fp32 before the one rounding
+            w32 = w.float()
             x0 = x
             out = torch.einsum("bvf,fo->bvo", x0.float(), w32[:, 0])
             if K > 1:

@@ -17,7 +17,10 @@ launch per vmapped product, forward and backward) and exported artifacts
 (single and 2-member) saved, loaded and run on the card; the fp32 ELL
 product (`ell_spmm`, every fp32 operator's route) equal to its plain
 version bit for bit, its row ranges to the full launch's rows, its
-backward 2 L^T (L x).
+backward 2 L^T (L x); `cheb_conv`'s bf16 channel mixes (tensor-core GEMMs,
+fp32 accumulation) against their fp32-widened form at HEALPix-64's level
+0, apart by summation order alone, and the flag a bf16 model sets so that
+no split-K is reduced in bf16.
 
 Every test here needs an NVIDIA GPU (marker `cuda`) and skips without
 one. This file imports neither JAX nor the JAX package, so it also runs on
@@ -48,6 +51,7 @@ from deepsphere_weather_torch.models import UNetSpherical  # noqa: E402
 from deepsphere_weather_torch.models.geometry import cached_graph_laplacian  # noqa: E402
 from deepsphere_weather_torch.ops import (  # noqa: E402
     BlockSparseOperator,
+    ChebOperator,
     bcsr_from_scipy,
     bcsr_super_from_scipy,
     bcsr_spmm,
@@ -58,6 +62,7 @@ from deepsphere_weather_torch.ops import (  # noqa: E402
     bcsr_super_spmm_reference,
     bcsr_super_spmm_rows,
     bcsr_super_spmm_rows_reference,
+    cheb_conv,
     EllOperator,
     ell_spmm,
     ell_spmm_reference,
@@ -1020,3 +1025,121 @@ def test_member_step_is_one_launch_per_product(cuda):
             denom = scale if v.numel() == 1 else float(v.abs().max())
             err = float((grads[k][m] - v).abs().max()) / denom
             assert err <= TRAIN_TOL["bf16"], (m, k, err)
+
+
+# one bf16 rounding step, relative: the spacing of bf16 values at x is at
+# most 2^-7 |x|
+BF16_STEP = 2.0 ** -7
+
+
+def _widened_cheb_conv(op, x, weight, abs_l):
+    """`cheb_conv`'s node-major branches (no bias) as written with
+    fp32-widened channel mixes: x, the basis and the weight copied to fp32,
+    fp32 GEMMs, each mix rounded once to x's dtype; every other operation
+    as `cheb_conv` orders it. Returns the output and, per element, how far
+    a form whose mixes sum in another fp32 order may lie from it: each mix
+    one bf16 step of its element (and its fp32 order's least slack, 2 n
+    2^-24 of its terms' magnitudes), and every rounding after a mix one
+    step of its result, carried through |L| (`abs_l`, fp32 CSR)."""
+    cdt = x.dtype
+    B, V, Fin = x.shape
+    _, K, Fout = weight.shape
+    w32 = weight.to(cdt).float()
+
+    def mv(h):
+        return op.matvec(h.reshape(V, -1)).reshape(h.shape).to(cdt)
+
+    def amv(e):
+        return (abs_l @ e.reshape(V, -1)).reshape(e.shape)
+
+    def step(t):
+        return BF16_STEP * t.float().abs()
+
+    def mix(spec, a, n):
+        out = torch.einsum(spec, a.float(), w32).to(cdt)
+        slack = torch.einsum(spec, a.float().abs(), w32.abs())
+        return out, step(out) + 2 * n * 2.0 ** -24 * slack
+
+    x = x.permute(1, 0, 2).contiguous()
+    if Fout >= Fin:
+        xs = [x, mv(x)]
+        for _ in range(2, K):
+            xs.append(2.0 * mv(xs[-1]) - xs[-2])
+        out, e = mix("kvbf,fko->vbo", torch.stack(xs), K * Fin)
+        return out.permute(1, 0, 2), e.permute(1, 0, 2)
+    z, ez = mix("vbf,fko->kvbo", x, Fin)
+    b1, b2, e1, e2 = z[K - 1], torch.zeros_like(z[0]), ez[K - 1], 0.0
+    for k in range(K - 2, 0, -1):
+        m = mv(b1)
+        em = amv(e1) + step(m)
+        s = z[k] + 2.0 * m
+        es = ez[k] + 2.0 * em + step(s)
+        b1, b2, e1, e2 = s - b2, b1, es + e2 + step(s - b2), e1
+    m = mv(b1)
+    s = z[0] + m
+    out = s - b2
+    e = ez[0] + amv(e1) + step(m) + step(s) + e2 + step(out)
+    return out.permute(1, 0, 2), e.permute(1, 0, 2)
+
+
+# HEALPix-64's level 0 at the shipped batch: conv1's widening conv (input
+# side, 64 -> 128) and uconv1's narrowing one (Clenshaw, 256 -> 128)
+@pytest.mark.parametrize("fin,fout", [(64, 128), (256, 128)],
+                         ids=["input_side", "clenshaw"])
+def test_bf16_channel_mixes_differ_from_widened_only_in_summation_order(
+        cuda, fin, fout):
+    # cheb_conv contracts bf16 operands on the tensor cores (fp32
+    # accumulation, one rounding); the fp32-widened form multiplies the
+    # same bf16 values exactly and adds them in fp32. So the outputs lie
+    # within the bound `_widened_cheb_conv` carries (one step of each
+    # mix), and the weight's gradient, a sum over batch x nodes = 786432
+    # rows that cuBLAS splits, within 1e-3 (norm) of the widened form's: a
+    # split-K whose partials were added in bf16 would round them again.
+    # The flag that forbids that is set by building a bf16 model.
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        _hp8_model(cuda, "bf16")
+        assert not (torch.backends.cuda.matmul
+                    .allow_bf16_reduced_precision_reduction)
+        L = _knn(64)
+        op = ChebOperator(bcsr=BlockSparseOperator.from_scipy(
+            L, dtype=torch.bfloat16, device=cuda))
+        a = abs(L).tocsr().astype(np.float32)
+        abs_l = torch.sparse_csr_tensor(
+            torch.from_numpy(a.indptr).long(), torch.from_numpy(a.indices).long(),
+            torch.from_numpy(a.data), a.shape).to(cuda)
+        rng = np.random.default_rng(fin)
+        B, V, K = 16, L.shape[0], 3
+        x = torch.from_numpy(rng.standard_normal((B, V, fin)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        w0 = torch.from_numpy((rng.standard_normal((fin, K, fout))
+                               * np.sqrt(2.0 / (fin * K))).astype(np.float32))
+        g = torch.from_numpy(rng.standard_normal((B, V, fout)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+
+        def run(fn):
+            weight = w0.to(cuda).requires_grad_()
+            y, *rest = fn(weight)
+            y.backward(g)
+            return y.detach(), weight.grad, [t.detach() for t in rest]
+
+        y, gw, _ = run(lambda w: (cheb_conv(op, x, w),))
+        ref, ref_gw, (bound,) = run(
+            lambda w: _widened_cheb_conv(op, x, w, abs_l))
+        torch.cuda.synchronize()
+        assert y.dtype == ref.dtype == torch.bfloat16
+        gap = (y.float() - ref.float()).abs()
+        assert bool((gap <= bound).all()), float((gap / bound).max())
+        gw_gap = float((gw - ref_gw).norm() / ref_gw.norm())
+        assert gw_gap <= 1e-3
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+        _, gw_reduced, _ = run(lambda w: (cheb_conv(op, x, w),))
+        reduced_gap = float((gw_reduced - ref_gw).norm() / ref_gw.norm())
+        print(f"{fin}->{fout}: outputs apart {int((gap > 0).sum())} of "
+              f"{gap.numel()}, worst {float((gap / bound).max()):.3g} of the "
+              f"bound; weight gradient {gw_gap:.3g} (norm), with bf16 "
+              f"reductions allowed {reduced_gap:.3g}")
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            flag)
